@@ -1,0 +1,134 @@
+"""Build, load and launch the package's CUDA kernels.
+
+The sources under planet_tpu_torch/csrc are compiled with nvcc into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds) and loaded with ctypes. The library lands in
+planet_tpu_torch/_build/<hash>/, keyed by a hash of the sources and the
+flags, and is built at first use: nothing is compiled or loaded when a
+module is imported.
+
+Flags keep the f32 arithmetic bit-compatible with the plain PyTorch
+versions and with planet_tpu: -fmad=false (the double-float error-free
+transforms break under FMA contraction), IEEE division and square root,
+no fast-math.
+
+Each C entry point takes raw pointers and the stream as void* and returns
+cudaGetLastError(); `launch` raises if that is not cudaSuccess and counts
+the launch in `launches` — one plain integer per kernel, which callers
+reset and read to prove that a run went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent
+_SRC = _PKG / "csrc"
+_BUILD = _PKG / "_build"
+
+SOURCES = ("tile.cu", "raster.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+# C symbol -> ctypes argtypes (P = pointer or stream, I = int, F = float)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "planet_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                     _F, _P),
+    "planet_gather_records": (_P, _P, _P, _I, _I, _P),
+    "planet_raster_span": (_P, _I, _P, _I, _I, _I, _P),
+    "planet_raster_huge": (_P, _I, _P, _I, _I, _I, _P),
+}
+
+# kernel name -> launches so far (reset with reset_launches)
+launches = {"tile": 0, "gather": 0, "span": 0, "huge": 0}
+
+_lib = None
+build_info: dict = {}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (put nvcc on PATH or set CUDA_HOME)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((_SRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    out_dir = _BUILD / _digest()
+    so = out_dir / "libplanet_kernels.so"
+    t0 = time.perf_counter()
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"libplanet_kernels.{os.getpid()}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(_SRC / s) for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, so)
+        build_info["log"] = proc.stdout + proc.stderr
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["path"] = str(so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def launch(kernel: str, symbol: str, *args):
+    """Call C entry point `symbol` on the current stream (appended as the
+    last argument); raise on a launch error; count the launch."""
+    fn = getattr(library(), symbol)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {symbol} failed to launch: "
+                           f"cudaError {err}")
+    launches[kernel] += 1
+
+
+def check_cuda(t: torch.Tensor, name: str, dtype, shape=None):
+    """Wrapper-side validation of a kernel operand."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")

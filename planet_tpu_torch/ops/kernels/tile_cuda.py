@@ -1,0 +1,175 @@
+"""Heightmap tiles: quad corners -> (N, dim, dim) f32 height tiles.
+
+`generate_tiles` is the entry point. For a CUDA tensor it launches the
+hand-written kernel in csrc/tile.cu (it replaces planet_tpu's Pallas tile
+kernel, ops/kernels/tile_pallas._make_tile_kernel); for a CPU tensor it
+runs `tiles_plain`, the same computation in plain PyTorch with the same
+op order, which the CPU tests hold to planet_tpu and the card's kernel is
+held to bit for bit.
+
+Per texel (x, y) of a tile (reference GenerateHeightMap + terrain functor,
+main.cpp:123-151, 823-832):
+
+    u = (x - 1) / (dim - 3), v = (y - 1) / (dim - 3)    (1-texel overscan)
+    a = p0 + (p1 - p0) u,  b = p2 + (p3 - p2) u,  p = a + (b - a) v
+    height = amplitude * noise(p)                          (in double-float)
+
+with the corners pre-scaled by the terrain's coord_scale on the host (f64,
+split into hi/lo f32 pairs), so the blend happens in noise space. Each tile
+carries its own octave count, so one launch covers every tile of a frame.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from planet_tpu.ops.tables import PERLIN_TABLE
+from planet_tpu_torch import _cuda
+from planet_tpu_torch.nums import df as dfm
+from planet_tpu_torch.ops import perlin
+
+_SPLIT = 4097.0
+MAX_OCTAVES = 24          # int24 octave shifts and the kernel's freq table
+
+
+def _df_add(ah, al, bh, bl):
+    s, e = dfm.two_sum(ah, bh)
+    t, f = dfm.two_sum(al, bl)
+    e = e + t
+    s, e = dfm.quick_two_sum(s, e)
+    e = e + f
+    return dfm.quick_two_sum(s, e)
+
+
+def _df_sub(ah, al, bh, bl):
+    return _df_add(ah, al, -bh, -bl)
+
+
+def _df_mul(ah, al, bh, bl):
+    p = ah * bh
+    ca = ah * _SPLIT
+    xhi = ca - (ca - ah)
+    xlo = ah - xhi
+    cb = bh * _SPLIT
+    yhi = cb - (cb - bh)
+    ylo = bh - yhi
+    err = ((xhi * yhi - p) + xhi * ylo + xlo * yhi) + xlo * ylo
+    err = err + (ah * bl + al * bh)
+    return dfm.quick_two_sum(p, err)
+
+
+def _uv_df(dim: int, device):
+    """(x - 1) * (1/(dim - 3)) per texel column as a double-float pair —
+    the kernel's `_df_scale` of an exact small integer by the DF constant."""
+    div = np.float64(1.0) / np.float64(dim - 3)
+    div_hi = np.float32(div)
+    div_lo = np.float32(div - np.float64(div_hi))
+    xm1 = torch.arange(dim, dtype=torch.float32, device=device) - 1.0
+    return perlin._df_scale(xm1, torch.zeros_like(xm1), div_hi, div_lo)
+
+
+def _check_args(corners_hi, corners_lo, octaves, kind, lacunarity):
+    if kind not in ("fbm", "ridged"):
+        raise ValueError(kind)
+    n = corners_hi.shape[0]
+    if tuple(corners_hi.shape) != (n, 4, 3) or corners_lo.shape != corners_hi.shape:
+        raise ValueError(f"corners must be (N, 4, 3) hi/lo pairs, got "
+                         f"{tuple(corners_hi.shape)} / {tuple(corners_lo.shape)}")
+    if tuple(octaves.shape) != (n,):
+        raise ValueError(f"octaves must be (N,), got {tuple(octaves.shape)}")
+    if n and int(octaves.max()) > MAX_OCTAVES:
+        raise ValueError(f"octave counts above {MAX_OCTAVES} unsupported")
+    if float(lacunarity) <= 0.0:
+        raise ValueError("lacunarity must be positive")
+
+
+def tiles_plain(corners_hi, corners_lo, octaves, *, kind="ridged",
+                lacunarity=2.0, gain=0.55, amplitude=8848.0, dim=32):
+    """Plain PyTorch tile generator, the kernel's op sequence.
+
+    corners_hi/lo: (N, 4, 3) f32 coord-scaled corner pairs; octaves: (N,)
+    int32 per-tile octave count. Returns (N, dim, dim) f32."""
+    _check_args(corners_hi, corners_lo, octaves, kind, lacunarity)
+    dev = corners_hi.device
+    uh, ul = _uv_df(dim, dev)
+    uh_x, ul_x = uh[None, None, :], ul[None, None, :]     # u along x
+    vh_y, vl_y = uh[None, :, None], ul[None, :, None]     # v along y
+    coords = []
+    for k in range(3):
+        def c(j, t):
+            return t[:, j, k][:, None, None]
+        p0h, p0l = c(0, corners_hi), c(0, corners_lo)
+        p1h, p1l = c(1, corners_hi), c(1, corners_lo)
+        p2h, p2l = c(2, corners_hi), c(2, corners_lo)
+        p3h, p3l = c(3, corners_hi), c(3, corners_lo)
+        v0h, v0l = _df_sub(p1h, p1l, p0h, p0l)
+        v1h, v1l = _df_sub(p3h, p3l, p2h, p2l)
+        t0h, t0l = _df_mul(v0h, v0l, uh_x, ul_x)
+        a_h, a_l = _df_add(p0h, p0l, t0h, t0l)
+        t1h, t1l = _df_mul(v1h, v1l, uh_x, ul_x)
+        b_h, b_l = _df_add(p2h, p2l, t1h, t1l)
+        dvh, dvl = _df_sub(b_h, b_l, a_h, a_l)
+        t2h, t2l = _df_mul(dvh, dvl, vh_y, vl_y)
+        ph, plo = _df_add(a_h, a_l, t2h, t2l)
+        shape = (corners_hi.shape[0], dim, dim)
+        coords += [ph.expand(shape), plo.expand(shape)]
+    value = perlin.accumulate_octaves(
+        kind, octaves.to(torch.int64)[:, None, None], lacunarity, gain,
+        *coords)
+    return value * float(np.float32(amplitude))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(lacunarity: float, device: str):
+    """Device operands of the kernel: the permutation table, the packed
+    gradient-sign codes (both (256,) int32) and the (MAX_OCTAVES, 3) f32
+    per-octave frequency (hi, lo, exact-power-of-two flag) of the
+    general-lacunarity path."""
+    perm = torch.as_tensor(PERLIN_TABLE.astype(np.int32), device=device)
+    signs = torch.as_tensor(perlin.packed_sign_table(), device=device)
+    freq = np.array([(hi, lo, float(perlin.is_pow2_scale(hi, lo)))
+                     for hi, lo in perlin.freq_consts(lacunarity,
+                                                      MAX_OCTAVES)],
+                    np.float32)
+    return perm, signs, torch.as_tensor(freq, device=device)
+
+
+def tiles_cuda(corners_hi, corners_lo, octaves, *, kind="ridged",
+               lacunarity=2.0, gain=0.55, amplitude=8848.0, dim=32):
+    """The CUDA kernel (csrc/tile.cu); same signature as tiles_plain."""
+    _check_args(corners_hi, corners_lo, octaves, kind, lacunarity)
+    n = corners_hi.shape[0]
+    _cuda.check_cuda(corners_hi, "corners_hi", torch.float32, (n, 4, 3))
+    _cuda.check_cuda(corners_lo, "corners_lo", torch.float32, (n, 4, 3))
+    _cuda.check_cuda(octaves, "octaves", torch.int32, (n,))
+    out = torch.empty((n, dim, dim), dtype=torch.float32,
+                      device=corners_hi.device)
+    if n == 0:
+        return out
+    perm, signs, freq = _kernel_tables(float(lacunarity),
+                                       str(corners_hi.device))
+    div = np.float64(1.0) / np.float64(dim - 3)
+    div_hi = np.float32(div)
+    div_lo = np.float32(div - np.float64(div_hi))
+    _cuda.launch(
+        "tile", "planet_tiles",
+        corners_hi.data_ptr(), corners_lo.data_ptr(), octaves.data_ptr(),
+        perm.data_ptr(), signs.data_ptr(), freq.data_ptr(), out.data_ptr(),
+        n, dim, int(kind == "ridged"), int(float(lacunarity) == 2.0),
+        float(np.float32(gain)), float(np.float32(amplitude)),
+        float(div_hi), float(div_lo))
+    return out
+
+
+def generate_tiles(corners_hi, corners_lo, octaves, **kw):
+    """(N, 4, 3) hi/lo corner pairs + (N,) octave counts -> (N, dim, dim)
+    tiles: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if corners_hi.device.type == "cuda":
+        return tiles_cuda(corners_hi, corners_lo, octaves, **kw)
+    if corners_hi.device.type != "cpu":
+        raise ValueError(f"unsupported device {corners_hi.device}")
+    return tiles_plain(corners_hi, corners_lo, octaves, **kw)

@@ -1,0 +1,22 @@
+"""Fragment shading (reference fragment shader, main.cpp:369-381;
+planet_tpu raster/shade.py, ported).
+
+One directional light l = normalize(0, 1, -1); intensity
+0.001 + max(0, dot(n, l)); grayscale colour sqrt(intensity) (gamma).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_LIGHT = np.array([0.0, 1.0, -1.0], np.float32)
+_LIGHT = _LIGHT / np.sqrt((_LIGHT * _LIGHT).sum())
+
+
+def lambert(normal: torch.Tensor) -> torch.Tensor:
+    """normal: (..., 3). Returns (...,) grayscale."""
+    n = normal / torch.sqrt(torch.sum(normal * normal, dim=-1, keepdim=True))
+    light = torch.as_tensor(_LIGHT, device=normal.device)
+    return torch.sqrt(0.001 + torch.clamp_min(torch.sum(n * light, dim=-1),
+                                              0.0))

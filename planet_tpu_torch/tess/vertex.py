@@ -1,0 +1,185 @@
+"""Batched patch tessellation — the vertex program (planet_tpu
+tess/vertex.py, ported).
+
+For every leaf quad and every vertex of its dense (G, G) patch grid:
+interpolate along the sphere between the quad's four corner (p, n)
+pairs, displace by the height sampled from the quad's 32x32 tile (skirt
+vertices pulled down by skirt_size), take a normal from central
+differences of four height taps in the local tangent frame, and project
+to clip space. All math is float32 on the tensors' device.
+
+Tile sampling uses planet_tpu's blend matrices: the engine only samples
+tiles at three rect variants per axis (full tile, parent-crop low/high
+half), so bilinear sampling is a constant sparse linear map per (variant,
+tap), applied as batched matrix products. Those products and the final
+view-projection are plain float32 matrix products (torch.einsum, as
+planet_tpu left them to XLA, outside any kernel); TF32 is switched off
+for them because TF32 keeps ~10 mantissa bits, which would move vertex
+heights by metres and break the bars the port is held to.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from planet_tpu.tess import mesh
+
+# full-f32 matrix products on the card (see the module docstring)
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+class PatchVertices(NamedTuple):
+    """Outputs of the vertex program, each (Q, G, G, ...)."""
+
+    clip: torch.Tensor      # (Q, G, G, 4) clip-space positions
+    world: torch.Tensor     # (Q, G, G, 3) camera-relative world positions
+    normal: torch.Tensor    # (Q, G, G, 3) shading normals (world space)
+    height: torch.Tensor    # (Q, G, G) sampled height (minus skirt drop)
+    snormal: torch.Tensor   # (Q, G, G, 3) interpolated sphere normal
+
+
+def _norm(v):
+    return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+
+
+def _lerp(a, b, t):
+    return a + (b - a) * t
+
+
+def interpolate(p0, n0, p1, n1, t):
+    """Spherical interpolation of a (position, normal) pair along the great
+    circle between two corners, with the reference's linear fallback when
+    1 - dot(n0, n1) < 0.001 (main.cpp:310-332).
+
+    p0/n0/p1/n1: (..., 3); t: (..., 1). Returns (p, n)."""
+    d = torch.sum(n0 * n1, dim=-1, keepdim=True)
+
+    n_lin = _norm(_lerp(n0, n1, t))
+    p_lin = _lerp(p0, p1, t)
+
+    # both branches are evaluated; keep the unselected one finite
+    d_safe = torch.clamp(d, -1.0, 1.0 - 1e-6)
+    theta2 = torch.arccos(d_safe)
+    k = 1.0 - t
+    n_slerp = _norm(torch.sin(k * theta2) * n0 + torch.sin(t * theta2) * n1)
+    theta = theta2 * 0.5
+    gamma = theta - theta2 * t
+    tan_theta = torch.tan(theta)
+    x = 1.0 - torch.tan(gamma) / tan_theta
+    y = 1.0 / torch.sin(theta) - 1.0 / (torch.cos(gamma) * tan_theta)
+    half = (p1 - p0) * 0.5
+    hlen = torch.sqrt(torch.sum(half * half, dim=-1, keepdim=True))
+    p_slerp = p0 + x * half + y * n_slerp * hlen
+
+    use_lin = (1.0 - d) < 0.001
+    return (torch.where(use_lin, p_lin, p_slerp),
+            torch.where(use_lin, n_lin, n_slerp))
+
+
+@functools.lru_cache()
+def blend_matrices(dim: int = 32, n: int = mesh.PATCH_VERTS) -> np.ndarray:
+    """(3, 3, n + 2, dim) f32 bilinear sampling weights: [variant 0=full,
+    1=crop-lo, 2=crop-hi; tap 0=-pixel, 1=centre, 2=+pixel] (GL_LINEAR +
+    CLAMP_TO_EDGE, texel centres at (i + 0.5)/dim; planet_tpu
+    tess/vertex.blend_matrices)."""
+    params = [
+        (1.5, dim - 1.5, 1.0),
+        (1.5, dim / 2 - 0.5, (dim / 2 - 1) / (n - 1)),
+        (dim / 2 + 0.5, dim - 1.5, (dim / 2 - 1) / (n - 1)),
+    ]
+    g = n + 2
+    w = np.zeros((3, 3, g, dim), np.float32)
+    for v, (lo, hi, pix_texels) in enumerate(params):
+        for ti, t in enumerate((-1.0, 0.0, 1.0)):
+            for j in range(g):
+                u = min(max(j - 1, 0), n - 1) / (n - 1)
+                su = (lo + (hi - lo) * u) + t * pix_texels - 0.5
+                x0 = int(np.floor(su))
+                fx = su - x0
+                xa = min(max(x0, 0), dim - 1)
+                xb = min(max(x0 + 1, 0), dim - 1)
+                w[v, ti, j, xa] += np.float32(1.0 - fx)
+                w[v, ti, j, xb] += np.float32(fx)
+    return w
+
+
+def tessellate_blend(corners_rel, corner_normals, tiles, variant_x,
+                     variant_y, skirt_size, view_proj,
+                     grid: int = mesh.GRID) -> PatchVertices:
+    """The vertex program over Q quads.
+
+    corners_rel (Q, 4, 3) f32 camera-relative corners; corner_normals
+    (Q, 4, 3) f32; tiles (Q, dim, dim) f32; variant_x/y (Q,) int in
+    {0, 1, 2} (rect variant per axis); skirt_size (Q,) f32; view_proj
+    (4, 4) f32 (out = M @ v). Returns PatchVertices of (Q, grid, grid)."""
+    q = corners_rel.shape[0]
+    dim = tiles.shape[-1]
+    dev = tiles.device
+    w = torch.as_tensor(blend_matrices(dim, grid - 2), device=dev)
+    wx = w[variant_x.long()]                         # (Q, 3, G, dim)
+    wy = w[variant_y.long()]
+    tiles = tiles.to(torch.float32)
+
+    def xblend(tap):
+        # t1[q, y, o] = sum_i tiles[q, y, i] * wx[q, tap, o, i]
+        return torch.einsum('qyi,qoi->qyo', tiles, wx[:, tap])
+
+    def yblend(t1, tap):
+        # out[q, a, b] = sum_i wy[q, tap, a, i] * t1[q, i, b]
+        return torch.einsum('qai,qib->qab', wy[:, tap], t1)
+
+    tc = xblend(1)
+    hgt = yblend(tc, 1)
+    y0 = yblend(tc, 0)
+    y1 = yblend(tc, 2)
+    x0 = yblend(xblend(0), 1)
+    x1 = yblend(xblend(2), 1)
+    return _assemble(corners_rel, corner_normals, hgt, x0, x1, y0, y1,
+                     skirt_size, view_proj, q, grid)
+
+
+def _assemble(corners_rel, corner_normals, hgt, x0, x1, y0, y1, skirt_size,
+              view_proj, q, grid) -> PatchVertices:
+    """Corner interpolation, skirt drop, central-difference normals + TBN,
+    clip transform (main.cpp:338-367)."""
+    dev = hgt.device
+    u2d, v2d, skirt2d, _ = mesh.grid_uv_skirt(grid - 2)
+    uu = torch.as_tensor(u2d, device=dev)[None, :, :, None]
+    vv = torch.as_tensor(v2d, device=dev)[None, :, :, None]
+    sk = torch.as_tensor(skirt2d, device=dev)[None, :, :]
+
+    c = corners_rel.to(torch.float32)
+    n = corner_normals.to(torch.float32)
+
+    def corner(i):
+        return c[:, i, None, None, :], n[:, i, None, None, :]
+
+    (p0, n0), (p1, n1), (p2, n2), (p3, n3) = (corner(i) for i in range(4))
+    pa, na = interpolate(p0, n0, p1, n1, uu)     # row 1 at u
+    pb, nb = interpolate(p2, n2, p3, n3, uu)     # row 2 at u
+    pv, nv = interpolate(pa, na, pb, nb, vv)     # blended at v
+
+    height = hgt - skirt_size.to(torch.float32)[:, None, None] * sk
+
+    # tangent-space normal from central differences (main.cpp:338-346)
+    row_dir = pb - pa
+    xyscale = torch.sqrt(torch.sum(row_dir * row_dir, dim=-1)) \
+        / float(mesh.PATCH_QUADS)
+    n_tan = _norm(torch.stack([x0 - x1, 2.0 * xyscale, y0 - y1], dim=-1))
+
+    # TBN (main.cpp:361-365)
+    t_vec = _norm(torch.linalg.cross(nv.expand_as(row_dir), row_dir))
+    bi = _norm(torch.linalg.cross(t_vec, nv.expand_as(t_vec)))
+    normal = _norm(t_vec * n_tan[..., 0:1] + nv * n_tan[..., 1:2]
+                   + bi * n_tan[..., 2:3])
+
+    world = pv + nv * height[..., None]
+    w4 = torch.cat([world, torch.ones((q, grid, grid, 1), dtype=torch.float32,
+                                      device=dev)], dim=-1)
+    clip = torch.einsum('ij,qabj->qabi', view_proj.to(torch.float32), w4)
+    return PatchVertices(clip=clip, world=world, normal=normal,
+                         height=height, snormal=nv)
