@@ -1,11 +1,12 @@
 """Build, load and launch the package's CUDA kernels.
 
-The sources under planet_tpu_torch/csrc are compiled with nvcc into one
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds) and loaded with ctypes. The library lands in
-planet_tpu_torch/_build/<hash>/, keyed by a hash of the sources and the
-flags, and is built at first use: nothing is compiled or loaded when a
-module is imported.
+The sources under planet_tpu_torch/csrc are compiled with nvcc, one
+process per source, all started together, and linked into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds) that is loaded with ctypes. The library lands in
+planet_tpu_torch/_build/<hash>/, keyed by a hash of the sources, the
+shared headers and the flags, and is built at first use: nothing is
+compiled or loaded when a module is imported.
 
 Flags keep the f32 arithmetic bit-compatible with the plain PyTorch
 versions and with planet_tpu: -fmad=false (the double-float error-free
@@ -16,10 +17,17 @@ Each C entry point takes raw pointers and the stream as void* and returns
 cudaGetLastError(); `launch` raises if that is not cudaSuccess and counts
 the launch in `launches` — one plain integer per kernel, which callers
 reset and read to prove that a run went through the kernels.
+
+Under a CUDA-graph capture a launch is recorded, not run: `captured`
+takes the launches recorded inside its block back out of `launches` and
+hands them to the graph's owner, which adds them back with `add_launches`
+each time it replays the graph. So `launches` always counts kernels that
+ran on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,10 +42,11 @@ _PKG = pathlib.Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-SOURCES = ("tile.cu", "raster.cu")
+SOURCES = ("tile.cu", "raster.cu", "perlin.cu")
+HEADERS = ("noise.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 # C symbol -> ctypes argtypes (P = pointer or stream, I = int, F = float)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -47,10 +56,12 @@ _SIGNATURES = {
     "planet_gather_records": (_P, _P, _P, _I, _I, _P),
     "planet_raster_span": (_P, _I, _P, _I, _I, _I, _P),
     "planet_raster_huge": (_P, _I, _P, _I, _I, _I, _P),
+    "planet_noise": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _F, _P),
 }
 
 # kernel name -> launches so far (reset with reset_launches)
-launches = {"tile": 0, "gather": 0, "span": 0, "huge": 0}
+launches = {"tile": 0, "noise": 0, "gather": 0, "span": 0, "huge": 0}
 
 _lib = None
 build_info: dict = {}
@@ -59,6 +70,27 @@ build_info: dict = {}
 def reset_launches():
     for k in launches:
         launches[k] = 0
+
+
+def add_launches(tally: dict):
+    """Count the launches of one replay of a captured graph."""
+    for k, n in tally.items():
+        launches[k] += n
+
+
+@contextlib.contextmanager
+def captured():
+    """Wrap a CUDA-graph capture: yields a dict that, when the block
+    exits, holds the launches recorded inside it per kernel, and leaves
+    `launches` as it was before the block."""
+    before = dict(launches)
+    tally: dict = {}
+    try:
+        yield tally
+    finally:
+        for k in launches:
+            tally[k] = launches[k] - before[k]
+            launches[k] = before[k]
 
 
 def _nvcc() -> str:
@@ -74,7 +106,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_SRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -90,15 +122,30 @@ def library():
     t0 = time.perf_counter()
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libplanet_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(_SRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+        nvcc, tag = _nvcc(), os.getpid()
+        objs = [out_dir / f"{s}.{tag}.o" for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(_SRC / s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        tmp = out_dir / f"libplanet_kernels.{tag}.so"
+        failed = [(s, p.returncode, log) for s, p, log in
+                  zip(SOURCES, procs, logs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True,
+                                  text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append(("link", link.returncode, logs[-1]))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{s} ({rc}):\n{log}" for s, rc, log in failed))
         os.replace(tmp, so)
-        build_info["log"] = proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink()
+        build_info["log"] = "".join(logs)
     build_info["seconds"] = time.perf_counter() - t0
     build_info["path"] = str(so)
     lib = ctypes.CDLL(str(so))

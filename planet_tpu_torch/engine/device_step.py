@@ -1,0 +1,427 @@
+"""The fused device frame (planet_tpu engine/device_step.py, ported): every
+stage of a frame on the device, with no per-level or per-leaf host round
+trip.
+
+  1. refine       lod.refine_device: max_lod + 1 levels over fixed-cap
+                  buffers, ridged probes through K4
+  2. DFS sort     one stable sort of packed int64 keys, padding rows last
+                  (the generation budget's priority, main.cpp:591-594)
+  3. cache        cache.device_pool: probe, parent probe, plan, protect,
+                  allocate, and the spill-to-crop fallback
+  4. generate     one K1 launch over gen_cap slots, per-slot octave counts
+                  6 + 12*depth // max_lod (dead slots: count 0, zeros)
+  5. tessellate   store + touch, crop variants, camera-relative DF corners,
+                  skirt, gather, tess.vertex.tessellate_blend + lambert
+  6. raster       raster.coverage_cuda.raster_frame (K6, K2, K3)
+
+Stages 1-5 are the geometry step. It is a fixed sequence of tensor ops and
+kernel launches that reads no value back to the host, so DeviceRenderer
+captures it ONCE as a CUDA graph and replays it every frame — the analogue
+of planet_tpu's one-jit geometry step. The raster stays a second dispatch,
+as planet_tpu's DeviceRenderer splits it out (device_step.py:325-332); it
+runs on the leaves the step kept, after one read of the three frame
+counters. On the CPU the same step runs eagerly (the tests).
+
+Rules for a stage added to the geometry step (a capture refuses, or
+silently bakes in, anything else):
+  * no host sync: no .item(), int(tensor), bool(tensor), torch.nonzero,
+    boolean-mask indexing, repeat_interleave with tensor repeats;
+  * no host-to-device copy: no torch.tensor / torch.as_tensor of host data
+    and no indexing with Python lists; constants are made with fills
+    (nums.df.const) or uploaded once by an eager warm-up (lru caches);
+  * fixed shapes: every tensor's shape follows from the build arguments;
+  * kernels launch through planet_tpu_torch._cuda.launch, whose counts
+    DeviceRenderer carries over to every replay.
+
+Left out (ROADMAP): `stop_after` (TPU stage bisection), raster_out="packed"
+and `dynamic_roots` (sharding, P12), `jit=False`, the splat raster mode
+(P11) and the skirt toggle (P13); the TPU-only `optimization_barrier`
+seams have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from planet_tpu.engine.config import EngineConfig
+from planet_tpu.geom import cubesphere
+from planet_tpu.tess import mesh
+from planet_tpu_torch import _cuda
+from planet_tpu_torch.cache import device_pool as dp
+from planet_tpu_torch.geom import quadid
+from planet_tpu_torch.lod import refine_device
+from planet_tpu_torch.nums import df as dfm
+from planet_tpu_torch.ops.kernels import tile_cuda
+from planet_tpu_torch.ops.kernels.perlin_cuda import MAX_OCTAVES
+from planet_tpu_torch.raster import coverage_cuda
+from planet_tpu_torch.raster import shade as shade_mod
+from planet_tpu_torch.tess import vertex
+
+_I32 = torch.int32
+_KEY_PAD = 2**63 - 1      # DFS key of a padding row: after every real leaf
+
+
+class Geometry(NamedTuple):
+    """What the geometry step leaves on the device, per rendered leaf row
+    (render_cap rows in DFS order; rows >= n_leaves are padding)."""
+
+    vertices: vertex.PatchVertices   # (R, G, G, ...)
+    vertex_shade: torch.Tensor       # (R, G, G)
+    valid: torch.Tensor              # (R, G, G) bool
+    leaf_lo: torch.Tensor            # (R,) int32 id words
+    leaf_hi: torch.Tensor
+    leaf_depth: torch.Tensor         # (R,) int32
+    slot: torch.Tensor               # (R,) int32 pool slot sampled
+    tiles: torch.Tensor              # (R, dim, dim) gathered tiles
+    meta: torch.Tensor     # (3,) int32: n_leaves, n_generated, overflowed
+
+
+class DeviceFrame(NamedTuple):
+    image: torch.Tensor       # (H, W) f32 (u8 with fetch="u8")
+    depth: torch.Tensor       # (H, W) f32 NDC z, +inf where empty
+    n_leaves: int
+    n_generated: int
+    overflowed: bool
+    preview: Optional[torch.Tensor] = None   # (H//k, W//k) u8, preview=k > 1
+
+
+def _roots(radius: float, device):
+    corners = cubesphere.root_corners(radius)
+    ids = np.array([quadid.make_root(f) for f in range(6)], np.uint64)
+    lo, hi = quadid.to_words(ids)
+    ch, cl = dfm.from_f64_np(corners)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                 for a in (lo, hi, ch, cl))
+
+
+def build_geometry_step(cfg: EngineConfig, *, device, cap: int = 4096,
+                        render_cap: int = 512, gen_cap: int = 256,
+                        max_lod: Optional[int] = None,
+                        probe: str = "ridged6"):
+    """Returns step(pool, cam_hi (3,), cam_lo (3,), view_proj (4, 4)) ->
+    Geometry: stages 1-5 on `device`, updating the pool in place (tiles,
+    keys, ticks, render tick).
+
+    cap bounds the refinement buffers; render_cap the leaves cached,
+    generated and drawn per frame (the DFS sort puts real leaves first, so
+    the first render_cap are kept; more sets the overflow flag); gen_cap the
+    tiles generated per frame (excess generations fall back to the parent
+    crop, or set the overflow flag when there is no cached parent). max_lod
+    caps the refinement depth (default cfg.max_lod); the octave schedule
+    always uses cfg.max_lod (main.cpp:659, 827)."""
+    device = torch.device(device)
+    max_lod = cfg.max_lod if max_lod is None else int(max_lod)
+    if render_cap > cap:
+        raise ValueError(f"render_cap {render_cap} exceeds cap {cap}")
+    if 6 + (12 * max_lod) // cfg.max_lod > MAX_OCTAVES:
+        raise ValueError(f"max_lod {max_lod} needs more than {MAX_OCTAVES} "
+                         "octaves")
+    if cfg.raster_mode != "exact":
+        raise ValueError(f"raster_mode {cfg.raster_mode!r}: the port has "
+                         "the exact raster only")
+    roots = _roots(cfg.radius, device)
+    dim = cfg.tile_dim
+    grid = cfg.patch_verts + 2
+    grid_mask = torch.as_tensor(mesh.grid_uv_skirt(cfg.patch_verts)[3],
+                                device=device)
+    coord_scale = (np.float32(cfg.coord_scale),
+                   np.float32(np.float64(cfg.coord_scale)
+                              - np.float64(np.float32(cfg.coord_scale))))
+
+    def step(pool: dp.PoolState, cam_hi, cam_lo, view_proj) -> Geometry:
+        # ------------------------------------------------ 1. refinement
+        ref = refine_device.refine_device(
+            cam_hi, cam_lo, *roots, max_lod=max_lod, cap=cap,
+            radius=cfg.radius, probe=probe, quality=cfg.lod_quality,
+            transposed=True)
+        n = ref.n_leaves
+        rows = torch.arange(cap, device=device, dtype=_I32)
+
+        # ------------------------------------------------ 2. DFS order
+        key = quadid.words_dfs_key(ref.leaf_lo, ref.leaf_hi)
+        key = torch.where(rows < n, key, torch.full_like(key, _KEY_PAD))
+        perm = torch.argsort(key, stable=True)[:render_cap]
+        q_lo = ref.leaf_lo.index_select(0, perm)
+        q_hi = ref.leaf_hi.index_select(0, perm)
+        depth = ref.leaf_depth.index_select(0, perm)
+        c_hi, c_lo = (c.index_select(1, perm).reshape(4, 3, render_cap)
+                      .permute(2, 0, 1) for c in (ref.leaf_corners_hi,
+                                                  ref.leaf_corners_lo))
+        overflow = ref.overflowed | (n > render_cap)
+        n = torch.clamp(n, max=render_cap)
+        active = rows[:render_cap] < n
+
+        # ------------------------------------------------ 3. cache plan
+        slot, found = dp.probe(pool, q_lo, q_hi)
+        found = found & active
+        p_lo, p_hi = quadid.words_parent(q_lo, q_hi)
+        has_parent = depth > 0
+        p_slot, p_found = dp.probe(pool, torch.where(has_parent, p_lo, 0),
+                                   torch.where(has_parent, p_hi, 0))
+        p_found = p_found & has_parent
+        generate, use_crop = dp.plan(found | ~active, p_found, depth,
+                                     cfg.generations_per_frame)
+        # slots this frame resolved (hits, crop parents, parents of planned
+        # generations, which a spilled generation falls back to) must not
+        # be evicted by the batched allocator (see dp.allocate)
+        pcap = pool.capacity
+        protect = torch.zeros(pcap + 1, dtype=torch.bool, device=device)
+        protect.index_fill_(0, torch.where(found, slot, pcap).long(), True)
+        protect.index_fill_(0, torch.where((use_crop | generate) & p_found,
+                                           p_slot, pcap).long(), True)
+        tgt, _ = dp.allocate(pool, generate, q_lo, q_hi, max_gen=gen_cap,
+                             protect=protect[:pcap])
+        gen_ok = generate & (tgt >= 0)
+        # generation spill (beyond gen_cap, or no evictable slot): the
+        # parent crop, as the reference's exhausted budget (main.cpp:208-237);
+        # only a spilled leaf with no cached parent is a failure
+        gen_fail = generate & active & (tgt < 0)
+        use_crop = use_crop | (gen_fail & p_found)
+        overflow = overflow | (gen_fail & ~p_found).any()
+
+        # ------------------------------------------------ 4. generation
+        gen_i = gen_ok.to(_I32)
+        gtgt = torch.where(gen_ok, torch.cumsum(gen_i, 0, dtype=_I32) - 1,
+                           gen_cap).long()
+        # corners in noise space: DF times the DF coord_scale
+        sc = dfm.mul((c_hi, c_lo), tuple(dfm.const(x, c_hi)
+                                         for x in coord_scale))
+        gen_c = [torch.zeros((gen_cap + 1, 4, 3), dtype=torch.float32,
+                             device=device).index_copy_(0, gtgt, part)
+                 for part in sc]
+        octs = (6 + (12 * depth) // cfg.max_lod).to(_I32)
+        gen_oct = torch.zeros(gen_cap + 1, dtype=_I32,
+                              device=device).index_copy_(0, gtgt, octs)
+        tiles = tile_cuda.generate_tiles(
+            gen_c[0][:gen_cap], gen_c[1][:gen_cap], gen_oct[:gen_cap],
+            kind="ridged", lacunarity=cfg.lacunarity, gain=cfg.gain,
+            amplitude=cfg.amplitude, dim=dim)
+        gen_slot = torch.full((gen_cap + 1,), pcap, dtype=_I32,
+                              device=device).index_copy_(0, gtgt, tgt)
+        gen_slot = gen_slot[:gen_cap]
+        dp.store(pool, gen_slot, gen_slot < pcap, tiles)
+
+        # refresh ticks: hits, crop parents, and the slot to sample from
+        slot = torch.where(gen_ok, tgt, torch.where(use_crop, p_slot, slot))
+        dp.touch(pool, slot, active)
+
+        # ------------------------------------------------ 5. tessellate
+        # crop quadrant by child index (main.cpp:216-237) as blend-matrix
+        # variant selectors
+        child = quadid.words_child_index(q_lo, q_hi)
+        vx = torch.where(use_crop, 1 + (child & 1), 0)
+        vy = torch.where(use_crop, 1 + ((child >> 1) & 1), 0)
+        # camera-relative f32 corners: DF subtract, then narrow
+        # (main.cpp:666-672)
+        corners_rel = dfm.sub((c_hi, c_lo), (cam_hi, cam_lo))[0]
+        nrm = c_hi + c_lo
+        normals = nrm / torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
+        d1 = (depth - 1).to(torch.float32)
+        max_skirt = dfm.const(cfg.max_skirt_size, c_hi)
+        skirt = torch.where(d1 > 0, max_skirt / torch.exp2(d1 + 1.0),
+                            max_skirt)
+        pool_tiles = dp.gather(pool, slot)
+        pv = vertex.tessellate_blend(corners_rel, normals, pool_tiles, vx, vy,
+                                     skirt, view_proj, grid=grid)
+        vshade = shade_mod.lambert(pv.normal)
+        valid = active[:, None, None] & grid_mask[None]
+        dp.end_frame(pool)
+        meta = torch.stack([n, gen_i.sum(dtype=_I32), overflow.to(_I32)])
+        return Geometry(pv, vshade, valid, q_lo, q_hi, depth, slot,
+                        pool_tiles, meta)
+
+    return step
+
+
+def _f32(a) -> torch.Tensor:
+    """A camera or view-projection input (numpy or tensor) as f32."""
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.float32)
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def _read_meta(geom: Geometry):
+    n, n_gen, ovf = (int(v) for v in geom.meta.cpu())
+    return n, n_gen, bool(ovf)
+
+
+def raster(geom: Geometry, cfg: EngineConfig, width: int, height: int):
+    """Stage 6 on the leaves the geometry step kept: (DeviceFrame, the
+    raster's RasterCounters). Reads the step's three counters (one
+    device-to-host copy; the raster syncs anyway)."""
+    n, n_gen, ovf = _read_meta(geom)
+    pv = geom.vertices
+    image, depth, counters = coverage_cuda.raster_frame(
+        pv.clip[:n], pv.normal[:n], geom.valid[:n], width, height,
+        cell_mask=mesh.cell_triangle_mask(cfg.patch_verts),
+        far_w=cfg.far_plane)
+    return (DeviceFrame(image, depth, n, n_gen, ovf or counters.overflowed),
+            counters)
+
+
+def build_device_render(cfg: EngineConfig, width: int, height: int, *,
+                        device, **kw):
+    """Returns fn(pool, cam_hi, cam_lo, view_proj) -> DeviceFrame: the
+    geometry step and the raster, run eagerly; the pool is updated in
+    place. Keywords as build_geometry_step."""
+    step = build_geometry_step(cfg, device=device, **kw)
+
+    def render(pool, cam_hi, cam_lo, view_proj) -> DeviceFrame:
+        geom = step(pool, *(_f32(a).to(device)
+                            for a in (cam_hi, cam_lo, view_proj)))
+        return raster(geom, cfg, width, height)[0]
+
+    return render
+
+
+class DeviceRenderer:
+    """Two-dispatch device frame: the geometry step (stages 1-5), captured
+    once as a CUDA graph and replayed per frame on CUDA (run eagerly on the
+    CPU), then the raster.
+
+    The camera and view-projection enter through static input tensors. The
+    capture is made on the first frame rendered into a pool: a warm-up run
+    of the step on a side stream first uploads the lazily built tables and
+    creates the library handles (nothing may be copied from the host during
+    capture); it runs on a copy of the pool's state, which is put back
+    afterwards, so the warm-up changes nothing. Rendering into another pool
+    captures again. A capture that fails raises: there is no eager
+    fallback on the card.
+
+    The graph's kernel launches are added to _cuda.launches on every
+    replay, so the counts mean "launched on the card".
+
+    fetch="u8" quantizes the image on the device exactly as
+    planet_tpu.io.png.write_png does (clip, * 255 + 0.5, truncate);
+    preview=k > 1 (u8 only) adds a [::k, ::k] subsampled image."""
+
+    def __init__(self, cfg: EngineConfig, width: int, height: int, *,
+                 device, fetch: str = "f32", preview: int = 1, **kw):
+        if fetch not in ("f32", "u8"):
+            raise ValueError(fetch)
+        if preview > 1 and fetch != "u8":
+            raise ValueError("preview requires fetch='u8'")
+        self.cfg = cfg
+        self.width, self.height = int(width), int(height)
+        self.device = torch.device(device)
+        self.fetch = fetch
+        self.preview = int(preview)
+        self._step = build_geometry_step(cfg, device=self.device, **kw)
+        self._cam_hi = torch.zeros(3, dtype=torch.float32, device=self.device)
+        self._cam_lo = torch.zeros(3, dtype=torch.float32, device=self.device)
+        self._vp = torch.zeros((4, 4), dtype=torch.float32,
+                               device=self.device)
+        self._graph = None
+        self._graph_pool = None
+        self._graph_out = None
+        self._tally: dict = {}
+        self.last_geometry: Optional[Geometry] = None
+        self.last_counters = None
+
+    def init_pool(self) -> dp.PoolState:
+        return dp.init(self.cfg.cache_capacity, self.cfg.tile_dim,
+                       self.device)
+
+    def _run_step(self, pool):
+        return self._step(pool, self._cam_hi, self._cam_lo, self._vp)
+
+    def _capture(self, pool: dp.PoolState):
+        saved = [t.clone() for t in pool]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._run_step(pool)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        for t, v in zip(pool, saved):
+            t.copy_(v)
+        self._graph = self._graph_out = None
+        graph = torch.cuda.CUDAGraph()
+        with _cuda.captured() as tally:
+            with torch.cuda.graph(graph):
+                out = self._run_step(pool)
+        self._graph, self._graph_out, self._tally = graph, out, tally
+        self._graph_pool = pool
+
+    def geometry(self, pool: dp.PoolState, cam_hi, cam_lo,
+                 view_proj) -> Geometry:
+        """Stages 1-5 for one camera ((3,) f32 DF camera, (4, 4) f32
+        view-projection; numpy or tensors), updating the pool in place."""
+        for dst, src in ((self._cam_hi, cam_hi), (self._cam_lo, cam_lo),
+                         (self._vp, view_proj)):
+            dst.copy_(_f32(src))
+        if self.device.type != "cuda":
+            geom = self._run_step(pool)
+        else:
+            if self._graph_pool is not pool:
+                self._capture(pool)
+            self._graph.replay()
+            _cuda.add_launches(self._tally)
+            geom = self._graph_out
+        self.last_geometry = geom
+        return geom
+
+    def render(self, pool: dp.PoolState, cam_hi, cam_lo,
+               view_proj) -> DeviceFrame:
+        """One frame into `pool` (updated in place); the raster's counters
+        are on `self.last_counters`."""
+        geom = self.geometry(pool, cam_hi, cam_lo, view_proj)
+        frame, self.last_counters = raster(geom, self.cfg, self.width,
+                                           self.height)
+        if self.fetch == "u8":
+            image = (torch.clamp(frame.image, 0.0, 1.0) * 255.0 + 0.5).to(
+                torch.uint8)
+            preview = (image[::self.preview, ::self.preview]
+                       if self.preview > 1 else None)
+            frame = frame._replace(image=image, preview=preview)
+        return frame
+
+
+class PipelinedRenderer:
+    """Two-frame pipeline over DeviceRenderer: submit() enqueues a frame and
+    the copy of its image to the host, and returns the PREVIOUS frame as
+    (host numpy image, DeviceFrame) — the image being the u8 preview when
+    the renderer makes one, else the full image — or None on the first
+    call. On CUDA the copy goes into pinned host memory with
+    non_blocking=True and an event marks its end, so the host reads a frame
+    while the card works on the next. Frames run in submission order
+    through one pool, so the output equals the sequential output."""
+
+    def __init__(self, renderer: DeviceRenderer, pool: dp.PoolState):
+        self._r = renderer
+        self._pool = pool
+        self._pending = None
+
+    @property
+    def pool(self) -> dp.PoolState:
+        return self._pool
+
+    def submit(self, cam_hi, cam_lo, view_proj):
+        frame = self._r.render(self._pool, cam_hi, cam_lo, view_proj)
+        src = frame.preview if frame.preview is not None else frame.image
+        event = None
+        if src.device.type == "cuda":
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            host.copy_(src, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = src
+        prev, self._pending = self._pending, (host, event, frame)
+        return self._finish(prev)
+
+    def flush(self):
+        """Drain the last frame in flight (None if there is none)."""
+        prev, self._pending = self._pending, None
+        return self._finish(prev)
+
+    @staticmethod
+    def _finish(pending):
+        if pending is None:
+            return None
+        host, event, frame = pending
+        if event is not None:
+            event.synchronize()
+        return host.numpy(), frame

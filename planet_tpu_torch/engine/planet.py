@@ -39,6 +39,7 @@ from planet_tpu_torch.cache.tile_pool import TilePool
 from planet_tpu_torch.lod import refine as lod_refine
 from planet_tpu_torch.nums import df as dfm
 from planet_tpu_torch.ops.kernels import tile_cuda
+from planet_tpu_torch.ops.kernels.perlin_cuda import MAX_OCTAVES
 from planet_tpu_torch.raster import coverage_cuda
 from planet_tpu_torch.raster import shade as shade_mod
 from planet_tpu_torch.tess import vertex
@@ -86,6 +87,10 @@ class PlanetEngine:
         if config.raster_mode != "exact":
             raise ValueError(f"raster_mode {config.raster_mode!r}: the port "
                              "has the exact raster only")
+        # the tile kernel's octave bound, checked once for every depth
+        if config.octaves_for_depth(config.max_lod) > MAX_OCTAVES:
+            raise ValueError(f"max_lod {config.max_lod} needs more than "
+                             f"{MAX_OCTAVES} octaves")
         self.config = config
         self.device = torch.device(device)
         self.pool = pool if pool is not None else TilePool(

@@ -1,0 +1,249 @@
+"""Device-side LOD refinement (planet_tpu lod/refine_device.py, ported).
+
+The reference's recursive ProcessQuad (main.cpp:537-598) becomes a fixed
+sequence of max_lod + 1 level steps over fixed-capacity buffers, every
+level at the full width `cap` with an `active` mask:
+
+    frontier ids/corners/depths (cap,) + count f_n
+    leaf     ids/corners/depths (cap + 1,) + count l_n   (row cap: dump)
+
+    level: probe heights for every frontier slot -> split mask (in
+           double-float) -> append the non-split slots to the leaf buffers
+           -> expand the split slots x4 into the next frontier
+
+The whole refinement is a fixed sequence of tensor ops with no host sync
+(no nonzero, no boolean indexing, no .item()): compaction is an exclusive
+cumsum that gives each kept slot its destination, plus a scatter whose
+rejected rows land in a dump slot. So on CUDA it can be captured in a
+CUDA graph (engine/device_step.DeviceRenderer). On the CPU the same code
+runs eagerly.
+
+Semantics are planet_tpu's: the same double-float split test
+(refine_device.py:260-323), the same child order (`_subdivide_t`:
+child c of the r-th split slot goes to frontier slot 4r + c), leaves
+appended in slot order at offset l_n, and the overflow flag raised when
+leaves or children exceed `cap`. The "ridged6" probe is K4
+(ops/kernels/perlin_cuda.noise_df) on the 1e-5-scaled double-float probe
+points, times 8848 (refine_device.py:230-241).
+
+Left out, as TPU-only: the `tight` width ladder (lax.cond width sizing,
+bit-identical results by its own docstring) and the lane-major layout's
+window/sort tricks; and, until the sharded path (ROADMAP P12), the
+per-chip subtree roots (`root_depth` / dynamic_roots).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from planet_tpu_torch.geom import quadid
+from planet_tpu_torch.nums import df as dfm
+from planet_tpu_torch.ops import perlin
+from planet_tpu_torch.ops.kernels import perlin_cuda
+
+PROBES = ("zero", "ridged6")
+_PROBE_SCALE = 1e-5        # terrain coord_scale (main.cpp:823-832)
+_PROBE_AMPLITUDE = 8848.0
+_CHILD_CORNERS = ((0, 1, 3, 4), (1, 2, 4, 5), (3, 4, 6, 7), (4, 5, 7, 8))
+
+
+class DeviceRefineResult(NamedTuple):
+    leaf_lo: torch.Tensor          # (cap,) int32 id words
+    leaf_hi: torch.Tensor
+    leaf_corners_hi: torch.Tensor  # (cap, 4, 3) f32, or (12, cap) transposed
+    leaf_corners_lo: torch.Tensor
+    leaf_depth: torch.Tensor       # (cap,) int32
+    n_leaves: torch.Tensor         # () int32
+    overflowed: torch.Tensor       # () bool
+
+
+def _split_const(x, like):
+    """A float64 constant as a double-float pair of 0-dim f32 tensors."""
+    hi = np.float32(x)
+    return (dfm.const(hi, like),
+            dfm.const(np.float64(x) - np.float64(hi), like))
+
+
+def _at(a, i):
+    """Row i (along the leading axis) of a DF pair."""
+    return a[0][i], a[1][i]
+
+
+def _rows(a, idx, dim=0):
+    """Rows idx of a DF pair along `dim`, by stacking (indexing with a list
+    would copy an index tensor from the host, which a CUDA-graph capture
+    refuses)."""
+    return tuple(torch.stack([t.select(dim, i) for i in idx], dim)
+                 for t in a)
+
+
+def _norm2(p):
+    """|p|^2 of DF points p whose leading axis is (x, y, z): planet_tpu's
+    dot3 order, (x*x + y*y) + z*z."""
+    sq = dfm.mul(p, p)
+    return dfm.add(dfm.add(_at(sq, 0), _at(sq, 1)), _at(sq, 2))
+
+
+def _df_normalize3(p, radius):
+    """normalize(p) * radius in double-float; p's leading axis is
+    (x, y, z) (planet_tpu's _df_normalize3, all points in one pass)."""
+    s = dfm.div(radius, dfm.sqrt(_norm2(p)))
+    return dfm.mul(p, (s[0][None], s[1][None]))
+
+
+def _subdivide(c, radius):
+    """DF corners c = (hi, lo), each (4 corner, 3 axis, W) -> children
+    (4 child, 12, W) with row = corner*3 + axis (planet_tpu's
+    _subdivide_t, reference VERT rule main.cpp:581-594)."""
+    # edge sums 01, 02, 13, 23 and the centre sum (01) + (23)
+    s = dfm.add(_rows(c, (0, 0, 1, 2)), _rows(c, (1, 2, 3, 3)))
+    m = dfm.add(_at(s, 0), _at(s, 3))
+    mids = (torch.cat([s[0], m[0][None]]).transpose(0, 1),
+            torch.cat([s[1], m[1][None]]).transpose(0, 1))  # (3, 5, W)
+    e = _df_normalize3(mids, radius)
+    # the 3x3 grid c0, e01, c1, e02, m, e13, c2, e23, c3 as (9, 3, W)
+    grid = [[c[k][0], e[k][:, 0], c[k][1], e[k][:, 1], e[k][:, 4],
+             e[k][:, 2], c[k][2], e[k][:, 3], c[k][3]] for k in range(2)]
+    w = c[0].shape[-1]
+    return tuple(torch.stack([g[i] for row in _CHILD_CORNERS for i in row])
+                 .reshape(4, 12, w) for g in grid)
+
+
+def _probe_heights(probe, p):
+    """(3, 5, W) DF probe positions -> (5, W) f32 heights."""
+    if probe == "zero":
+        return torch.zeros_like(p[0][0])
+    # the production terrain at (depth=0, max_depth=1): 6 octaves
+    # (reference ProcessQuad probes, main.cpp:552-556 / 823-832)
+    sh = np.float32(_PROBE_SCALE)
+    sl = np.float32(np.float64(_PROBE_SCALE) - np.float64(sh))
+    xh, xl = perlin._df_scale(p[0], p[1], sh, sl)
+    h = perlin_cuda.noise_df("ridged", xh[0], xl[0], xh[1], xl[1], xh[2],
+                             xl[2], octaves=6, gain=0.55)
+    return h * float(np.float32(_PROBE_AMPLITUDE))
+
+
+def refine_device(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
+                  max_lod: int, cap: int, radius: float,
+                  probe: str = "zero", quality: float = 1.0,
+                  transposed: bool = False) -> DeviceRefineResult:
+    """Device refinement from R roots: (R,) int32 id words and (R, 4, 3)
+    f32 DF corners, all on one device with the (3,) f32 DF camera.
+
+    probe: "zero" (smooth sphere, ConstantZero generator, main.cpp:836-841)
+    or "ridged6" (the production terrain through K4). quality multiplies
+    the split threshold d in double-float (EngineConfig.lod_quality; 1.0 is
+    exactly the reference rule). transposed=True returns the leaf corners
+    lane-major, (12, cap) with row = corner*3 + axis.
+
+    Leaves land in level order at [0, n_leaves); the rows after them are
+    zero. On overflow (more than cap leaves or frontier children) the flag
+    is set and the excess is dropped."""
+    if probe not in PROBES:
+        raise ValueError(probe)
+    dev = cam_hi.device
+    i32 = torch.int32
+    f32 = torch.float32
+    n_roots = root_lo.shape[0]
+    if n_roots > cap:
+        raise ValueError(f"{n_roots} roots exceed cap {cap}")
+    slots = torch.arange(cap, device=dev, dtype=i32)
+    dump = torch.full((cap,), cap, device=dev, dtype=torch.int64)
+    child_col = torch.arange(4, device=dev, dtype=i32)[:, None]
+
+    # frontier: ints (lo, hi, depth) x cap and corners (hi rows 0-11, lo
+    # rows 12-23, row = corner*3 + axis) x cap; leaves the same with a
+    # dump column at cap
+    f_int = torch.zeros((3, cap), dtype=i32, device=dev)
+    f_cor = torch.zeros((24, cap), dtype=f32, device=dev)
+    f_int[0, :n_roots] = root_lo
+    f_int[1, :n_roots] = root_hi
+    f_cor[:12, :n_roots] = root_ch.permute(1, 2, 0).reshape(12, n_roots)
+    f_cor[12:, :n_roots] = root_cl.permute(1, 2, 0).reshape(12, n_roots)
+    f_n = torch.full((), n_roots, dtype=i32, device=dev)
+    l_int = torch.zeros((3, cap + 1), dtype=i32, device=dev)
+    l_cor = torch.zeros((24, cap + 1), dtype=f32, device=dev)
+    l_n = torch.zeros((), dtype=i32, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+
+    one = dfm.from_f32(dfm.const(1.0, cam_hi))
+    rad = _split_const(radius, cam_hi)
+    cam = (cam_hi[:, None, None], cam_lo[:, None, None])
+    two = dfm.const(2.0, cam_hi)
+    lod_scale = dfm.from_f32(dfm.const(2.5, cam_hi))
+    lod_max = dfm.from_f32(dfm.const(max_lod, cam_hi))
+    qual = _split_const(quality, cam_hi)
+
+    for _ in range(max_lod + 1):
+        active = slots < f_n
+        lodv = max_lod - f_int[2]                      # (cap,) per-quad lod
+        corners = (f_cor[:12].view(4, 3, cap), f_cor[12:].view(4, 3, cap))
+
+        # --- probes: 4 corners + sphere midpoint, displaced by heights.
+        # Corner sums per axis in plain f32, sequential corner order
+        # (0+1)+2)+3 — planet_tpu's, feeding only the DF normalize
+        csum = tuple(((c[0] + c[1]) + c[2]) + c[3] for c in corners)
+        mid = _df_normalize3(csum, rad)                 # (3, cap)
+        probes = tuple(torch.cat([c.transpose(0, 1), m[:, None]], dim=1)
+                       for c, m in zip(corners, mid))   # (3, 5, cap)
+        hts = _probe_heights(probe, probes)             # (5, cap)
+
+        # --- split decision in double-float (the reference evaluates
+        # ProcessQuad in double, main.cpp:546-571): displacement
+        # p * (1 + h/|p|), diagonals, camera distances, threshold
+        plen = dfm.sqrt(_norm2(probes))
+        scale = dfm.add(one, dfm.div(dfm.from_f32(hts), plen))
+        d = dfm.mul(probes, (scale[0][None], scale[1][None]))
+        diag2 = _norm2(dfm.sub(_rows(d, (3, 2), 1), _rows(d, (0, 1), 1)))
+        diag = dfm.add(_at(diag2, 0), _at(diag2, 1))     # |d30|^2 + |d21|^2
+        denom = dfm.add(one, dfm.div(
+            dfm.mul(lod_scale, dfm.from_f32(lodv.to(f32))), lod_max))
+        thr = dfm.div(diag, denom)                       # (cap,) DF
+        if quality != 1.0:
+            thr = dfm.mul(thr, qual)
+        lhs = dfm.mul_pow2(_norm2(dfm.sub(d, cam)), two)  # (5, cap) DF
+        # lexicographic DF compare (canonical (hi, lo) pairs)
+        closer = (lhs[0] < thr[0]) | ((lhs[0] == thr[0]) & (lhs[1] < thr[1]))
+        split = active & (lodv > 0) & closer.any(dim=0)
+        leaf = active & ~split
+
+        # --- append the leaves at [l_n, l_n + n_leaf), in slot order
+        leaf_i = leaf.to(i32)
+        pos = l_n + torch.cumsum(leaf_i, 0, dtype=i32) - leaf_i
+        dst = torch.where(leaf & (pos < cap), pos.long(), dump)
+        l_int.index_copy_(1, dst, f_int)
+        l_cor.index_copy_(1, dst, f_cor)
+        new_l_n = l_n + leaf_i.sum(dtype=i32)
+        overflow = overflow | (new_l_n > cap)
+        l_n = torch.clamp(new_l_n, max=cap)
+
+        # --- expand the splits: the r-th split slot's child c goes to
+        # frontier slot 4r + c (planet_tpu's child ordering)
+        kids_h, kids_l = _subdivide(corners, rad)        # (4, 12, cap)
+        split_i = split.to(i32)
+        rank = torch.cumsum(split_i, 0, dtype=i32) - split_i
+        n_split = split_i.sum(dtype=i32)
+        overflow = overflow | (n_split * 4 > cap)
+        tgt = 4 * rank[None] + child_col                 # (4, cap)
+        dst = torch.where(split[None] & (tgt < cap), tgt.long(),
+                          dump[None]).reshape(-1)
+        c_lo, c_hi = quadid.words_make_child(f_int[0][None], f_int[1][None],
+                                             child_col)
+        c_int = torch.stack([c_lo, c_hi, (f_int[2] + 1).expand(4, cap)])
+        c_cor = torch.cat([kids_h, kids_l], dim=1)       # (4, 24, cap)
+        nf_int = torch.zeros((3, cap + 1), dtype=i32, device=dev)
+        nf_cor = torch.zeros((24, cap + 1), dtype=f32, device=dev)
+        nf_int.index_copy_(1, dst, c_int.reshape(3, 4 * cap))
+        nf_cor.index_copy_(1, dst, c_cor.transpose(0, 1).reshape(24, 4 * cap))
+        f_int, f_cor = nf_int[:, :cap], nf_cor[:, :cap]
+        f_n = torch.clamp(n_split * 4, max=cap)
+
+    c_hi, c_lo = l_cor[:12, :cap], l_cor[12:, :cap]
+    if not transposed:
+        c_hi = c_hi.reshape(4, 3, cap).permute(2, 0, 1)
+        c_lo = c_lo.reshape(4, 3, cap).permute(2, 0, 1)
+    return DeviceRefineResult(l_int[0, :cap], l_int[1, :cap], c_hi, c_lo,
+                              l_int[2, :cap], l_n, overflow)

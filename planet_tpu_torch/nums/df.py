@@ -1,12 +1,19 @@
-"""Double-float (two-float32) arithmetic on torch tensors — the subset of
-planet_tpu.nums.df the tile path needs.
+"""Double-float (two-float32) arithmetic on torch tensors (planet_tpu
+nums.df, ported).
 
 A double-float value is x = hi + lo with |lo| <= ulp(hi)/2, carried as a
-pair of equal-shaped float32 tensors. Every function keeps planet_tpu's op
-order exactly (each torch op rounds once, as XLA and Mosaic do, and torch
-never contracts separate ops to FMA), so results are bit-identical to the
-reference on the same inputs. See planet_tpu/nums/df.py for the error
-analysis of each transform.
+pair of float32 tensors. The split helpers (floor_split_parts, int24_parts,
+...) take hi and lo as two arguments; the arithmetic (add, mul, div, sqrt,
+dot3, ...) takes and returns `(hi, lo)` tuples, whose two tensors may
+broadcast against each other's shapes. Every function keeps planet_tpu's
+op order exactly (each torch op rounds once, as XLA and Mosaic do, and
+torch never contracts separate ops to FMA), so results are bit-identical
+to the reference on the same inputs. See planet_tpu/nums/df.py for the
+error analysis of each transform.
+
+Constants enter as float32 tensors (`const`), never as Python floats: a
+Python float would make two_prod's splitting run in float64, and dividing
+a CUDA tensor by a Python float multiplies by its reciprocal instead.
 """
 
 from __future__ import annotations
@@ -16,6 +23,18 @@ import torch
 
 _M24 = 2**24 - 1
 _P24 = float(np.float32(2.0**-24))
+_SPLIT = float(np.float32(4097.0))   # Dekker split constant, 2^12 + 1
+
+
+def const(x, like: torch.Tensor) -> torch.Tensor:
+    """x rounded to float32, as a 0-dim tensor on `like`'s device (made by
+    a fill, so it is safe inside a CUDA-graph capture)."""
+    return like.new_full((), float(np.float32(x)), dtype=torch.float32)
+
+
+def from_f32(x: torch.Tensor):
+    """Lift exact float32 values into DF (lo = 0)."""
+    return x, torch.zeros_like(x)
 
 
 def two_sum(a, b):
@@ -31,6 +50,76 @@ def quick_two_sum(a, b):
     s = a + b
     err = b - (s - a)
     return s, err
+
+
+def two_prod(a, b):
+    """Error-free product via Dekker splitting: a * b = p + err exactly."""
+    p = a * b
+    ca = _SPLIT * a
+    ahi = ca - (ca - a)
+    alo = a - ahi
+    cb = _SPLIT * b
+    bhi = cb - (cb - b)
+    blo = b - bhi
+    err = ((ahi * bhi - p) + ahi * blo + alo * bhi) + alo * blo
+    return p, err
+
+
+def add(a, b):
+    """Accurate double-float addition (Knuth/Shewchuk), exact under
+    cancellation."""
+    s, e = two_sum(a[0], b[0])
+    t, f = two_sum(a[1], b[1])
+    e = e + t
+    s, e = quick_two_sum(s, e)
+    e = e + f
+    return quick_two_sum(s, e)
+
+
+def sub(a, b):
+    return add(a, (-b[0], -b[1]))
+
+
+def mul(a, b):
+    p, e = two_prod(a[0], b[0])
+    e = e + (a[0] * b[1] + a[1] * b[0])
+    return quick_two_sum(p, e)
+
+
+def mul_pow2(a, scale: torch.Tensor):
+    """Exact multiply by a power of two (a float32 tensor)."""
+    return a[0] * scale, a[1] * scale
+
+
+def div(a, b):
+    q1 = a[0] / b[0]
+    # r = a - q1*b, computed accurately
+    p, e = two_prod(q1, b[0])
+    r_hi, r_e = two_sum(a[0], -p)
+    r = r_hi + (r_e + a[1] - e - q1 * b[1])
+    q2 = r / b[0]
+    return quick_two_sum(q1, q2)
+
+
+def sqrt(a):
+    """Double-float square root (Karp's method, one Newton step).
+
+    planet_tpu seeds the step with lax.rsqrt. The port seeds it with the
+    correctly rounded 1 / sqrt(hi) (two IEEE operations), because CUDA's
+    rsqrt is approximate: this way the CPU and the card give identical
+    bits. The Newton step makes both seeds accurate to DF precision; the
+    last bit may differ from planet_tpu's."""
+    x = torch.reciprocal(torch.sqrt(a[0]))
+    ax = a[0] * x  # approx sqrt
+    p, e = two_prod(ax, ax)
+    d_hi, d_e = two_sum(a[0], -p)
+    diff = d_hi + (d_e + a[1] - e)
+    corr = diff * (x * 0.5)
+    return quick_two_sum(ax, corr)
+
+
+def dot3(ax, ay, az, bx, by, bz):
+    return add(add(mul(ax, bx), mul(ay, by)), mul(az, bz))
 
 
 def from_f64_np(x):

@@ -17,48 +17,25 @@ main.cpp:123-151, 823-832):
 with the corners pre-scaled by the terrain's coord_scale on the host (f64,
 split into hi/lo f32 pairs), so the blend happens in noise space. Each tile
 carries its own octave count, so one launch covers every tile of a frame.
+
+The wrapper's checks read metadata only (shapes, types, contiguity, the
+kind), never tensor values, so the kernel can be launched inside a
+CUDA-graph capture. Octave counts must not exceed MAX_OCTAVES: the plain
+version checks the values (it reads them anyway), and the callers that
+launch the kernel check the counts where they make them (PlanetEngine on
+the host, build_device_render from the config at build time); the kernel
+clamps a larger count so that it cannot read past its tables.
 """
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
-from planet_tpu.ops.tables import PERLIN_TABLE
 from planet_tpu_torch import _cuda
 from planet_tpu_torch.nums import df as dfm
 from planet_tpu_torch.ops import perlin
-
-_SPLIT = 4097.0
-MAX_OCTAVES = 24          # int24 octave shifts and the kernel's freq table
-
-
-def _df_add(ah, al, bh, bl):
-    s, e = dfm.two_sum(ah, bh)
-    t, f = dfm.two_sum(al, bl)
-    e = e + t
-    s, e = dfm.quick_two_sum(s, e)
-    e = e + f
-    return dfm.quick_two_sum(s, e)
-
-
-def _df_sub(ah, al, bh, bl):
-    return _df_add(ah, al, -bh, -bl)
-
-
-def _df_mul(ah, al, bh, bl):
-    p = ah * bh
-    ca = ah * _SPLIT
-    xhi = ca - (ca - ah)
-    xlo = ah - xhi
-    cb = bh * _SPLIT
-    yhi = cb - (cb - bh)
-    ylo = bh - yhi
-    err = ((xhi * yhi - p) + xhi * ylo + xlo * yhi) + xlo * ylo
-    err = err + (ah * bl + al * bh)
-    return dfm.quick_two_sum(p, err)
+from planet_tpu_torch.ops.kernels.perlin_cuda import MAX_OCTAVES, kernel_tables
 
 
 def _uv_df(dim: int, device):
@@ -71,17 +48,21 @@ def _uv_df(dim: int, device):
     return perlin._df_scale(xm1, torch.zeros_like(xm1), div_hi, div_lo)
 
 
-def _check_args(corners_hi, corners_lo, octaves, kind, lacunarity):
+def _check_meta(corners_hi, corners_lo, octaves, kind, lacunarity):
+    """Shape, type and argument checks; reads no tensor values."""
     if kind not in ("fbm", "ridged"):
         raise ValueError(kind)
     n = corners_hi.shape[0]
     if tuple(corners_hi.shape) != (n, 4, 3) or corners_lo.shape != corners_hi.shape:
         raise ValueError(f"corners must be (N, 4, 3) hi/lo pairs, got "
                          f"{tuple(corners_hi.shape)} / {tuple(corners_lo.shape)}")
+    if corners_hi.dtype != torch.float32 or corners_lo.dtype != torch.float32:
+        raise ValueError(f"corners must be torch.float32, got "
+                         f"{corners_hi.dtype} / {corners_lo.dtype}")
     if tuple(octaves.shape) != (n,):
         raise ValueError(f"octaves must be (N,), got {tuple(octaves.shape)}")
-    if n and int(octaves.max()) > MAX_OCTAVES:
-        raise ValueError(f"octave counts above {MAX_OCTAVES} unsupported")
+    if octaves.dtype != torch.int32:
+        raise ValueError(f"octaves must be torch.int32, got {octaves.dtype}")
     if float(lacunarity) <= 0.0:
         raise ValueError("lacunarity must be positive")
 
@@ -92,7 +73,9 @@ def tiles_plain(corners_hi, corners_lo, octaves, *, kind="ridged",
 
     corners_hi/lo: (N, 4, 3) f32 coord-scaled corner pairs; octaves: (N,)
     int32 per-tile octave count. Returns (N, dim, dim) f32."""
-    _check_args(corners_hi, corners_lo, octaves, kind, lacunarity)
+    _check_meta(corners_hi, corners_lo, octaves, kind, lacunarity)
+    if octaves.numel() and int(octaves.max()) > MAX_OCTAVES:
+        raise ValueError(f"octave counts above {MAX_OCTAVES} unsupported")
     dev = corners_hi.device
     uh, ul = _uv_df(dim, dev)
     uh_x, ul_x = uh[None, None, :], ul[None, None, :]     # u along x
@@ -101,19 +84,11 @@ def tiles_plain(corners_hi, corners_lo, octaves, *, kind="ridged",
     for k in range(3):
         def c(j, t):
             return t[:, j, k][:, None, None]
-        p0h, p0l = c(0, corners_hi), c(0, corners_lo)
-        p1h, p1l = c(1, corners_hi), c(1, corners_lo)
-        p2h, p2l = c(2, corners_hi), c(2, corners_lo)
-        p3h, p3l = c(3, corners_hi), c(3, corners_lo)
-        v0h, v0l = _df_sub(p1h, p1l, p0h, p0l)
-        v1h, v1l = _df_sub(p3h, p3l, p2h, p2l)
-        t0h, t0l = _df_mul(v0h, v0l, uh_x, ul_x)
-        a_h, a_l = _df_add(p0h, p0l, t0h, t0l)
-        t1h, t1l = _df_mul(v1h, v1l, uh_x, ul_x)
-        b_h, b_l = _df_add(p2h, p2l, t1h, t1l)
-        dvh, dvl = _df_sub(b_h, b_l, a_h, a_l)
-        t2h, t2l = _df_mul(dvh, dvl, vh_y, vl_y)
-        ph, plo = _df_add(a_h, a_l, t2h, t2l)
+        p0, p1, p2, p3 = ((c(j, corners_hi), c(j, corners_lo))
+                          for j in range(4))
+        a = dfm.add(p0, dfm.mul(dfm.sub(p1, p0), (uh_x, ul_x)))
+        b = dfm.add(p2, dfm.mul(dfm.sub(p3, p2), (uh_x, ul_x)))
+        ph, plo = dfm.add(a, dfm.mul(dfm.sub(b, a), (vh_y, vl_y)))
         shape = (corners_hi.shape[0], dim, dim)
         coords += [ph.expand(shape), plo.expand(shape)]
     value = perlin.accumulate_octaves(
@@ -122,25 +97,10 @@ def tiles_plain(corners_hi, corners_lo, octaves, *, kind="ridged",
     return value * float(np.float32(amplitude))
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_tables(lacunarity: float, device: str):
-    """Device operands of the kernel: the permutation table, the packed
-    gradient-sign codes (both (256,) int32) and the (MAX_OCTAVES, 3) f32
-    per-octave frequency (hi, lo, exact-power-of-two flag) of the
-    general-lacunarity path."""
-    perm = torch.as_tensor(PERLIN_TABLE.astype(np.int32), device=device)
-    signs = torch.as_tensor(perlin.packed_sign_table(), device=device)
-    freq = np.array([(hi, lo, float(perlin.is_pow2_scale(hi, lo)))
-                     for hi, lo in perlin.freq_consts(lacunarity,
-                                                      MAX_OCTAVES)],
-                    np.float32)
-    return perm, signs, torch.as_tensor(freq, device=device)
-
-
 def tiles_cuda(corners_hi, corners_lo, octaves, *, kind="ridged",
                lacunarity=2.0, gain=0.55, amplitude=8848.0, dim=32):
     """The CUDA kernel (csrc/tile.cu); same signature as tiles_plain."""
-    _check_args(corners_hi, corners_lo, octaves, kind, lacunarity)
+    _check_meta(corners_hi, corners_lo, octaves, kind, lacunarity)
     n = corners_hi.shape[0]
     _cuda.check_cuda(corners_hi, "corners_hi", torch.float32, (n, 4, 3))
     _cuda.check_cuda(corners_lo, "corners_lo", torch.float32, (n, 4, 3))
@@ -149,8 +109,8 @@ def tiles_cuda(corners_hi, corners_lo, octaves, *, kind="ridged",
                       device=corners_hi.device)
     if n == 0:
         return out
-    perm, signs, freq = _kernel_tables(float(lacunarity),
-                                       str(corners_hi.device))
+    perm, signs, freq = kernel_tables(float(lacunarity),
+                                      str(corners_hi.device))
     div = np.float64(1.0) / np.float64(dim - 3)
     div_hi = np.float32(div)
     div_lo = np.float32(div - np.float64(div_hi))

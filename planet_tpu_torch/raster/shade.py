@@ -7,6 +7,8 @@ One directional light l = normalize(0, 1, -1); intensity
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -14,9 +16,16 @@ _LIGHT = np.array([0.0, 1.0, -1.0], np.float32)
 _LIGHT = _LIGHT / np.sqrt((_LIGHT * _LIGHT).sum())
 
 
+@functools.lru_cache(maxsize=None)
+def _light(device: str) -> torch.Tensor:
+    # uploaded once per device: lambert then copies nothing from the host
+    # (so it can run inside a CUDA-graph capture)
+    return torch.as_tensor(_LIGHT, device=device)
+
+
 def lambert(normal: torch.Tensor) -> torch.Tensor:
     """normal: (..., 3). Returns (...,) grayscale."""
     n = normal / torch.sqrt(torch.sum(normal * normal, dim=-1, keepdim=True))
-    light = torch.as_tensor(_LIGHT, device=normal.device)
+    light = _light(str(normal.device))
     return torch.sqrt(0.001 + torch.clamp_min(torch.sum(n * light, dim=-1),
                                               0.0))

@@ -16,6 +16,10 @@ view-projection are plain float32 matrix products (torch.einsum, as
 planet_tpu left them to XLA, outside any kernel); TF32 is switched off
 for them because TF32 keeps ~10 mantissa bits, which would move vertex
 heights by metres and break the bars the port is held to.
+
+The constant tables (blend matrices, the patch grid's uv and skirt masks)
+are uploaded once per device and shape, so a call copies nothing from the
+host and can run inside a CUDA-graph capture once it has run eagerly.
 """
 
 from __future__ import annotations
@@ -80,6 +84,19 @@ def interpolate(p0, n0, p1, n1, t):
             torch.where(use_lin, n_lin, n_slerp))
 
 
+@functools.lru_cache(maxsize=None)
+def _blend_table(dim: int, grid: int, device: str) -> torch.Tensor:
+    return torch.as_tensor(blend_matrices(dim, grid - 2), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_tables(grid: int, device: str):
+    """The patch grid's (u, v, skirt mask) as (G, G) tensors on `device`."""
+    u2d, v2d, skirt2d, _ = mesh.grid_uv_skirt(grid - 2)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (u2d, v2d, skirt2d))
+
+
 @functools.lru_cache()
 def blend_matrices(dim: int = 32, n: int = mesh.PATCH_VERTS) -> np.ndarray:
     """(3, 3, n + 2, dim) f32 bilinear sampling weights: [variant 0=full,
@@ -119,7 +136,7 @@ def tessellate_blend(corners_rel, corner_normals, tiles, variant_x,
     q = corners_rel.shape[0]
     dim = tiles.shape[-1]
     dev = tiles.device
-    w = torch.as_tensor(blend_matrices(dim, grid - 2), device=dev)
+    w = _blend_table(dim, grid, str(dev))
     wx = w[variant_x.long()]                         # (Q, 3, G, dim)
     wy = w[variant_y.long()]
     tiles = tiles.to(torch.float32)
@@ -147,10 +164,10 @@ def _assemble(corners_rel, corner_normals, hgt, x0, x1, y0, y1, skirt_size,
     """Corner interpolation, skirt drop, central-difference normals + TBN,
     clip transform (main.cpp:338-367)."""
     dev = hgt.device
-    u2d, v2d, skirt2d, _ = mesh.grid_uv_skirt(grid - 2)
-    uu = torch.as_tensor(u2d, device=dev)[None, :, :, None]
-    vv = torch.as_tensor(v2d, device=dev)[None, :, :, None]
-    sk = torch.as_tensor(skirt2d, device=dev)[None, :, :]
+    u2d, v2d, skirt2d = _grid_tables(grid, str(dev))
+    uu = u2d[None, :, :, None]
+    vv = v2d[None, :, :, None]
+    sk = skirt2d[None, :, :]
 
     c = corners_rel.to(torch.float32)
     n = corner_normals.to(torch.float32)

@@ -4,9 +4,11 @@ no CUDA device. On a machine with one:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
 
-Bars: K1 tiles and K6 record gather bitwise; K2 span and K3 huge raster
-with identical coverage and packed depth/shade within 1 quantum (they are
-built with -fmad=false and IEEE division/sqrt, so equality is expected)."""
+Bars: K1 tiles, K4 noise and K6 record gather bitwise; K2 span and K3
+huge raster with identical coverage and packed depth/shade within 1
+quantum (they are built with -fmad=false and IEEE division/sqrt, so
+equality is expected); one CUDA-graph replay of the fused frame's
+geometry step bitwise equal to the same step run eagerly on the card."""
 
 import numpy as np
 import pytest
@@ -15,9 +17,10 @@ import torch
 from planet_tpu.engine.config import EngineConfig
 from planet_tpu.geom import camera as cam_mod
 from planet_tpu_torch import _cuda
+from planet_tpu_torch.engine import device_step
 from planet_tpu_torch.engine.planet import PlanetEngine
 from planet_tpu_torch.nums import df as tdf
-from planet_tpu_torch.ops.kernels import tile_cuda
+from planet_tpu_torch.ops.kernels import perlin_cuda, tile_cuda
 from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import coverage_cuda as tcc
 from torch_scenes import SCREEN, VIEW, screen_scene, view_scene
@@ -102,9 +105,71 @@ def test_frame_on_card_matches_cpu(dev):
     cfg = EngineConfig()
     _cuda.reset_launches()
     out_g, img_g, dep_g = PlanetEngine(cfg, device=dev).render(cam)
-    assert all(n > 0 for n in _cuda.launches.values()), _cuda.launches
+    # the host-orchestrated path's kernels (K4 belongs to the fused path)
+    assert all(_cuda.launches[k] > 0 for k in ("tile", "gather", "span",
+                                               "huge")), _cuda.launches
     out_c, img_c, dep_c = PlanetEngine(cfg, device="cpu").render(cam)
     np.testing.assert_array_equal(out_g.leaf_ids, out_c.leaf_ids)
     cov_g = torch.isfinite(dep_g).cpu().numpy()
     cov_c = torch.isfinite(dep_c).numpy()
     assert (cov_g == cov_c).mean() > 0.999
+
+
+@pytest.mark.parametrize("kind,lacunarity,octaves", [
+    ("ridged", 2.0, 6), ("fbm", 2.0, 18), ("fbm", 1.7, 5),
+    ("ridged", 1.7, 18)])
+def test_noise_kernel_bitwise(dev, kind, lacunarity, octaves):
+    pts = np.load(GOLD + "pts_fbm.npy")
+    sphere = np.load(GOLD + "pts_sphere.npy") * 1e-5      # terrain scale
+    coords = []
+    for i in range(3):
+        for a in tdf.from_f64_np(np.concatenate([pts[:, i], sphere[:, i]])):
+            coords.append(torch.as_tensor(a, device=dev))
+    kw = dict(lacunarity=lacunarity, gain=0.55, octaves=octaves)
+    before = _cuda.launches["noise"]
+    got = perlin_cuda.noise_df(kind, *coords, **kw)
+    assert _cuda.launches["noise"] == before + 1
+    want = perlin_cuda.noise_plain(kind, *coords, **kw)
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_graph_replay_equals_eager_step(dev):
+    """Two frames of the golden camera: the captured geometry step, replayed,
+    gives the eager step's leaf ids, slots, tiles and vertices bit for bit,
+    and each replay counts the graph's kernels."""
+    cfg = EngineConfig()
+    cam = cam_mod.Camera(position=np.load(GOLD + "frame_cam.npy"),
+                         angles=np.load(GOLD + "frame_angles.npy"))
+    rot = cam_mod.camera_rotation(cam)
+    pf = cam_mod.proj_factor_from_fovy(np.deg2rad(cfg.fovy_deg))
+    vp = (cam_mod.perspective_lh(pf, 4 / 3, cfg.near_plane, cfg.far_plane)
+          @ cam_mod.view_from_rotation(rot)).astype(np.float32)
+    cam_hi, cam_lo = tdf.from_f64_np(cam.position)
+    kw = dict(cap=1024, render_cap=512, gen_cap=128)
+    r = device_step.DeviceRenderer(cfg, 800, 600, device=dev, **kw)
+    step = device_step.build_geometry_step(cfg, device=dev, **kw)
+    pool_g, pool_e = r.init_pool(), r.init_pool()
+    args = [torch.as_tensor(a, device=dev) for a in (cam_hi, cam_lo, vp)]
+    for frame in range(3):
+        before = dict(_cuda.launches)
+        got = r.geometry(pool_g, cam_hi, cam_lo, vp)
+        if frame:     # the first call also ran the warm-up
+            assert all(_cuda.launches[k] - before[k] == n
+                       for k, n in r._tally.items()), r._tally
+        assert r._tally["tile"] == 1 and r._tally["noise"] == 19
+        want = step(pool_e, *args)
+        for name in ("leaf_lo", "leaf_hi", "leaf_depth", "slot", "tiles",
+                     "valid", "vertex_shade", "meta"):
+            assert _same_bits(getattr(got, name), getattr(want, name)), name
+        for a, b in zip(got.vertices, want.vertices):
+            assert _same_bits(a, b)
+        for a, b in zip(pool_g, pool_e):
+            assert torch.equal(a, b)
+
+
+def _same_bits(a, b):
+    """Bitwise equality that holds for equal NaNs too (the padding rows of
+    the vertex arrays are NaN, as in planet_tpu)."""
+    if a.dtype == b.dtype and a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)

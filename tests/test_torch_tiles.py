@@ -107,3 +107,21 @@ def test_generate_tiles_dispatches_plain_on_cpu_and_checks_shapes():
         tile_cuda.generate_tiles(th[:, :3], tl[:, :3], octs)
     with pytest.raises(ValueError):
         tile_cuda.tiles_cuda(th, tl, octs)       # CPU tensor: no kernel
+
+
+def test_wrapper_checks_metadata():
+    """generate_tiles (the K1 wrapper) refuses a wrong shape or dtype from
+    metadata alone — the checks the kernel path keeps, which read no tensor
+    values, so they hold inside a CUDA-graph capture; the plain version
+    also refuses octave counts above MAX_OCTAVES."""
+    ch, cl = (torch.from_numpy(a) for a in _golden_corners(2))
+    octs = torch.full((2,), 6, dtype=torch.int32)
+    for bad in ((ch[:, :3], cl[:, :3], octs), (ch, cl[:1], octs),
+                (ch.double(), cl.double(), octs), (ch, cl, octs.long()),
+                (ch, cl, octs[:1])):
+        with pytest.raises(ValueError):
+            tile_cuda.generate_tiles(*bad)
+    with pytest.raises(ValueError):
+        tile_cuda.generate_tiles(ch, cl, octs, kind="perlin")
+    with pytest.raises(ValueError):
+        tile_cuda.generate_tiles(ch, cl, octs + tile_cuda.MAX_OCTAVES)
