@@ -29,11 +29,28 @@ result line is printed:
    1920x1080 static scene (10 frames) and the 8-frame orbit, each orbit
    frame's leaf ids equal to phase 5's PlanetEngine on the same camera;
 6. launch counts: each kernel of each path launched during that path's
-   phases (4-5: tile, gather, span, huge; 5b: those and noise) > 0.
+   phases (4-5: tile, gather, span, huge; 5b: those and noise) > 0;
+7. the cube-sphere field path (models/heightfield), counts reset before
+   and read after: config 1 (flat 256x256 patch, fBm 4, through K4)
+   bitwise equal to K4's plain version on the same noise coordinates and
+   within 2e-5 of the host numpy fBm; config 2 (frame_cube(1024), ridged
+   6, K5); the frame step frame_cube(2048) timed with CUDA events (median
+   of REPS warm calls); config 5 on one card, the 6x8192^2 field as 8
+   strips of 1024 rows, each bitwise equal to K5's plain version on the
+   same rows and to the matching rows of one field_cube(8192); the field
+   kernel launched > 0 times;
+7b. K5 against its plain version bitwise at 6x1024^2 and 6x2048^2, the
+   composed frame (fused=False) within 0.2 m in heights and 1e-3 in shade
+   (tests/test_field_pallas.py's bars), and the kernel, plain and
+   composed frame times at both sizes.
 
 The second-to-last lines are a JSON summary of the kernels (launches from
-phase 5b) and the card's `nvidia-smi --query-gpu=name,power.limit` line;
-the last line is {"ok": true, "device": {...}}.
+phase 5b, and from phase 7 for the field kernel; each kernel's time, its
+plain version's, a library call's where one computes the same function,
+and its bound: the larger of its bytes over the card's memory rate and
+its f32 operations over the card's f32 rate) and the card's
+`nvidia-smi --query-gpu=name,power.limit` line; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -51,6 +68,40 @@ GOLD = ROOT / "tests" / "goldens"
 W_1080, H_1080 = 1920, 1080
 REPS = 7
 DEVICE = "cuda"
+# the field path's sizes: config 1's patch, config 2's cube, the frame
+# step's cube, config 5's cube and its strips of rows
+FIELD_N = dict(config1=256, config2=1024, step=2048, config5=8192)
+CONFIG5_STRIPS = 8
+
+
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# f32 outside the tensor cores, and HBM.
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# f32 operations per element, counted from the kernel bodies in
+# planet_tpu_torch/csrc: each add, subtract, multiply, divide, square root,
+# compare and min/max is one operation (-fmad=false: no FMA). Integer
+# hashing, conversions and the f64 fraction and fade are not counted, so
+# the bound is a floor.
+OPS_SPLIT = 96              # noise.cuh: int24_parts of a point, 3 axes
+OPS_OCTAVE = {"ridged": 92, "fbm": 88}    # noise3 (85) + the octave update
+OPS_OCTAVE_SPLIT = 153      # noise.cuh at lacunarity != 2: df_scale and
+                            # floor_split_parts per octave, 3 axes
+OPS_TILE_TEXEL = 565        # tile.cu: uv (2 df_scale) + 3 x (5 df_add +
+                            # 3 df_mul) + the amplitude
+OPS_FIELD_TEXEL = 176       # field.cu: coordinates, DF sqrt/div/products,
+                            # the amplitude, the normal and the shade
+OPS_CANDIDATE = 15          # raster.cu fragment(): 3 edge functions, tests
+OPS_ACCEPTED = {"span": 41, "huge": 48}   # depth, normal, shade, packing
+
+
+def bound_ms(ops, nbytes):
+    """(least ms, "operations" or "bytes"): the larger of the f32
+    operations over the f32 rate and the bytes over the memory rate."""
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 class SmokeFailure(RuntimeError):
@@ -114,15 +165,19 @@ def main() -> int:
 
     from planet_tpu_torch import _cuda
     from planet_tpu_torch.engine import device_step
-    from planet_tpu_torch.engine.planet import (STAGES, EngineConfig,
-                                                PlanetEngine, cam_mod, mesh)
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.engine.planet import STAGES, PlanetEngine
+    from planet_tpu_torch.geom import camera as cam_mod
     from planet_tpu_torch.geom import quadid
     from planet_tpu_torch.lod import refine as lod_refine
+    from planet_tpu_torch.models import heightfield
     from planet_tpu_torch.nums import df as dfm
-    from planet_tpu_torch.ops.kernels import perlin_cuda, tile_cuda
+    from planet_tpu_torch.ops import perlin_np
+    from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
     from planet_tpu_torch.raster import coverage as cov
     from planet_tpu_torch.raster import coverage_cuda as cc
     from planet_tpu_torch.raster import nearclip
+    from planet_tpu_torch.tess import mesh
 
     dev = torch.device(DEVICE)
 
@@ -195,10 +250,15 @@ def main() -> int:
     p17 = tile_cuda.tiles_plain(ch, cl, octs, lacunarity=1.7, **kw)
     check(torch.equal(k17, p17), "K1 (lacunarity 1.7) != plain (max abs "
           f"err {float((k17 - p17).abs().max())})")
+    octs_np = octs.cpu().numpy().astype(np.int64)
     report["tile"] = dict(
         max_abs_err=max(err1, float((k17 - p17).abs().max())),
         ms=time_ms(lambda: tile_cuda.tiles_cuda(ch, cl, octs, **kw)),
-        plain_ms=time_ms(lambda: tile_cuda.tiles_plain(ch, cl, octs, **kw)))
+        plain_ms=time_ms(lambda: tile_cuda.tiles_plain(ch, cl, octs, **kw)),
+        bound=bound_ms(
+            1024 * float((OPS_TILE_TEXEL + OPS_SPLIT
+                          + OPS_OCTAVE["ridged"] * octs_np).sum()),
+            len(octs_np) * (2 * 12 * 4 + 4 + 1024 * 4)))
     print(f"[3] K1 tiles: 256 tiles x octaves 6-18 bitwise equal "
           f"(lacunarity 2.0 and 1.7); kernel {report['tile']['ms']:.3f} ms, "
           f"plain {report['tile']['plain_ms']:.3f} ms", flush=True)
@@ -237,10 +297,15 @@ def main() -> int:
         err4 = max(err4, e)
         ms = time_ms(lambda: perlin_cuda.noise_cuda(kind, *c4, **kw4))
         plain_ms = time_ms(lambda: perlin_cuda.noise_plain(kind, *c4, **kw4))
+        per_octave = OPS_OCTAVE[kind] + (0 if lac == 2.0 else OPS_OCTAVE_SPLIT)
+        n4 = c4[0].numel()
+        bound4 = bound_ms(n4 * ((OPS_SPLIT if lac == 2.0 else 0)
+                                + octaves * per_octave), n4 * 28)
         print(f"[3] K4 noise, {label}: bitwise equal; kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms", flush=True)
+              f"plain {plain_ms:.3f} ms, bound {bound4[0]:.5f} ms "
+              f"({bound4[1]})", flush=True)
         if "noise" not in report:       # the main path's shape
-            report["noise"] = dict(ms=ms, plain_ms=plain_ms)
+            report["noise"] = dict(ms=ms, plain_ms=plain_ms, bound=bound4)
     report["noise"]["max_abs_err"] = err4
 
     def scene_setup(cfg, cam):
@@ -277,6 +342,21 @@ def main() -> int:
         return lambda: (torch.full((height, width), cov._EMPTY,
                                    dtype=torch.int32, device=dev),)
 
+    def raster_bound(key, recs, width, height):
+        """K2/K3's bound on these records: every candidate pixel of a live
+        record's bbox is tested, every covered pixel took at least one
+        accepted fragment; the records are read and the framebuffer read
+        and written once."""
+        fb = fresh_fb(width, height)()[0]
+        kernel = cc.raster_span_cuda if key == "span" else cc.raster_huge_cuda
+        kernel(recs, fb)
+        r = recs[recs[:, 28] != 0]
+        cand = float(((r[:, 26] - r[:, 24] + 1)
+                      * (r[:, 27] - r[:, 25] + 1)).sum())
+        covered = int((fb != cov._EMPTY).sum())
+        return bound_ms(cand * OPS_CANDIDATE + covered * OPS_ACCEPTED[key],
+                        recs.shape[0] * 128 + 2 * width * height * 4)
+
     # K6 + K2 + K3 at the 1080p scene's shapes
     clip, normal, valid = scene_setup(cfg1080, bench_cam())
     cell_mask = mesh.cell_triangle_mask(cfg1080.patch_verts)
@@ -292,13 +372,21 @@ def main() -> int:
     check(torch.equal(cc.gather_records_cuda(tm, edge_idx),
                       cc.gather_records_plain(tm, edge_idx)),
           "K6 gather != plain on out-of-range indices")
+    # K6's yardstick: one library gather + transpose computes the same
+    # records when every index is in range (the port never calls it)
+    check(torch.equal(tm.index_select(1, span_idx).t().contiguous(), g6),
+          "index_select yardstick != K6")
     report["gather"] = dict(
         max_abs_err=float((g6 - p6).abs().max()) if g6.numel() else 0.0,
         ms=time_ms(lambda: cc.gather_records_cuda(tm, span_idx)),
-        plain_ms=time_ms(lambda: cc.gather_records_plain(tm, span_idx)))
+        plain_ms=time_ms(lambda: cc.gather_records_plain(tm, span_idx)),
+        library_ms=time_ms(
+            lambda: tm.index_select(1, span_idx).t().contiguous()),
+        bound=bound_ms(0, span_idx.numel() * (4 + 128 + 128)))
     print(f"[3] K6 gather: {span_idx.numel()} of {tm.shape[1]} records "
           f"bitwise equal; kernel {report['gather']['ms']:.3f} ms, plain "
-          f"{report['gather']['plain_ms']:.3f} ms", flush=True)
+          f"{report['gather']['plain_ms']:.3f} ms, index_select + transpose "
+          f"{report['gather']['library_ms']:.3f} ms", flush=True)
 
     area = ((g6[:, 26] - g6[:, 24] + 1) * (g6[:, 27] - g6[:, 25] + 1)).cpu()
     area = area.numpy()
@@ -316,7 +404,8 @@ def main() -> int:
         ms=time_ms(lambda fb: cc.raster_span_cuda(g6, fb),
                    fresh_fb(W_1080, H_1080)),
         plain_ms=time_ms(lambda fb: cc.raster_span_plain(g6, fb),
-                         fresh_fb(W_1080, H_1080)))
+                         fresh_fb(W_1080, H_1080)),
+        bound=raster_bound("span", g6, W_1080, H_1080))
     h6 = cc.gather_records_cuda(tm, huge_idx)
     print(f"[3] 1080p scene: {int(live.sum())} live triangles, "
           f"{span_idx.numel()} span, {huge_idx.numel()} huge", flush=True)
@@ -350,6 +439,7 @@ def main() -> int:
                            fresh_fb(800, 600)),
                 plain_ms=time_ms(lambda fb: cc.raster_huge_plain(hrecs, fb),
                                  fresh_fb(800, 600)),
+                bound=raster_bound("huge", hrecs, 800, 600),
                 shape=f"{name} 800x600, {hrecs.shape[0]} records")
     report["span"]["max_abs_err"] = err2
     if h6.shape[0]:
@@ -590,9 +680,141 @@ def main() -> int:
     for k in ("tile", "gather", "span", "huge"):
         check(launches_host[k] > 0, f"kernel {k} was not launched by the "
               "host-orchestrated path")
-    for k, n in launches_dev.items():
-        check(n > 0, f"kernel {k} was not launched by the fused device path")
+    for k in ("tile", "noise", "gather", "span", "huge"):
+        check(launches_dev[k] > 0, f"kernel {k} was not launched by the "
+              "fused device path")
 
+    # ------------------------------------------------------------ phase 7
+    # the cube-sphere field path, its counts from 0 (BASELINE configs 1, 2
+    # and 5; benchmarks/bench_configs.py)
+    radius = cfg800.radius
+    _cuda.reset_launches()
+    # config 1: the flat 256x256 patch, fBm 4 octaves, through K4
+    px, py, pz, xyscale = heightfield.flat_patch_points(
+        FIELD_N["config1"], extent=256.0, device=dev)
+    c1 = heightfield.field_from_padded_points(
+        px, py, pz, xyscale, kind="fbm", octaves=4, gain=0.5, coord_scale=1.0,
+        amplitude=1.0)
+    # config 2: 6 x 1024^2, ridged 6, through K5
+    h2, s2 = heightfield.frame_cube(FIELD_N["config2"], radius, fused=True,
+                                    device=dev)
+    # the frame step, bench.py's frame_step_2048_p50_ms on the port
+    heightfield.frame_cube(FIELD_N["step"], radius, device=dev)
+    step_ms = time_ms(lambda: heightfield.frame_cube(FIELD_N["step"], radius,
+                                                     device=dev))
+    # config 5 on one card: 6 x 8192^2 as 8 strips of 1024 rows, each
+    # against the matching rows of one full cube
+    n5 = FIELD_N["config5"]
+    rows5 = n5 // CONFIG5_STRIPS
+    # (the plain version launches no counted kernel, so holding each strip
+    # against it inside the counted run leaves the counts as they are)
+    full_h, full_s = field_cuda.field_cube(n5, radius, device=dev)
+    strip_s, strips_equal, strips_plain = [], [], []
+    field_err = 0.0
+    for i in range(CONFIG5_STRIPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, s = field_cuda.field_cube_strip(n5, radius, i * rows5, rows5,
+                                           device=dev)
+        torch.cuda.synchronize()
+        strip_s.append(time.perf_counter() - t0)
+        rows = slice(i * rows5, (i + 1) * rows5)
+        strips_equal.append(same_bits(h, full_h[:, rows])
+                            and same_bits(s, full_s[:, rows]))
+        hp, sp = field_cuda.field_plain(n5, radius, i * rows5, rows5,
+                                        device=dev)
+        strips_plain.append(same_bits(h, hp) and same_bits(s, sp))
+        field_err = max(field_err, float((h - hp).abs().max()),
+                        float((s - sp).abs().max()))
+        del h, s, hp, sp
+    finite5 = bool(torch.isfinite(full_h).all() and
+                   torch.isfinite(full_s).all())
+    del full_h, full_s
+    launches_field = dict(_cuda.launches)
+
+    print(f"[7] launches, field path (phase 7): {launches_field}",
+          flush=True)
+    check(launches_field["field"] > 0, "the field path launched no K5")
+    check(launches_field["noise"] > 0, "config 1 launched no K4")
+    pts = [(d[0].double() + d[1].double()).cpu().numpy() for d in (px, py, pz)]
+    want1 = perlin_np.fbm(*pts, octaves=4, gain=np.float32(0.5))[1:-1, 1:-1]
+    err1 = float(np.abs(c1.heights.cpu().numpy() - want1).max())
+    print(f"[7] config 1, flat patch, fBm 4: heights "
+          f"{tuple(c1.heights.shape)}, max |h - host fBm| {err1:.3g} (bar "
+          f"2e-5), shade in [{float(c1.shade.min()):.4f}, "
+          f"{float(c1.shade.max()):.4f}]", flush=True)
+    n1 = FIELD_N["config1"]
+    check(c1.heights.shape == (n1, n1) and c1.shade.shape == (n1, n1),
+          "config 1: shapes")
+    check(bool(torch.isfinite(c1.shade).all()), "config 1: shade finite")
+    check(err1 <= 2e-5, f"config 1: heights off the host fBm by {err1}")
+    # K4 at config 1's own shape against its plain version (not counted)
+    plain1 = perlin_cuda.noise_plain(
+        "fbm", *heightfield.noise_coords(px, py, pz, 1.0), lacunarity=2.0,
+        gain=np.float32(0.5), octaves=4)[1:-1, 1:-1] * np.float32(1.0)
+    e1k = float((c1.heights - plain1).abs().max())
+    print(f"[7] config 1: K4 heights bitwise equal to K4's plain version "
+          f"on the same {n1 + 2}x{n1 + 2} noise coordinates: "
+          f"{same_bits(c1.heights, plain1)} (max abs err {e1k})", flush=True)
+    check(same_bits(c1.heights, plain1),
+          f"config 1: K4 != plain (max abs err {e1k})")
+    report["noise"]["max_abs_err"] = max(report["noise"]["max_abs_err"], e1k)
+    print(f"[7] frame step frame_cube({FIELD_N['step']}), ridged 6, K5: "
+          f"{step_ms:.3f} ms "
+          f"(CUDA events, median of {REPS} warm calls)", flush=True)
+    print(f"[7] config 5, 6 x {n5}^2 as {CONFIG5_STRIPS} strips of "
+          f"{rows5} rows: "
+          f"{sum(strip_s):.4f} s in all (" + ", ".join(
+              f"{t * 1e3:.2f}" for t in strip_s) + " ms); strips equal to "
+          f"the full cube's rows: {strips_equal}; to the plain version's "
+          f"rows: {strips_plain} (max abs err {field_err})", flush=True)
+    check(all(strips_equal), "config 5: a strip differs from the full cube")
+    check(all(strips_plain), f"config 5: a strip differs from the plain "
+          f"version (max abs err {field_err})")
+    check(finite5, "config 5: the 8192 field is not finite")
+
+    # ----------------------------------------------------------- phase 7b
+    # K5 against its plain version and the composed frame (not counted)
+    for n in (FIELD_N["config2"], FIELD_N["step"]):
+        if n == FIELD_N["config2"]:
+            hk, sk = h2, s2
+        else:
+            hk, sk = field_cuda.field_kernel(n, radius, device=dev)
+        hp, sp = field_cuda.field_plain(n, radius, device=dev)
+        hc, sc = heightfield.frame_cube(n, radius, fused=False, device=dev)
+        check(hk.shape == sk.shape == (6, n, n), f"K5 {n}: shapes")
+        check(bool(torch.isfinite(hk).all() and torch.isfinite(sk).all()),
+              f"K5 {n}: not finite")
+        e = max(float((hk - hp).abs().max()), float((sk - sp).abs().max()))
+        check(same_bits(hk, hp) and same_bits(sk, sp),
+              f"K5 {n}: != plain (max abs err {e})")
+        field_err = max(field_err, e)
+        eh = float((hk - hc).abs().max())
+        es = float((sk - sc).abs().max())
+        check(eh <= 0.2 and es <= 1e-3, f"K5 {n}: off the composed frame "
+              f"by {eh} m / {es} in shade")
+        del hk, sk, hp, sp, hc, sc
+        ms = time_ms(lambda: field_cuda.field_kernel(n, radius, device=dev))
+        plain_ms = time_ms(lambda: field_cuda.field_plain(n, radius,
+                                                          device=dev))
+        comp_ms = time_ms(lambda: heightfield.frame_cube(
+            n, radius, fused=False, device=dev))
+        texels = 6 * n * n
+        report["field"] = dict(ms=ms, plain_ms=plain_ms, bound=bound_ms(
+            texels * (OPS_FIELD_TEXEL + OPS_SPLIT + 6 * OPS_OCTAVE["ridged"]),
+            texels * 8))
+        print(f"[7b] K5 field 6x{n}^2: bitwise equal to plain; composed "
+              f"frame within {eh:.4g} m / {es:.3g}; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, composed frame {comp_ms:.3f} ms, "
+              f"bound {report['field']['bound'][0]:.4f} ms "
+              f"({report['field']['bound'][1]})", flush=True)
+    report["field"]["max_abs_err"] = field_err
+    del h2, s2
+
+    check(not any(m == "jax" or m.startswith(("jax.", "planet_tpu."))
+                  or m == "planet_tpu" for m in sys.modules),
+          "jax or planet_tpu was imported")
+    launches = dict(launches_dev, field=launches_field["field"])
     replaces = {
         "tile": ("planet_tpu_torch/csrc/tile.cu",
                  "planet_tpu/ops/kernels/tile_pallas.py:66"),
@@ -604,11 +826,16 @@ def main() -> int:
                  "planet_tpu/raster/coverage_pallas.py:271"),
         "gather": ("planet_tpu_torch/csrc/raster.cu",
                    "planet_tpu/raster/coverage_pallas.py:471"),
+        "field": ("planet_tpu_torch/csrc/field.cu",
+                  "planet_tpu/ops/kernels/field_pallas.py:149"),
     }
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=launches_dev[k],
+                    launches=launches[k],
                     max_abs_err=report[k]["max_abs_err"],
-                    ms=report[k]["ms"], plain_ms=report[k]["plain_ms"])
+                    ms=report[k]["ms"], plain_ms=report[k]["plain_ms"],
+                    bound_ms=report[k]["bound"][0],
+                    bound_by=report[k]["bound"][1],
+                    library_ms=report[k].get("library_ms"))
                for k, (src, rep) in replaces.items()]
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

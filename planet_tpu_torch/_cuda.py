@@ -42,7 +42,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-SOURCES = ("tile.cu", "raster.cu", "perlin.cu")
+SOURCES = ("tile.cu", "raster.cu", "perlin.cu", "field.cu")
 HEADERS = ("noise.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
@@ -58,10 +58,13 @@ _SIGNATURES = {
     "planet_raster_huge": (_P, _I, _P, _I, _I, _I, _P),
     "planet_noise": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _F, _P),
+    "planet_field": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                     _F, _F, _F, _F, _F, _F, _P),
 }
 
 # kernel name -> launches so far (reset with reset_launches)
-launches = {"tile": 0, "noise": 0, "gather": 0, "span": 0, "huge": 0}
+launches = {"tile": 0, "noise": 0, "gather": 0, "span": 0, "huge": 0,
+            "field": 0}
 
 _lib = None
 build_info: dict = {}

@@ -46,11 +46,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from planet_tpu.engine.config import EngineConfig
-from planet_tpu.geom import cubesphere
-from planet_tpu.tess import mesh
 from planet_tpu_torch import _cuda
 from planet_tpu_torch.cache import device_pool as dp
+from planet_tpu_torch.engine.config import EngineConfig
+from planet_tpu_torch.geom import cubesphere
 from planet_tpu_torch.geom import quadid
 from planet_tpu_torch.lod import refine_device
 from planet_tpu_torch.nums import df as dfm
@@ -58,6 +57,7 @@ from planet_tpu_torch.ops.kernels import tile_cuda
 from planet_tpu_torch.ops.kernels.perlin_cuda import MAX_OCTAVES
 from planet_tpu_torch.raster import coverage_cuda
 from planet_tpu_torch.raster import shade as shade_mod
+from planet_tpu_torch.tess import mesh
 from planet_tpu_torch.tess import vertex
 
 _I32 = torch.int32
@@ -295,7 +295,7 @@ class DeviceRenderer:
     replay, so the counts mean "launched on the card".
 
     fetch="u8" quantizes the image on the device exactly as
-    planet_tpu.io.png.write_png does (clip, * 255 + 0.5, truncate);
+    io/png.write_png does (clip, * 255 + 0.5, truncate);
     preview=k > 1 (u8 only) adds a [::k, ::k] subsampled image."""
 
     def __init__(self, cfg: EngineConfig, width: int, height: int, *,

@@ -32,16 +32,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from planet_tpu.engine.config import EngineConfig
-from planet_tpu.geom import camera as cam_mod
-from planet_tpu.tess import mesh
 from planet_tpu_torch.cache.tile_pool import TilePool
+from planet_tpu_torch.engine.config import EngineConfig
+from planet_tpu_torch.geom import camera as cam_mod
 from planet_tpu_torch.lod import refine as lod_refine
 from planet_tpu_torch.nums import df as dfm
 from planet_tpu_torch.ops.kernels import tile_cuda
 from planet_tpu_torch.ops.kernels.perlin_cuda import MAX_OCTAVES
 from planet_tpu_torch.raster import coverage_cuda
 from planet_tpu_torch.raster import shade as shade_mod
+from planet_tpu_torch.tess import mesh
 from planet_tpu_torch.tess import vertex
 
 STAGES = ("refine", "resolve", "generate", "tessellate", "raster")

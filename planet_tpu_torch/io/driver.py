@@ -20,9 +20,9 @@ import os
 import numpy as np
 import torch
 
-from planet_tpu.engine.config import EngineConfig
-from planet_tpu.io import checkpoint, png
+from planet_tpu_torch.engine.config import EngineConfig
 from planet_tpu_torch.engine.planet import STAGES, PlanetEngine
+from planet_tpu_torch.io import checkpoint, png
 
 
 def main(argv=None):

@@ -1,8 +1,8 @@
 """Host-side quadtree LOD refinement (reference ProcessQuad, main.cpp:537-598).
 
 This is planet_tpu.lod.refine unchanged (numpy f64 on the host, probe memo
-included); the port carries its own copy only because planet_tpu's quadid
-module imports jax.
+included), carried as the port's own copy: the port imports nothing of
+planet_tpu.
 
 The reference recursively splits a quad when any of 5 displaced probe points
 (4 corners + sphere-projected midpoint, heights from the 6-octave terrain)
@@ -30,8 +30,8 @@ import dataclasses
 
 import numpy as np
 
-from planet_tpu.ops import perlin_np
-from planet_tpu_torch.geom import quadid
+from planet_tpu_torch.geom import cubesphere, quadid
+from planet_tpu_torch.ops import perlin_np
 
 RADIUS_DEFAULT = 6371000.0
 
@@ -51,7 +51,6 @@ def _normalize_rows(v):
 
 
 def _root_frontier(radius):
-    from planet_tpu.geom import cubesphere
     corners = cubesphere.root_corners(radius)          # (6, 4, 3)
     ids = np.array([quadid.make_root(f) for f in range(6)], np.uint64)
     return ids, corners

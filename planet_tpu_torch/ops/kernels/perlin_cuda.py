@@ -21,9 +21,9 @@ import functools
 import numpy as np
 import torch
 
-from planet_tpu.ops.tables import PERLIN_TABLE
 from planet_tpu_torch import _cuda
 from planet_tpu_torch.ops import perlin
+from planet_tpu_torch.ops.tables import PERLIN_TABLE
 
 MAX_OCTAVES = 24          # int24 octave shifts and the kernels' freq table
 

@@ -39,8 +39,8 @@ import functools
 import numpy as np
 import torch
 
-from planet_tpu.ops.tables import PERLIN_TABLE, PERLIN_VECTORS
 from planet_tpu_torch.nums import df as dfm
+from planet_tpu_torch.ops.tables import PERLIN_TABLE, PERLIN_VECTORS
 
 
 def packed_sign_table() -> np.ndarray:

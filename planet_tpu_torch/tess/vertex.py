@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from planet_tpu.tess import mesh
+from planet_tpu_torch.tess import mesh
 
 # full-f32 matrix products on the card (see the module docstring)
 torch.backends.cuda.matmul.allow_tf32 = False

@@ -21,10 +21,10 @@ import torch
 import jax.numpy as jnp
 
 from planet_tpu.cache import device_pool as jdp
-from planet_tpu.engine.config import EngineConfig
 from planet_tpu.geom import quadid as jq
 from planet_tpu_torch.cache import device_pool as tdp
 from planet_tpu_torch.cache.tile_pool import TilePool
+from planet_tpu_torch.engine.config import EngineConfig
 from planet_tpu_torch.geom import quadid as tq
 from planet_tpu_torch.lod import refine as lod_refine
 

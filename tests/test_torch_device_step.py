@@ -24,12 +24,12 @@ import numpy as np
 import pytest
 import torch
 
-from planet_tpu.engine.config import EngineConfig
-from planet_tpu.geom import camera as cam_mod
 from planet_tpu_torch.cache import device_pool as tdp
 from planet_tpu_torch.cache.tile_pool import TilePool
 from planet_tpu_torch.engine import device_step
+from planet_tpu_torch.engine.config import EngineConfig
 from planet_tpu_torch.engine.planet import PlanetEngine
+from planet_tpu_torch.geom import camera as cam_mod
 from planet_tpu_torch.geom import quadid as tq
 from planet_tpu_torch.lod import refine as lod_refine
 from planet_tpu_torch.nums import df as tdf

@@ -18,17 +18,19 @@ import pytest
 import torch
 
 from planet_tpu.cache.tile_pool import TilePool as JTilePool
-from planet_tpu.engine.config import EngineConfig
+from planet_tpu.engine.config import EngineConfig as JEngineConfig
 from planet_tpu.engine.planet import PlanetEngine as JEngine
-from planet_tpu.geom import camera as cam_mod
 from planet_tpu.geom import quadid
 from planet_tpu.raster.shade import lambert as jlambert
 from planet_tpu_torch.cache.tile_pool import TilePool
+from planet_tpu_torch.engine.config import EngineConfig
 from planet_tpu_torch.engine.planet import PlanetEngine
+from planet_tpu_torch.geom import camera as cam_mod
 
 torch.set_num_threads(1)
 GOLD = "tests/goldens/"
-CFG = EngineConfig(use_pallas=False)
+CFG = EngineConfig()
+JCFG = JEngineConfig(use_pallas=False)     # planet_tpu's XLA noise path
 AMP = np.float32(CFG.amplitude)
 EMPTY = 2**31 - 1
 W, H = 160, 120
@@ -80,7 +82,7 @@ def _assert_raster_bars(got, want):
 @pytest.fixture(scope="module")
 def runs():
     cam = _camera(FAR)
-    jeng = JEngine(CFG)
+    jeng = JEngine(JCFG)
     j1 = jeng.frame(cam)
     jtiles1 = np.asarray(jeng.pool.tiles)
     j2 = jeng.frame(cam)
@@ -182,7 +184,7 @@ def test_zero_budget_uses_parent_crop():
     a closer camera splits quads, and with a zero budget the children crop
     their parents' tiles. planet_tpu's TilePool, driven with the same leaf
     lists, must end in the same state and make the same plan."""
-    cfg = EngineConfig(use_pallas=False, generations_per_frame=0)
+    cfg = EngineConfig(generations_per_frame=0)
     eng = PlanetEngine(cfg, device="cpu")
     jpool = JTilePool(capacity=cfg.cache_capacity, dim=cfg.tile_dim)
     f1 = eng.frame(_camera(FAR))

@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from planet_tpu.engine.config import EngineConfig
-from planet_tpu.geom import camera as cam_mod
+from planet_tpu_torch.engine.config import EngineConfig
 from planet_tpu_torch.engine.planet import PlanetEngine
+from planet_tpu_torch.geom import camera as cam_mod
 from tests.test_golden_frame import _ssim
 
 torch.set_num_threads(1)

@@ -4,23 +4,25 @@ no CUDA device. On a machine with one:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
 
-Bars: K1 tiles, K4 noise and K6 record gather bitwise; K2 span and K3
-huge raster with identical coverage and packed depth/shade within 1
-quantum (they are built with -fmad=false and IEEE division/sqrt, so
-equality is expected); one CUDA-graph replay of the fused frame's
-geometry step bitwise equal to the same step run eagerly on the card."""
+Bars: K1 tiles, K4 noise, K5 field and K6 record gather bitwise; K2 span
+and K3 huge raster with identical coverage and packed depth/shade within
+1 quantum (they are built with -fmad=false and IEEE division/sqrt, so
+equality is expected); K5's row strips equal to the full cube's rows; one
+CUDA-graph replay of the fused frame's geometry step bitwise equal to the
+same step run eagerly on the card."""
 
 import numpy as np
 import pytest
 import torch
 
-from planet_tpu.engine.config import EngineConfig
-from planet_tpu.geom import camera as cam_mod
 from planet_tpu_torch import _cuda
 from planet_tpu_torch.engine import device_step
+from planet_tpu_torch.engine.config import EngineConfig
 from planet_tpu_torch.engine.planet import PlanetEngine
+from planet_tpu_torch.geom import camera as cam_mod
 from planet_tpu_torch.nums import df as tdf
-from planet_tpu_torch.ops.kernels import perlin_cuda, tile_cuda
+from planet_tpu_torch.models import heightfield
+from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
 from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import coverage_cuda as tcc
 from torch_scenes import SCREEN, VIEW, screen_scene, view_scene
@@ -173,3 +175,29 @@ def _same_bits(a, b):
     if a.dtype == b.dtype and a.dtype.is_floating_point:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind,lacunarity,octaves", [
+    ("ridged", 2.0, 6), ("fbm", 1.7, 5)])
+def test_field_kernel_bitwise(dev, kind, lacunarity, octaves):
+    kw = dict(kind=kind, lacunarity=lacunarity, octaves=octaves)
+    before = _cuda.launches["field"]
+    got = field_cuda.field_cube(256, 6.371e6, device=dev, **kw)
+    assert _cuda.launches["field"] == before + 1
+    want = field_cuda.field_plain(256, 6.371e6, device=dev, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == (6, 256, 256)
+        assert torch.equal(g, w), float((g - w).abs().max())
+
+
+def test_field_strips_match_full_cube_on_card(dev):
+    h_full, s_full = heightfield.frame_cube(256, 6.371e6, device=dev)
+    for row0, rows in ((0, 64), (64, 64), (192, 64), (100, 37)):
+        before = _cuda.launches["field"]
+        h, s = field_cuda.field_cube_strip(256, 6.371e6, row0, rows,
+                                           device=dev)
+        assert _cuda.launches["field"] == before + 1
+        assert torch.equal(h, h_full[:, row0:row0 + rows])
+        assert torch.equal(s, s_full[:, row0:row0 + rows])
+        hp, sp = field_cuda.field_plain(256, 6.371e6, row0, rows, device=dev)
+        assert torch.equal(h, hp) and torch.equal(s, sp)

@@ -15,12 +15,12 @@ import torch
 
 import jax.numpy as jnp
 
-from planet_tpu.geom import camera as cam_mod
 from planet_tpu.raster import coverage as jcov
-from planet_tpu.tess import mesh
+from planet_tpu_torch.geom import camera as cam_mod
 from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import coverage_cuda as tcc
 from planet_tpu_torch.raster import nearclip as tnc
+from planet_tpu_torch.tess import mesh
 from torch_scenes import SCREEN, VIEW, screen_scene, view_scene
 
 torch.set_num_threads(1)

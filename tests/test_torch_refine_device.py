@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from planet_tpu.geom import cubesphere
 from planet_tpu.geom import quadid as jq
 from planet_tpu.lod import refine_device as jrd
+from planet_tpu_torch.geom import cubesphere
 from planet_tpu_torch.geom import quadid as tq
 from planet_tpu_torch.lod import refine as host
 from planet_tpu_torch.lod import refine_device as trd

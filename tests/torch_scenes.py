@@ -3,7 +3,7 @@ so the GPU tests run where JAX is not installed)."""
 
 import numpy as np
 
-from planet_tpu.geom import camera as cam_mod
+from planet_tpu_torch.geom import camera as cam_mod
 
 F = np.float32
 
