@@ -42,10 +42,22 @@ result line is printed:
 7b. K5 against its plain version bitwise at 6x1024^2 and 6x2048^2, the
    composed frame (fused=False) within 0.2 m in heights and 1e-3 in shade
    (tests/test_field_pallas.py's bars), and the kernel, plain and
-   composed frame times at both sizes.
+   composed frame times at both sizes;
+8. the kernel-attribution tools (planet_tpu_torch/tools, the T rows),
+   counts reset before and read after: noise_stages (t_noise, t_tile),
+   lut (t_lut) and span_parts (t_span) at the tools' own sizes, every
+   variant against its plain version (bitwise; full span at K2's bar,
+   the block-vectorized span also equal to full), full noise equal to K4
+   and full tile equal to K1 on the same inputs, each variant's time, and
+   each t_* kernel launched > 0 times; then K1-K6 (and K6's yardstick)
+   again at their phase-3 (and K5 at its 7b) shapes with the tools' queued
+   timer
+   (tools/common.time_calls: calls queued behind a spin kernel, so a short
+   kernel's time holds no host launch time).
 
 The second-to-last lines are a JSON summary of the kernels (launches from
-phase 5b, and from phase 7 for the field kernel; each kernel's time, its
+phase 5b, from phase 7 for the field kernel and from phase 8 for the t_*
+kernels, which also carry each variant's ms; each kernel's time, its
 plain version's, a library call's where one computes the same function,
 and its bound: the larger of its bytes over the card's memory rate and
 its f32 operations over the card's f32 rate) and the card's
@@ -240,6 +252,7 @@ def main() -> int:
     octs = torch.as_tensor(6 + np.arange(256, dtype=np.int32) % 13,
                            device=dev)
     kw = dict(kind="ridged", gain=cfg1080.gain, amplitude=cfg1080.amplitude)
+    k1_args = (ch, cl, octs)
     k1 = tile_cuda.tiles_cuda(ch, cl, octs, lacunarity=2.0, **kw)
     p1 = tile_cuda.tiles_plain(ch, cl, octs, lacunarity=2.0, **kw)
     torch.cuda.synchronize()
@@ -363,6 +376,7 @@ def main() -> int:
     tm, live, span = cov.setup_t(clip, normal, valid, W_1080, H_1080,
                                  cell_mask, far_w=cfg1080.far_plane)
     span_idx, huge_idx = cc.route(tm, live, span)
+    tm1080 = tm
     g6 = cc.gather_records_cuda(tm, span_idx)
     p6 = cc.gather_records_plain(tm, span_idx)
     check(torch.equal(g6, p6), "K6 gather != plain")
@@ -811,10 +825,100 @@ def main() -> int:
     report["field"]["max_abs_err"] = field_err
     del h2, s2
 
+    # ------------------------------------------------------------ phase 8
+    # the kernel-attribution tools, their counts from 0
+    from planet_tpu_torch.tools import common as tool_common
+    from planet_tpu_torch.tools import lut as t_lut
+    from planet_tpu_torch.tools import noise_stages, span_parts
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res_noise = noise_stages.bench(DEVICE, reps=REPS)
+    res_lut = t_lut.bench(DEVICE, reps=REPS)
+    res_span = span_parts.bench(DEVICE, reps=REPS)
+    launches_tools = dict(_cuda.launches)
+    print(f"[8] tools ran in {time.perf_counter() - t0:.1f} s; launches "
+          f"(phase 8): {launches_tools}", flush=True)
+    tool_rows = {"t_noise": res_noise["t_noise"],
+                 "t_tile": res_noise["t_tile"], "t_lut": res_lut["rows"],
+                 "t_span": res_span["rows"]}
+    for key, unit in (("t_noise", "Gpoint/s"), ("t_tile", "Gtexel/s"),
+                      ("t_lut", "Glookup/s"), ("t_span", "ns/record")):
+        for r in tool_rows[key]:
+            plain = (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r
+                     else "")
+            print(f"[8] {key} {r['name']:24s} {r['ms']:9.4f} ms  "
+                  f"{r['rate']:9.3f} {unit}  bound {r['bound'][0]:.5f} ms "
+                  f"({r['bound'][1]}){plain}  equal to plain {r['equal']} "
+                  f"(max abs err {r['max_abs_err']:g})", flush=True)
+            check(r["equal"], f"{key} {r['name']} != its plain version")
+        check(launches_tools[key] > 0, f"phase 8 launched no {key} kernel")
+    # full noise and full tile against K4 and K1 on the same inputs
+    coords = res_noise["inputs"]["coords"]
+    k4 = perlin_cuda.noise_cuda("ridged", *coords, octaves=6,
+                                gain=np.float32(0.55))
+    check(same_bits(noise_stages.noise_stage("full", coords), k4),
+          "t_noise full != K4 on the same points")
+    ch, cl = res_noise["inputs"]["corners"]
+    k1 = tile_cuda.tiles_cuda(
+        ch, cl, torch.full((ch.shape[0],), 6, dtype=torch.int32, device=dev),
+        kind="ridged", gain=0.55, amplitude=8848.0)
+    check(same_bits(noise_stages.tile_stage("full", ch, cl), k1),
+          "t_tile full != K1 on the same corners")
+    print(f"[8] t_noise full bitwise equal to K4 on {coords[0].numel()} "
+          f"points; t_tile full bitwise equal to K1 on {ch.shape[0]} tiles; "
+          f"torch.take {res_lut['library_ms']:.4f} ms; span full 14x8, "
+          f"{res_span['headline']['records']} records: "
+          f"{res_span['headline']['ms']:.4f} ms, plain "
+          f"{res_span['headline']['plain_ms']:.4f} ms", flush=True)
+    del coords, k4, ch, cl, k1
+    # the main path's kernels at their phase-3 shapes again, queued behind
+    # a spin kernel (tools/common.time_calls): phase 3 times one launch
+    # between two events, which for a short kernel also holds the host's
+    # launch time
+    probe, sphere = noise_inputs(probe_pts), noise_inputs(big)
+    radius8 = cfg800.radius
+    for label, fn, setup in (
+            ("K1 tile, 256 tiles x octaves 6-18",
+             lambda: tile_cuda.tiles_cuda(*k1_args, **kw), tuple),
+            ("K4 noise, refine probes 5x4096, ridged 6",
+             lambda: perlin_cuda.noise_cuda("ridged", *probe, octaves=6,
+                                            gain=cfg1080.gain), tuple),
+            ("K4 noise, 2^20 points, ridged 18",
+             lambda: perlin_cuda.noise_cuda("ridged", *sphere, octaves=18,
+                                            gain=cfg1080.gain), tuple),
+            ("K6 gather, 1080p", lambda: cc.gather_records_cuda(
+                tm1080, span_idx), tuple),
+            ("K6's yardstick, index_select + transpose, 1080p",
+             lambda: tm1080.index_select(1, span_idx).t().contiguous(),
+             tuple),
+            ("K2 span, 1080p", lambda fb: cc.raster_span_cuda(g6, fb),
+             fresh_fb(W_1080, H_1080)),
+            (f"K3 huge, {report['huge']['shape']}",
+             lambda fb: cc.raster_huge_cuda(hrecs, fb), fresh_fb(800, 600)),
+            (f"K5 field 6x{FIELD_N['step']}^2",
+             lambda: field_cuda.field_kernel(FIELD_N["step"], radius8,
+                                             device=dev), tuple)):
+        ms = tool_common.time_ms(fn, setup, reps=REPS)
+        print(f"[8] queued timing, {label}: {ms:.4f} ms (median of {REPS}; "
+              f"phase 3/7b's single-launch timing is in the kernels line)",
+              flush=True)
+    del probe, sphere
+    for key, head in (("t_noise", "full"), ("t_tile", "full"),
+                      ("t_lut", t_lut.HEADLINE)):
+        row = next(r for r in tool_rows[key] if r["name"] == head)
+        report[key] = dict(ms=row["ms"], plain_ms=row["plain_ms"],
+                           bound=row["bound"])
+    report["t_lut"]["library_ms"] = res_lut["library_ms"]
+    report["t_span"] = dict(res_span["headline"])
+    for key, rows in tool_rows.items():
+        report[key]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        report[key]["variants"] = {r["name"]: r["ms"] for r in rows}
+
     check(not any(m == "jax" or m.startswith(("jax.", "planet_tpu."))
                   or m == "planet_tpu" for m in sys.modules),
           "jax or planet_tpu was imported")
-    launches = dict(launches_dev, field=launches_field["field"])
+    launches = dict(launches_dev, field=launches_field["field"],
+                    **{k: launches_tools[k] for k in tool_rows})
     replaces = {
         "tile": ("planet_tpu_torch/csrc/tile.cu",
                  "planet_tpu/ops/kernels/tile_pallas.py:66"),
@@ -828,15 +932,25 @@ def main() -> int:
                    "planet_tpu/raster/coverage_pallas.py:471"),
         "field": ("planet_tpu_torch/csrc/field.cu",
                   "planet_tpu/ops/kernels/field_pallas.py:149"),
+        "t_noise": ("planet_tpu_torch/csrc/bench_noise.cu",
+                    noise_stages.REPLACES["t_noise"]),
+        "t_tile": ("planet_tpu_torch/csrc/bench_noise.cu",
+                   noise_stages.REPLACES["t_tile"]),
+        "t_lut": ("planet_tpu_torch/csrc/bench_lut.cu",
+                  t_lut.REPLACES["T3"]),
+        "t_span": ("planet_tpu_torch/csrc/bench_span.cu",
+                   span_parts.REPLACES["T9"]),
     }
-    kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=launches[k],
-                    max_abs_err=report[k]["max_abs_err"],
-                    ms=report[k]["ms"], plain_ms=report[k]["plain_ms"],
-                    bound_ms=report[k]["bound"][0],
-                    bound_by=report[k]["bound"][1],
-                    library_ms=report[k].get("library_ms"))
-               for k, (src, rep) in replaces.items()]
+    kernels = []
+    for k, (src, rep) in replaces.items():
+        kernels.append(dict(
+            name=k, route="cuda", source=src, replaces=rep,
+            launches=launches[k], max_abs_err=report[k]["max_abs_err"],
+            ms=report[k]["ms"], plain_ms=report[k]["plain_ms"],
+            bound_ms=report[k]["bound"][0], bound_by=report[k]["bound"][1],
+            library_ms=report[k].get("library_ms")))
+        if "variants" in report[k]:
+            kernels[-1]["variants"] = report[k]["variants"]
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

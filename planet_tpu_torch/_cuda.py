@@ -42,8 +42,9 @@ _PKG = pathlib.Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-SOURCES = ("tile.cu", "raster.cu", "perlin.cu", "field.cu")
-HEADERS = ("noise.cuh",)
+SOURCES = ("tile.cu", "raster.cu", "perlin.cu", "field.cu", "bench_noise.cu",
+           "bench_lut.cu", "bench_span.cu")
+HEADERS = ("noise.cuh", "tile_blend.cuh", "fragment.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -60,11 +61,17 @@ _SIGNATURES = {
                      _F, _P),
     "planet_field": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                      _F, _F, _F, _F, _F, _F, _P),
+    # the kernel-attribution tools (planet_tpu_torch/tools)
+    "planet_t_noise": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                       _P),
+    "planet_t_tile": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
+    "planet_t_lut": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "planet_t_span": (_I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
 }
 
 # kernel name -> launches so far (reset with reset_launches)
 launches = {"tile": 0, "noise": 0, "gather": 0, "span": 0, "huge": 0,
-            "field": 0}
+            "field": 0, "t_noise": 0, "t_tile": 0, "t_lut": 0, "t_span": 0}
 
 _lib = None
 build_info: dict = {}

@@ -10,7 +10,9 @@
 // or fBm gradient noise (N from the tile's own octave count), times the
 // amplitude. The noise itself (the int24 or per-octave DF split, the
 // reference-precision fraction and fade, the ridged/fBm octave loop) is
-// the shared core in noise.cuh, which K4 (perlin.cu) runs too.
+// the shared core in noise.cuh, which K4 (perlin.cu) runs too; the uv and
+// the blend are tile_blend.cuh, which the stage split (bench_noise.cu)
+// runs too.
 //
 // What bounds it on the H100: arithmetic and shared-memory lookups, not
 // bytes. A texel-octave is ~300 f32/int operations (24 table reads from
@@ -30,7 +32,7 @@
 // Bit-exactness: see noise.cuh (-fmad=false, no fast-math, the plain
 // version's op order).
 
-#include "noise.cuh"
+#include "tile_blend.cuh"
 
 namespace {
 
@@ -55,26 +57,10 @@ tiles_kernel(const float* __restrict__ corners_hi,
   if (texel >= dim * dim) return;
   const int x = texel % dim, y = texel / dim;
 
-  float uh, ul, vh, vl;
-  df_scale((float)(x - 1), 0.0f, div_hi, div_lo, false, uh, ul);
-  df_scale((float)(y - 1), 0.0f, div_hi, div_lo, false, vh, vl);
-
-  const float* ch = corners_hi + (size_t)tile * 12;
-  const float* cl = corners_lo + (size_t)tile * 12;
-  float ph[3], pl[3];
-  for (int k = 0; k < 3; ++k) {
-    float v0h, v0l, v1h, v1l, t0h, t0l, ah, al, t1h, t1l, bh, bl, dvh, dvl,
-        t2h, t2l;
-    df_add(ch[3 + k], cl[3 + k], -ch[k], -cl[k], v0h, v0l);
-    df_add(ch[9 + k], cl[9 + k], -ch[6 + k], -cl[6 + k], v1h, v1l);
-    df_mul(v0h, v0l, uh, ul, t0h, t0l);
-    df_add(ch[k], cl[k], t0h, t0l, ah, al);
-    df_mul(v1h, v1l, uh, ul, t1h, t1l);
-    df_add(ch[6 + k], cl[6 + k], t1h, t1l, bh, bl);
-    df_add(bh, bl, -ah, -al, dvh, dvl);
-    df_mul(dvh, dvl, vh, vl, t2h, t2l);
-    df_add(ah, al, t2h, t2l, ph[k], pl[k]);
-  }
+  float uh, ul, vh, vl, ph[3], pl[3];
+  tile_uv(x, y, div_hi, div_lo, uh, ul, vh, vl);
+  tile_blend(corners_hi + (size_t)tile * 12, corners_lo + (size_t)tile * 12,
+             uh, ul, vh, vl, ph, pl);
 
   const int count = min(octaves[tile], kMaxOctaves);
   const float value = accumulate_octaves(perm, sign, freq, count, ridged != 0,

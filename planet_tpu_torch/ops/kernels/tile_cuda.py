@@ -76,25 +76,37 @@ def tiles_plain(corners_hi, corners_lo, octaves, *, kind="ridged",
     _check_meta(corners_hi, corners_lo, octaves, kind, lacunarity)
     if octaves.numel() and int(octaves.max()) > MAX_OCTAVES:
         raise ValueError(f"octave counts above {MAX_OCTAVES} unsupported")
-    dev = corners_hi.device
-    uh, ul = _uv_df(dim, dev)
-    uh_x, ul_x = uh[None, None, :], ul[None, None, :]     # u along x
-    vh_y, vl_y = uh[None, :, None], ul[None, :, None]     # v along y
+    value = perlin.accumulate_octaves(
+        kind, octaves.to(torch.int64)[:, None, None], lacunarity, gain,
+        *tile_coords(corners_hi, corners_lo, dim))
+    return value * float(np.float32(amplitude))
+
+
+def tile_uv(dim: int, device):
+    """((uh, ul) along x as (1, 1, dim), (vh, vl) along y as (1, dim, 1)):
+    the overscan uv of every texel (csrc/tile_blend.cuh tile_uv)."""
+    uh, ul = _uv_df(dim, device)
+    return ((uh[None, None, :], ul[None, None, :]),
+            (uh[None, :, None], ul[None, :, None]))
+
+
+def tile_coords(corners_hi, corners_lo, dim: int = 32):
+    """The six (N, dim, dim) double-float noise coordinates (xh, xl, yh,
+    yl, zh, zl) of every texel: the corner blend at the overscan uv
+    (csrc/tile_blend.cuh tile_blend)."""
+    u, v = tile_uv(dim, corners_hi.device)
+    shape = (corners_hi.shape[0], dim, dim)
     coords = []
     for k in range(3):
         def c(j, t):
             return t[:, j, k][:, None, None]
         p0, p1, p2, p3 = ((c(j, corners_hi), c(j, corners_lo))
                           for j in range(4))
-        a = dfm.add(p0, dfm.mul(dfm.sub(p1, p0), (uh_x, ul_x)))
-        b = dfm.add(p2, dfm.mul(dfm.sub(p3, p2), (uh_x, ul_x)))
-        ph, plo = dfm.add(a, dfm.mul(dfm.sub(b, a), (vh_y, vl_y)))
-        shape = (corners_hi.shape[0], dim, dim)
+        a = dfm.add(p0, dfm.mul(dfm.sub(p1, p0), u))
+        b = dfm.add(p2, dfm.mul(dfm.sub(p3, p2), u))
+        ph, plo = dfm.add(a, dfm.mul(dfm.sub(b, a), v))
         coords += [ph.expand(shape), plo.expand(shape)]
-    value = perlin.accumulate_octaves(
-        kind, octaves.to(torch.int64)[:, None, None], lacunarity, gain,
-        *coords)
-    return value * float(np.float32(amplitude))
+    return coords
 
 
 def tiles_cuda(corners_hi, corners_lo, octaves, *, kind="ridged",

@@ -9,7 +9,9 @@ and K3 huge raster with identical coverage and packed depth/shade within
 1 quantum (they are built with -fmad=false and IEEE division/sqrt, so
 equality is expected); K5's row strips equal to the full cube's rows; one
 CUDA-graph replay of the fused frame's geometry step bitwise equal to the
-same step run eagerly on the card."""
+same step run eagerly on the card; every variant of the attribution tools
+(planet_tpu_torch/tools: t_noise, t_tile, t_lut, t_span) bitwise equal to
+its plain version, full noise equal to K4, full tile equal to K1."""
 
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from planet_tpu_torch.models import heightfield
 from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
 from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import coverage_cuda as tcc
+from planet_tpu_torch.tools import lut, noise_stages, span_parts
 from torch_scenes import SCREEN, VIEW, screen_scene, view_scene
 
 pytestmark = pytest.mark.gpu
@@ -201,3 +204,62 @@ def test_field_strips_match_full_cube_on_card(dev):
         assert torch.equal(s, s_full[:, row0:row0 + rows])
         hp, sp = field_cuda.field_plain(256, 6.371e6, row0, rows, device=dev)
         assert torch.equal(h, hp) and torch.equal(s, sp)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("variant", noise_stages.NOISE_VARIANTS)
+def test_t_noise_kernel_bitwise(dev, variant):
+    coords = noise_stages.noise_inputs(1 << 14, dev)
+    before = _cuda.launches["t_noise"]
+    got = noise_stages.noise_stage(variant, coords)
+    assert _cuda.launches["t_noise"] == before + 1
+    want = noise_stages.noise_plain(variant, coords)
+    assert torch.equal(_bits(got), _bits(want)), \
+        float((got - want).abs().max())
+    if variant == "full":
+        k4 = perlin_cuda.noise_cuda("ridged", *coords, octaves=6, gain=0.55)
+        assert torch.equal(_bits(got), _bits(k4))
+
+
+@pytest.mark.parametrize("variant", noise_stages.TILE_VARIANTS)
+def test_t_tile_kernel_bitwise(dev, variant):
+    ch, cl = noise_stages.tile_inputs(64, dev)
+    before = _cuda.launches["t_tile"]
+    got = noise_stages.tile_stage(variant, ch, cl)
+    assert _cuda.launches["t_tile"] == before + 1
+    want = noise_stages.tile_plain(variant, ch, cl)
+    assert torch.equal(_bits(got), _bits(want)), \
+        float((got - want).abs().max())
+    if variant == "full":
+        octs = torch.full((64,), 6, dtype=torch.int32, device=dev)
+        k1 = tile_cuda.tiles_cuda(ch, cl, octs, kind="ridged", gain=0.55,
+                                  amplitude=8848.0)
+        assert torch.equal(_bits(got), _bits(k1))
+
+
+@pytest.mark.parametrize("name", list(lut.VARIANTS))
+def test_t_lut_kernel_bitwise(dev, name):
+    v = lut.VARIANTS[name]
+    idx, table = lut.operands(name, lut.make_inputs(v.inputs, 5000, dev))
+    before = _cuda.launches["t_lut"]
+    got = lut.lookup(name, idx, table)
+    assert _cuda.launches["t_lut"] == before + 1
+    assert torch.equal(_bits(got), _bits(lut.lookup_plain(name, idx, table)))
+
+
+@pytest.mark.parametrize("name", list(span_parts.VARIANTS))
+@pytest.mark.parametrize("winh", [8, 16])
+def test_t_span_kernel_bitwise(dev, name, winh):
+    recs, addr = span_parts.make_records(700, winh, 14, 3, 1920, 1080, dev)
+    fb = span_parts.fresh_fb(1920, 1080, dev)
+    before = _cuda.launches["t_span"]
+    got = span_parts.raster(name, recs, fb.clone(), winh=winh, addr=addr)
+    assert _cuda.launches["t_span"] == before + 1
+    want = span_parts.raster_plain(name, recs, fb.clone(), winh=winh,
+                                   addr=addr)
+    assert torch.equal(got, want), span_parts.fb_diff(got, want)
+    if span_parts.VARIANTS[name].bv in ("record", "side"):
+        assert torch.equal(got, tcc.raster_span_plain(recs, fb.clone()))

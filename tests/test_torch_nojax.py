@@ -1,7 +1,8 @@
 """planet_tpu_torch imports neither jax nor planet_tpu: in a fresh
-interpreter, import every module of the package, render one tiny LOD frame
-and one small cube-sphere field frame on the CPU and run the driver's
-non-interactive loop, then check sys.modules. And no source file of the
+interpreter, import every module of the package (the attribution tools
+under planet_tpu_torch/tools included), render one tiny LOD frame and one
+small cube-sphere field frame on the CPU, run the driver's non-interactive
+loop and the three tools at their small sizes, then check sys.modules. And no source file of the
 port, nor chip_smoke.py, names a jax or planet_tpu module in an import."""
 
 import ast
@@ -22,6 +23,9 @@ SCRIPT = textwrap.dedent("""
         planet_tpu_torch.__path__, "planet_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    tools = {"planet_tpu_torch.tools." + m
+             for m in ("common", "noise_stages", "lut", "span_parts")}
+    assert tools <= set(names), sorted(tools - set(names))
     from planet_tpu_torch.engine.config import EngineConfig
     from planet_tpu_torch.engine.planet import PlanetEngine
     from planet_tpu_torch.geom import camera as cam_mod
@@ -40,6 +44,9 @@ SCRIPT = textwrap.dedent("""
                      "--altitude", "2e7", "--backend", "cpu", "--no-save",
                      "--out", d])
         assert os.path.exists(os.path.join(d, "frame_0000.png"))
+    from planet_tpu_torch.tools import lut, noise_stages, span_parts
+    for tool in (noise_stages, lut, span_parts):
+        assert tool.main(["--device", "cpu", "--small", "--reps", "1"]) == 0
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     print(len(names), "modules;", "jax modules:", bad)
     ref = sorted(m for m in sys.modules
