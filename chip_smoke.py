@@ -6,15 +6,19 @@
 Phases, each printing its own lines; any failure exits non-zero before the
 result line is printed:
 
-1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-   no CUDA device -> exit 2;
-2. build the CUDA kernels from planet_tpu_torch/csrc (nvcc, ctypes);
+1. the card (nvidia-smi name and power limit, SM clock), torch and CUDA
+   versions; no CUDA device -> exit 2;
+2. build the CUDA kernels from planet_tpu_torch/csrc (nvcc, ctypes); print
+   ptxas' registers and spills per kernel and a census of the noise,
+   field and tile kernels' conversions, f64, f32 and shared-memory
+   instructions (cuobjdump -sass);
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, with CUDA-event times (median of 7):
    K1 tiles (bitwise, lacunarity 2.0 and 1.7), K4 noise (bitwise, at the
-   refine-probe shape 5 x 4096 x 6 octaves, at 2^20 points x 18 octaves,
-   and fBm at lacunarity 1.7), K6 record gather (bitwise), K2 span and K3
-   huge raster (coverage identical, packed depth/shade within 1 quantum);
+   refine-probe shape 5 x 4096 x 6 octaves, at 2^20 points x 18 octaves
+   and fBm at lacunarity 1.7), K6 record gather
+   (bitwise), K2 span and K3 huge raster (coverage identical, packed
+   depth/shade within 1 quantum);
 4. the host-orchestrated path, PlanetEngine(...).render on the card,
    against the oracle's frame / nearclip / farclip golden images at their
    test bars;
@@ -48,19 +52,23 @@ result line is printed:
    lut (t_lut) and span_parts (t_span) at the tools' own sizes, every
    variant against its plain version (bitwise; full span at K2's bar,
    the block-vectorized span also equal to full), full noise equal to K4
-   and full tile equal to K1 on the same inputs, each variant's time, and
-   each t_* kernel launched > 0 times; then K1-K6 (and K6's yardstick)
-   again at their phase-3 (and K5 at its 7b) shapes with the tools' queued
-   timer
-   (tools/common.time_calls: calls queued behind a spin kernel, so a short
-   kernel's time holds no host launch time).
+   and full tile equal to K1 on the same inputs, each variant's time
+   (t_noise's f64conv and single_lookups each put one part of the noise
+   core back in the first port's form), and each t_* kernel launched > 0
+   times;
+   then K1-K6 (and K6's yardstick) again at their phase-3 (and K5 at its
+   7b) shapes with the tools' queued timer (tools/common.time_calls:
+   calls queued behind a spin kernel, so a short kernel's time holds no
+   host launch time; the noise kernels' calls are
+   tools/kernel_times.noise_calls, on seeded inputs).
 
 The second-to-last lines are a JSON summary of the kernels (launches from
 phase 5b, from phase 7 for the field kernel and from phase 8 for the t_*
-kernels, which also carry each variant's ms; each kernel's time, its
-plain version's, a library call's where one computes the same function,
-and its bound: the larger of its bytes over the card's memory rate and
-its f32 operations over the card's f32 rate) and the card's
+kernels, which also carry each variant's ms; each kernel's time, single
+launch and queued, its plain version's, a library call's where one
+computes the same function, and its bound, tools/common.bound_ms: the
+larger of its bytes over the card's memory rate and its f32 and f64
+operations over the card's instruction rates at its SM clock) and the card's
 `nvidia-smi --query-gpu=name,power.limit` line; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -85,35 +93,17 @@ DEVICE = "cuda"
 FIELD_N = dict(config1=256, config2=1024, step=2048, config5=8192)
 CONFIG5_STRIPS = 8
 
-
-# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-# f32 outside the tensor cores, and HBM.
-PEAK_F32_OPS = 67e12
-PEAK_BYTES = 3.35e12
-
-# f32 operations per element, counted from the kernel bodies in
+# f32 operations per element beyond the noise core's (whose counts are
+# tools/common.noise_work), counted from the kernel bodies in
 # planet_tpu_torch/csrc: each add, subtract, multiply, divide, square root,
-# compare and min/max is one operation (-fmad=false: no FMA). Integer
-# hashing, conversions and the f64 fraction and fade are not counted, so
-# the bound is a floor.
-OPS_SPLIT = 96              # noise.cuh: int24_parts of a point, 3 axes
-OPS_OCTAVE = {"ridged": 92, "fbm": 88}    # noise3 (85) + the octave update
-OPS_OCTAVE_SPLIT = 153      # noise.cuh at lacunarity != 2: df_scale and
-                            # floor_split_parts per octave, 3 axes
-OPS_TILE_TEXEL = 565        # tile.cu: uv (2 df_scale) + 3 x (5 df_add +
-                            # 3 df_mul) + the amplitude
-OPS_FIELD_TEXEL = 176       # field.cu: coordinates, DF sqrt/div/products,
-                            # the amplitude, the normal and the shade
+# compare and min/max is one operation, an error-free product two (the
+# multiply and its fmaf). Integer hashing and conversions are not counted,
+# so each bound is a floor. K1's texel (tile.cu: the uv, the corner blend
+# and the amplitude) is tools/common's OPS_TILE_UV + OPS_TILE_BLEND + 1.
+OPS_FIELD_TEXEL = 101       # field.cu: coordinates 84 (5 error-free
+                            # products), the amplitude, normal and shade 16
 OPS_CANDIDATE = 15          # raster.cu fragment(): 3 edge functions, tests
 OPS_ACCEPTED = {"span": 41, "huge": 48}   # depth, normal, shade, packing
-
-
-def bound_ms(ops, nbytes):
-    """(least ms, "operations" or "bytes"): the larger of the f32
-    operations over the f32 rate and the bytes over the memory rate."""
-    t_ops = ops / PEAK_F32_OPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 class SmokeFailure(RuntimeError):
@@ -171,6 +161,17 @@ def main() -> int:
         return 2
     smi = gpu_line()
     print(f"[1] gpu: {smi}", flush=True)
+    from planet_tpu_torch.tools import common as tool_common
+    clock = tool_common.sm_clock_hz()
+    sm_rate = tool_common.SMS * clock
+    print(f"[1] SM clock (clocks.max.sm) {clock / 1e6:.0f} MHz: bounds at "
+          f"{sm_rate * tool_common.F32_PER_SM_CLOCK:.4g} f32 and "
+          f"{sm_rate * tool_common.F64_PER_SM_CLOCK:.4g} f64 operations a "
+          f"second", flush=True)
+
+    def bound_ms(ops, nbytes, f64_ops=0.0):
+        return tool_common.bound_ms(ops, nbytes, f64_ops=f64_ops,
+                                    sm_clock_hz=clock)
     print(f"[1] torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}",
           flush=True)
@@ -200,6 +201,10 @@ def main() -> int:
     for line in _cuda.build_info.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[2]   {line.strip()}", flush=True)
+    for name, counts in tool_common.sass_census(
+            _cuda.build_info["path"]).items():
+        print(f"[2] sass {name[:70]}: " + " ".join(
+            f"{op} {k}" for op, k in counts.items()), flush=True)
 
     # ------------------------------------------------------------ phase 3
     def time_ms(fn, setup=lambda: ()):
@@ -252,7 +257,6 @@ def main() -> int:
     octs = torch.as_tensor(6 + np.arange(256, dtype=np.int32) % 13,
                            device=dev)
     kw = dict(kind="ridged", gain=cfg1080.gain, amplitude=cfg1080.amplitude)
-    k1_args = (ch, cl, octs)
     k1 = tile_cuda.tiles_cuda(ch, cl, octs, lacunarity=2.0, **kw)
     p1 = tile_cuda.tiles_plain(ch, cl, octs, lacunarity=2.0, **kw)
     torch.cuda.synchronize()
@@ -264,14 +268,16 @@ def main() -> int:
     check(torch.equal(k17, p17), "K1 (lacunarity 1.7) != plain (max abs "
           f"err {float((k17 - p17).abs().max())})")
     octs_np = octs.cpu().numpy().astype(np.int64)
+    k1_work = [tool_common.noise_work(o) for o in octs_np]
+    ops_tile_texel = tool_common.OPS_TILE_UV + tool_common.OPS_TILE_BLEND + 1
     report["tile"] = dict(
         max_abs_err=max(err1, float((k17 - p17).abs().max())),
         ms=time_ms(lambda: tile_cuda.tiles_cuda(ch, cl, octs, **kw)),
         plain_ms=time_ms(lambda: tile_cuda.tiles_plain(ch, cl, octs, **kw)),
         bound=bound_ms(
-            1024 * float((OPS_TILE_TEXEL + OPS_SPLIT
-                          + OPS_OCTAVE["ridged"] * octs_np).sum()),
-            len(octs_np) * (2 * 12 * 4 + 4 + 1024 * 4)))
+            1024 * float(sum(ops_tile_texel + w[0] for w in k1_work)),
+            len(octs_np) * (2 * 12 * 4 + 4 + 1024 * 4),
+            1024 * float(sum(w[1] for w in k1_work))))
     print(f"[3] K1 tiles: 256 tiles x octaves 6-18 bitwise equal "
           f"(lacunarity 2.0 and 1.7); kernel {report['tile']['ms']:.3f} ms, "
           f"plain {report['tile']['plain_ms']:.3f} ms", flush=True)
@@ -310,13 +316,12 @@ def main() -> int:
         err4 = max(err4, e)
         ms = time_ms(lambda: perlin_cuda.noise_cuda(kind, *c4, **kw4))
         plain_ms = time_ms(lambda: perlin_cuda.noise_plain(kind, *c4, **kw4))
-        per_octave = OPS_OCTAVE[kind] + (0 if lac == 2.0 else OPS_OCTAVE_SPLIT)
         n4 = c4[0].numel()
-        bound4 = bound_ms(n4 * ((OPS_SPLIT if lac == 2.0 else 0)
-                                + octaves * per_octave), n4 * 28)
-        print(f"[3] K4 noise, {label}: bitwise equal; kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {bound4[0]:.5f} ms "
-              f"({bound4[1]})", flush=True)
+        ops4, f64_4 = tool_common.noise_work(octaves, kind, lac)
+        bound4 = bound_ms(n4 * ops4, n4 * 28, n4 * f64_4)
+        print(f"[3] K4 noise, {label}: bitwise equal; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound4[0]:.5f} ms ({bound4[1]})", flush=True)
         if "noise" not in report:       # the main path's shape
             report["noise"] = dict(ms=ms, plain_ms=plain_ms, bound=bound4)
     report["noise"]["max_abs_err"] = err4
@@ -814,9 +819,9 @@ def main() -> int:
         comp_ms = time_ms(lambda: heightfield.frame_cube(
             n, radius, fused=False, device=dev))
         texels = 6 * n * n
+        ops5, f64_5 = tool_common.noise_work(6)
         report["field"] = dict(ms=ms, plain_ms=plain_ms, bound=bound_ms(
-            texels * (OPS_FIELD_TEXEL + OPS_SPLIT + 6 * OPS_OCTAVE["ridged"]),
-            texels * 8))
+            texels * (OPS_FIELD_TEXEL + ops5), texels * 8, texels * f64_5))
         print(f"[7b] K5 field 6x{n}^2: bitwise equal to plain; composed "
               f"frame within {eh:.4g} m / {es:.3g}; kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, composed frame {comp_ms:.3f} ms, "
@@ -827,7 +832,6 @@ def main() -> int:
 
     # ------------------------------------------------------------ phase 8
     # the kernel-attribution tools, their counts from 0
-    from planet_tpu_torch.tools import common as tool_common
     from planet_tpu_torch.tools import lut as t_lut
     from planet_tpu_torch.tools import noise_stages, span_parts
     _cuda.reset_launches()
@@ -866,7 +870,10 @@ def main() -> int:
           "t_tile full != K1 on the same corners")
     print(f"[8] t_noise full bitwise equal to K4 on {coords[0].numel()} "
           f"points; t_tile full bitwise equal to K1 on {ch.shape[0]} tiles; "
-          f"torch.take {res_lut['library_ms']:.4f} ms; span full 14x8, "
+          "torch.take " + ", ".join(
+              f"{r['library_ms']:.4f} ms ({r['name']})"
+              for r in res_lut["rows"] if "library_ms" in r)
+          + "; span full 14x8, "
           f"{res_span['headline']['records']} records: "
           f"{res_span['headline']['ms']:.4f} ms, plain "
           f"{res_span['headline']['plain_ms']:.4f} ms", flush=True)
@@ -874,35 +881,28 @@ def main() -> int:
     # the main path's kernels at their phase-3 shapes again, queued behind
     # a spin kernel (tools/common.time_calls): phase 3 times one launch
     # between two events, which for a short kernel also holds the host's
-    # launch time
-    probe, sphere = noise_inputs(probe_pts), noise_inputs(big)
-    radius8 = cfg800.radius
-    for label, fn, setup in (
-            ("K1 tile, 256 tiles x octaves 6-18",
-             lambda: tile_cuda.tiles_cuda(*k1_args, **kw), tuple),
-            ("K4 noise, refine probes 5x4096, ridged 6",
-             lambda: perlin_cuda.noise_cuda("ridged", *probe, octaves=6,
-                                            gain=cfg1080.gain), tuple),
-            ("K4 noise, 2^20 points, ridged 18",
-             lambda: perlin_cuda.noise_cuda("ridged", *sphere, octaves=18,
-                                            gain=cfg1080.gain), tuple),
-            ("K6 gather, 1080p", lambda: cc.gather_records_cuda(
+    # launch time. The noise kernels' calls are tools/kernel_times'
+    # (noise_calls), which times the same set on any tree of the port.
+    from planet_tpu_torch.tools import kernel_times
+    queued = {}
+    for key, label, fn, setup in (
+            *((key, label, fn, tuple)
+              for key, label, fn in kernel_times.noise_calls(dev)),
+            ("gather", "K6 gather, 1080p", lambda: cc.gather_records_cuda(
                 tm1080, span_idx), tuple),
-            ("K6's yardstick, index_select + transpose, 1080p",
+            (None, "K6's yardstick, index_select + transpose, 1080p",
              lambda: tm1080.index_select(1, span_idx).t().contiguous(),
              tuple),
-            ("K2 span, 1080p", lambda fb: cc.raster_span_cuda(g6, fb),
-             fresh_fb(W_1080, H_1080)),
-            (f"K3 huge, {report['huge']['shape']}",
-             lambda fb: cc.raster_huge_cuda(hrecs, fb), fresh_fb(800, 600)),
-            (f"K5 field 6x{FIELD_N['step']}^2",
-             lambda: field_cuda.field_kernel(FIELD_N["step"], radius8,
-                                             device=dev), tuple)):
+            ("span", "K2 span, 1080p",
+             lambda fb: cc.raster_span_cuda(g6, fb), fresh_fb(W_1080, H_1080)),
+            ("huge", f"K3 huge, {report['huge']['shape']}",
+             lambda fb: cc.raster_huge_cuda(hrecs, fb), fresh_fb(800, 600))):
         ms = tool_common.time_ms(fn, setup, reps=REPS)
+        if key:
+            queued[key] = ms
         print(f"[8] queued timing, {label}: {ms:.4f} ms (median of {REPS}; "
               f"phase 3/7b's single-launch timing is in the kernels line)",
               flush=True)
-    del probe, sphere
     for key, head in (("t_noise", "full"), ("t_tile", "full"),
                       ("t_lut", t_lut.HEADLINE)):
         row = next(r for r in tool_rows[key] if r["name"] == head)
@@ -947,8 +947,12 @@ def main() -> int:
             name=k, route="cuda", source=src, replaces=rep,
             launches=launches[k], max_abs_err=report[k]["max_abs_err"],
             ms=report[k]["ms"], plain_ms=report[k]["plain_ms"],
-            bound_ms=report[k]["bound"][0], bound_by=report[k]["bound"][1],
+            bound_ms=report[k]["bound"][0],
+            bound_by=("bytes" if report[k]["bound"][1] == "bytes"
+                      else "operations"),
             library_ms=report[k].get("library_ms")))
+        if k in queued:
+            kernels[-1]["queued_ms"] = queued[k]
         if "variants" in report[k]:
             kernels[-1]["variants"] = report[k]["variants"]
     print(json.dumps({"kernels": kernels}))

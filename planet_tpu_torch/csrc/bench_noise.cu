@@ -9,14 +9,23 @@
 // for bit; the wrappers are noise_stages.noise_stage / tile_stage.
 //
 // t_noise, one thread per point, `octaves` ridged octaves at lacunarity 2:
-//   0 full            accumulate_octaves: K4's body (perlin.cu)
-//   1 splits          int24_parts once, then each octave's shift_frac48
-//                     cells and frac_parts (f, f - 1, fade), summed
-//   2 splits+gathers  1 plus the 8-corner permutation chain and the 8
-//                     gradient-sign lookups of noise3, summed
+//   0 full            accumulate_octaves: K4's body (perlin.cu, a thread a
+//                     point)
+//   1 splits          int24_parts once, then each octave's cells and
+//                     (f, f - 1, fade) (noise.cuh octave_split), summed
+//   2 splits+gathers  1 plus noise3's permutation chain and gradient-sign
+//                     codes (7 pair-table reads), summed
 //   3 hoisted         octave 0's split and fade reused every octave, the x
 //                     cell moved by the octave index (noise3 and the ridged
 //                     update only; microbench_stages.nosplit_full)
+//   4 f64conv         full with the first port's fraction: (hi_o, lo_o)
+//                     through two int-to-double conversions (kFracConv)
+//   5 single_lookups  full with the first port's 14 single table reads, the
+//                     sign codes decoded by bits (kSingleLookups)
+// Variants 4 and 5 each put one part of the core back in the first port's
+// form, so one run shows what each change bought; both equal full bit for
+// bit. Variant 2 reads the sign pairs as the 6-bit codes they come in
+// (CodePairs), the form its plain version sums.
 // t_tile, one thread per texel of 32x32 tiles, 6 ridged octaves:
 //   0 full            K1's texel (tile.cu): uv, blend, noise, amplitude
 //   1 bilinear        the uv and the blend; the six words summed
@@ -48,17 +57,41 @@ __device__ __forceinline__ float split_sum(const int* c, const float* f,
   return s + (float)(c[0] + c[1] + c[2]);
 }
 
-// noise3's hash chain: the sum of the 8 corners' gradient-sign codes
-__device__ __forceinline__ int sign_sum(const int* perm, const int* sign,
-                                        const int* c) {
-  const int cx = c[0], cy = c[1], cz = c[2];
-  const int a0 = perm[cx & 255], a1 = perm[(cx + 1) & 255];
-  const int b[4] = {perm[(a0 + cy) & 255], perm[(a0 + cy + 1) & 255],
-                    perm[(a1 + cy) & 255], perm[(a1 + cy + 1) & 255]};
+// variant 2's shared tables: the permutation and sign-code pairs as they
+// come (perlin_cuda.kernel_tables)
+struct CodePairs {
+  int perm[256];
+  int sign[256];
+};
+
+__device__ __forceinline__ void load_pairs(CodePairs& t,
+                                           const int* __restrict__ perm_g,
+                                           const int* __restrict__ sign_g) {
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    t.perm[i] = perm_g[i];
+    t.sign[i] = sign_g[i];
+  }
+  __syncthreads();
+}
+
+// noise3's hash chain through the pair tables (noise.cuh): the sum of the
+// 8 corners' gradient-sign codes
+__device__ __forceinline__ int sign_sum(const CodePairs& t, const int* c) {
+  const int pa = t.perm[slot(c[0], 0)];
+  const int pb[2] = {t.perm[slot(pa, c[1])], t.perm[slot(pa >> 16, c[1])]};
   int g = 0;
-  for (int j = 0; j < 4; ++j)
-    g += sign[(b[j] + cz) & 255] + sign[(b[j] + cz + 1) & 255];
+  for (int j = 0; j < 2; ++j) {
+    for (int half = 0; half < 2; ++half) {
+      const int s = t.sign[slot(half ? pb[j] >> 16 : pb[j], c[2])];
+      g += (s & 0xFFFF) + (s >> 16);
+    }
+  }
   return g;
+}
+
+// the core form of each t_noise variant
+__host__ __device__ constexpr int stage_form(int stage) {
+  return stage == 4 ? kFracConv : stage == 5 ? kSingleLookups : kFast;
 }
 
 template <int kStage>
@@ -69,53 +102,46 @@ stage_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
              const int* __restrict__ perm_g, const int* __restrict__ sign_g,
              const float* __restrict__ freq, float* __restrict__ out, int n,
              int octaves, float gain) {
-  __shared__ int perm[256];
-  __shared__ int sign[256];
-  if (kStage != 1) load_tables(perm, sign, perm_g, sign_g);
+  constexpr int kForm = stage_form(kStage);
+  __shared__ Tables<kForm> tab;
+  __shared__ CodePairs pairs;
+  if (kStage == 2) {
+    load_pairs(pairs, perm_g, sign_g);
+  } else if (kStage != 1) {
+    load_tables(tab, perm_g, sign_g);
+  }
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float ph[3] = {xh[i], yh[i], zh[i]};
   const float pl[3] = {xl[i], yl[i], zl[i]};
-  if (kStage == 0) {
-    out[i] = accumulate_octaves(perm, sign, freq, octaves, true, true, gain,
-                                ph, pl);
+  if (kStage == 0 || kStage >= 4) {
+    out[i] = accumulate_octaves(tab, freq, octaves, true, true, gain, ph, pl);
     return;
   }
-  int c24[3], h24[3], l24[3];
-  for (int k = 0; k < 3; ++k) int24_parts(ph[k], pl[k], c24[k], h24[k], l24[k]);
+  PointSplit s;
+  split_point(true, ph, pl, s);
+  int c[3];
+  float f[3], fm1[3], fd[3];
   float acc = 0.0f;
   if (kStage == 3) {
-    int c0[3];
-    float f[3], fm1[3], fd[3];
-    for (int k = 0; k < 3; ++k) {
-      double frac;
-      shift_frac48(c24[k], h24[k], l24[k], 0, c0[k], frac);
-      frac_parts(frac, f[k], fm1[k], fd[k]);
-    }
+    for (int k = 0; k < 3; ++k)
+      octave_split<kFast>(s, k, 0, c[k], f[k], fm1[k], fd[k]);
+    const int cx = c[0];
     float weight = 1.0f, amp = 1.0f;
     for (int o = 0; o < octaves; ++o) {
-      const int c[3] = {c0[0] + o, c0[1], c0[2]};
-      const float nz = noise3(perm, sign, c, f, fm1, fd);
-      float v = 1.0f - fabsf(nz);
-      v = v * v;
-      acc = acc + (v * amp) * weight;
-      weight = v;
-      amp = amp * gain;
+      c[0] = cx + o;
+      const float nz = noise3<kFast>(tab.perm, tab.sign, c, f, fm1, fd);
+      add_octave(true, gain, nz, acc, weight, amp);
     }
     out[i] = acc;
     return;
   }
   for (int o = 0; o < octaves; ++o) {
-    int c[3];
-    float f[3], fm1[3], fd[3];
-    for (int k = 0; k < 3; ++k) {
-      double frac;
-      shift_frac48(c24[k], h24[k], l24[k], o, c[k], frac);
-      frac_parts(frac, f[k], fm1[k], fd[k]);
-    }
+    for (int k = 0; k < 3; ++k)
+      octave_split<kFast>(s, k, o, c[k], f[k], fm1[k], fd[k]);
     acc = acc + split_sum(c, f, fm1, fd);
-    if (kStage == 2) acc = acc + (float)sign_sum(perm, sign, c);
+    if (kStage == 2) acc = acc + (float)sign_sum(pairs, c);
   }
   out[i] = acc;
 }
@@ -129,9 +155,8 @@ tile_stage_kernel(const float* __restrict__ corners_hi,
                   const float* __restrict__ freq, float* __restrict__ out,
                   int octaves, float gain, float amplitude, float div_hi,
                   float div_lo) {
-  __shared__ int perm[256];
-  __shared__ int sign[256];
-  if (kMode != 1) load_tables(perm, sign, perm_g, sign_g);
+  __shared__ Tables<kFast> tab;
+  if (kMode != 1) load_tables(tab, perm_g, sign_g);
 
   constexpr int kDim = 32, kBlocksPerTile = kDim * kDim / kThreads;
   const int tile = blockIdx.x / kBlocksPerTile;
@@ -154,8 +179,8 @@ tile_stage_kernel(const float* __restrict__ corners_hi,
     value = value + pl[1];
     value = value + pl[2];
   } else {
-    value = accumulate_octaves(perm, sign, freq, octaves, true, true, gain,
-                               ph, pl) * amplitude;
+    value = accumulate_octaves(tab, freq, octaves, true, true, gain, ph,
+                               pl) * amplitude;
   }
   out[(size_t)tile * kDim * kDim + texel] = value;
 }
@@ -182,6 +207,8 @@ extern "C" int planet_t_noise(int variant, const void* xh, const void* xl,
     case 1: run(stage_kernel<1>); break;
     case 2: run(stage_kernel<2>); break;
     case 3: run(stage_kernel<3>); break;
+    case 4: run(stage_kernel<4>); break;
+    case 5: run(stage_kernel<5>); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

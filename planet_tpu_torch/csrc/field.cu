@@ -24,33 +24,43 @@
 // rounded 1.0f / sqrtf(x) (nums/df.sqrt does the same), where planet_tpu
 // uses the approximate lax.rsqrt; CUDA's rsqrtf is approximate too.
 //
-// What bounds it on the H100: operations. A texel is ~160 f32 operations of
-// coordinates and ~90 per octave (8 gradient dots, 7 lerps, the ridged
-// update), plus ~33 f64 operations per octave for the reference-precision
-// fraction and fade, and ~40 integer hash operations per octave; at 6
-// octaves that is ~800 f32 operations against 8 bytes written, two orders
-// of magnitude above the card's f32-operations-per-byte of HBM bandwidth.
+// What bounds it on the H100: instruction throughput. A texel is ~100 f32
+// operations outside the noise (the coordinates ~85, each of their five
+// error-free products a multiply and an FMA; the normal and shade ~16),
+// ~90 f32 and ~40 integer operations per octave, 7 shared-memory reads per
+// octave and the f64 fade per axis-octave (noise.cuh); at 6 octaves that
+// is ~750 f32 operations against 8 bytes written, two orders of magnitude
+// above the card's f32-operations-per-byte of HBM bandwidth.
 //
 // Design: one launch. The Pallas kernel walks each face's blocks in order
 // and carries the neighbouring rows between grid steps in VMEM scratch; CUDA
 // blocks run in no order, so nothing can carry between them. Each 256-thread
-// block owns a 16 x 128 tile of one face and evaluates the tile's heights
-// plus a one-texel halo ring (18 x 130 values) into shared memory, then
+// block owns a 64 x 128 tile of one face and evaluates the tile's heights
+// plus a one-texel halo ring (66 x 130 values, 34 KB of static shared
+// memory beside the noise core's 5 KB of tables) into shared memory, then
 // writes heights and shade for its interior. The halo is recomputed, not
-// exchanged: (18 * 130) / (16 * 128) = 1.14x the noise work, plus a 10th
-// partial round of the 256 threads over 2340 values (~9 % idle lanes).
+// exchanged: (66 * 130) / (64 * 128) = 1.047x the noise work (a 16-row
+// tile cost 1.14x), in 34 rounds of the 256 threads of which the last is
+// half full (~1.5 % idle lanes; 9 % at 16 rows). A separate height pass
+// and normal pass would cost no recompute but a round trip of every height
+// through device memory and a second launch. The noise core is noise.cuh's
+// (the fraction as one 48-bit word, the pair tables, the signs as f32
+// halves, the FMA products), and the coordinates' products are FMAs too
+// (two_prod).
 // Halo coordinates are clamped to the face, so an edge texel's outside
 // neighbour is the texel itself: the Pallas kernel's edge replication,
 // bit for bit, with no branch in the normal. A strip passes its absolute
 // row offset: every value is a function of the absolute (f, r, c), so a
 // strip equals the matching rows of the full cube bit for bit and its halo
 // rows recompute the neighbour strip's values. Rows past the strip's halo
-// row are left unevaluated. The TPU's lane rolls with their row-carry fix,
-// the (6 n n / 128, 128) block layout, block_rows and the VMEM sizing do not
-// come across.
+// row are left unevaluated (a block's loop stops at them). The TPU's lane
+// rolls with their row-carry fix, the (6 n n / 128, 128) block layout,
+// block_rows and the VMEM sizing do not come across.
 //
 // Bit-exactness: -fmad=false, IEEE division and square root, no fast-math
-// (see noise.cuh); every expression keeps field_plain's op order.
+// (see noise.cuh; two_prod's fmaf gives the exact product error that
+// field_plain's Dekker split gives); every expression keeps field_plain's
+// op order.
 
 #include "noise.cuh"
 
@@ -59,22 +69,10 @@ namespace {
 using namespace noise_core;
 
 constexpr int kThreads = 256;
-constexpr int kTileRows = 16;
+constexpr int kTileRows = 64;
 constexpr int kTileCols = 128;
 constexpr int kHaloRows = kTileRows + 2;
 constexpr int kHaloCols = kTileCols + 2;
-
-__device__ __forceinline__ void two_prod(float a, float b, float& p,
-                                         float& err) {
-  p = a * b;
-  float ca = kSplit * a;
-  float ahi = ca - (ca - a);
-  float alo = a - ahi;
-  float cb = kSplit * b;
-  float bhi = cb - (cb - b);
-  float blo = b - bhi;
-  err = ((ahi * bhi - p) + ahi * blo + alo * bhi) + alo * blo;
-}
 
 // nums/df.sqrt: Karp's method, one Newton step from 1/sqrt(hi)
 __device__ __forceinline__ void df_sqrt(float h, float l, float& rh,
@@ -109,8 +107,8 @@ struct FieldParams {
 
 // the noise height of face texel (r, c); abc = the face's
 // [component j][C, A, B] constants
-__device__ __forceinline__ float height(const FieldParams& p, const int* perm,
-                                        const int* sign,
+__device__ __forceinline__ float height(const FieldParams& p,
+                                        const Tables<kFast>& tab,
                                         const float* __restrict__ freq,
                                         const float* abc, int r, int c) {
   const float a = (float)(2 * c + 1 - p.n) * p.inv_n;
@@ -131,39 +129,40 @@ __device__ __forceinline__ float height(const FieldParams& p, const int* perm,
     e = e + il * q;
     quick_two_sum(pr, e, ph[j], pl[j]);
   }
-  return accumulate_octaves(perm, sign, freq, p.octaves, p.ridged, p.pow2,
-                            p.gain, ph, pl) *
+  return accumulate_octaves(tab, freq, p.octaves, p.ridged, p.pow2, p.gain,
+                            ph, pl) *
          p.amp;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// 4 blocks an SM: at most 64 registers a thread (x 256 threads x 4 = the
+// SM's 65,536; ptxas took 64 with no spills for this kernel, and
+// chip_smoke.py phase 2 prints its count), and 4 x 39 KB of shared memory
+// fit; 32 of the SM's 64 warps are resident
+__global__ void __launch_bounds__(kThreads, 4)
 field_kernel(const int* __restrict__ perm_g, const int* __restrict__ sign_g,
              const float* __restrict__ freq, const float* __restrict__ abc_g,
              float* __restrict__ h_out, float* __restrict__ shade_out,
              FieldParams p, int row0, int rows, float ny2, float nyly,
              float lx, float lz) {
-  __shared__ int perm[256];
-  __shared__ int sign[256];
+  __shared__ Tables<kFast> tab;
   __shared__ float abc[9];
   __shared__ float hs[kHaloRows][kHaloCols];
   const int f = blockIdx.z;
   if (threadIdx.x < 9) abc[threadIdx.x] = abc_g[f * 9 + threadIdx.x];
-  load_tables(perm, sign, perm_g, sign_g);    // ends with __syncthreads()
+  load_tables(tab, perm_g, sign_g);    // ends with __syncthreads()
 
   const int n = p.n;
   const int c0 = blockIdx.x * kTileCols;
   const int r0 = row0 + blockIdx.y * kTileRows;  // the tile's first row
   const int r_end = row0 + rows;                 // the strip's end row
-  for (int i = threadIdx.x; i < kHaloRows * kHaloCols; i += kThreads) {
+  // halo rows r0 - 1 .. min(r0 + kTileRows, r_end): the strip's last tile
+  // stops one row past the strip
+  const int halo = min(kHaloRows, r_end - r0 + 2) * kHaloCols;
+  for (int i = threadIdx.x; i < halo; i += kThreads) {
     const int hr = i / kHaloCols, hc = i - hr * kHaloCols;
-    const int r = r0 + hr - 1;
-    float h = 0.0f;
-    if (r <= r_end) {
-      const int rc = min(max(r, 0), n - 1);
-      const int cc = min(max(c0 + hc - 1, 0), n - 1);
-      h = height(p, perm, sign, freq, abc, rc, cc);
-    }
-    hs[hr][hc] = h;
+    const int rc = min(max(r0 + hr - 1, 0), n - 1);
+    const int cc = min(max(c0 + hc - 1, 0), n - 1);
+    hs[hr][hc] = height(p, tab, freq, abc, rc, cc);
   }
   __syncthreads();
 

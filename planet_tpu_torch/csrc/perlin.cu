@@ -7,19 +7,27 @@
 // count, which this kernel matches bit for bit; the wrapper is
 // planet_tpu_torch/ops/kernels/perlin_cuda.py:noise_df. Users on the
 // port's main path: the device refiner's probe heights (5 points per
-// frontier slot per level, lod/refine_device.py).
+// frontier slot per level, lod/refine_device.py: 20,480 points, 6 ridged
+// octaves, 19 launches a frame), and the field path's config 1
+// (models/heightfield.heights_df).
 //
-// What bounds it on the H100: arithmetic and shared-memory table lookups.
-// A point-octave is the same ~300 f32/int and ~30 f64 operations as a
-// texel-octave of K1 (tile.cu); a point reads 24 bytes and writes 4, so at
-// 6 octaves the kernel does ~70 operations per byte moved — far above the
-// card's ~20 f32 operations per byte of HBM bandwidth.
-// Design: one thread per point, 256-thread blocks over flat (n,) arrays
-// (no 128-lane padding: noise_df's block padding is TPU sizing). The
-// permutation table and packed gradient-sign codes live in shared memory,
-// as in K1; the octave count, kind, lacunarity path (int24 shifts at 2.0,
-// the per-octave double-float frequency table otherwise) and gain are
-// arguments. The noise core is noise.cuh, shared with K1.
+// What bounds it on the H100: at large n, the noise core's instruction
+// throughput (noise.cuh; 24 bytes read and 4 written a point against ~250
+// instructions a point-octave). At the refine probes' 20,480 points, the
+// launch's fixed cost and one thread's serial chain: 80 blocks of 256
+// threads on 132 SMs, each thread running its octaves in series.
+//
+// Design: one thread per point, the octaves one after another
+// (accumulate_octaves), in 256-thread blocks over flat (n,) arrays (no
+// 128-lane padding: noise_df's block padding is TPU sizing). The
+// permutation and gradient-sign tables live in shared memory, as in K1 and
+// K5; the octave count, kind, lacunarity path (int24 shifts at 2.0, the
+// per-octave double-float frequency table otherwise) and gain are
+// arguments. An octave-parallel layout, a group of 2-8 lanes a point
+// folding the octaves in order with __shfl_sync (bit for bit with
+// accumulate_octaves), won on the card only below ~17,000 points and tied
+// at the probes' 20,480, where the path launches K4, so it is not used
+// (PERF.md).
 
 #include "noise.cuh"
 
@@ -36,16 +44,15 @@ noise_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
              const int* __restrict__ perm_g, const int* __restrict__ sign_g,
              const float* __restrict__ freq, float* __restrict__ out, int n,
              int octaves, int ridged, int pow2, float gain) {
-  __shared__ int perm[256];
-  __shared__ int sign[256];
-  load_tables(perm, sign, perm_g, sign_g);
+  __shared__ Tables<kFast> tab;
+  load_tables(tab, perm_g, sign_g);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float ph[3] = {xh[i], yh[i], zh[i]};
   const float pl[3] = {xl[i], yl[i], zl[i]};
-  out[i] = accumulate_octaves(perm, sign, freq, octaves, ridged != 0,
-                              pow2 != 0, gain, ph, pl);
+  out[i] = accumulate_octaves(tab, freq, octaves, ridged != 0, pow2 != 0,
+                              gain, ph, pl);
 }
 
 }  // namespace

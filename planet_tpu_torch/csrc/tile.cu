@@ -14,17 +14,18 @@
 // the blend are tile_blend.cuh, which the stage split (bench_noise.cu)
 // runs too.
 //
-// What bounds it on the H100: arithmetic and shared-memory lookups, not
-// bytes. A texel-octave is ~300 f32/int operations (24 table reads from
-// shared memory, 8 gradient dots, 7 lerps, the shift split) and ~30 f64
-// operations (three fades and the narrowing); a tile reads 96 bytes of
-// corners (broadcast through L1) and writes 4 KB.
+// What bounds it on the H100: instruction throughput, not bytes. A
+// texel-octave is the noise core's ~90 f32 and ~40 integer operations, 7
+// shared-memory pair-table reads and the f64 fade per axis (noise.cuh); a
+// texel adds ~400 f32 operations of uv and blend (each error-free product
+// a multiply and an FMA); a tile reads 96 bytes of corners (broadcast
+// through L1) and writes 4 KB.
 // Design: one thread per texel, one 256-thread block per quarter of a 32x32
 // tile, so a tile's texels share their corner loads and octave count (no
-// divergence inside a block). The 256-entry permutation table and the
-// 256-entry packed gradient-sign codes live in shared memory; the TPU's
-// packed pair tables and 128-lane payload are a lane-gather device and are
-// not carried over — t[i & 255] is read directly, with the same values.
+// divergence inside a block). The permutation table and the packed
+// gradient-sign codes live in shared memory as 256-entry pair tables (each
+// entry with its neighbour, noise.cuh), which halves the hash's reads; the
+// TPU's 128-lane payload is a lane-gather device and is not carried over.
 // A tile's octave count is clamped to kMaxOctaves so that no count can
 // read past the frequency table; the callers keep counts within it (the
 // plain version refuses larger ones).
@@ -48,9 +49,8 @@ tiles_kernel(const float* __restrict__ corners_hi,
              float* __restrict__ out, int dim, int blocks_per_tile,
              int ridged, int pow2, float gain, float amplitude, float div_hi,
              float div_lo) {
-  __shared__ int perm[256];
-  __shared__ int sign[256];
-  load_tables(perm, sign, perm_g, sign_g);
+  __shared__ Tables<kFast> tab;
+  load_tables(tab, perm_g, sign_g);
 
   const int tile = blockIdx.x / blocks_per_tile;
   const int texel = (blockIdx.x % blocks_per_tile) * blockDim.x + threadIdx.x;
@@ -63,7 +63,7 @@ tiles_kernel(const float* __restrict__ corners_hi,
              uh, ul, vh, vl, ph, pl);
 
   const int count = min(octaves[tile], kMaxOctaves);
-  const float value = accumulate_octaves(perm, sign, freq, count, ridged != 0,
+  const float value = accumulate_octaves(tab, freq, count, ridged != 0,
                                          pow2 != 0, gain, ph, pl);
   out[(size_t)tile * dim * dim + texel] = value * amplitude;
 }

@@ -11,7 +11,8 @@ octave count.
 
 planet_tpu's noise_df pads its inputs to whole (block_rows, 128) blocks;
 that is TPU sizing, and the kernel here takes the flat (n,) arrays as they
-are.
+are, a thread a point. The wrapper reads no tensor value, so it stays legal
+inside a CUDA-graph capture.
 """
 
 from __future__ import annotations
@@ -54,15 +55,25 @@ def noise_plain(kind, xh, xl, yh, yl, zh, zl, *, lacunarity=2.0, gain=0.55,
                                      np.float32(gain), *coords)
 
 
+def pair_table(t: np.ndarray) -> np.ndarray:
+    """(256,) int32 pairs t[i] | t[(i + 1) & 255] << 16 of a table of
+    values below 2^15: the noise core reads a lookup and its neighbour in
+    one shared-memory read (csrc/noise.cuh)."""
+    t = t.astype(np.int32)
+    return t | (np.roll(t, -1) << 16)
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_tables(lacunarity: float, device: str):
-    """Device operands of the noise kernels (K1 and K4): the permutation
-    table, the packed gradient-sign codes (both (256,) int32) and the
-    (MAX_OCTAVES, 3) f32 per-octave frequency (hi, lo, exact-power-of-two
-    flag) of the general-lacunarity path. Uploaded at first use, so a
-    CUDA-graph capture must be preceded by one eager call."""
-    perm = torch.as_tensor(PERLIN_TABLE.astype(np.int32), device=device)
-    signs = torch.as_tensor(perlin.packed_sign_table(), device=device)
+    """Device operands of the noise kernels (K1, K4 and K5): the pair
+    tables of the permutation and of the packed gradient-sign codes (both
+    (256,) int32, `pair_table`) and the (MAX_OCTAVES, 3) f32 per-octave
+    frequency (hi, lo, exact-power-of-two flag) of the general-lacunarity
+    path. Uploaded at first use, so a CUDA-graph capture must be preceded
+    by one eager call."""
+    perm = torch.as_tensor(pair_table(PERLIN_TABLE), device=device)
+    signs = torch.as_tensor(pair_table(perlin.packed_sign_table()),
+                            device=device)
     freq = np.array([(hi, lo, float(perlin.is_pow2_scale(hi, lo)))
                      for hi, lo in perlin.freq_consts(lacunarity,
                                                       MAX_OCTAVES)],

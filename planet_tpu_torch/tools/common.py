@@ -1,24 +1,59 @@
-"""What the three attribution tools share: the device argument, timing,
-the card's peak rates and the bound, and the per-variant report line."""
+"""What the attribution tools and chip_smoke.py share: the device argument,
+timing, the card's instruction rates and the bound (with the noise core's
+operation counts), a census of compiled instructions, and the per-variant
+report line."""
 
 from __future__ import annotations
 
 import argparse
 import functools
+import os
+import shutil
 import subprocess
 import time
 
 import numpy as np
 import torch
 
-# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
-# outside the tensor cores, HBM, and the SMs' shared-memory lookups (32
-# four-byte reads a clock on each of 132 SMs).
-PEAK_F32_OPS = 67e12
+from planet_tpu_torch.ops import perlin
+
+# The rates of one H100 SXM (NVIDIA's data sheet and the CUDA C++
+# Programming Guide's throughput table for compute capability 9.0): HBM at
+# 3.35 TB/s; on each of 132 SMs a clock, 128 f32 results (adds, multiplies,
+# compares — the kernels are built with -fmad=false, so none is fused; the
+# data sheet's 67 TFLOP/s counts an FMA as two), 64 f64 results, and 32
+# four-byte shared-memory reads. The SM clock is read from the card
+# (clocks.max.sm, 1980 MHz on the H100 SXM: 33.5e12 f32 and 16.7e12 f64
+# operations a second); CPU runs, which print no bound, take 1980 MHz.
 PEAK_BYTES = 3.35e12
 SMS = 132
+F32_PER_SM_CLOCK = 128
+F64_PER_SM_CLOCK = 64
 LOOKUPS_PER_SM_CLOCK = 32
+DATA_SHEET_CLOCK_HZ = 1.98e9
 REPS = 7
+
+# f32 operations counted from csrc/noise.cuh (each add, subtract, multiply,
+# divide, compare and min/max is one): an error-free product is its two
+# instructions, the multiply and the fmaf that gives its exact error;
+# df_add is 20 (two two_sums, two adds, two quick_two_sums), df_mul and a
+# non-power-of-two df_scale 9 (the product, three for the cross terms, the
+# error add, a quick_two_sum), a power-of-two df_scale 2, floor_split_parts
+# 27. The noise core: the int24 split of a point (3 axes), one octave's
+# noise3 and update, and the f64 operations of one octave's fades (8 an
+# axis: the fraction and the quintic). K1's texel adds the overscan uv (2
+# df_scale) and the corner blend (3 axes x (5 df_add + 3 df_mul)). Integer
+# hashing, conversions and table reads are not counted: the bound counts
+# the function's arithmetic, not one implementation's.
+OPS_DF_ADD = 20
+OPS_DF_MUL = 9
+OPS_DF_SCALE_POW2 = 2
+OPS_FLOOR_SPLIT = 27
+OPS_SPLIT = 96
+OPS_OCTAVE = {"ridged": 92, "fbm": 88}
+F64_OPS_OCTAVE = 24
+OPS_TILE_UV = 2 * OPS_DF_MUL
+OPS_TILE_BLEND = 3 * (5 * OPS_DF_ADD + 3 * OPS_DF_MUL)
 # host seconds a queued call may take: the spin ahead of the timed calls
 # lasts this long for each of them
 QUEUE_S = 0.5e-3
@@ -72,16 +107,71 @@ def time_ms(fn, setup=lambda: (), reps: int = REPS,
 
 
 def bound_ms(ops: float = 0.0, nbytes: float = 0.0, lookups: float = 0.0,
-             sm_clock_hz: float | None = None):
+             f64_ops: float = 0.0, sm_clock_hz: float | None = None):
     """(least ms, "operations" | "bytes" | "lookups"): the largest of the
-    f32 operations over the f32 rate, the bytes over the memory rate and,
-    given the SM clock, the table lookups over the SMs' lookup rate."""
-    cands = [(ops / PEAK_F32_OPS * 1e3, "operations"),
+    operations' time (f32 over the f32 rate plus f64 over the f64 rate),
+    the bytes over the memory rate and the table lookups over the SMs'
+    lookup rate, at the SM clock `sm_clock_hz` (DATA_SHEET_CLOCK_HZ when
+    None)."""
+    clock = SMS * (sm_clock_hz or DATA_SHEET_CLOCK_HZ)
+    cands = [((ops / (F32_PER_SM_CLOCK * clock)
+               + f64_ops / (F64_PER_SM_CLOCK * clock)) * 1e3, "operations"),
              (nbytes / PEAK_BYTES * 1e3, "bytes")]
-    if lookups and sm_clock_hz:
-        cands.append((lookups / (SMS * LOOKUPS_PER_SM_CLOCK * sm_clock_hz)
-                      * 1e3, "lookups"))
+    if lookups:
+        cands.append((lookups / (LOOKUPS_PER_SM_CLOCK * clock) * 1e3,
+                      "lookups"))
     return max(cands)
+
+
+def noise_work(octaves: int, kind: str = "ridged", lacunarity: float = 2.0):
+    """(f32 operations, f64 operations) of one point of `octaves` octaves
+    of the noise core: at lacunarity 2 the point's int24 split once and
+    each octave by shifts; otherwise each octave scales the point by its
+    frequency (2 operations an axis where that is a power of two, as at
+    octave 0, else a df_scale) and splits it."""
+    octaves = int(octaves)
+    f32 = octaves * OPS_OCTAVE[kind]
+    if float(lacunarity) == 2.0:
+        f32 += OPS_SPLIT
+    else:
+        for hi, lo in perlin.freq_consts(float(lacunarity), octaves):
+            scale = (OPS_DF_SCALE_POW2 if perlin.is_pow2_scale(hi, lo)
+                     else OPS_DF_MUL)
+            f32 += 3 * (scale + OPS_FLOOR_SPLIT)
+    return f32, octaves * F64_OPS_OCTAVE
+
+
+def sass_census(library: str, match=("noise", "field", "tile", "stage"),
+                opcodes=("I2F", "I2FP", "F2F", "F2I", "DADD", "DMUL", "DFMA",
+                         "FADD", "FMUL", "FFMA", "LDS", "SHFL")) -> dict:
+    """{kernel name: {opcode: count, "all": instructions}} of the compiled
+    kernels whose (mangled) names contain one of `match` (static counts:
+    a loop body counts once), read with cuobjdump -sass from the CUDA
+    toolkit beside nvcc; {} if cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for raw in text.splitlines():
+        line = raw.strip()
+        if line.startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            name = name if any(m in name for m in match) else None
+            if name:
+                out[name] = dict.fromkeys(opcodes + ("all",), 0)
+        elif name and line.startswith("/*") and "*/" in line:
+            body = line.split("*/", 1)[1].strip()
+            if body.startswith("@"):            # predicated
+                body = body.split(None, 1)[1] if " " in body else ""
+            op = body.split(" ", 1)[0].split(".", 1)[0].rstrip(";")
+            if op:
+                out[name]["all"] += 1
+            if op in opcodes:
+                out[name][op] += 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)

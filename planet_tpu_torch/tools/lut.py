@@ -89,6 +89,9 @@ HEADLINE = "smem_i32_256"
 # one variant of each tool whose plain version is timed too
 PLAIN_TIMED = ("smem_i32_256", "smem_i32_128", "chain1_smem",
                "runsum20_smem", "indep24_smem")
+# the variants one library call (torch.take) computes too: T3's and T4's
+# single lookups
+LIBRARY_TIMED = ("smem_i32_256", "smem_i32_128")
 WIDE = 2048            # the wide layout's row width (T6)
 REPLACES = {
     "T3": "tools/microbench_lut.py:71",
@@ -230,7 +233,9 @@ def bench(device: str = "cuda", small: bool = False,
     {"rows": [...], "inputs": {...}, "library_ms": torch.take's ms on the
     headline's operands}; a row holds name, group, ms, rate (G lookups a
     second; elements a second for the lookup-free variants), bound, equal,
-    max_abs_err, and plain_ms for the PLAIN_TIMED variants."""
+    max_abs_err, plain_ms for the PLAIN_TIMED variants and library_ms
+    (torch.take on the same operands, checked equal) for the
+    LIBRARY_TIMED ones."""
     sizes = SMALL if small else SIZES
     inputs = {k: make_inputs(k, n, device) for k, n in sizes.items()}
     clock = common.sm_clock_hz() if device == "cuda" else None
@@ -254,13 +259,14 @@ def bench(device: str = "cuda", small: bool = False,
             rows[-1]["plain_ms"] = common.time_ms(
                 lambda: lookup_plain(name, idx, table), reps=reps,
                 device=device)
-    idx, table = operands(HEADLINE, inputs["lut"])
-    idx_long = idx.long()
-    take = torch.take(table, idx_long)
-    if not common.same(take, lookup(HEADLINE, idx, table)):
-        raise RuntimeError("torch.take disagrees with the lookup kernel")
-    library_ms = common.time_ms(lambda: torch.take(table, idx_long),
-                                reps=reps, device=device)
+        if name in LIBRARY_TIMED:
+            idx_long = idx.long()
+            if not common.same(torch.take(table, idx_long), got):
+                raise RuntimeError(f"torch.take disagrees with {name}")
+            rows[-1]["library_ms"] = common.time_ms(
+                lambda: torch.take(table, idx_long), reps=reps,
+                device=device)
+    library_ms = next(r["library_ms"] for r in rows if r["name"] == HEADLINE)
     return {"rows": rows, "inputs": inputs, "library_ms": library_ms}
 
 
@@ -270,8 +276,10 @@ def main(argv=None) -> int:
     for r in res["rows"]:
         print(common.line(r["group"], r, "Glookup/s", args.device),
               flush=True)
-    print(f"torch.take on {HEADLINE}'s operands: {res['library_ms']:.4f} ms",
-          flush=True)
+    for r in res["rows"]:
+        if "library_ms" in r:
+            print(f"torch.take on {r['name']}'s operands: "
+                  f"{r['library_ms']:.4f} ms", flush=True)
     return 0 if all(r["equal"] for r in res["rows"]) else 1
 
 

@@ -19,7 +19,13 @@ as double-float pairs), ridged, 6 octaves, lacunarity 2, gain 0.55:
   its 8 gradient-sign lookups, summed;
 * hoisted — octave 0's split and fade reused every octave, the x cell
   moved by the octave index (microbench_stages.nosplit_full: cx + i): noise3
-  and the ridged update only.
+  and the ridged update only;
+* f64conv, single_lookups — full with one part of the noise core
+  (csrc/noise.cuh) put back in the first port's form: the fraction from
+  its two 24-bit words through int-to-double conversions; 14 single table
+  reads, the sign codes decoded by bits, instead of 7 pair reads and the
+  signs as f32 halves. Each equals full bit for bit, so its time beside
+  full's says what that change bought.
 
 t_tile (T2), 4096 tiles of 32x32: the corners of lod/refine.refine at
 bench_tiles2's camera (1.2 radii from the centre, max_lod 18) x 1e-5,
@@ -48,7 +54,10 @@ from planet_tpu_torch.ops import perlin
 from planet_tpu_torch.ops.kernels import perlin_cuda, tile_cuda
 from planet_tpu_torch.tools import common
 
-NOISE_VARIANTS = ("full", "splits", "splits_gathers", "hoisted")
+NOISE_VARIANTS = ("full", "splits", "splits_gathers", "hoisted", "f64conv",
+                  "single_lookups")
+# the variants that compute full's function (plain version: full's)
+CORE_FORMS = NOISE_VARIANTS[4:]
 TILE_VARIANTS = ("full", "bilinear", "noise")
 REPLACES = {"t_noise": "tools/microbench_stages.py:32",
             "t_tile": "tools/bench_tiles2.py:87"}
@@ -58,22 +67,24 @@ OCTAVES, GAIN, AMPLITUDE, DIM = 6, 0.55, 8848.0, 32
 RADIUS, MAX_LOD = 6371000.0, 18
 CAMERA = (0.0, 0.0, -1.2 * RADIUS)
 
-# f32 operations per point or texel, counted from csrc/bench_noise.cu (each
-# add, subtract, multiply, divide, compare and min/max is one; -fmad=false,
-# so no FMA). The integer hashing and the f64 fraction and fade are not
-# counted, so each bound is a floor.
-OPS_SPLIT = 96        # int24_parts of a point, 3 axes
-OPS_OCTAVE = 92       # noise3 (85) + the ridged update
+# (f32, f64) operations per point or texel, counted from csrc/bench_noise.cu
+# and the noise core's counts in tools/common (each add, subtract,
+# multiply, divide, compare and min/max is one, an error-free product two).
+# The integer hashing, conversions and table reads are not counted, so
+# each bound is a floor.
 OPS_SPLIT_SUM = 10    # split_sum (9) + the accumulate
-OPS_UV = 48           # two non-power-of-two df_scale
-OPS_BLEND = 516       # 3 axes x (5 df_add + 3 df_mul)
-NOISE_OPS = {"full": OPS_SPLIT + OCTAVES * OPS_OCTAVE,
-             "splits": OPS_SPLIT + OCTAVES * OPS_SPLIT_SUM,
-             "splits_gathers": OPS_SPLIT + OCTAVES * (OPS_SPLIT_SUM + 1),
-             "hoisted": OPS_SPLIT + OCTAVES * OPS_OCTAVE}
-TILE_OPS = {"full": OPS_UV + OPS_BLEND + OPS_SPLIT + OCTAVES * OPS_OCTAVE + 1,
-            "bilinear": OPS_UV + OPS_BLEND + 5,
-            "noise": OPS_UV + 2 + OPS_SPLIT + OCTAVES * OPS_OCTAVE + 1}
+OPS_UV = common.OPS_TILE_UV
+OPS_BLEND = common.OPS_TILE_BLEND
+_FULL = common.noise_work(OCTAVES)
+_SPLITS = (common.OPS_SPLIT + OCTAVES * OPS_SPLIT_SUM,
+           OCTAVES * common.F64_OPS_OCTAVE)
+NOISE_OPS = {"full": _FULL, "splits": _SPLITS,
+             "splits_gathers": (_SPLITS[0] + OCTAVES, _SPLITS[1]),
+             "hoisted": (_FULL[0], common.F64_OPS_OCTAVE),
+             **{name: _FULL for name in CORE_FORMS}}
+TILE_OPS = {"full": (OPS_UV + OPS_BLEND + _FULL[0] + 1, _FULL[1]),
+            "bilinear": (OPS_UV + OPS_BLEND + 5, 0),
+            "noise": (OPS_UV + 2 + _FULL[0] + 1, _FULL[1])}
 
 
 # ------------------------------------------------------------------ inputs
@@ -148,7 +159,7 @@ def noise_plain(variant: str, coords, *, octaves: int = OCTAVES,
     if variant not in NOISE_VARIANTS:
         raise ValueError(f"unknown noise variant {variant!r}")
     gain = np.float32(gain)
-    if variant == "full":
+    if variant == "full" or variant in CORE_FORMS:
         return perlin.accumulate_octaves("ridged", octaves, 2.0, gain,
                                          *coords)
     perm, signs = perlin._tables(str(coords[0].device))
@@ -283,6 +294,7 @@ def bench(device: str = "cuda", small: bool = False,
     variant (name, ms, rate in G points or texels a second, bound, equal,
     max_abs_err), the headline ("full") also with plain_ms."""
     sizes = SMALL if small else SIZES
+    clock = common.sm_clock_hz() if device == "cuda" else None
     coords = noise_inputs(sizes["points"], device)
     corners = tile_inputs(sizes["tiles"], device)
     out = {"inputs": {"coords": coords, "corners": corners}}
@@ -300,7 +312,9 @@ def bench(device: str = "cuda", small: bool = False,
                                 device=device)
             rows.append(dict(
                 name=name, ms=ms, rate=count / ms / 1e6,
-                bound=common.bound_ms(count * ops[name], nbytes(count)),
+                bound=common.bound_ms(count * ops[name][0], nbytes(count),
+                                      f64_ops=count * ops[name][1],
+                                      sm_clock_hz=clock),
                 equal=common.same(got, want),
                 max_abs_err=common.max_abs_err(got, want),
                 finite=bool(torch.isfinite(got).all())))

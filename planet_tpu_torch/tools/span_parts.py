@@ -321,7 +321,7 @@ def fresh_fb(width: int, height: int, device):
                       device=device)
 
 
-def bound(name: str, recs, fb_after):
+def bound(name: str, recs, fb_after, sm_clock_hz=None):
     """(least ms, by) of variant `name` on these records: its f32
     operations (every bbox pixel of a live record a candidate, every
     covered pixel at least one accepted fragment) and its bytes (records
@@ -335,7 +335,8 @@ def bound(name: str, recs, fb_after):
     if body != "empty":
         nbytes += 2 * fb_after.numel() * 4
     return common.bound_ms(cand * OPS_CANDIDATE[body]
-                           + covered * OPS_ACCEPTED[body], nbytes)
+                           + covered * OPS_ACCEPTED[body], nbytes,
+                           sm_clock_hz=sm_clock_hz)
 
 
 def bench(device: str = "cuda", small: bool = False,
@@ -351,6 +352,7 @@ def bench(device: str = "cuda", small: bool = False,
     (full, 14x8, big count) has ms (median of reps), plain_ms, bound."""
     sz = SMALL if small else SIZES
     w, h = sz["width"], sz["height"]
+    clock = common.sm_clock_hz() if device == "cuda" else None
     rows, headline = [], {}
     for (bw, winh), names in CASES.items():
         recs = {c: make_records(sz[c], winh, bw, 0, w, h, device)
@@ -388,7 +390,8 @@ def bench(device: str = "cuda", small: bool = False,
             rows.append(dict(
                 name=f"{name} {bw}x{winh}", variant=name, case=(bw, winh),
                 rate=float(np.median(slopes)), ms=float(np.median(big_ms)),
-                bound=bound(name, r_big, fb), equal=equal, max_abs_err=err))
+                bound=bound(name, r_big, fb, clock), equal=equal,
+                max_abs_err=err))
             if (name, (bw, winh)) in PLAIN_TIMED:
                 rows[-1]["plain_ms"] = common.time_ms(
                     lambda fb: raster_plain(name, r_big, fb, winh=winh,

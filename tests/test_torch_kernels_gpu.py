@@ -4,7 +4,9 @@ no CUDA device. On a machine with one:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
 
-Bars: K1 tiles, K4 noise, K5 field and K6 record gather bitwise; K2 span
+Bars: K1 tiles, K4 noise (at the refine-probe shape and at sizes that are
+no multiple of its block), K5 field (full cube and strips, at n = 128 and
+256) and K6 record gather bitwise; K2 span
 and K3 huge raster with identical coverage and packed depth/shade within
 1 quantum (they are built with -fmad=false and IEEE division/sqrt, so
 equality is expected); K5's row strips equal to the full cube's rows; one
@@ -138,6 +140,32 @@ def test_noise_kernel_bitwise(dev, kind, lacunarity, octaves):
     assert torch.equal(got, want), float((got - want).abs().max())
 
 
+def _sphere_coords(n, dev, seed=11):
+    """Six (n,) f32 tensors: n seeded points on the terrain-scale sphere
+    (radius 6.371e6 x 1e-5), split into double-float."""
+    p = np.random.default_rng(seed).normal(size=(n, 3))
+    p = p / np.linalg.norm(p, axis=1, keepdims=True) * 63.71
+    return [torch.as_tensor(a, device=dev) for k in range(3)
+            for a in tdf.from_f64_np(p[:, k])]
+
+
+@pytest.mark.parametrize("octaves", [0, 1, 6, 8, 18, 24])
+@pytest.mark.parametrize("n", [5 * 4096, 1001, 1])
+def test_noise_kernel_sizes_bitwise(dev, n, octaves):
+    """K4 at the refine-probe shape (5 x 4096) and at n that are no
+    multiple of its 256-thread block, ridged and fBm at lacunarity 2 and
+    fBm at 1.7."""
+    coords = _sphere_coords(n, dev)
+    for kind, lacunarity in (("ridged", 2.0), ("fbm", 2.0), ("fbm", 1.7)):
+        kw = dict(lacunarity=lacunarity, gain=0.55, octaves=octaves)
+        before = _cuda.launches["noise"]
+        got = perlin_cuda.noise_df(kind, *coords, **kw)
+        assert _cuda.launches["noise"] == before + 1
+        want = perlin_cuda.noise_plain(kind, *coords, **kw)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            (kind, lacunarity, float((got - want).abs().max()))
+
+
 def test_graph_replay_equals_eager_step(dev):
     """Two frames of the golden camera: the captured geometry step, replayed,
     gives the eager step's leaf ids, slots, tiles and vertices bit for bit,
@@ -204,6 +232,25 @@ def test_field_strips_match_full_cube_on_card(dev):
         assert torch.equal(s, s_full[:, row0:row0 + rows])
         hp, sp = field_cuda.field_plain(256, 6.371e6, row0, rows, device=dev)
         assert torch.equal(h, hp) and torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_field_kernel_sizes_bitwise(dev, n):
+    """K5's 64-row tiles at the smallest sizes: the full cube and strips
+    (one tile, a tile and a half, a strip ending inside a tile, the last
+    rows) equal to the plain version bit for bit."""
+    before = _cuda.launches["field"]
+    h_full, s_full = field_cuda.field_cube(n, 6.371e6, device=dev)
+    assert _cuda.launches["field"] == before + 1
+    hp, sp = field_cuda.field_plain(n, 6.371e6, device=dev)
+    assert torch.equal(h_full, hp) and torch.equal(s_full, sp)
+    for row0, rows in ((0, 64), (0, 96), (37, 50), (n - 1, 1),
+                       (n // 2, n // 2)):
+        h, s = field_cuda.field_cube_strip(n, 6.371e6, row0, rows, device=dev)
+        assert torch.equal(h, h_full[:, row0:row0 + rows])
+        assert torch.equal(s, s_full[:, row0:row0 + rows])
+        hp, sp = field_cuda.field_plain(n, 6.371e6, row0, rows, device=dev)
+        assert torch.equal(h, hp) and torch.equal(s, sp), (row0, rows)
 
 
 def _bits(t):
