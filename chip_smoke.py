@@ -14,11 +14,12 @@ result line is printed:
    instructions (cuobjdump -sass);
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, with CUDA-event times (median of 7):
-   K1 tiles (bitwise, lacunarity 2.0 and 1.7), K4 noise (bitwise, at the
-   refine-probe shape 5 x 4096 x 6 octaves, at 2^20 points x 18 octaves
-   and fBm at lacunarity 1.7), K6 record gather
-   (bitwise), K2 span and K3 huge raster (coverage identical, packed
-   depth/shade within 1 quantum);
+   K1 tiles (bitwise, lacunarity 2.0 and 1.7, and at the fused frame's
+   occupancy — most slots count 0 — with a positive and a negative
+   amplitude), K4 noise (bitwise, at the refine-probe shape 5 x 4096 x 6
+   octaves, at 2^20 points x 18 octaves and fBm at lacunarity 1.7), K6
+   record gather (bitwise), K2 span and K3 huge raster (framebuffers
+   bitwise equal, with and without wireframe);
 4. the host-orchestrated path, PlanetEngine(...).render on the card,
    against the oracle's frame / nearclip / farclip golden images at their
    test bars;
@@ -55,12 +56,15 @@ result line is printed:
    and full tile equal to K1 on the same inputs, each variant's time
    (t_noise's f64conv and single_lookups each put one part of the noise
    core back in the first port's form), and each t_* kernel launched > 0
-   times;
+   times; span_parts' bodies on the 1080p scene's span records
+   (bench_given: K2's first-port body, its atomics alone, the record read
+   alone, 8 records a warp);
    then K1-K6 (and K6's yardstick) again at their phase-3 (and K5 at its
    7b) shapes with the tools' queued timer (tools/common.time_calls:
    calls queued behind a spin kernel, so a short kernel's time holds no
-   host launch time; the noise kernels' calls are
-   tools/kernel_times.noise_calls, on seeded inputs).
+   host launch time; K1 at both occupancies, K2, K4 and K5 are
+   tools/kernel_times.calls, given phase 3's scene records and fused
+   occupancy).
 
 The second-to-last lines are a JSON summary of the kernels (launches from
 phase 5b, from phase 7 for the field kernel and from phase 8 for the t_*
@@ -102,8 +106,14 @@ CONFIG5_STRIPS = 8
 # and the amplitude) is tools/common's OPS_TILE_UV + OPS_TILE_BLEND + 1.
 OPS_FIELD_TEXEL = 101       # field.cu: coordinates 84 (5 error-free
                             # products), the amplitude, normal and shade 16
-OPS_CANDIDATE = 15          # raster.cu fragment(): 3 edge functions, tests
-OPS_ACCEPTED = {"span": 41, "huge": 48}   # depth, normal, shade, packing
+# K2/K3's function (raster.cu): per bbox row its exact interval — per edge
+# the line's boundary estimate (4) and the exact edge test on either side
+# of it (2 x 5) — then per pixel inside the interval fragment()'s edge
+# functions and tests, per accepted fragment the depth, normal, shade and
+# packing. Pixels outside the row intervals are no part of the least work.
+OPS_ROW = 3 * (4 + 2 * 5)
+OPS_CANDIDATE = 15
+OPS_ACCEPTED = {"span": 41, "huge": 48}
 
 
 class SmokeFailure(RuntimeError):
@@ -191,6 +201,7 @@ def main() -> int:
     from planet_tpu_torch.raster import coverage_cuda as cc
     from planet_tpu_torch.raster import nearclip
     from planet_tpu_torch.tess import mesh
+    from planet_tpu_torch.tools import kernel_times
 
     dev = torch.device(DEVICE)
 
@@ -231,22 +242,14 @@ def main() -> int:
 
     def bench_cam():
         # bench.py's 1080p LOD scene: 20 km above the surface
-        cdir = np.array([0.2, 0.5, -0.8])
-        cdir /= np.linalg.norm(cdir)
-        return cam_mod.Camera(position=cdir * (cfg1080.radius + 20000.0),
-                              angles=np.array([0.35, 0.3, 0.0], np.float32))
+        return kernel_times.scene_camera(cfg1080)
 
     # tools/bench_moving.py's descending orbit, camera in numpy
-    orbit_alts = np.linspace(20000.0, 3000.0, 48)[:8]
+    orbit = kernel_times.orbit_cameras(cfg1080)
+    orbit_alts = [alt for alt, _ in orbit]
 
     def orbit_cams():
-        for i, alt in enumerate(orbit_alts):
-            theta = i * 1e-3
-            cdir = np.array([np.cos(theta) * 0.8, 0.6, np.sin(theta) * 0.8])
-            cdir /= np.linalg.norm(cdir)
-            yield cam_mod.Camera(position=cdir * (cfg1080.radius + alt),
-                                 angles=np.array([0.35, theta, 0.0],
-                                                 np.float32))
+        return (cam for _, cam in orbit)
 
     # K1: 256 tiles from the 1080p scene's leaves, octave counts 6..18
     leaves = lod_refine.refine(bench_cam().position, cfg1080.max_lod,
@@ -267,6 +270,19 @@ def main() -> int:
     p17 = tile_cuda.tiles_plain(ch, cl, octs, lacunarity=1.7, **kw)
     check(torch.equal(k17, p17), "K1 (lacunarity 1.7) != plain (max abs "
           f"err {float((k17 - p17).abs().max())})")
+    # the fused frame's occupancy: a few live slots, the rest count 0
+    fused = kernel_times.fused_tile_inputs(dev)
+    for amp in (cfg1080.amplitude, -cfg1080.amplitude):
+        kwf = dict(kw, amplitude=amp)
+        kf = tile_cuda.tiles_cuda(*fused, **kwf)
+        pf = tile_cuda.tiles_plain(*fused, **kwf)
+        check(same_bits(kf, pf), f"K1 at the fused occupancy, amplitude "
+              f"{amp}: != plain (max abs err "
+              f"{float((kf - pf).abs().max())})")
+    dead = fused[2] == 0
+    print(f"[3] K1 tiles at the fused occupancy ({int((~dead).sum())} of "
+          f"{dead.numel()} slots live, the rest count 0): bitwise equal "
+          f"with amplitude +-{cfg1080.amplitude}", flush=True)
     octs_np = octs.cpu().numpy().astype(np.int64)
     k1_work = [tool_common.noise_work(o) for o in octs_np]
     ops_tile_texel = tool_common.OPS_TILE_UV + tool_common.OPS_TILE_BLEND + 1
@@ -334,12 +350,14 @@ def main() -> int:
             gm[None], (out.n_leaves,) + gm.shape).copy(), device=dev)
         return out.vertices.clip, out.vertices.normal, valid
 
-    def raster_compare(name, recs, width, height, kernel, plain, key):
+    def raster_compare(name, recs, width, height, kernel, plain, key,
+                       wireframe=False):
         fbk = torch.full((height, width), cov._EMPTY, dtype=torch.int32,
                          device=dev)
         fbp = fbk.clone()
-        kernel(recs, fbk)
-        plain(recs, fbp)
+        kernel(recs, fbk, wireframe)
+        plain(recs, fbp, wireframe)
+        name = f"{name}{', wireframe' if wireframe else ''}"
         k, p = fbk.cpu().numpy(), fbp.cpu().numpy()
         ck, cp = k != cov._EMPTY, p != cov._EMPTY
         n_cov = int((ck != cp).sum())
@@ -352,8 +370,8 @@ def main() -> int:
               f"{int(ck.sum())} px covered, coverage mismatches {n_cov}, "
               f"pixels differing {n_diff}, max packed-field diff {err}",
               flush=True)
-        check(n_cov == 0, f"{key} coverage differs from plain on {name}")
-        check(err <= 1, f"{key} depth/shade differ by {err} quanta on {name}")
+        check(torch.equal(fbk, fbp), f"{key} framebuffer != plain on {name} "
+              f"({n_cov} coverage mismatches, {n_diff} pixels differ)")
         return err
 
     def fresh_fb(width, height):
@@ -361,19 +379,21 @@ def main() -> int:
                                    dtype=torch.int32, device=dev),)
 
     def raster_bound(key, recs, width, height):
-        """K2/K3's bound on these records: every candidate pixel of a live
-        record's bbox is tested, every covered pixel took at least one
-        accepted fragment; the records are read and the framebuffer read
-        and written once."""
+        """K2/K3's bound on these records, a property of the function: each
+        bbox row's exact interval is found (coverage_cuda.row_intervals_plain
+        counts the rows and the pixels inside them), each pixel inside is
+        tested, each covered pixel took at least one accepted fragment; the
+        records are read once and each covered pixel's key read and
+        written once (a pixel no fragment reaches is not touched)."""
         fb = fresh_fb(width, height)()[0]
         kernel = cc.raster_span_cuda if key == "span" else cc.raster_huge_cuda
         kernel(recs, fb)
-        r = recs[recs[:, 28] != 0]
-        cand = float(((r[:, 26] - r[:, 24] + 1)
-                      * (r[:, 27] - r[:, 25] + 1)).sum())
+        _, _, lo, hi = cc.row_intervals_plain(recs)
+        inside = float((hi - lo + 1).clamp_min(0).sum())
         covered = int((fb != cov._EMPTY).sum())
-        return bound_ms(cand * OPS_CANDIDATE + covered * OPS_ACCEPTED[key],
-                        recs.shape[0] * 128 + 2 * width * height * 4)
+        return bound_ms(lo.numel() * OPS_ROW + inside * OPS_CANDIDATE
+                        + covered * OPS_ACCEPTED[key],
+                        recs.shape[0] * 128 + 2 * covered * 4)
 
     # K6 + K2 + K3 at the 1080p scene's shapes
     clip, normal, valid = scene_setup(cfg1080, bench_cam())
@@ -416,8 +436,9 @@ def main() -> int:
           f"share<=16px={float((area <= 16).mean()):.4f} "
           f"total={float(area.sum()):g}", flush=True)
 
-    err2 = raster_compare("1080p scene", g6, W_1080, H_1080,
-                          cc.raster_span_cuda, cc.raster_span_plain, "K2")
+    err2 = max(raster_compare("1080p scene", g6, W_1080, H_1080,
+                              cc.raster_span_cuda, cc.raster_span_plain,
+                              "K2", wireframe=wf) for wf in (False, True))
     report["span"] = dict(
         max_abs_err=err2,
         ms=time_ms(lambda fb: cc.raster_span_cuda(g6, fb),
@@ -437,9 +458,11 @@ def main() -> int:
                                      cell_mask, far_w=cfg800.far_plane)
         s_i, h_i = cc.route(tm, live, span)
         recs = cc.gather_records_cuda(tm, s_i)
-        err2 = max(err2, raster_compare(name, recs, 800, 600,
-                                        cc.raster_span_cuda,
-                                        cc.raster_span_plain, "K2"))
+        for wf in (False, True):
+            err2 = max(err2, raster_compare(name, recs, 800, 600,
+                                            cc.raster_span_cuda,
+                                            cc.raster_span_plain, "K2",
+                                            wireframe=wf))
         hrecs = cc.gather_records_cuda(tm, h_i)
         smask = nearclip.straddle_mask_t(clip, valid, cell_mask)
         tcl = nearclip.clipped_tris(clip, normal,
@@ -878,23 +901,26 @@ def main() -> int:
           f"{res_span['headline']['ms']:.4f} ms, plain "
           f"{res_span['headline']['plain_ms']:.4f} ms", flush=True)
     del coords, k4, ch, cl, k1
+    # K2's first-port body and its parts on the scene's own span records
+    for r in span_parts.bench_given(g6, W_1080, H_1080, reps=REPS):
+        print(f"[8] t_span {r['name']:24s} {r['ms']:9.4f} ms  "
+              f"{r['rate']:9.3f} ns/record  bound {r['bound'][0]:.5f} ms "
+              f"({r['bound'][1]})  equal to plain {r['equal']}", flush=True)
+        check(r["equal"], f"t_span {r['name']} != its plain version")
     # the main path's kernels at their phase-3 shapes again, queued behind
     # a spin kernel (tools/common.time_calls): phase 3 times one launch
     # between two events, which for a short kernel also holds the host's
-    # launch time. The noise kernels' calls are tools/kernel_times'
-    # (noise_calls), which times the same set on any tree of the port.
-    from planet_tpu_torch.tools import kernel_times
+    # launch time. K1, K2, K4 and K5 are tools/kernel_times' calls, which
+    # times the same set on any tree of the port; here on the records and
+    # fused inputs phase 3 compared.
     queued = {}
     for key, label, fn, setup in (
-            *((key, label, fn, tuple)
-              for key, label, fn in kernel_times.noise_calls(dev)),
+            *kernel_times.calls(dev, records=g6, fused=fused),
             ("gather", "K6 gather, 1080p", lambda: cc.gather_records_cuda(
                 tm1080, span_idx), tuple),
             (None, "K6's yardstick, index_select + transpose, 1080p",
              lambda: tm1080.index_select(1, span_idx).t().contiguous(),
              tuple),
-            ("span", "K2 span, 1080p",
-             lambda fb: cc.raster_span_cuda(g6, fb), fresh_fb(W_1080, H_1080)),
             ("huge", f"K3 huge, {report['huge']['shape']}",
              lambda fb: cc.raster_huge_cuda(hrecs, fb), fresh_fb(800, 600))):
         ms = tool_common.time_ms(fn, setup, reps=REPS)
@@ -953,6 +979,8 @@ def main() -> int:
             library_ms=report[k].get("library_ms")))
         if k in queued:
             kernels[-1]["queued_ms"] = queued[k]
+        if k == "tile":
+            kernels[-1]["queued_fused_ms"] = queued["tile_fused"]
         if "variants" in report[k]:
             kernels[-1]["variants"] = report[k]["variants"]
     print(json.dumps({"kernels": kernels}))

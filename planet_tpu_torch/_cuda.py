@@ -55,7 +55,7 @@ _SIGNATURES = {
     "planet_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                      _F, _P),
     "planet_gather_records": (_P, _P, _P, _I, _I, _P),
-    "planet_raster_span": (_P, _I, _P, _I, _I, _I, _P),
+    "planet_raster_span": (_P, _I, _P, _I, _I, _I, _I, _P),
     "planet_raster_huge": (_P, _I, _P, _I, _I, _I, _P),
     "planet_noise": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _F, _P),

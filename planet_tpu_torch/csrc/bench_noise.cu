@@ -28,7 +28,9 @@
 // (CodePairs), the form its plain version sums.
 // t_tile, one thread per texel of 32x32 tiles, 6 ridged octaves:
 //   0 full            K1's texel (tile.cu): uv, blend, noise, amplitude
-//   1 bilinear        the uv and the blend; the six words summed
+//   1 bilinear        the uv and the blend as K1 does them (the column
+//                     terms in shared memory, then the texel's step); the
+//                     six words summed
 //   2 noise           the uv as coordinates (u, v, u / 2), noise, amplitude
 //
 // What bounds them on the H100: the same as K4 and K1 (arithmetic and
@@ -155,23 +157,26 @@ tile_stage_kernel(const float* __restrict__ corners_hi,
                   const float* __restrict__ freq, float* __restrict__ out,
                   int octaves, float gain, float amplitude, float div_hi,
                   float div_lo) {
-  __shared__ Tables<kFast> tab;
-  if (kMode != 1) load_tables(tab, perm_g, sign_g);
-
   constexpr int kDim = 32, kBlocksPerTile = kDim * kDim / kThreads;
+  __shared__ Tables<kFast> tab;
+  __shared__ float columns[kDim * kColumnWords];
   const int tile = blockIdx.x / kBlocksPerTile;
   const int texel = (blockIdx.x % kBlocksPerTile) * kThreads + threadIdx.x;
   const int x = texel % kDim, y = texel / kDim;
-  float uh, ul, vh, vl, ph[3], pl[3];
-  tile_uv(x, y, div_hi, div_lo, uh, ul, vh, vl);
-  float value;
+  float ph[3], pl[3];
   if (kMode == 2) {
-    ph[0] = uh, pl[0] = ul, ph[1] = vh, pl[1] = vl;
-    ph[2] = uh * 0.5f, pl[2] = ul * 0.5f;
+    tile_uv(x, div_hi, div_lo, ph[0], pl[0]);
+    tile_uv(y, div_hi, div_lo, ph[1], pl[1]);
+    ph[2] = ph[0] * 0.5f, pl[2] = pl[0] * 0.5f;
   } else {
-    tile_blend(corners_hi + (size_t)tile * 12, corners_lo + (size_t)tile * 12,
-               uh, ul, vh, vl, ph, pl);
+    tile_columns(corners_hi + (size_t)tile * 12,
+                 corners_lo + (size_t)tile * 12, kDim, div_hi, div_lo,
+                 columns);
   }
+  if (kMode != 1) load_tables(tab, perm_g, sign_g);    // synchronizes
+  else __syncthreads();
+  if (kMode != 2) tile_texel(columns, x, y, ph, pl);
+  float value;
   if (kMode == 1) {
     value = ph[0] + ph[1];
     value = value + ph[2];

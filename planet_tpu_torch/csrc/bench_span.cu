@@ -1,6 +1,7 @@
-// Span-raster cost split (t_span): variants of K2's span kernel (raster.cu)
-// that keep or drop parts of its per-record work, so K2's time per record
-// splits into setup, fragment math and atomics on the card.
+// Span-raster cost split (t_span): variants of the first port's K2, the
+// bbox scan (raster.cu now scans a whole bbox only where an edge word is
+// not finite), that keep or drop parts of its per-record work, so its time
+// per record splits into setup, fragment math and atomics on the card.
 //
 // Replaces the Pallas span microbenchmarks in planet_tpu's tools/:
 // microbench_span2.py:86 and microbench_span3.py:116 `run` (record bodies,
@@ -11,9 +12,10 @@
 // span_parts.raster.
 //
 // Records are coverage.setup_t's layout (raster.cu:13-16), absolute bbox.
-// Per-record variants (K2's shape: one warp per record, the record read
-// once and broadcast by shuffles, lanes striding over the bbox pixels;
-// `per_warp` records a warp one after another, TRI_BLOCK's counterpart):
+// Per-record variants (the first port's K2: one warp per record, the
+// record read once and broadcast by shuffles, lanes striding over the bbox
+// pixels; `per_warp` records a warp one after another, TRI_BLOCK's
+// counterpart):
 //   0 full        K2's fragment (fragment.cuh)
 //   1 noshade     no normal, length or light: shade = z
 //   2 fewscalar   11 record words broadcast; edge 0 stands for all three
@@ -33,7 +35,7 @@
 // math stays at the record's own window):
 //   6 bv_record   7 bv_side   8 bv_static
 //
-// What bounds them: as K2 (raster.cu), latency of the per-pixel integer
+// What bounds them: as the first port's K2, latency of the per-pixel integer
 // arithmetic, divergence and atomics, not bytes.
 
 #include "fragment.cuh"

@@ -16,6 +16,15 @@ namespace raster_core {
 constexpr float kLightY = 0.7071067811865476f;    // f32(1/sqrt(2))
 constexpr float kLightZ = -0.7071067811865476f;
 
+// Edge k's function at the offsets (rx, ry) from the bbox-min pixel,
+// ((DX ry - DY rx) + c): the one definition, used by fragment() and by
+// the span kernel's row intervals (raster.cu), so that the intervals test
+// exactly what fragment() tests.
+__device__ __forceinline__ float edge_value(const float* r, int k, float rx,
+                                            float ry) {
+  return (r[3 * k] * ry - r[3 * k + 1] * rx) + r[3 * k + 2];
+}
+
 // One fragment of record r at pixel (px, py); rx/ry are its offsets from
 // the bbox-min pixel.
 template <bool kIwTest>
@@ -23,9 +32,9 @@ __device__ __forceinline__ void fragment(const float* r, int px, int py,
                                          int rx_i, int ry_i, int width,
                                          bool wireframe, int* fb) {
   const float rx = (float)rx_i, ry = (float)ry_i;
-  const float e0 = (r[0] * ry - r[1] * rx) + r[2];
-  const float e1 = (r[3] * ry - r[4] * rx) + r[5];
-  const float e2 = (r[6] * ry - r[7] * rx) + r[8];
+  const float e0 = edge_value(r, 0, rx, ry);
+  const float e1 = edge_value(r, 1, rx, ry);
+  const float e2 = edge_value(r, 2, rx, ry);
   if (!(e0 > r[29] && e1 > r[30] && e2 > r[31])) return;
   if (wireframe) {
     const float w0 = e0 + e0, w1 = e1 + e1, w2 = e2 + e2;

@@ -17,18 +17,31 @@
 // What bounds it on the H100: instruction throughput, not bytes. A
 // texel-octave is the noise core's ~90 f32 and ~40 integer operations, 7
 // shared-memory pair-table reads and the f64 fade per axis (noise.cuh); a
-// texel adds ~400 f32 operations of uv and blend (each error-free product
-// a multiply and an FMA); a tile reads 96 bytes of corners (broadcast
-// through L1) and writes 4 KB.
+// tile reads 96 bytes of corners and writes 4 KB.
 // Design: one thread per texel, one 256-thread block per quarter of a 32x32
-// tile, so a tile's texels share their corner loads and octave count (no
-// divergence inside a block). The permutation table and the packed
-// gradient-sign codes live in shared memory as 256-entry pair tables (each
-// entry with its neighbour, noise.cuh), which halves the hash's reads; the
-// TPU's 128-lane payload is a lane-gather device and is not carried over.
-// A tile's octave count is clamped to kMaxOctaves so that no count can
-// read past the frequency table; the callers keep counts within it (the
-// plain version refuses larger ones).
+// tile, so a tile's texels share their corners and octave count (no
+// divergence inside a block). The blend is split by what each part depends
+// on (tile_blend.cuh): the block computes each column's overscan u and the
+// column blends a, b (with the tile's corner differences) once into shared
+// memory, and a texel does only its row's step, 2 df_add and 1 df_mul an
+// axis (~150 f32 operations a texel instead of ~400, each error-free
+// product a multiply and an FMA). A tile whose octave count is 0 — most of
+// the fused frame's generation slots, which hold no leaf — writes
+// 0 * amplitude, the plain version's value whatever its corners hold, and
+// skips the tables, the blend and the noise; the count is uniform in a
+// block, so the whole block leaves at once. The permutation table and the
+// packed gradient-sign codes live in shared memory as 256-entry pair
+// tables (each entry with its neighbour, noise.cuh), which halves the
+// hash's reads; the TPU's 128-lane payload is a lane-gather device and is
+// not carried over. A tile's octave count is clamped to kMaxOctaves so
+// that no count can read past the frequency table; the callers keep
+// counts within it (the plain version refuses larger ones). The grid comes
+// from n and dim only, so the launch can be captured in a CUDA graph.
+// Blocks start in index order, so with mixed octave counts the last long
+// tiles to start set the end (~10 % of the time at 6-18 octaves); ordering
+// the tiles longest first inside the kernel (a histogram and a rank
+// search a block) won that back only in part and lost at the fused frame's
+// occupancy, so the order stays (PERF.md).
 //
 // Bit-exactness: see noise.cuh (-fmad=false, no fast-math, the plain
 // version's op order).
@@ -49,23 +62,27 @@ tiles_kernel(const float* __restrict__ corners_hi,
              float* __restrict__ out, int dim, int blocks_per_tile,
              int ridged, int pow2, float gain, float amplitude, float div_hi,
              float div_lo) {
+  extern __shared__ float columns[];     // dim x kColumnWords
   __shared__ Tables<kFast> tab;
-  load_tables(tab, perm_g, sign_g);
 
   const int tile = blockIdx.x / blocks_per_tile;
   const int texel = (blockIdx.x % blocks_per_tile) * blockDim.x + threadIdx.x;
-  if (texel >= dim * dim) return;
-  const int x = texel % dim, y = texel / dim;
-
-  float uh, ul, vh, vl, ph[3], pl[3];
-  tile_uv(x, y, div_hi, div_lo, uh, ul, vh, vl);
-  tile_blend(corners_hi + (size_t)tile * 12, corners_lo + (size_t)tile * 12,
-             uh, ul, vh, vl, ph, pl);
-
+  float* dst = out + (size_t)tile * dim * dim;
   const int count = min(octaves[tile], kMaxOctaves);
+  if (count <= 0) {
+    if (texel < dim * dim) dst[texel] = 0.0f * amplitude;
+    return;
+  }
+  tile_columns(corners_hi + (size_t)tile * 12,
+               corners_lo + (size_t)tile * 12, dim, div_hi, div_lo, columns);
+  load_tables(tab, perm_g, sign_g);      // synchronizes the block
+  if (texel >= dim * dim) return;
+
+  float ph[3], pl[3];
+  tile_texel(columns, texel % dim, texel / dim, ph, pl);
   const float value = accumulate_octaves(tab, freq, count, ridged != 0,
                                          pow2 != 0, gain, ph, pl);
-  out[(size_t)tile * dim * dim + texel] = value * amplitude;
+  dst[texel] = value * amplitude;
 }
 
 }  // namespace
@@ -78,11 +95,14 @@ extern "C" int planet_tiles(const void* corners_hi, const void* corners_lo,
                             void* stream) {
   const int blocks_per_tile = (dim * dim + kThreads - 1) / kThreads;
   const long long blocks = (long long)n * blocks_per_tile;
-  if (n <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  tiles_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const size_t shared = (size_t)dim * kColumnWords * sizeof(float);
+  if (n <= 0 || dim <= 0 || blocks > 0x7fffffffLL || shared > 32768)
+    return (int)cudaErrorInvalidValue;
+  tiles_kernel<<<(unsigned)blocks, kThreads, shared, (cudaStream_t)stream>>>(
       (const float*)corners_hi, (const float*)corners_lo,
       (const int*)octaves, (const int*)perm, (const int*)sign,
       (const float*)freq, (float*)out, dim, blocks_per_tile, ridged, pow2,
       gain, amplitude, div_hi, div_lo);
   return (int)cudaGetLastError();
 }
+

@@ -37,6 +37,10 @@ from planet_tpu_torch.nums import df as dfm
 from planet_tpu_torch.ops import perlin
 from planet_tpu_torch.ops.kernels.perlin_cuda import MAX_OCTAVES, kernel_tables
 
+# the kernel keeps a tile's column terms in shared memory (60 bytes a
+# column, at most 32 KB: csrc/tile.cu)
+MAX_DIM = 512
+
 
 def _uv_df(dim: int, device):
     """(x - 1) * (1/(dim - 3)) per texel column as a double-float pair —
@@ -93,7 +97,8 @@ def tile_uv(dim: int, device):
 def tile_coords(corners_hi, corners_lo, dim: int = 32):
     """The six (N, dim, dim) double-float noise coordinates (xh, xl, yh,
     yl, zh, zl) of every texel: the corner blend at the overscan uv
-    (csrc/tile_blend.cuh tile_blend)."""
+    (csrc/tile_blend.cuh: tile_columns computes the (1, 1, dim) terms once
+    a column, tile_texel the rest)."""
     u, v = tile_uv(dim, corners_hi.device)
     shape = (corners_hi.shape[0], dim, dim)
     coords = []
@@ -113,6 +118,8 @@ def tiles_cuda(corners_hi, corners_lo, octaves, *, kind="ridged",
                lacunarity=2.0, gain=0.55, amplitude=8848.0, dim=32):
     """The CUDA kernel (csrc/tile.cu); same signature as tiles_plain."""
     _check_meta(corners_hi, corners_lo, octaves, kind, lacunarity)
+    if not 1 <= dim <= MAX_DIM:
+        raise ValueError(f"dim must be in [1, {MAX_DIM}], got {dim}")
     n = corners_hi.shape[0]
     _cuda.check_cuda(corners_hi, "corners_hi", torch.float32, (n, 4, 3))
     _cuda.check_cuda(corners_lo, "corners_lo", torch.float32, (n, 4, 3))

@@ -16,6 +16,14 @@ version beside it, which has the same signature:
 
 Both raster wrappers min-merge into `fb` in place and return it.
 
+The span kernel visits only the pixels inside each bbox row's exact
+interval (csrc/raster.cu): along a row each edge function is a monotone
+function of the column, so the pixels passing all three edge tests form
+one interval, and every pixel outside it fails fragment()'s edge test.
+`row_intervals_plain` is the interval search in plain PyTorch, the same
+predicate in the same op order; the CPU tests hold it to a scan of every
+pixel, and nothing on the main path calls it.
+
 Routing (coverage_pallas.raster_frame_pallas): a live record whose bbox
 touches at most 16 aligned 8-row blocks and that is not a far-straddler
 goes to the span kernel, with no bound on width; every other live record
@@ -34,6 +42,17 @@ from planet_tpu_torch.raster import coverage as cov
 from planet_tpu_torch.raster import nearclip
 
 MAX_SPAN_BLOCKS = 16     # aligned 8-row blocks a span-kernel bbox may touch
+# the span kernel's grid stops at this many 128-thread blocks an SM (4
+# waves of the 8 that fit), its warps then striding over the records; 0
+# gives one warp a record however many there are. Swept on the 1080p
+# scene's, the goldens' and an orbit's records by
+# `python -m planet_tpu_torch.tools.span_parts --sweep` (PERF.md).
+SPAN_BLOCKS_PER_SM = 32
+# an edge word at or above this magnitude (or not finite) sends its record
+# to the whole-bbox scan: below it, no product or sum of the edge function
+# over a bbox of fewer than 2^24 rows and columns overflows, so rounding
+# keeps each edge monotone along a row (csrc/raster.cu kEdgeLimit)
+EDGE_LIMIT = 2.0**100
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -79,7 +98,85 @@ def raster_huge_plain(records, fb, wireframe: bool = False):
     return cov.fragments(records, fb, iw_test=True, wireframe=wireframe)
 
 
-def _raster_cuda(kernel, symbol, records, fb, wireframe):
+def _edge_passes(A, B, c, bias, ry, x):
+    """fragment()'s edge test of edge (A, B, c, bias) at integer columns x
+    of rows ry (f32): ((A ry - B x) + c) > bias, op for op."""
+    return ((A * ry - B * x.to(torch.float32)) + c) > bias
+
+
+def _boundary(A, B, c, bias, ry, bw):
+    """The first column b in [0, bw] where an edge whose coefficient B is
+    non-zero flips along its row: for B > 0 the edge passes exactly at the
+    columns below b, for B < 0 exactly at b and above. From the line's
+    estimate, settled by probing around it and bisecting with the exact
+    test (csrc/raster.cu row_boundary)."""
+    pos = B > 0.0
+    ryf = ry.to(torch.float32)
+
+    def before(x):              # True at the columns before the boundary
+        p = _edge_passes(A, B, c, bias, ryf, x)
+        return torch.where(pos, p, ~p)
+
+    t = torch.nan_to_num(((A * ryf + c) - bias) / B, nan=0.0,
+                         posinf=2.0**30, neginf=-2.0**30)
+    t = torch.clamp(t, -2.0**30, 2.0**30)
+    g = torch.where(pos, torch.ceil(t), torch.floor(t) + 1.0)
+    g = torch.minimum(torch.clamp_min(g, 0.0).to(torch.int64), bw)
+    lo, hi = torch.zeros_like(bw), bw.clone()
+    probe = g > 0
+    v = before(torch.where(probe, g - 1, 0))
+    lo = torch.where(probe & v, g, lo)
+    hi = torch.where(probe & ~v, g - 1, hi)
+    probe = (g < bw) & (lo == g)
+    v = before(torch.where(probe, g, 0))
+    lo = torch.where(probe & v, g + 1, lo)
+    hi = torch.where(probe & ~v, g, hi)
+    while bool((lo < hi).any()):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        v = before(torch.where(active, mid, 0))
+        lo = torch.where(active & v, mid + 1, lo)
+        hi = torch.where(active & ~v, mid, hi)
+    return lo
+
+
+def row_intervals_plain(records):
+    """The span kernel's row intervals: for every bbox row of every live
+    (M, 32) record, (rec, ry, lo, hi), each (R,) int64 — the record's
+    index, the row's offset from the bbox-min row, and the inclusive range
+    of column offsets whose pixels pass all three edge tests (lo > hi when
+    none does). A record with an edge word that is not finite or is at
+    least EDGE_LIMIT in magnitude gets its whole bbox (0, bw - 1) in every
+    row, as the kernel scans it whole."""
+    dev = records.device
+    live = torch.nonzero(records[:, 28] != 0.0).squeeze(1)
+    r = records[live]
+    bw = (r[:, 26] - r[:, 24]).to(torch.int64) + 1
+    bh = (r[:, 27] - r[:, 25]).to(torch.int64) + 1
+    rows = torch.repeat_interleave(torch.arange(r.shape[0], device=dev), bh)
+    first = torch.cumsum(bh, 0) - bh
+    ry = torch.arange(rows.shape[0], device=dev) \
+        - torch.repeat_interleave(first, bh)
+    rr, width = r[rows], bw[rows]
+    words = torch.cat([rr[:, :9], rr[:, 29:32]], dim=1)
+    scan = ~(torch.isfinite(words) & (words.abs() < EDGE_LIMIT)).all(dim=1)
+    lo, hi = torch.zeros_like(width), width - 1
+    ryf = ry.to(torch.float32)
+    for k in range(3):
+        A, B, c = rr[:, 3 * k], rr[:, 3 * k + 1], rr[:, 3 * k + 2]
+        bias = rr[:, 29 + k]
+        b = _boundary(A, B, c, bias, ry, width)
+        flat = _edge_passes(A, B, c, bias, ryf, torch.zeros_like(width))
+        lo_k = torch.where(B < 0.0, b, torch.zeros_like(b))
+        hi_k = torch.where(B > 0.0, b - 1, torch.where(
+            B < 0.0, width - 1, torch.where(flat, width - 1, -1)))
+        lo, hi = torch.maximum(lo, lo_k), torch.minimum(hi, hi_k)
+    lo = torch.where(scan, torch.zeros_like(lo), lo)
+    hi = torch.where(scan, width - 1, hi)
+    return live[rows], ry, lo, hi
+
+
+def _raster_cuda(kernel, symbol, records, fb, wireframe, *extra):
     m = records.shape[0]
     _cuda.check_cuda(records, "records", torch.float32, (m, 32))
     _cuda.check_cuda(fb, "fb", torch.int32)
@@ -88,12 +185,19 @@ def _raster_cuda(kernel, symbol, records, fb, wireframe):
     if m:
         height, width = fb.shape
         _cuda.launch(kernel, symbol, records.data_ptr(), m, fb.data_ptr(),
-                     width, height, int(bool(wireframe)))
+                     width, height, int(bool(wireframe)), *extra)
     return fb
 
 
-def raster_span_cuda(records, fb, wireframe: bool = False):
-    return _raster_cuda("span", "planet_raster_span", records, fb, wireframe)
+def raster_span_cuda(records, fb, wireframe: bool = False,
+                     blocks_per_sm: int = SPAN_BLOCKS_PER_SM):
+    if records.data_ptr() % 16:
+        raise ValueError("records: the span kernel reads 16-byte aligned "
+                         "rows")
+    if blocks_per_sm < 0:
+        raise ValueError(f"blocks_per_sm {blocks_per_sm} < 0")
+    return _raster_cuda("span", "planet_raster_span", records, fb, wireframe,
+                        int(blocks_per_sm))
 
 
 def raster_huge_cuda(records, fb, wireframe: bool = False):

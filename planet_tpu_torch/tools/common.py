@@ -41,8 +41,15 @@ REPS = 7
 # error add, a quick_two_sum), a power-of-two df_scale 2, floor_split_parts
 # 27. The noise core: the int24 split of a point (3 axes), one octave's
 # noise3 and update, and the f64 operations of one octave's fades (8 an
-# axis: the fraction and the quintic). K1's texel adds the overscan uv (2
-# df_scale) and the corner blend (3 axes x (5 df_add + 3 df_mul)). Integer
+# axis: the fraction and the quintic). K1's texel adds the overscan uv and
+# the corner blend of a 32x32 tile, counted as the function's least work
+# with each term where it belongs: the uv a df_scale a column, shared by
+# the rows (v of row i is u of column i); per axis the corner differences
+# (2 df_add) a tile, a = p0 + (p1 - p0) u and b = p2 + (p3 - p2) u (2 df_mul,
+# 2 df_add) a column, and the texel's p = a + (b - a) v (2 df_add, 1 df_mul)
+# — the per-tile and per-column terms divided over their texels (the
+# unsplit blend runs 2 df_scale and 3 x (5 df_add + 3 df_mul) a texel,
+# 399 operations). Integer
 # hashing, conversions and table reads are not counted: the bound counts
 # the function's arithmetic, not one implementation's.
 OPS_DF_ADD = 20
@@ -52,14 +59,18 @@ OPS_FLOOR_SPLIT = 27
 OPS_SPLIT = 96
 OPS_OCTAVE = {"ridged": 92, "fbm": 88}
 F64_OPS_OCTAVE = 24
-OPS_TILE_UV = 2 * OPS_DF_MUL
-OPS_TILE_BLEND = 3 * (5 * OPS_DF_ADD + 3 * OPS_DF_MUL)
+TILE_DIM = 32
+OPS_TILE_UV = TILE_DIM * OPS_DF_MUL / TILE_DIM**2
+OPS_TILE_BLEND = 3 * ((2 * OPS_DF_ADD + OPS_DF_MUL)
+                      + 2 * (OPS_DF_MUL + OPS_DF_ADD) / TILE_DIM
+                      + 2 * OPS_DF_ADD / TILE_DIM**2)
 # host seconds a queued call may take: the spin ahead of the timed calls
 # lasts this long for each of them
 QUEUE_S = 0.5e-3
 
 
-def parse_args(argv, doc: str):
+def parser(doc: str) -> argparse.ArgumentParser:
+    """The tools' arguments: --device, --small, --reps."""
     p = argparse.ArgumentParser(description=doc)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default): the kernels, timed with CUDA "
@@ -68,6 +79,11 @@ def parse_args(argv, doc: str):
                    help="the CPU tests' sizes instead of the tools' own")
     p.add_argument("--reps", type=int, default=REPS,
                    help="timed calls per variant (the median is kept)")
+    return p
+
+
+def parse_args(argv, p: argparse.ArgumentParser):
+    """p's arguments from argv; --device cuda needs a card."""
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("no CUDA device; pass --device cpu to run the plain versions")

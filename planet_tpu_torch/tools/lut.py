@@ -271,7 +271,8 @@ def bench(device: str = "cuda", small: bool = False,
 
 
 def main(argv=None) -> int:
-    args = common.parse_args(argv, __doc__.splitlines()[0])
+    args = common.parse_args(argv,
+                             common.parser(__doc__.splitlines()[0]))
     res = bench(args.device, args.small, args.reps)
     for r in res["rows"]:
         print(common.line(r["group"], r, "Glookup/s", args.device),

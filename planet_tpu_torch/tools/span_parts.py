@@ -2,6 +2,8 @@
 
     python -m planet_tpu_torch.tools.span_parts               # on the card
     python -m planet_tpu_torch.tools.span_parts --device cpu --small
+    python -m planet_tpu_torch.tools.span_parts --scene      # given records
+    python -m planet_tpu_torch.tools.span_parts --sweep      # K2's grid cap
 
 The port's counterpart of planet_tpu's span microbenchmarks in tools/:
 microbench_span2.py and microbench_span3.py (T8, T9: record bodies and
@@ -11,7 +13,9 @@ block-vectorized span kernel). Each variant is a kernel of
 csrc/bench_span.cu with a plain PyTorch version here that it equals bit for
 bit:
 
-* per-record bodies, K2's shape (one warp per record): full (K2's
+* per-record bodies, the first port's K2 (one warp per record, every bbox
+  pixel a candidate; K2 now visits only each row's exact interval,
+  csrc/raster.cu): full (K2's
   fragment; its plain version is coverage_cuda.raster_span_plain),
   noshade, fewscalar, rmw_only, empty, static_rmw, and full with 2, 4 or 8
   records a warp (TRI_BLOCK's counterpart);
@@ -27,7 +31,16 @@ inv_area-folded coefficients) from live, front-facing triangles in the
 tools' geometry (proto_bv.make_live_records: a bw x winh triangle inside
 one aligned 8-row, 128-column window, seeded). Times are slopes, as
 microbench_span3 took them: the marginal ns per record between 4096 and
-32768 records, median of 3, each call on a fresh framebuffer. `raster`
+32768 records, median of 3, each call on a fresh framebuffer. With
+`--scene`, `bench_given` runs the bodies of GIVEN_BODIES on given records
+instead — the 1080p static scene's span records
+(tools/kernel_times.scene_records), whose bboxes are larger and more
+varied than make_records' — and times each call queued. With
+`--sweep`, `sweep` times the shipped K2 at each grid cap of SWEEP_BLOCKS
+(blocks an SM before its warps stride over the records; 0 is one warp a
+record) on the span records of the 1080p static scene, the three goldens'
+scenes and the orbit's first frames (`sweep_sets`), each cap bit for bit
+against the plain version. `raster`
 launches the kernel for CUDA tensors (counted in
 _cuda.launches["t_span"]) and runs the plain version for CPU tensors.
 """
@@ -35,6 +48,8 @@ _cuda.launches["t_span"]) and runs the plain version for CPU tensors.
 from __future__ import annotations
 
 import dataclasses
+import pathlib
+import subprocess
 
 import numpy as np
 import torch
@@ -45,6 +60,9 @@ from planet_tpu_torch.raster import coverage_cuda, nearclip
 from planet_tpu_torch.tools import common
 
 BODIES = ("full", "noshade", "fewscalar", "rmw_only", "empty", "static_rmw")
+# K2's grid caps for --sweep, blocks an SM (0: one warp a record)
+SWEEP_BLOCKS = (0, 16, 24, 28, 32, 40, 56)
+GOLD = pathlib.Path(__file__).resolve().parents[2] / "tests" / "goldens"
 BV_MODES = ("record", "side", "static")
 
 
@@ -72,6 +90,10 @@ VARIANTS = {
     "bv_r32_static": Variant(bv="static", group=32),
 }
 HEADLINE = "full"
+# the bodies bench_given runs on given records: the first port's K2 body
+# (the bbox scan), its bbox loop and atomics alone, the record read alone,
+# and that body 8 records a warp
+GIVEN_BODIES = ("full", "rmw_only", "empty", "full_w8")
 # block-vectorized variants whose plain version is timed too, at the big
 # record count, once (proto_bv's and proto_bv2's timed kernels)
 PLAIN_TIMED = (("bv_r8", (14, 8)), ("bv_r32_side_noin", (14, 8)))
@@ -325,7 +347,7 @@ def bound(name: str, recs, fb_after, sm_clock_hz=None):
     """(least ms, by) of variant `name` on these records: its f32
     operations (every bbox pixel of a live record a candidate, every
     covered pixel at least one accepted fragment) and its bytes (records
-    read once, the framebuffer read and written once)."""
+    read once, each covered pixel's key read and written once)."""
     body = VARIANTS[name].body
     live = recs[recs[:, 28] != 0.0]
     cand = float(((live[:, 26] - live[:, 24] + 1)
@@ -333,7 +355,7 @@ def bound(name: str, recs, fb_after, sm_clock_hz=None):
     covered = int((fb_after != cov._EMPTY).sum())
     nbytes = recs.shape[0] * 128
     if body != "empty":
-        nbytes += 2 * fb_after.numel() * 4
+        nbytes += 2 * covered * 4
     return common.bound_ms(cand * OPS_CANDIDATE[body]
                            + covered * OPS_ACCEPTED[body], nbytes,
                            sm_clock_hz=sm_clock_hz)
@@ -345,9 +367,8 @@ def bench(device: str = "cuda", small: bool = False,
     small record count; full also at the big one), then timed by slope.
     Returns {"rows": [...], "headline": {...}}: a row holds name, case
     (bw, winh), rate (ns a record by slope, median of 3), ms at the big
-    count, bound, equal (bit for bit; full and full_w* at K2's bar,
-    coverage identical and packed fields within 1 quantum; bv_* with the
-    record's or the side array's window also equal to full) and
+    count, bound, equal (bit for bit; bv_* with the record's or the side
+    array's window also equal to full) and
     max_abs_err (quanta), and plain_ms for PLAIN_TIMED; the headline
     (full, 14x8, big count) has ms (median of reps), plain_ms, bound."""
     sz = SMALL if small else SIZES
@@ -368,11 +389,8 @@ def bench(device: str = "cuda", small: bool = False,
                              addr=a)
                 want = raster_plain(name, r, fresh_fb(w, h, device),
                                     winh=winh, addr=a)
-                n_cov, d = fb_diff(got, want)
-                if v.body == "full" and not v.bv:     # K2's bar
-                    equal = equal and n_cov == 0 and d <= 1
-                else:
-                    equal = equal and common.same(got, want)
+                d = fb_diff(got, want)[1]
+                equal = equal and common.same(got, want)
                 if v.bv in ("record", "side"):   # its window holds the bbox
                     equal = equal and common.same(got, full)
                 err = max(err, d)
@@ -410,8 +428,112 @@ def bench(device: str = "cuda", small: bool = False,
     return {"rows": rows, "headline": headline}
 
 
+def bench_given(recs, width: int, height: int, names=GIVEN_BODIES,
+                reps: int = common.REPS) -> list:
+    """Each per-record body of `names` on the given (M, 32) records: rows
+    of name, ms (median of reps, queued behind a spin kernel on the card),
+    rate (ns a record), bound, equal (bit for bit against its plain
+    version) and max_abs_err (packed-field quanta)."""
+    device = common.device_of(recs)
+    clock = common.sm_clock_hz() if device == "cuda" else None
+    rows = []
+    for name in names:
+        if VARIANTS[name].bv:
+            raise ValueError(f"{name} is block-vectorized, not a body")
+        got = raster(name, recs, fresh_fb(width, height, device))
+        want = raster_plain(name, recs, fresh_fb(width, height, device))
+        ms = common.time_ms(lambda fb: raster(name, recs, fb),
+                            lambda: (fresh_fb(width, height, device),),
+                            reps=reps, device=device)
+        rows.append(dict(
+            name=f"{name} given", variant=name, ms=ms,
+            rate=ms * 1e6 / max(recs.shape[0], 1),
+            bound=bound(name, recs, got, clock),
+            equal=common.same(got, want), max_abs_err=fb_diff(got, want)[1]))
+    return rows
+
+
+def sweep_sets(device) -> dict:
+    """{name: (records, width, height)}: the span records K2 draws in the
+    1080p static scene, in the three goldens' scenes (800x600) and in each
+    of the orbit's first frames (one PlanetEngine flying them in order)."""
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.engine.planet import PlanetEngine
+    from planet_tpu_torch.geom import camera as cam_mod
+    from planet_tpu_torch.tools import kernel_times
+
+    w, h = kernel_times.SCENE_W, kernel_times.SCENE_H
+    sets = {"1080p static": (kernel_times.scene_records(device), w, h)}
+    cfg = EngineConfig()
+    for name in ("frame", "nearclip", "farclip"):
+        cam = cam_mod.Camera(position=np.load(GOLD / f"{name}_cam.npy"),
+                             angles=np.load(GOLD / f"{name}_angles.npy"))
+        sets[f"golden {name}"] = (kernel_times.frame_records(
+            PlanetEngine(cfg, device=device), cam), cfg.window_w,
+            cfg.window_h)
+    cfg = EngineConfig(window_w=w, window_h=h)
+    eng = PlanetEngine(cfg, device=device)
+    for i, (alt, cam) in enumerate(kernel_times.orbit_cameras(cfg)):
+        sets[f"orbit {i} ({alt:.0f} m)"] = (
+            kernel_times.frame_records(eng, cam), w, h)
+    return sets
+
+
+def sweep(sets: dict, blocks=SWEEP_BLOCKS, reps: int = common.REPS) -> list:
+    """K2 (coverage_cuda.raster_span_cuda) on each record set at each grid
+    cap of `blocks` (blocks an SM; 0 = one warp a record), timed queued
+    twice, the caps in order and then in reverse: rows of name, records,
+    ms {cap: [first, second]} and equal (every cap's framebuffer bit for
+    bit the plain version's)."""
+    rows = []
+    for name, (recs, width, height) in sets.items():
+        device = common.device_of(recs)
+        want = coverage_cuda.raster_span_plain(
+            recs, fresh_fb(width, height, device))
+        equal = all(torch.equal(coverage_cuda.raster_span_cuda(
+            recs, fresh_fb(width, height, device), blocks_per_sm=b), want)
+            for b in blocks)
+        ms = {b: [] for b in blocks}
+        for b in (*blocks, *blocks[::-1]):
+            ms[b].append(common.time_ms(
+                lambda fb: coverage_cuda.raster_span_cuda(
+                    recs, fb, blocks_per_sm=b),
+                lambda: (fresh_fb(width, height, device),), reps=reps))
+        rows.append(dict(name=name, records=recs.shape[0], ms=ms,
+                         equal=equal))
+    return rows
+
+
 def main(argv=None) -> int:
-    args = common.parse_args(argv, __doc__.splitlines()[0])
+    p = common.parser(__doc__.splitlines()[0])
+    p.add_argument("--scene", action="store_true",
+                   help="run GIVEN_BODIES on the 1080p scene's span records")
+    p.add_argument("--sweep", action="store_true",
+                   help="time K2 at each grid cap of SWEEP_BLOCKS on the "
+                        "1080p scene's, the goldens' and the orbit's span "
+                        "records (needs a card)")
+    args = common.parse_args(argv, p)
+    if args.sweep:
+        if args.device != "cuda":
+            p.error("--sweep times the kernel: it needs --device cuda")
+        rows = sweep(sweep_sets(args.device), reps=args.reps)
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), flush=True)
+        for r in rows:
+            print(f"{r['name']:22s} {r['records']:6d} records  " + "  ".join(
+                f"{b}: {a:.4f}/{c:.4f}" for b, (a, c) in r["ms"].items())
+                + f"  equal {r['equal']}", flush=True)
+        return 0 if all(r["equal"] for r in rows) else 1
+    if args.scene:
+        from planet_tpu_torch.tools import kernel_times
+        recs = kernel_times.scene_records(args.device)
+        rows = bench_given(recs, kernel_times.SCENE_W, kernel_times.SCENE_H,
+                           reps=args.reps)
+        for r in rows:
+            print(common.line("", r, "ns/record", args.device), flush=True)
+        return 0 if all(r["equal"] for r in rows) else 1
     res = bench(args.device, args.small, args.reps)
     for r in res["rows"]:
         print(common.line("", r, "ns/record (slope)", args.device),

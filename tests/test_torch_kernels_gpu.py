@@ -4,12 +4,16 @@ no CUDA device. On a machine with one:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
 
-Bars: K1 tiles, K4 noise (at the refine-probe shape and at sizes that are
-no multiple of its block), K5 field (full cube and strips, at n = 128 and
-256) and K6 record gather bitwise; K2 span
-and K3 huge raster with identical coverage and packed depth/shade within
-1 quantum (they are built with -fmad=false and IEEE division/sqrt, so
-equality is expected); K5's row strips equal to the full cube's rows; one
+Bars: K1 tiles (also with count-0 tiles among live ones, and a negative
+amplitude), K4 noise (at the refine-probe shape and at sizes that are no
+multiple of its block), K5 field (full cube and strips, at n = 128 and
+256) and K6 record gather bitwise; K2 span and K3 huge raster framebuffers
+bitwise equal to their plain versions (built with -fmad=false and IEEE
+division/sqrt), K2 also on adversarial records (near-horizontal and
+near-vertical edges, slivers, one-pixel and full-width bboxes, bboxes
+clamped at the screen edge, -0.0 edge words, edges it scans whole), with
+and without wireframe, and the one documented difference (a NaN shade
+packs as 1023 on the card, as torch converts NaN in the plain version); K5's row strips equal to the full cube's rows; one
 CUDA-graph replay of the fused frame's geometry step bitwise equal to the
 same step run eagerly on the card; every variant of the attribution tools
 (planet_tpu_torch/tools: t_noise, t_tile, t_lut, t_span) bitwise equal to
@@ -30,7 +34,8 @@ from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
 from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import coverage_cuda as tcc
 from planet_tpu_torch.tools import lut, noise_stages, span_parts
-from torch_scenes import SCREEN, VIEW, screen_scene, view_scene
+from torch_scenes import (EDGE, SCREEN, VIEW, adversarial_records,
+                          nan_shade_records, screen_scene, view_scene)
 
 pytestmark = pytest.mark.gpu
 GOLD = "tests/goldens/"
@@ -45,11 +50,10 @@ def dev():
 
 
 def _assert_fb_bars(got, want):
+    """The kernel's framebuffer equals the plain version's bit for bit."""
     got, want = got.cpu().numpy(), want.cpu().numpy()
     np.testing.assert_array_equal(got == EMPTY, want == EMPTY)
-    both = got != EMPTY
-    assert np.abs((got[both] >> 10) - (want[both] >> 10)).max(initial=0) <= 1
-    assert np.abs((got[both] & 1023) - (want[both] & 1023)).max(initial=0) <= 1
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("kind,lacunarity", [("ridged", 2.0), ("fbm", 2.0),
@@ -66,6 +70,24 @@ def test_tile_kernel_bitwise(dev, kind, lacunarity):
     assert _cuda.launches["tile"] == before + 1
     want = tile_cuda.tiles_plain(*args, **kw)
     assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("amplitude", [8848.0, -8848.0])
+def test_tile_kernel_dead_tiles_bitwise(dev, amplitude):
+    """Count-0 tiles mixed with live ones, as the fused frame's generation
+    slots: each writes 0 * amplitude whatever its corners hold."""
+    ch, cl = tdf.from_f64_np(np.load(GOLD + "tile_corners.npy") * 1e-5)
+    n = len(ch)
+    ch, cl = torch.as_tensor(ch), torch.as_tensor(cl)
+    octs = torch.as_tensor(np.where(np.arange(n) % 3 == 0, 0,
+                                    6 + np.arange(n) % 13).astype(np.int32))
+    ch[octs == 0] = float("nan")
+    kw = dict(kind="ridged", gain=0.55, amplitude=amplitude)
+    before = _cuda.launches["tile"]
+    got = tile_cuda.generate_tiles(ch.to(dev), cl.to(dev), octs.to(dev), **kw)
+    assert _cuda.launches["tile"] == before + 1
+    want = tile_cuda.tiles_plain(ch, cl, octs, **kw)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 def test_gather_kernel_bitwise(dev):
@@ -104,6 +126,38 @@ def test_raster_kernels_match_plain(dev, wireframe):
             kernel(recs, fbk, wireframe)
             plain(recs, fbp, wireframe)
             _assert_fb_bars(fbk, fbp)
+
+
+@pytest.mark.parametrize("wireframe", [False, True])
+def test_span_kernel_adversarial_records_bitwise(dev, wireframe):
+    """K2 on records that stress its row intervals, against its plain
+    version on the CPU: the framebuffers are equal bit for bit."""
+    recs = adversarial_records(**EDGE)
+    fb = torch.full((EDGE["height"], EDGE["width"]), EMPTY, dtype=torch.int32)
+    before = _cuda.launches["span"]
+    got = tcc.raster_span(recs.to(dev), fb.to(dev), wireframe)
+    assert _cuda.launches["span"] == before + 1
+    want = tcc.raster_span_plain(recs, fb.clone(), wireframe)
+    _assert_fb_bars(got, want)
+    assert int((want != EMPTY).sum()) > 0
+
+
+def test_span_kernel_nan_shade_difference_as_documented(dev):
+    """The one known K2/plain difference (ROADMAP.md section 3), held as
+    documented: on records whose every fragment has a NaN shade, the
+    kernel covers the same pixels with the same depth field, and packs the
+    shade as 1023 (the card's fminf returns the number) where the plain
+    version packs torch's int32 conversion of NaN."""
+    recs = nan_shade_records(**EDGE)
+    fb = torch.full((EDGE["height"], EDGE["width"]), EMPTY, dtype=torch.int32)
+    got = tcc.raster_span(recs.to(dev), fb.to(dev)).cpu()
+    want = tcc.raster_span_plain(recs, fb.clone())
+    covered = want != EMPTY
+    assert torch.equal(got != EMPTY, covered) and int(covered.sum()) > 0
+    nan_q = int(torch.tensor([float("nan")]).to(torch.int32)[0])
+    assert torch.equal(got[covered] & 1023,
+                       torch.full_like(got[covered], 1023))
+    assert torch.equal(want[covered], (got[covered] & 0x7FFFFC00) | nan_q)
 
 
 def test_frame_on_card_matches_cpu(dev):

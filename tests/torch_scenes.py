@@ -70,3 +70,101 @@ def view_scene(seed, width, height, far):
     normal = (nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)).astype(F)
     valid = rng.uniform(size=(q, 3, 3)) > 0.05
     return clip, normal, valid
+
+
+# the adversarial records' screen: wide enough for full-width rows
+EDGE = dict(seed=21, width=240, height=136)
+
+
+def adversarial_tris(seed, width, height, n=12):
+    """(clip (K, 3, 4), normal (K, 3, 3)) f32 of screen triangles that
+    stress the span kernel's row intervals, each in both windings (one of
+    them faces the camera): near-horizontal and exactly horizontal edges,
+    near-vertical and exactly vertical edges, slivers 1/16 px thick,
+    one-pixel triangles, rows wider than the screen, and triangles hanging
+    over each side of the screen (bboxes clamped at its edge)."""
+    rng = np.random.default_rng(seed)
+    tris = []
+    for _ in range(n):
+        x0, y0 = rng.uniform(-20, width + 20), rng.uniform(-10, height + 10)
+        tilt = rng.choice([0.0, 1 / 16, -1 / 16, 1 / 8])
+        long = rng.uniform(20, width)
+        tris.append([(x0, y0), (x0 + long, y0 + tilt),
+                     (x0 + long * rng.uniform(), y0 + rng.uniform(2, 40))])
+        tris.append([(x0, y0), (x0 + tilt, y0 + rng.uniform(2, 100)),
+                     (x0 + rng.uniform(-30, 30), y0 + rng.uniform(0, 50))])
+        d = rng.normal(size=2)
+        d /= np.linalg.norm(d)
+        a = np.array([x0, y0])
+        b = a + d * rng.uniform(5, 200)
+        tris.append([a, b, b + np.array([-d[1], d[0]]) / 16])
+        cx = rng.integers(0, width) + 0.5
+        cy = rng.integers(0, height) + 0.5
+        tris.append([(cx - 0.3, cy - 0.3), (cx + 0.4, cy), (cx, cy + 0.4)])
+        tris.append([(-50.0, y0), (width + 50.0, y0 + rng.uniform(0, 2)),
+                     (width * rng.uniform(), y0 + rng.uniform(3, 60))])
+        side = rng.integers(4)
+        ex = (-15.0, width + 15.0, x0, x0)[side]
+        ey = (y0, y0, -15.0, height + 15.0)[side]
+        tris.append([(ex, ey), (ex + rng.uniform(-60, 60), ey + 40),
+                     (ex + 40, ey + rng.uniform(-60, 60))])
+    tris += [t[::-1] for t in tris]
+    k = len(tris)
+    xy = np.array([[np.asarray(p, np.float64) for p in t] for t in tris])
+    w = rng.uniform(0.5, 2.0, (k, 3))
+    clip = np.zeros((k, 3, 4), F)
+    clip[..., 0] = (xy[..., 0] / width - 0.5) * 2.0 * w
+    clip[..., 1] = (0.5 - xy[..., 1] / height) * 2.0 * w
+    clip[..., 2] = rng.uniform(-0.9, 0.9, (k, 3)) * w
+    clip[..., 3] = w
+    nrm = rng.normal(size=(k, 3, 3))
+    normal = (nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)).astype(F)
+    return clip, normal
+
+
+def adversarial_records(seed, width, height, device="cpu"):
+    """(M, 32) f32 span records: the live adversarial_tris set up by the
+    raster's record math (nearclip.setup_tris, records_from_tris), then
+    a copy of them with the edge words' zeros made -0.0, and records
+    the span kernel scans whole, each with one edge word at or beyond its
+    limit: an accept bias of -1e35 or -inf (the edge passes everywhere, the
+    other two bound the triangle), of 1e35 or NaN, or an edge constant of
+    NaN (the record draws nothing). Their fragment math stays finite, so
+    the kernel and its plain version compute the same keys; records whose
+    shades are NaN are nan_shade_records'."""
+    import torch
+
+    from planet_tpu_torch.raster import nearclip
+
+    clip, normal = adversarial_tris(seed, width, height)
+    t = nearclip.setup_tris(torch.as_tensor(clip, device=device),
+                            torch.as_tensor(normal, device=device),
+                            torch.ones(len(clip), dtype=torch.bool,
+                                       device=device), width, height)
+    recs = nearclip.records_from_tris(t)[t.live]
+    neg0 = recs.clone()
+    edge = neg0[:, :9]
+    neg0[:, :9] = torch.where(edge == 0.0, torch.full_like(edge, -0.0), edge)
+    odd = recs[:6].clone()
+    for i, (word, value) in enumerate(((29, -1e35), (30, float("-inf")),
+                                       (31, 1e35), (29, float("nan")),
+                                       (2, float("nan")), (31, -1e30))):
+        odd[i, word] = value
+    return torch.cat([recs, neg0, odd]).contiguous()
+
+
+def nan_shade_records(seed, width, height, device="cpu"):
+    """(M, 32) f32 span records whose every fragment has a NaN shade: the
+    first live adversarial_tris records, each with one edge constant made
+    +inf (edge 0, 1, 2 in turn). That edge then passes everywhere and its
+    value is inf, so the interpolated normal is inf or NaN and the shade
+    NaN, while z stays >= -1 where its weight is positive (its key's depth
+    saturates). The span kernel scans these records whole. They pin the
+    one known difference between K2 and its plain version (ROADMAP.md
+    section 3): the card's fminf packs a NaN shade as 1023, torch's
+    clamp_max keeps the NaN and .to(int32) converts it as the platform
+    does."""
+    recs = adversarial_records(seed, width, height, device)[:24].clone()
+    for i in range(len(recs)):
+        recs[i, 3 * (i % 3) + 2] = float("inf")
+    return recs
