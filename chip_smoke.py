@@ -17,9 +17,17 @@ result line is printed:
    K1 tiles (bitwise, lacunarity 2.0 and 1.7, and at the fused frame's
    occupancy — most slots count 0 — with a positive and a negative
    amplitude), K4 noise (bitwise, at the refine-probe shape 5 x 4096 x 6
-   octaves, at 2^20 points x 18 octaves and fBm at lacunarity 1.7), K6
-   record gather (bitwise), K2 span and K3 huge raster (framebuffers
-   bitwise equal, with and without wireframe);
+   octaves, at 2^20 points x 18 octaves and fBm at lacunarity 1.7); on
+   the record sets of tools/kernel_times.record_sets (the 1080p static
+   scene, the three goldens, the orbit frames with huge records): K6
+   route + gather (records and counts bitwise, also with every candidate
+   dead, huge, span or live; the sectors its 1080p reads touch), K2 on
+   the span and K3 on the huge records and a screen-filling triangle
+   (framebuffers bitwise equal, with and without wireframe; each K3 set
+   timed under its own name), the routed raster K6 -> K2 -> K3 with the
+   counts on the device against the plain composition, and run under
+   torch.cuda.set_sync_debug_mode("error") (no host read between setup
+   and K3);
 4. the host-orchestrated path, PlanetEngine(...).render on the card,
    against the oracle's frame / nearclip / farclip golden images at their
    test bars;
@@ -59,18 +67,19 @@ result line is printed:
    times; span_parts' bodies on the 1080p scene's span records
    (bench_given: K2's first-port body, its atomics alone, the record read
    alone, 8 records a warp);
-   then K1-K6 (and K6's yardstick) again at their phase-3 (and K5 at its
-   7b) shapes with the tools' queued timer (tools/common.time_calls:
-   calls queued behind a spin kernel, so a short kernel's time holds no
-   host launch time; K1 at both occupancies, K2, K4 and K5 are
-   tools/kernel_times.calls, given phase 3's scene records and fused
-   occupancy).
+   then K1-K6 again at their phase-3 (and K5 at its 7b) shapes with the
+   tools' queued timer (tools/common.time_calls: calls queued behind a
+   spin kernel, so a short kernel's time holds no host launch time):
+   tools/kernel_times.calls on phase 3's record sets and fused
+   occupancy, and its host_calls (K6 by the host clock).
 
 The second-to-last lines are a JSON summary of the kernels (launches from
 phase 5b, from phase 7 for the field kernel and from phase 8 for the t_*
 kernels, which also carry each variant's ms; each kernel's time, single
 launch and queued, its plain version's, a library call's where one
-computes the same function, and its bound, tools/common.bound_ms: the
+computes the same function — none routes and gathers, so K6 gives the
+composed torch sequence's time as composed_ms instead — and its bound,
+tools/common.bound_ms: the
 larger of its bytes over the card's memory rate and its f32 and f64
 operations over the card's instruction rates at its SM clock) and the card's
 `nvidia-smi --query-gpu=name,power.limit` line; the last line is
@@ -199,8 +208,6 @@ def main() -> int:
     from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
     from planet_tpu_torch.raster import coverage as cov
     from planet_tpu_torch.raster import coverage_cuda as cc
-    from planet_tpu_torch.raster import nearclip
-    from planet_tpu_torch.tess import mesh
     from planet_tpu_torch.tools import kernel_times
 
     dev = torch.device(DEVICE)
@@ -342,21 +349,15 @@ def main() -> int:
             report["noise"] = dict(ms=ms, plain_ms=plain_ms, bound=bound4)
     report["noise"]["max_abs_err"] = err4
 
-    def scene_setup(cfg, cam):
-        eng = PlanetEngine(cfg, device=dev)
-        out = eng.frame(cam)
-        gm = mesh.grid_uv_skirt(cfg.patch_verts)[3]
-        valid = torch.as_tensor(np.broadcast_to(
-            gm[None], (out.n_leaves,) + gm.shape).copy(), device=dev)
-        return out.vertices.clip, out.vertices.normal, valid
-
-    def raster_compare(name, recs, width, height, kernel, plain, key,
+    def raster_compare(name, width, height, kernel, plain, key,
                        wireframe=False):
+        """kernel(fb, wireframe) and plain(fb, wireframe) into two fresh
+        framebuffers, held equal bit for bit."""
         fbk = torch.full((height, width), cov._EMPTY, dtype=torch.int32,
                          device=dev)
         fbp = fbk.clone()
-        kernel(recs, fbk, wireframe)
-        plain(recs, fbp, wireframe)
+        kernel(fbk, wireframe)
+        plain(fbp, wireframe)
         name = f"{name}{', wireframe' if wireframe else ''}"
         k, p = fbk.cpu().numpy(), fbp.cpu().numpy()
         ck, cp = k != cov._EMPTY, p != cov._EMPTY
@@ -366,13 +367,23 @@ def main() -> int:
         ds = np.abs((k[both] & 1023) - (p[both] & 1023))
         err = int(max(dz.max(initial=0), ds.max(initial=0)))
         n_diff = int((k != p).sum())
-        print(f"[3] {key} {name}: {recs.shape[0]} records, "
-              f"{int(ck.sum())} px covered, coverage mismatches {n_cov}, "
-              f"pixels differing {n_diff}, max packed-field diff {err}",
-              flush=True)
+        print(f"[3] {key} {name}: {int(ck.sum())} px covered, coverage "
+              f"mismatches {n_cov}, pixels differing {n_diff}, max "
+              f"packed-field diff {err}", flush=True)
         check(torch.equal(fbk, fbp), f"{key} framebuffer != plain on {name} "
               f"({n_cov} coverage mismatches, {n_diff} pixels differ)")
         return err
+
+    def records_compare(name, recs, width, height, key):
+        """The kernel of `key` on the records against its plain version,
+        with and without wireframe."""
+        kernel = cc.raster_span_cuda if key == "K2" else cc.raster_huge_cuda
+        plain = cc.raster_span_plain if key == "K2" else cc.raster_huge_plain
+        return max(raster_compare(
+            f"{name}, {recs.shape[0]} records", width, height,
+            lambda fb, wf: kernel(recs, fb, wf),
+            lambda fb, wf: plain(recs, fb, wf), key, wireframe=wf)
+            for wf in (False, True))
 
     def fresh_fb(width, height):
         return lambda: (torch.full((height, width), cov._EMPTY,
@@ -395,37 +406,85 @@ def main() -> int:
                         + covered * OPS_ACCEPTED[key],
                         recs.shape[0] * 128 + 2 * covered * 4)
 
-    # K6 + K2 + K3 at the 1080p scene's shapes
-    clip, normal, valid = scene_setup(cfg1080, bench_cam())
-    cell_mask = mesh.cell_triangle_mask(cfg1080.patch_verts)
-    tm, live, span = cov.setup_t(clip, normal, valid, W_1080, H_1080,
-                                 cell_mask, far_w=cfg1080.far_plane)
-    span_idx, huge_idx = cc.route(tm, live, span)
-    tm1080 = tm
-    g6 = cc.gather_records_cuda(tm, span_idx)
-    p6 = cc.gather_records_plain(tm, span_idx)
-    check(torch.equal(g6, p6), "K6 gather != plain")
-    # an out-of-range index must give a dead (all-zero) record
-    edge_idx = torch.tensor([0, tm.shape[1], -1], dtype=torch.int32,
-                            device=dev)
-    check(torch.equal(cc.gather_records_cuda(tm, edge_idx),
-                      cc.gather_records_plain(tm, edge_idx)),
-          "K6 gather != plain on out-of-range indices")
-    # K6's yardstick: one library gather + transpose computes the same
-    # records when every index is in range (the port never calls it)
-    check(torch.equal(tm.index_select(1, span_idx).t().contiguous(), g6),
-          "index_select yardstick != K6")
+    # the record sets (tools/kernel_times.record_sets): the 1080p static
+    # scene, the three goldens, the orbit frames with huge records; each
+    # set's route inputs (setup_t) and its span and huge records
+    sets = kernel_times.record_sets(dev)
+    fs1080 = sets["1080p static"]
+    tm1080, g6 = fs1080["tm"], fs1080["span_recs"]
+    n1080 = tm1080.shape[1]
+    print("[3] record sets: " + "; ".join(
+        f"{name} {fs['tm'].shape[1]} candidates, "
+        f"{fs['span_recs'].shape[0]} span, {fs['huge_recs'].shape[0]} huge"
+        for name, fs in sets.items()), flush=True)
+
+    # K6: route and gather against its plain version (records and counts)
+    def route_compare(name, tm, live, span):
+        sk, hk, ck = cc.route_records_cuda(tm, live, span)
+        sp, hp, cp = cc.route_records_plain(tm, live, span)
+        ns, nh = (int(v) for v in cp.tolist())
+        ok = (torch.equal(ck, cp) and same_bits(sk[:ns], sp)
+              and same_bits(hk[:nh], hp))
+        print(f"[3] K6 route + gather, {name}: {tm.shape[1]} candidates, "
+              f"{ns} span, {nh} huge, counts {ck.tolist()}; records and "
+              f"counts equal to plain: {ok}", flush=True)
+        check(ok, f"K6 != plain on {name}")
+
+    for name, fs in sets.items():
+        route_compare(name, fs["tm"], fs["live"], fs["span"])
+    live1080, span1080 = fs1080["live"], fs1080["span"]
+    alive = tm1080.clone()
+    alive[28] = torch.where(live1080, -1.0, 0.0)
+    for name, args in (
+            ("1080p, all dead", (tm1080, torch.zeros_like(live1080),
+                                 span1080)),
+            ("1080p, all huge (every span 17)",
+             (tm1080, live1080, torch.full_like(span1080, 17))),
+            ("1080p, all span (span 1, no far-straddler)",
+             (alive, live1080, torch.ones_like(span1080))),
+            ("1080p, every candidate live", (tm1080,
+                                             torch.ones_like(live1080),
+                                             span1080))):
+        route_compare(name, *args)
+    s_idx, h_idx = fs1080["span_idx"], fs1080["huge_idx"]
+    sectors = kernel_times.gather_sectors(torch.cat([s_idx, h_idx]), n1080)
+    n_live = s_idx.numel() + h_idx.numel()
+    print(f"[3] K6's reads at 1080p: {n_live} live records touch {sectors} "
+          f"distinct 32-byte sectors of tm (32 a record if none shared: "
+          f"{32 * n_live}; {sectors * 32 / 1e6:.3f} MB of sectors for "
+          f"{n_live * 128 / 1e6:.3f} MB of words)", flush=True)
+
+    def composed_torch():
+        # route + index_select + transpose: the composed torch sequence
+        # (a reference for K6; no single library call routes and gathers)
+        si, hi = cc.route(tm1080, live1080, span1080)
+        return (tm1080.index_select(1, si).t().contiguous(),
+                tm1080.index_select(1, hi).t().contiguous())
+
+    cs, ch = composed_torch()
+    check(torch.equal(cs, g6) and cs.shape[0] + ch.shape[0] == n_live,
+          "composed torch route + index_select != K6's records")
     report["gather"] = dict(
-        max_abs_err=float((g6 - p6).abs().max()) if g6.numel() else 0.0,
-        ms=time_ms(lambda: cc.gather_records_cuda(tm, span_idx)),
-        plain_ms=time_ms(lambda: cc.gather_records_plain(tm, span_idx)),
-        library_ms=time_ms(
-            lambda: tm.index_select(1, span_idx).t().contiguous()),
-        bound=bound_ms(0, span_idx.numel() * (4 + 128 + 128)))
-    print(f"[3] K6 gather: {span_idx.numel()} of {tm.shape[1]} records "
-          f"bitwise equal; kernel {report['gather']['ms']:.3f} ms, plain "
-          f"{report['gather']['plain_ms']:.3f} ms, index_select + transpose "
-          f"{report['gather']['library_ms']:.3f} ms", flush=True)
+        max_abs_err=0.0,
+        ms=time_ms(lambda: cc.route_records_cuda(tm1080, live1080,
+                                                 span1080)),
+        plain_ms=time_ms(lambda: cc.route_records_plain(tm1080, live1080,
+                                                        span1080)),
+        library_ms=None,
+        composed_ms=kernel_times.host_ms(composed_torch, REPS),
+        host_ms=kernel_times.host_ms(lambda: cc.route_records_cuda(
+            tm1080, live1080, span1080), REPS),
+        # the route words read once, each live record read and written
+        # once, the two counts written
+        bound=bound_ms(0, n1080 * (4 + 1 + 4) + n_live * 256 + 8),
+        sectors=sectors)
+    print(f"[3] K6 route + gather, 1080p: kernel {report['gather']['ms']:.3f} "
+          f"ms (host clock with a synchronize "
+          f"{report['gather']['host_ms']:.3f}), plain "
+          f"{report['gather']['plain_ms']:.3f} ms, composed torch route + "
+          f"index_select + transpose {report['gather']['composed_ms']:.3f} "
+          f"ms (host clock), bound {report['gather']['bound'][0]:.5f} ms",
+          flush=True)
 
     area = ((g6[:, 26] - g6[:, 24] + 1) * (g6[:, 27] - g6[:, 25] + 1)).cpu()
     area = area.numpy()
@@ -436,9 +495,50 @@ def main() -> int:
           f"share<=16px={float((area <= 16).mean()):.4f} "
           f"total={float(area.sum()):g}", flush=True)
 
-    err2 = max(raster_compare("1080p scene", g6, W_1080, H_1080,
-                              cc.raster_span_cuda, cc.raster_span_plain,
-                              "K2", wireframe=wf) for wf in (False, True))
+    # K2 and K3 on each set's records, then the main path's form: K6's
+    # buffers with the counts on the device (raster_routed) against the
+    # plain span and huge records, and the routed part under
+    # set_sync_debug_mode("error"): no host read between setup and K3
+    err2 = err3 = 0
+    tri = kernel_times.screen_triangle_records(W_1080, H_1080, dev)
+    huge_sets = {name: (fs["huge_recs"], fs["width"], fs["height"])
+                 for name, fs in sets.items() if fs["huge_recs"].shape[0]}
+    huge_sets["screen-filling triangle 1080p"] = (tri, W_1080, H_1080)
+    for name, fs in sets.items():
+        err2 = max(err2, records_compare(name, fs["span_recs"], fs["width"],
+                                         fs["height"], "K2"))
+    for name, (recs, w, h) in huge_sets.items():
+        err3 = max(err3, records_compare(name, recs, w, h, "K3"))
+    for name, fs in sets.items():
+        w, h = fs["width"], fs["height"]
+        routed_recs = fs["huge_recs"][fs["huge_idx"].numel():]
+
+        def routed_kernel(fb, wf, fs=fs, routed_recs=routed_recs):
+            cc.raster_routed(fs["tm"], fs["live"], fs["span"], fb, wf)
+            if routed_recs.shape[0]:
+                cc.raster_huge_cuda(routed_recs, fb, wf)
+
+        def routed_plain(fb, wf, fs=fs):
+            cc.raster_span_plain(fs["span_recs"], fb, wf)
+            cc.raster_huge_plain(fs["huge_recs"], fb, wf)
+
+        raster_compare(f"{name}, routed (K6 -> K2 -> K3, device counts)",
+                       w, h, routed_kernel, routed_plain, "K6+K2+K3",
+                       wireframe=False)
+        fb = fresh_fb(w, h)()[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            counts = cc.raster_routed(fs["tm"], fs["live"], fs["span"], fb)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(counts.tolist() == [fs["span_idx"].numel(),
+                                  fs["huge_idx"].numel()],
+              f"raster_routed counts on {name}")
+    print("[3] raster_routed (K6 -> K2 -> K3) ran under "
+          "torch.cuda.set_sync_debug_mode('error') on every set: no host "
+          "read between setup_t and K3's launch", flush=True)
+
     report["span"] = dict(
         max_abs_err=err2,
         ms=time_ms(lambda fb: cc.raster_span_cuda(g6, fb),
@@ -446,48 +546,24 @@ def main() -> int:
         plain_ms=time_ms(lambda fb: cc.raster_span_plain(g6, fb),
                          fresh_fb(W_1080, H_1080)),
         bound=raster_bound("span", g6, W_1080, H_1080))
-    h6 = cc.gather_records_cuda(tm, huge_idx)
-    print(f"[3] 1080p scene: {int(live.sum())} live triangles, "
-          f"{span_idx.numel()} span, {huge_idx.numel()} huge", flush=True)
-
-    # golden-frame records: K2 on the frame scene, K3 on the farclip scene
-    # (far-straddlers) and on the nearclip scene's clipped triangles
-    for name in ("frame", "farclip", "nearclip"):
-        clip, normal, valid = scene_setup(cfg800, scene_cam(name))
-        tm, live, span = cov.setup_t(clip, normal, valid, 800, 600,
-                                     cell_mask, far_w=cfg800.far_plane)
-        s_i, h_i = cc.route(tm, live, span)
-        recs = cc.gather_records_cuda(tm, s_i)
-        for wf in (False, True):
-            err2 = max(err2, raster_compare(name, recs, 800, 600,
-                                            cc.raster_span_cuda,
-                                            cc.raster_span_plain, "K2",
-                                            wireframe=wf))
-        hrecs = cc.gather_records_cuda(tm, h_i)
-        smask = nearclip.straddle_mask_t(clip, valid, cell_mask)
-        tcl = nearclip.clipped_tris(clip, normal,
-                                    torch.nonzero(smask).squeeze(1), 800,
-                                    600, far_w=cfg800.far_plane)
-        crecs = nearclip.records_from_tris(tcl)[tcl.live]
-        hrecs = torch.cat([hrecs, crecs]).contiguous()
-        if hrecs.shape[0]:
-            err3 = raster_compare(name, hrecs, 800, 600,
-                                  cc.raster_huge_cuda, cc.raster_huge_plain,
-                                  "K3")
-            report["huge"] = dict(
-                max_abs_err=max(err3, report.get("huge", {}).get(
-                    "max_abs_err", 0)),
-                ms=time_ms(lambda fb: cc.raster_huge_cuda(hrecs, fb),
-                           fresh_fb(800, 600)),
-                plain_ms=time_ms(lambda fb: cc.raster_huge_plain(hrecs, fb),
-                                 fresh_fb(800, 600)),
-                bound=raster_bound("huge", hrecs, 800, 600),
-                shape=f"{name} 800x600, {hrecs.shape[0]} records")
-    report["span"]["max_abs_err"] = err2
-    if h6.shape[0]:
-        raster_compare("1080p scene", h6, W_1080, H_1080,
-                       cc.raster_huge_cuda, cc.raster_huge_plain, "K3")
-    check("huge" in report, "no huge-kernel records in any scene")
+    huge_report = {}
+    for name, (recs, w, h) in huge_sets.items():
+        huge_report[name] = dict(
+            records=recs.shape[0],
+            ms=time_ms(lambda fb: cc.raster_huge_cuda(recs, fb),
+                       fresh_fb(w, h)),
+            plain_ms=time_ms(lambda fb: cc.raster_huge_plain(recs, fb),
+                             fresh_fb(w, h)),
+            bound=raster_bound("huge", recs, w, h))
+        print(f"[3] K3 huge, {name}, {recs.shape[0]} records: kernel "
+              f"{huge_report[name]['ms']:.3f} ms, plain "
+              f"{huge_report[name]['plain_ms']:.3f} ms, bound "
+              f"{huge_report[name]['bound'][0]:.5f} ms "
+              f"({huge_report[name]['bound'][1]})", flush=True)
+    check("golden nearclip" in huge_report and "golden farclip" in
+          huge_report, "no huge-kernel records in the near/far-clip scenes")
+    report["huge"] = dict(huge_report["golden nearclip"], max_abs_err=err3,
+                          shape="golden nearclip 800x600")
     print(f"[3] K2 span kernel {report['span']['ms']:.3f} ms, plain "
           f"{report['span']['plain_ms']:.3f} ms (1080p); K3 huge kernel "
           f"{report['huge']['ms']:.3f} ms, plain "
@@ -910,25 +986,26 @@ def main() -> int:
     # the main path's kernels at their phase-3 shapes again, queued behind
     # a spin kernel (tools/common.time_calls): phase 3 times one launch
     # between two events, which for a short kernel also holds the host's
-    # launch time. K1, K2, K4 and K5 are tools/kernel_times' calls, which
-    # times the same set on any tree of the port; here on the records and
-    # fused inputs phase 3 compared.
-    queued = {}
-    for key, label, fn, setup in (
-            *kernel_times.calls(dev, records=g6, fused=fused),
-            ("gather", "K6 gather, 1080p", lambda: cc.gather_records_cuda(
-                tm1080, span_idx), tuple),
-            (None, "K6's yardstick, index_select + transpose, 1080p",
-             lambda: tm1080.index_select(1, span_idx).t().contiguous(),
-             tuple),
-            ("huge", f"K3 huge, {report['huge']['shape']}",
-             lambda fb: cc.raster_huge_cuda(hrecs, fb), fresh_fb(800, 600))):
+    # launch time. The calls are tools/kernel_times', which times the same
+    # set on any tree of the port; here on the record sets and fused
+    # inputs phase 3 compared (K2 and K3 as the main path draws them: K2
+    # on K6's buffer with the count on the device).
+    queued, huge_queued = {}, {}
+    for key, label, fn, setup in kernel_times.calls(dev, sets=sets,
+                                                    fused=fused):
         ms = tool_common.time_ms(fn, setup, reps=REPS)
         if key:
             queued[key] = ms
+        if label.startswith("K3 huge, "):
+            huge_queued[label[len("K3 huge, "):].rsplit(", ", 1)[0]] = ms
         print(f"[8] queued timing, {label}: {ms:.4f} ms (median of {REPS}; "
               f"phase 3/7b's single-launch timing is in the kernels line)",
               flush=True)
+    for label, fn in kernel_times.host_calls(sets):
+        print(f"[8] host clock, {label}: "
+              f"{kernel_times.host_ms(fn, REPS):.4f} ms", flush=True)
+    for name, row in report["huge"].setdefault("sets", huge_report).items():
+        row["queued_ms"] = huge_queued[name]
     for key, head in (("t_noise", "full"), ("t_tile", "full"),
                       ("t_lut", t_lut.HEADLINE)):
         row = next(r for r in tool_rows[key] if r["name"] == head)
@@ -981,6 +1058,17 @@ def main() -> int:
             kernels[-1]["queued_ms"] = queued[k]
         if k == "tile":
             kernels[-1]["queued_fused_ms"] = queued["tile_fused"]
+        if k == "gather":
+            kernels[-1].update(composed_ms=report[k]["composed_ms"],
+                               host_ms=report[k]["host_ms"],
+                               sectors=report[k]["sectors"])
+        if k == "huge":
+            kernels[-1]["sets"] = {
+                name: dict(records=r["records"], ms=r["ms"],
+                           queued_ms=r["queued_ms"],
+                           plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                           bound_by=r["bound"][1])
+                for name, r in report["huge"]["sets"].items()}
         if "variants" in report[k]:
             kernels[-1]["variants"] = report[k]["variants"]
     print(json.dumps({"kernels": kernels}))

@@ -54,9 +54,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "planet_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                      _F, _P),
-    "planet_gather_records": (_P, _P, _P, _I, _I, _P),
-    "planet_raster_span": (_P, _I, _P, _I, _I, _I, _I, _P),
-    "planet_raster_huge": (_P, _I, _P, _I, _I, _I, _P),
+    "planet_route_records": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P),
+    "planet_raster_span": (_P, _P, _I, _P, _I, _I, _I, _I, _P),
+    "planet_raster_huge": (_P, _P, _I, _P, _I, _I, _I, _P),
     "planet_noise": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _F, _P),
     "planet_field": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,

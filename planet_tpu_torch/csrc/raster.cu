@@ -1,62 +1,105 @@
-// Exact-coverage raster kernels: the record gather (K6) and the span (K2)
+// Exact-coverage raster kernels: the record route (K6) and the span (K2)
 // and huge (K3) fragment kernels, which min-merge packed
 // (21-bit depth << 10 | 10-bit shade) int32 keys into an exact (H, W)
 // framebuffer with atomicMin.
 //
 // Replaces, in planet_tpu/raster/coverage_pallas.py:
-//   _tr_kernel (via _transpose_records)       -> gather_records_kernel
+//   _tr_kernel (via _transpose_records), with the routing of
+//   raster_frame_pallas folded in             -> route_count_kernel,
+//                                                route_scatter_kernel
 //   _raster_class_kernel / _one_triangle      -> span_kernel
 //   _huge_class_kernel / _one_huge            -> huge_kernel
 // Plain PyTorch versions: planet_tpu_torch/raster/coverage_cuda.py
-// (gather_records_plain, raster_span_plain, raster_huge_plain).
+// (route_records_plain, raster_span_plain, raster_huge_plain).
 //
 // Records are coverage.setup_t's 32-float layout, one 128-byte row each:
 //   0-8 edge (DX, DY, c) x3 | 9-11 z | 12-14 1/w | 15-23 normal*(1/w)
 //   (vertex-major, all inv_area-folded) | 24-27 clamped bbox px0 py0 px1 py1
 //   | 28: 0 dead, -1 live, +1/far live far-straddler | 29-31 accept biases.
 //
-// What bounds the span kernel on the H100: latency and instruction issue,
-// not bytes.
-// The 1080p LOD scene has ~36k span records whose bboxes hold 189 pixels
-// at the median (2035 at p99), 1.15e7 in all, of which 28% pass the three
-// edge tests (3.2e6 fragments); the records are 4.6 MB and the
-// framebuffer (8.3 MB) stays in the 50 MB L2. Scanning every bbox pixel
-// (the first port: a warp a record, an integer divide a pixel) spent its
-// time on rejected pixels, with the warp running the shading path whenever
-// one lane accepted.
-// Design: exact row intervals. Along one bbox row an edge function
+// Exact row intervals (K2 and K3). Along one bbox row an edge function
 // ((DX ry - DY rx) + c) is a monotone function of the column rx — fl(DX ry)
 // is fixed, fl(DY rx) is monotone in rx because rounding is monotone, and
 // the subtraction and the add are monotone in their varying operand — so
 // the columns passing the edge's test form a prefix (DY > 0) or a suffix
 // (DY < 0) of the row, or all or none of it (DY = 0), and the pixels passing
-// all three tests form one interval. The kernel finds each row's boundaries
+// all three tests form one interval. row_interval finds a row's boundaries
 // from the line's estimate, settled with the exact f32 test fragment()
-// runs (edge_value, fragment.cuh) by probing around it and bisecting, then
-// runs the unchanged fragment() on the interval's pixels only: every pixel
-// outside fails fragment()'s edge test, so the framebuffer is the bbox
-// scan's bit for bit. A record with an edge word that is not finite or is
-// at least kEdgeLimit (where a product could overflow and inf - inf give
-// NaN) is scanned whole, with the same fragment().
-// Traversal: one warp a record at a time, warps striding over the records
-// (span_kernel); the grid stops at the caller's blocks an SM
-// (coverage_cuda.SPAN_BLOCKS_PER_SM). The warp loads its record as eight
-// 16-byte reads (broadcast through L1), takes 32
-// rows at a time — a lane a row computes its interval — prefix-sums their
-// lengths and strides over the flattened inside pixels, two a lane an
-// iteration, each lane finding their rows by binary searches over the
-// sums with shuffles (interleaved, so their latencies overlap): no integer
-// divide. On the 1080p scene the time splits into the record read (~20
-// %), the row intervals (~15 %), the pixel loop and its atomics (~30 %)
-// and the fragment math (~35 %). Consecutive records sharing a warp (2, 4
-// or 8, lane groups of 16, 8 or 4 chosen on the card from the largest
-// bbox) measured slower, more so the more records a warp held: a warp's
-// records run one after another, and the large ones near the camera come
-// in runs; the stride pairs records far apart instead.
-// The huge kernel gives each record a 2-D grid of 16x16 pixel tiles
-// (block y strides over the record's bbox tiles), so a screen-filling
-// triangle spreads over many SMs. The gather is a 32x32 shared-memory
-// transpose tile.
+// runs (edge_value, fragment.cuh) by probing around it and bisecting; the
+// kernels then run the unchanged fragment() on the interval's pixels only:
+// every pixel outside fails fragment()'s edge test, which comes before
+// its depth and 1/w tests, so the framebuffer is the bbox scan's bit for
+// bit. A record with an edge word that is not finite or is at least
+// kEdgeLimit (where a product could overflow and inf - inf give NaN) gets
+// its whole bbox row as its interval, with the same fragment().
+//
+// K2, span_kernel. What bounds it on the H100: latency and instruction
+// issue, not bytes. The 1080p LOD scene has ~36k span records whose bboxes
+// hold 189 pixels at the median (2035 at p99), 1.15e7 in all, of which 28%
+// pass the three edge tests; the records are 4.6 MB and the framebuffer
+// (8.3 MB) stays in the 50 MB L2. One warp a record at a time, warps
+// striding over the records; the grid comes from the caller's capacity
+// and stops at its blocks an SM (coverage_cuda.SPAN_BLOCKS_PER_SM), and
+// the record count is read on the device (warps past it leave), so the
+// launch needs no host read. The warp loads its record as eight 16-byte
+// reads (broadcast through L1), takes 32 rows at a time — a lane a row
+// computes its interval — prefix-sums their lengths and strides over the
+// flattened inside pixels, two a lane an iteration, each lane finding
+// their rows by binary searches over the sums with shuffles. Consecutive
+// records sharing a warp measured slower (the large ones near the camera
+// come in runs); the stride pairs records far apart instead.
+//
+// K3, huge_kernel: the huge class — records whose bbox touches more than
+// 16 aligned 8-row blocks, far-straddlers (with the interpolated-1/w
+// tests) and clipped near-plane triangles — is few records with large
+// bboxes (7 on the near-clip golden, up to the whole screen) or many small
+// ones (704 far-straddlers on the far-clip golden). The first port gave
+// each record 64 blocks of 16x16 tiles whatever its size and ran
+// fragment() on every bbox pixel: ~30 fragments a thread in a row for a
+// screen-filling bbox, and 45,056 blocks for the far-clip records, most
+// of which found no tile; both go. Now the grid is sized by pixels, a
+// block a screen row: it tests the records' bboxes 1024 at a time, four a
+// thread, each with one 16-byte read of its bbox words; the records
+// holding its row are compacted (a block prefix sum) and staged in shared
+// memory, a thread a record computes the row's exact interval, and the
+// block's threads stride over the flattened inside pixels of all of
+// them, two a thread an iteration (a binary search over the intervals'
+// prefix sums in shared memory). So a record's inside pixels spread over
+// as many blocks as it has rows, and a small record costs the blocks of
+// its own rows only a bbox test. The grid depends on H alone and the
+// count is read on the device, so the launch needs no host read either.
+// Measured and dropped (PERF.md): several rows a block (slower on
+// large records, faster on many small ones), a pass counting each
+// record's bbox rows with a fixed grid striding over the flattened rows
+// (faster only on the far-clip records), reading the records from global
+// memory instead of staging them, and three 4-byte bbox reads (a warp's
+// read touches 32 lines each time). What is left on the near-clip
+// records: the queued launch's floor (~5 us) and the fragment math; on
+// many small records, every block testing every record's bbox.
+//
+// K6, route_count_kernel + route_scatter_kernel: the route and the
+// gather of raster_frame in two passes, with the counts left on the
+// device. The (32, N) record matrix is column-major and the live columns
+// (~8 % at 1080p) are scattered, so a warp's load of one word of 32 records
+// touches up to 32 sectors and no gather from this layout reads fewer;
+// what the pass does away with is the work around the gather: the
+// elementwise route over all N candidates, two nonzero() host
+// synchronisations, and a gather launch per class. Pass 1 reads the route
+// words (row 28, live, span) once, coalesced, and writes a ballot mask a
+// class for every 32 candidates and a count pair for every 256; pass 2
+// sums the counts of the blocks before it, prefix-sums its 8 mask words,
+// lists its live candidates in candidate order in shared memory, and
+// gathers them a warp 32 records (a lane a record, 32 loads in flight),
+// writing each record as one coalesced 128-byte row to its class's buffer
+// through a padded shared-memory transpose; the last block writes the two
+// counts. Pass 2 is launched as pass 1's programmatic dependent (Hopper's
+// griddepcontrol), so its launch overlaps pass 1's tail; pass 1 issues
+// its three route reads together. Blocks take 256 candidates, not more: the live ones cluster (a
+// visible patch's triangles are contiguous), and with 1024 a block a few
+// blocks gathered several chunks in a row. The first port's index input
+// goes with the route it came from (and with it the dead record an
+// out-of-range index gave); its padded 32x32 transpose stays, a warp's
+// tile.
 //
 // The TPU-only machinery does not come across: no class caps or ladder, no
 // _class_fixup window addressing, no per-block flags, no framebuffer
@@ -130,6 +173,16 @@ __device__ __forceinline__ void row_interval(const float* r, int ry, int bw,
   }
 }
 
+// Whether a record's rows are scanned whole: an edge word or accept bias
+// that is not finite or reaches kEdgeLimit.
+__device__ __forceinline__ bool scan_whole(const float* r) {
+  bool scan = false;
+#pragma unroll
+  for (int k = 0; k < 12; ++k)
+    scan |= !(fabsf(r[k < 9 ? k : k + 20]) < kEdgeLimit);
+  return scan;
+}
+
 // The rows among the warp's 32 (incl: each row's inclusive prefix sum of
 // interval lengths) that hold flattened inside pixels i0 and i1: the
 // number of rows whose sum is at most each (two binary searches over the
@@ -161,11 +214,7 @@ __device__ __forceinline__ void span_record(const float* __restrict__ rec,
   if (r[28] == 0.0f) return;
   const int px0 = (int)r[24], py0 = (int)r[25];
   const int bw = (int)r[26] - px0 + 1, bh = (int)r[27] - py0 + 1;
-  bool scan = false;
-#pragma unroll
-  for (int k = 0; k < 12; ++k)
-    scan |= !(fabsf(r[k < 9 ? k : k + 20]) < kEdgeLimit);
-  if (scan) {
+  if (scan_whole(r)) {
     for (int i = lane; i < bw * bh; i += 32) {
       const int ry = i / bw, rx = i - ry * bw;
       fragment<false>(r, px0 + rx, py0 + ry, rx, ry, width, wireframe, fb);
@@ -206,76 +255,314 @@ __device__ __forceinline__ void span_record(const float* __restrict__ rec,
   }
 }
 
+// The number of records a launch draws: the device count where the
+// caller passes one (at most the capacity), else the capacity.
+__device__ __forceinline__ int record_count(const int* count, int cap) {
+  return count ? min(*count, cap) : cap;
+}
+
 // Warp w takes records w, w + W, w + 2W, ... (W the grid's warps): a warp
 // done with a small record goes on to its next at once, and records far
 // apart in the array (the large ones near the camera come in runs) share
 // a warp.
 __global__ void __launch_bounds__(kSpanThreads)
-span_kernel(const float* __restrict__ recs, int m, int* __restrict__ fb,
-            int width, int wireframe) {
+span_kernel(const float* __restrict__ recs, const int* __restrict__ count,
+            int cap, int* __restrict__ fb, int width, int wireframe) {
+  const int m = record_count(count, cap);
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
   for (long long w = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
        w < m; w += warps)
     span_record(recs + w * 32, threadIdx.x & 31, fb, width, wireframe != 0);
 }
 
-constexpr int kTile = 16;
-constexpr int kHugeStride = 64;    // blocks per record; each strides tiles
+constexpr int kHugeThreads = 256;     // also the records staged a pass
+constexpr int kHugeScan = 4;          // records a thread tests a pass
 
-__global__ void __launch_bounds__(kTile * kTile)
-huge_kernel(const float* __restrict__ recs, int* __restrict__ fb, int width,
-            int wireframe) {
-  __shared__ float r[32];
-  const int t = threadIdx.y * kTile + threadIdx.x;
-  if (t < 32) r[t] = recs[(size_t)blockIdx.x * 32 + t];
+// Inclusive prefix sum of v over a huge-kernel block (all its threads
+// must call it); total: the block's sum. s_warp holds a word a warp.
+__device__ __forceinline__ int block_scan(int v, int* s_warp, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
   __syncthreads();
-  if (r[28] == 0.0f) return;
-  const int px0 = (int)r[24], py0 = (int)r[25];
-  const int px1 = (int)r[26], py1 = (int)r[27];
-  const int ntx = (px1 - px0) / kTile + 1;
-  const int nty = (py1 - py0) / kTile + 1;
-  for (int tile = blockIdx.y; tile < ntx * nty; tile += gridDim.y) {
-    const int rx = (tile % ntx) * kTile + threadIdx.x;
-    const int ry = (tile / ntx) * kTile + threadIdx.y;
-    if (px0 + rx <= px1 && py0 + ry <= py1)
-      fragment<true>(r, px0 + rx, py0 + ry, rx, ry, width, wireframe != 0, fb);
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kHugeThreads / 32; ++w) {
+    const int t = s_warp[w];
+    before += w < warp ? t : 0;
+    all += t;
+  }
+  __syncthreads();
+  total = all;
+  return x + before;
+}
+
+// Block y draws screen row y.
+__global__ void __launch_bounds__(kHugeThreads)
+huge_kernel(const float* __restrict__ recs, const int* __restrict__ count,
+            int cap, int* __restrict__ fb, int width, int wireframe) {
+  __shared__ float s_rec[kHugeThreads][33];        // staged records, padded
+  __shared__ int s_hit[kHugeThreads * kHugeScan];  // their indices
+  __shared__ int s_incl[kHugeThreads];             // rows' inclusive sums
+  __shared__ int s_col[kHugeThreads];              // row's lo - its excl
+  __shared__ int s_warp[kHugeThreads / 32];
+  const int tid = threadIdx.x;
+  const int m = record_count(count, cap);
+  const int y = blockIdx.x;
+  const bool wf = wireframe != 0;
+  auto draw = [&](int p, int px) {       // staged record p's inside pixel
+    const float* r = s_rec[p];
+    const int c = s_col[p] + px;
+    fragment<true>(r, (int)r[24] + c, y, c, y - (int)r[25], width, wf, fb);
+  };
+  // the records among the next 1024 whose bbox rows hold y (one 16-byte
+  // read of px0 py0 px1 py1 each; dead records are dropped when staged);
+  // the first pass reads whatever the count (the buffer holds cap
+  // records), so those reads overlap the count's
+  int base = 0;
+  do {
+    bool hit[kHugeScan];
+    int nh = 0;
+#pragma unroll
+    for (int j = 0; j < kHugeScan; ++j) {
+      const int i = base + j * kHugeThreads + tid;
+      hit[j] = false;
+      if (i < cap) {
+        const float4 b = reinterpret_cast<const float4*>(recs)[i * 8LL + 6];
+        hit[j] = i < m && (int)b.y <= y && (int)b.w >= y;
+      }
+      nh += hit[j];
+    }
+    int nhit;
+    int at = block_scan(nh, s_warp, nhit) - nh;
+#pragma unroll
+    for (int j = 0; j < kHugeScan; ++j)
+      if (hit[j]) s_hit[at++] = base + j * kHugeThreads + tid;
+    __syncthreads();
+    for (int h0 = 0; h0 < nhit; h0 += kHugeThreads) {
+      const int nrec = min(kHugeThreads, nhit - h0);
+      for (int k = tid; k < nrec * 32; k += kHugeThreads)
+        s_rec[k >> 5][k & 31] = recs[(size_t)s_hit[h0 + (k >> 5)] * 32
+                                     + (k & 31)];
+      __syncthreads();
+      // staged record tid: its exact interval on row y
+      const float* r = s_rec[tid];
+      int lo = 0, len = 0;
+      if (tid < nrec && r[28] != 0.0f) {
+        const int bw = (int)r[26] - (int)r[24] + 1;
+        int hi = bw - 1;
+        if (!scan_whole(r)) row_interval(r, y - (int)r[25], bw, lo, hi);
+        len = max(hi - lo + 1, 0);
+      }
+      int total;
+      const int incl = block_scan(len, s_warp, total);
+      s_incl[tid] = incl;
+      s_col[tid] = lo - (incl - len);
+      __syncthreads();
+      // the records' flattened inside pixels, two a thread an iteration,
+      // each pixel's record found by a binary search over the sums (the
+      // two interleaved, as deep as the pass's records need)
+      int top = 1;
+      while (top < nrec) top <<= 1;
+      for (int p0 = 0; p0 < total; p0 += 2 * kHugeThreads) {
+        const int a = p0 + tid, b = a + kHugeThreads;
+        int pa = 0, pb = 0;              // records whose sum is at most a, b
+        for (int step = top >> 1; step > 0; step >>= 1) {
+          if (s_incl[pa + step - 1] <= a) pa += step;
+          if (s_incl[pb + step - 1] <= b) pb += step;
+        }
+        if (a < total) draw(pa, a);
+        if (b < total) draw(pb, b);
+      }
+      __syncthreads();                   // before s_rec is staged again
+    }
+    base += kHugeThreads * kHugeScan;
+  } while (base < m);
+}
+
+constexpr int kRouteThreads = 256;
+constexpr int kRouteTile = kRouteThreads;         // candidates a block
+constexpr int kRouteWords = kRouteTile / 32;      // mask words a class
+constexpr int kRouteWarps = kRouteThreads / 32;
+
+// Pass 1: a thread a candidate; each 32 candidates' class masks (span
+// class: live, at most max_span 8-row blocks tall, not a far-straddler;
+// huge class: the other live ones), masks[2 w + c] for word w of class
+// c, and each block's two counts.
+__global__ void __launch_bounds__(kRouteThreads)
+route_count_kernel(const float* __restrict__ tm,
+                   const unsigned char* __restrict__ live,
+                   const int* __restrict__ span, int n, int max_span,
+                   unsigned* __restrict__ masks,
+                   int* __restrict__ block_counts) {
+  __shared__ int s_cnt[2][kRouteWarps];
+  // pass 2's blocks may be scheduled as this grid's drain (they wait for
+  // its results in griddepcontrol.wait)
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long i = (long long)blockIdx.x * kRouteTile + threadIdx.x;
+  bool s = false, h = false;
+  if (i < n) {                           // the three reads issued together
+    const bool lv = live[i] != 0;
+    const int sp = span[i];
+    const float far = tm[28LL * n + i];
+    s = lv && sp <= max_span && !(far > 0.0f);
+    h = lv && !s;
+  }
+  const unsigned ms = __ballot_sync(kFull, s);
+  const unsigned mh = __ballot_sync(kFull, h);
+  if (lane == 0) {
+    const size_t w = (size_t)blockIdx.x * kRouteWords + warp;
+    masks[2 * w] = ms, masks[2 * w + 1] = mh;
+    s_cnt[0][warp] = __popc(ms), s_cnt[1][warp] = __popc(mh);
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < kRouteWarps; ++w) t += s_cnt[threadIdx.x][w];
+    block_counts[2 * blockIdx.x + threadIdx.x] = t;
   }
 }
 
-// out[j, k] = tm[k, idx[j]] for idx[j] in [0, n), else 0 (a dead record)
-__global__ void gather_records_kernel(const float* __restrict__ tm,
-                                      const int* __restrict__ idx,
-                                      float* __restrict__ out, int m, int n) {
-  __shared__ float tile[32][33];
-  const int j0 = blockIdx.x * 32;
-  const int tx = threadIdx.x;
-  const int j = j0 + tx;
-  const int src = j < m ? idx[j] : -1;
-  for (int k = threadIdx.y; k < 32; k += blockDim.y)
-    tile[k][tx] = (src >= 0 && src < n) ? tm[(size_t)k * n + src] : 0.0f;
+// Pass 2: the block's live candidates in candidate order, each class's
+// rows written from the class's offset (the counts of the blocks before);
+// the last block writes the two totals. A block holds at most 256 live
+// candidates, so each warp gathers at most one 32-record chunk: the live
+// candidates cluster (a visible patch's triangles are contiguous), and
+// larger blocks left a few of them several chunks to run in a row.
+__global__ void __launch_bounds__(kRouteThreads)
+route_scatter_kernel(const float* __restrict__ tm, int n,
+                     const unsigned* __restrict__ masks,
+                     const int* __restrict__ block_counts,
+                     float* __restrict__ span_out,
+                     float* __restrict__ huge_out, int* __restrict__ counts) {
+  __shared__ float s_tile[kRouteWarps][32][33];
+  __shared__ int s_src[kRouteTile];      // candidate of each listed record
+  __shared__ int s_dst[kRouteTile];      // its row in its class's buffer
+  __shared__ int s_base[2][kRouteWords]; // class rank of each word's first
+  __shared__ int s_part[2][kRouteWarps];
+  __shared__ int s_tot[2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x;
+  // launched as pass 1's programmatic dependent: wait for its results
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  // the class offsets: the counts of the blocks before this one
+  int os = 0, oh = 0;
+  for (int k = tid; k < b; k += kRouteThreads)
+    os += block_counts[2 * k], oh += block_counts[2 * k + 1];
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    os += __shfl_xor_sync(kFull, os, d);
+    oh += __shfl_xor_sync(kFull, oh, d);
+  }
+  if (lane == 0) s_part[0][warp] = os, s_part[1][warp] = oh;
+  // this thread's candidate's word (one a warp) and its rank in the block
+  const size_t w = (size_t)b * kRouteWords + warp;
+  const unsigned ms = masks[2 * w], mh = masks[2 * w + 1];
+  if (warp == 0) {                       // the words' ranks in the block
+    const int cs = lane < kRouteWords ? __popc(masks[2 * (w + lane)]) : 0;
+    const int ch = lane < kRouteWords ? __popc(masks[2 * (w + lane) + 1])
+                                      : 0;
+    int is = cs, ih = ch;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int vs = __shfl_up_sync(kFull, is, d);
+      const int vh = __shfl_up_sync(kFull, ih, d);
+      if (lane >= d) is += vs, ih += vh;
+    }
+    if (lane < kRouteWords)
+      s_base[0][lane] = is - cs, s_base[1][lane] = ih - ch;
+    if (lane == kRouteWords - 1) s_tot[0] = is, s_tot[1] = ih;
+  }
   __syncthreads();
-  for (int jj = threadIdx.y; jj < 32; jj += blockDim.y)
-    if (j0 + jj < m) out[(size_t)(j0 + jj) * 32 + tx] = tile[tx][jj];
+  int base_s = 0, base_h = 0;
+#pragma unroll
+  for (int k = 0; k < kRouteWarps; ++k)
+    base_s += s_part[0][k], base_h += s_part[1][k];
+  const int ns = s_tot[0], nh = s_tot[1];
+  if (b == (int)gridDim.x - 1 && tid == 0)
+    counts[0] = base_s + ns, counts[1] = base_h + nh;
+  const unsigned one = 1u << lane, below = one - 1u;
+  if (ms & one) {
+    const int e = s_base[0][warp] + __popc(ms & below);
+    s_src[e] = b * kRouteTile + tid, s_dst[e] = base_s + e;
+  } else if (mh & one) {
+    const int e = s_base[1][warp] + __popc(mh & below);
+    s_src[ns + e] = b * kRouteTile + tid, s_dst[ns + e] = base_h + e;
+  }
+  __syncthreads();
+  // warp w gathers listed records 32w .. 32w + 31: a lane a record reads
+  // its 32 words, then the warp writes each record as one 128-byte row
+  const int c0 = warp * 32, cnt = min(32, ns + nh - c0);
+  if (cnt <= 0) return;
+  float (*tile)[33] = s_tile[warp];
+  if (lane < cnt) {
+    const size_t src = (size_t)s_src[c0 + lane];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) tile[k][lane] = tm[(size_t)k * n + src];
+  }
+  __syncwarp();
+  for (int j = 0; j < cnt; ++j) {
+    float* out = c0 + j < ns ? span_out : huge_out;
+    out[(size_t)s_dst[c0 + j] * 32 + lane] = tile[lane][j];
+  }
 }
 
 }  // namespace
 
-extern "C" int planet_gather_records(const void* tm, const void* idx,
-                                     void* out, int m, int n, void* stream) {
-  if (m <= 0) return (int)cudaErrorInvalidValue;
-  gather_records_kernel<<<(m + 31) / 32, dim3(32, 8), 0,
-                          (cudaStream_t)stream>>>(
-      (const float*)tm, (const int*)idx, (float*)out, m, n);
-  return (int)cudaGetLastError();
+// K6: tm (32, n) f32, live (n,) bool, span (n,) int32 -> the span-class
+// and huge-class records as (n, 32) rows, the first counts[0] and
+// counts[1] of each written, in candidate order. scratch: at least
+// scratch_ints int32 of the wrapper's (coverage_cuda.route_scratch_ints).
+extern "C" int planet_route_records(const void* tm, const void* live,
+                                    const void* span, int n, int max_span,
+                                    void* scratch, int scratch_ints,
+                                    void* span_out, void* huge_out,
+                                    void* counts, void* stream) {
+  const long long blocks = ((long long)n + kRouteTile - 1) / kRouteTile;
+  if (n <= 0 || scratch_ints < blocks * (2 * kRouteWords + 2))
+    return (int)cudaErrorInvalidValue;
+  unsigned* masks = (unsigned*)scratch;
+  int* block_counts = (int*)scratch + blocks * 2 * kRouteWords;
+  const cudaStream_t s = (cudaStream_t)stream;
+  route_count_kernel<<<(unsigned)blocks, kRouteThreads, 0, s>>>(
+      (const float*)tm, (const unsigned char*)live, (const int*)span, n,
+      max_span, masks, block_counts);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // pass 2 as a programmatic dependent launch: its launch overlaps pass
+  // 1's tail instead of following its end
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)blocks);
+  config.blockDim = dim3(kRouteThreads);
+  config.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&config, route_scatter_kernel,
+                                 (const float*)tm, n,
+                                 (const unsigned*)masks,
+                                 (const int*)block_counts, (float*)span_out,
+                                 (float*)huge_out, (int*)counts);
 }
 
-// recs must be 16-byte aligned (the wrapper checks). The grid: one warp a
-// record up to blocks_per_sm blocks an SM, from the card's SM count
-// (metadata, so the launch could be captured); beyond that each warp
-// strides over several records. blocks_per_sm 0: one warp a record,
-// however many.
-extern "C" int planet_raster_span(const void* recs, int m, void* fb, int width,
-                                  int height, int wireframe, int blocks_per_sm,
+// recs must be 16-byte aligned (the wrapper checks). count: a device int
+// (the records drawn, at most m) or null (all m). The grid: one warp a
+// record of the capacity m up to blocks_per_sm blocks an SM, from the
+// card's SM count (metadata, so the launch could be captured); beyond that
+// each warp strides over several records. blocks_per_sm 0: one warp a
+// record, however many.
+extern "C" int planet_raster_span(const void* recs, const void* count, int m,
+                                  void* fb, int width, int height,
+                                  int wireframe, int blocks_per_sm,
                                   void* stream) {
   (void)height;
   int device = 0, sms = 0;
@@ -290,16 +577,18 @@ extern "C" int planet_raster_span(const void* recs, int m, void* fb, int width,
   const long long blocks =
       blocks_per_sm == 0 || one_a_record < cap ? one_a_record : cap;
   span_kernel<<<(unsigned)blocks, kSpanThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)recs, m, (int*)fb, width, wireframe);
+      (const float*)recs, (const int*)count, m, (int*)fb, width, wireframe);
   return (int)cudaGetLastError();
 }
 
-extern "C" int planet_raster_huge(const void* recs, int m, void* fb, int width,
-                                  int height, int wireframe, void* stream) {
-  (void)height;
-  if (m <= 0 || m > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  huge_kernel<<<dim3((unsigned)m, kHugeStride), dim3(kTile, kTile), 0,
-                (cudaStream_t)stream>>>((const float*)recs, (int*)fb, width,
-                                        wireframe);
+// recs 16-byte aligned and count as planet_raster_span's. The grid: a
+// block a framebuffer row, whatever the records.
+extern "C" int planet_raster_huge(const void* recs, const void* count, int m,
+                                  void* fb, int width, int height,
+                                  int wireframe, void* stream) {
+  if (m <= 0 || width <= 0 || height <= 0 || ((size_t)recs & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  huge_kernel<<<height, kHugeThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)recs, (const int*)count, m, (int*)fb, width, wireframe);
   return (int)cudaGetLastError();
 }

@@ -1,25 +1,32 @@
-"""The exact raster's fragment path on CUDA: record gather (K6), span
-kernel (K2), huge kernel (K3), and the `raster_frame` driver that routes
-triangle records to them (planet_tpu raster/coverage_pallas.py's
-raster_frame_pallas, without its TPU-only machinery).
+"""The exact raster's fragment path on CUDA: the record route (K6), span
+kernel (K2), huge kernel (K3), and the `raster_frame` driver that queues
+them (planet_tpu raster/coverage_pallas.py's raster_frame_pallas, without
+its TPU-only machinery).
 
 Each kernel wrapper takes a CUDA tensor and launches its kernel
 (csrc/raster.cu) or raises; given a CPU tensor it runs the plain PyTorch
 version beside it, which has the same signature:
 
-* gather_records(tm (32, N) f32, idx (M,) int32) -> (M, 32) row records;
-  an index outside [0, N) gives an all-zero (dead) record;
-* raster_span(records (M, 32), fb (H, W) int32) — fragments without the
-  interpolated-1/w test (vacuous inside the exact coverage domain);
-* raster_huge(records (M, 32), fb) — the same fragment math plus
-  iw > 0 and iw > row 28 (the view-space far clip).
+* route_records(tm (32, N) f32, live (N,) bool, span (N,) int32) ->
+  (span-class records, huge-class records, counts (2,) int32): each
+  class's live records as rows in candidate order, the first counts[c]
+  rows of each buffer (the kernel's buffers hold N rows, the plain
+  version's exactly the count) — the route and the gather in one pass,
+  the counts left on the device;
+* raster_span(records (M, 32), fb (H, W) int32, count=None) — fragments
+  without the interpolated-1/w test (vacuous inside the exact coverage
+  domain);
+* raster_huge(records (M, 32), fb, count=None) — the same fragment math
+  plus iw > 0 and iw > row 28 (the view-space far clip).
 
-Both raster wrappers min-merge into `fb` in place and return it.
+Both raster wrappers draw the first `count` records (a (1,) int32 tensor
+on the records' device, read by the kernel; None: all M), min-merge into
+`fb` in place and return it.
 
-The span kernel visits only the pixels inside each bbox row's exact
-interval (csrc/raster.cu): along a row each edge function is a monotone
-function of the column, so the pixels passing all three edge tests form
-one interval, and every pixel outside it fails fragment()'s edge test.
+Both kernels visit only the pixels inside each bbox row's exact interval
+(csrc/raster.cu): along a row each edge function is a monotone function
+of the column, so the pixels passing all three edge tests form one
+interval, and every pixel outside it fails fragment()'s edge test.
 `row_intervals_plain` is the interval search in plain PyTorch, the same
 predicate in the same op order; the CPU tests hold it to a scan of every
 pixel, and nothing on the main path calls it.
@@ -30,7 +37,8 @@ goes to the span kernel, with no bound on width; every other live record
 goes to the huge kernel; near-plane straddlers are clipped
 (raster/nearclip.py) and their live parts go to the huge kernel too.
 Records are compacted to exactly the live ones, so there are no class
-caps and nothing can overflow.
+caps and nothing can overflow. On the card the route, K2 and K3 are
+queued with no host read between them (`raster_routed`).
 """
 
 from __future__ import annotations
@@ -48,6 +56,9 @@ MAX_SPAN_BLOCKS = 16     # aligned 8-row blocks a span-kernel bbox may touch
 # scene's, the goldens' and an orbit's records by
 # `python -m planet_tpu_torch.tools.span_parts --sweep` (PERF.md).
 SPAN_BLOCKS_PER_SM = 32
+# candidates a route-kernel block takes (csrc/raster.cu kRouteTile); each
+# block keeps 16 mask words and 2 counts in the scratch
+ROUTE_TILE = 256
 # an edge word at or above this magnitude (or not finite) sends its record
 # to the whole-bbox scan: below it, no product or sum of the edge function
 # over a bbox of fewer than 2^24 rows and columns overflows, so rounding
@@ -63,7 +74,19 @@ def _device_kind(t: torch.Tensor) -> str:
 
 # ------------------------------------------------------------------- K6
 
+def route(tm, live, span):
+    """(span-kernel indices, huge-kernel indices), int32, in candidate
+    order: span-class records are live, touch at most MAX_SPAN_BLOCKS
+    aligned 8-row blocks and are not far-straddlers (row 28 > 0)."""
+    eligible = live & (span <= MAX_SPAN_BLOCKS) & ~(tm[28] > 0.0)
+    span_idx = torch.nonzero(eligible).squeeze(1).to(torch.int32)
+    huge_idx = torch.nonzero(live & ~eligible).squeeze(1).to(torch.int32)
+    return span_idx, huge_idx
+
+
 def gather_records_plain(tm, idx):
+    """(M, 32) row records tm[:, idx].T; an index outside [0, N) gives an
+    all-zero (dead) record."""
     n = tm.shape[1]
     ok = (idx >= 0) & (idx < n)
     safe = torch.where(ok, idx, torch.zeros_like(idx)).long()
@@ -71,31 +94,61 @@ def gather_records_plain(tm, idx):
     return torch.where(ok[:, None], out, torch.zeros_like(out)).contiguous()
 
 
-def gather_records_cuda(tm, idx):
-    m, n = idx.shape[0], tm.shape[1]
+def route_records_plain(tm, live, span):
+    span_idx, huge_idx = route(tm, live, span)
+    counts = torch.tensor([span_idx.numel(), huge_idx.numel()],
+                          dtype=torch.int32, device=tm.device)
+    return (gather_records_plain(tm, span_idx),
+            gather_records_plain(tm, huge_idx), counts)
+
+
+def route_scratch_ints(n: int) -> int:
+    """int32 words of the route kernel's scratch for n candidates."""
+    return -(-n // ROUTE_TILE) * (2 * ROUTE_TILE // 32 + 2)
+
+
+def route_records_cuda(tm, live, span):
+    n = tm.shape[1]
     _cuda.check_cuda(tm, "tm", torch.float32, (32, n))
-    _cuda.check_cuda(idx, "idx", torch.int32, (m,))
-    out = torch.empty((m, 32), dtype=torch.float32, device=tm.device)
-    if m:
-        _cuda.launch("gather", "planet_gather_records", tm.data_ptr(),
-                     idx.data_ptr(), out.data_ptr(), m, n)
-    return out
+    _cuda.check_cuda(live, "live", torch.bool, (n,))
+    _cuda.check_cuda(span, "span", torch.int32, (n,))
+    span_recs = torch.empty((n, 32), dtype=torch.float32, device=tm.device)
+    huge_recs = torch.empty_like(span_recs)
+    # the kernel writes the counts (no fill to queue), unless there is
+    # nothing to route
+    counts = (torch.empty if n else torch.zeros)(2, dtype=torch.int32,
+                                                 device=tm.device)
+    if n:
+        words = route_scratch_ints(n)
+        scratch = torch.empty(words, dtype=torch.int32, device=tm.device)
+        _cuda.launch("gather", "planet_route_records", tm.data_ptr(),
+                     live.data_ptr(), span.data_ptr(), n, MAX_SPAN_BLOCKS,
+                     scratch.data_ptr(), words, span_recs.data_ptr(),
+                     huge_recs.data_ptr(), counts.data_ptr())
+    return span_recs, huge_recs, counts
 
 
-def gather_records(tm, idx):
+def route_records(tm, live, span):
     if _device_kind(tm) == "cuda":
-        return gather_records_cuda(tm, idx)
-    return gather_records_plain(tm, idx)
+        return route_records_cuda(tm, live, span)
+    return route_records_plain(tm, live, span)
 
 
 # ---------------------------------------------------------------- K2, K3
 
-def raster_span_plain(records, fb, wireframe: bool = False):
-    return cov.fragments(records, fb, iw_test=False, wireframe=wireframe)
+def _first(records, count):
+    """The records a raster call draws: the first `count` of them."""
+    return records if count is None else records[:int(count[0])]
 
 
-def raster_huge_plain(records, fb, wireframe: bool = False):
-    return cov.fragments(records, fb, iw_test=True, wireframe=wireframe)
+def raster_span_plain(records, fb, wireframe: bool = False, count=None):
+    return cov.fragments(_first(records, count), fb, iw_test=False,
+                         wireframe=wireframe)
+
+
+def raster_huge_plain(records, fb, wireframe: bool = False, count=None):
+    return cov.fragments(_first(records, count), fb, iw_test=True,
+                         wireframe=wireframe)
 
 
 def _edge_passes(A, B, c, bias, ry, x):
@@ -176,56 +229,70 @@ def row_intervals_plain(records):
     return live[rows], ry, lo, hi
 
 
-def _raster_cuda(kernel, symbol, records, fb, wireframe, *extra):
+def _raster_cuda(kernel, symbol, records, fb, wireframe, count, *extra):
     m = records.shape[0]
     _cuda.check_cuda(records, "records", torch.float32, (m, 32))
     _cuda.check_cuda(fb, "fb", torch.int32)
     if fb.dim() != 2:
         raise ValueError(f"fb must be (H, W), got {tuple(fb.shape)}")
+    if count is not None:
+        _cuda.check_cuda(count, "count", torch.int32, (1,))
+        if count.device != records.device:
+            raise ValueError("count: expected the records' device")
     if m:
         height, width = fb.shape
-        _cuda.launch(kernel, symbol, records.data_ptr(), m, fb.data_ptr(),
-                     width, height, int(bool(wireframe)), *extra)
+        _cuda.launch(kernel, symbol, records.data_ptr(),
+                     None if count is None else count.data_ptr(), m,
+                     fb.data_ptr(), width, height, int(bool(wireframe)),
+                     *extra)
     return fb
 
 
-def raster_span_cuda(records, fb, wireframe: bool = False,
-                     blocks_per_sm: int = SPAN_BLOCKS_PER_SM):
+def _check_aligned(records):
     if records.data_ptr() % 16:
-        raise ValueError("records: the span kernel reads 16-byte aligned "
+        raise ValueError("records: the raster kernels read 16-byte aligned "
                          "rows")
+
+
+def raster_span_cuda(records, fb, wireframe: bool = False,
+                     blocks_per_sm: int = SPAN_BLOCKS_PER_SM, count=None):
+    _check_aligned(records)
     if blocks_per_sm < 0:
         raise ValueError(f"blocks_per_sm {blocks_per_sm} < 0")
     return _raster_cuda("span", "planet_raster_span", records, fb, wireframe,
-                        int(blocks_per_sm))
+                        count, int(blocks_per_sm))
 
 
-def raster_huge_cuda(records, fb, wireframe: bool = False):
-    return _raster_cuda("huge", "planet_raster_huge", records, fb, wireframe)
+def raster_huge_cuda(records, fb, wireframe: bool = False, count=None):
+    _check_aligned(records)
+    return _raster_cuda("huge", "planet_raster_huge", records, fb, wireframe,
+                        count)
 
 
-def raster_span(records, fb, wireframe: bool = False):
+def raster_span(records, fb, wireframe: bool = False, count=None):
     if _device_kind(records) == "cuda":
-        return raster_span_cuda(records, fb, wireframe)
-    return raster_span_plain(records, fb, wireframe)
+        return raster_span_cuda(records, fb, wireframe, count=count)
+    return raster_span_plain(records, fb, wireframe, count)
 
 
-def raster_huge(records, fb, wireframe: bool = False):
+def raster_huge(records, fb, wireframe: bool = False, count=None):
     if _device_kind(records) == "cuda":
-        return raster_huge_cuda(records, fb, wireframe)
-    return raster_huge_plain(records, fb, wireframe)
+        return raster_huge_cuda(records, fb, wireframe, count=count)
+    return raster_huge_plain(records, fb, wireframe, count)
 
 
 # ---------------------------------------------------------------- driver
 
-def route(tm, live, span):
-    """(span-kernel indices, huge-kernel indices), int32, in candidate
-    order: span-class records are live, touch at most MAX_SPAN_BLOCKS
-    aligned 8-row blocks and are not far-straddlers (row 28 > 0)."""
-    eligible = live & (span <= MAX_SPAN_BLOCKS) & ~(tm[28] > 0.0)
-    span_idx = torch.nonzero(eligible).squeeze(1).to(torch.int32)
-    huge_idx = torch.nonzero(live & ~eligible).squeeze(1).to(torch.int32)
-    return span_idx, huge_idx
+def raster_routed(tm, live, span, fb, wireframe: bool = False):
+    """The routed part of raster_frame on setup_t's outputs: K6 (route and
+    gather), K2 on the span class, K3 on the huge class, min-merged into
+    fb. On the card the three are queued with no host read between them:
+    the kernels read the class counts on the device. Returns the counts,
+    (2,) int32 on fb's device."""
+    span_recs, huge_recs, counts = route_records(tm, live, span)
+    raster_span(span_recs, fb, wireframe, count=counts[0:1])
+    raster_huge(huge_recs, fb, wireframe, count=counts[1:2])
+    return counts
 
 
 def raster_frame(clip, normal, valid, width: int, height: int, *,
@@ -239,13 +306,9 @@ def raster_frame(clip, normal, valid, width: int, height: int, *,
     with decode=False."""
     tm, live, span = cov.setup_t(clip, normal, valid, width, height,
                                  cell_mask, far_w=far_w)
-    span_idx, huge_idx = route(tm, live, span)
     fb = torch.full((height, width), cov._EMPTY, dtype=torch.int32,
                     device=clip.device)
-    if span_idx.numel():
-        raster_span(gather_records(tm, span_idx), fb, wireframe)
-    if huge_idx.numel():
-        raster_huge(gather_records(tm, huge_idx), fb, wireframe)
+    counts = raster_routed(tm, live, span, fb, wireframe)
 
     smask = nearclip.straddle_mask_t(clip, valid, cell_mask)
     s_idx = torch.nonzero(smask).squeeze(1)
@@ -257,7 +320,7 @@ def raster_frame(clip, normal, valid, width: int, height: int, *,
         if recs.shape[0]:
             raster_huge(recs, fb, wireframe)
 
-    n_span, n_huge = int(span_idx.numel()), int(huge_idx.numel())
+    n_span, n_huge = counts.tolist()
     counters = cov.RasterCounters(
         n_tris=n_span + n_huge, n_per_class=(n_span, n_huge), n_huge=n_huge,
         overflowed=False, n_straddle=int(s_idx.numel()))

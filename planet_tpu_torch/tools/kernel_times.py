@@ -9,12 +9,15 @@ from that tree's own sources: run it as old, new, new, old and compare
 within the run. Times (tools/common.time_ms: the median of REPS calls
 queued behind a spin kernel) the calls of `calls` — the set that
 chip_smoke.py phase 8 times for the kernels line: K1 at phase 3's shape
-and at the fused frame's occupancy, K4, K5, and K2 on the span records
-of the 1080p static scene — and t_noise's variants
-(noise_stages.NOISE_VARIANTS, which phase 8 times through
-noise_stages.bench) on DIR's tree. Prints the card's nvidia-smi name and
-power limit, then one JSON line: {"root": DIR, "ms": {label: ms},
-"build_s": s}. Needs a CUDA device.
+and at the fused frame's occupancy, K4, K5, K2 and K3 on the record sets
+of `record_sets` (the 1080p static scene, the three goldens, the orbit
+frames with huge records) and on a screen-filling triangle, and K6 on
+the 1080p scene — and t_noise's variants (noise_stages.NOISE_VARIANTS,
+which phase 8 times through noise_stages.bench) on DIR's tree; then, by
+the host clock, the 1080p scene's route and gather as DIR's raster_frame
+runs them (`host_calls`). Prints the card's nvidia-smi name and power
+limit, then one JSON line: {"root": DIR, "ms": {label: ms}, "build_s":
+s}. Needs a CUDA device.
 
 chip_smoke.py cannot take this role with a --root argument: it drives and
 checks the whole main path, and an older tree's phases and kernels line
@@ -72,15 +75,18 @@ def orbit_cameras(cfg):
     return out
 
 
-def frame_records(engine, camera):
-    """(M, 32) f32: the span-kernel records of one PlanetEngine frame, as
-    its raster makes them (coverage.setup_t, coverage_cuda.route and
-    gather_records on the frame's vertices)."""
+def frame_set(engine, camera) -> dict:
+    """One PlanetEngine frame's raster inputs, as its raster makes them:
+    setup_t's route inputs `tm`, `live`, `span`; the span-kernel records
+    `span_recs` and the huge kernel's `huge_recs` (the huge class, then the
+    clipped near-plane straddlers' live triangles), built with the plain
+    route and gather that every tree of the port has; `width`, `height`."""
     import numpy as np
     import torch
 
     from planet_tpu_torch.raster import coverage as cov
     from planet_tpu_torch.raster import coverage_cuda as cc
+    from planet_tpu_torch.raster import nearclip
     from planet_tpu_torch.tess import mesh
 
     cfg, device = engine.config, engine.device
@@ -88,12 +94,26 @@ def frame_records(engine, camera):
     gm = mesh.grid_uv_skirt(cfg.patch_verts)[3]
     valid = torch.as_tensor(np.broadcast_to(
         gm[None], (out.n_leaves,) + gm.shape).copy(), device=device)
-    tm, live, span = cov.setup_t(out.vertices.clip, out.vertices.normal,
-                                 valid, cfg.window_w, cfg.window_h,
-                                 mesh.cell_triangle_mask(cfg.patch_verts),
+    clip, normal = out.vertices.clip, out.vertices.normal
+    cell_mask = mesh.cell_triangle_mask(cfg.patch_verts)
+    w, h = cfg.window_w, cfg.window_h
+    tm, live, span = cov.setup_t(clip, normal, valid, w, h, cell_mask,
                                  far_w=cfg.far_plane)
-    span_idx, _ = cc.route(tm, live, span)
-    return cc.gather_records(tm, span_idx)
+    span_idx, huge_idx = cc.route(tm, live, span)
+    smask = nearclip.straddle_mask_t(clip, valid, cell_mask)
+    tcl = nearclip.clipped_tris(clip, normal, torch.nonzero(smask).squeeze(1),
+                                w, h, far_w=cfg.far_plane)
+    crecs = nearclip.records_from_tris(tcl)[tcl.live]
+    return dict(tm=tm, live=live, span=span, span_idx=span_idx,
+                huge_idx=huge_idx,
+                span_recs=cc.gather_records_plain(tm, span_idx),
+                huge_recs=torch.cat([cc.gather_records_plain(tm, huge_idx),
+                                     crecs]).contiguous(), width=w, height=h)
+
+
+def frame_records(engine, camera):
+    """(M, 32) f32: the span-kernel records of one PlanetEngine frame."""
+    return frame_set(engine, camera)["span_recs"]
 
 
 def scene_records(device):
@@ -103,6 +123,71 @@ def scene_records(device):
 
     cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
     return frame_records(PlanetEngine(cfg, device=device), scene_camera(cfg))
+
+
+def screen_triangle_records(width: int, height: int, device):
+    """(2, 32) f32 records of one patch cell, both with the whole screen
+    as their clamped bbox: the first triangle covers every pixel (NDC (-1,
+    -1), (-1, 3), (3, -1), w = 1), the second lies above the screen and
+    covers none."""
+    import numpy as np
+    import torch
+
+    from planet_tpu_torch.raster import coverage as cov
+
+    g = np.zeros((1, 2, 2, 4), np.float32)
+    g[0, 0, 0] = (-1.0, -1.0, 0.2, 1.0)          # g00
+    g[0, 1, 0] = (-1.0, 3.0, 0.6, 1.0)           # g10
+    g[0, 0, 1] = (3.0, -1.0, -0.4, 1.0)          # g01
+    g[0, 1, 1] = (3.0, 3.0, 0.1, 1.0)            # g11
+    normal = np.zeros((1, 2, 2, 3), np.float32)
+    normal[..., 1] = 0.6
+    normal[..., 2] = -0.8
+    normal[0, 1, 1] = (0.3, 0.2, -0.93)
+    tm, live, _ = cov.setup_t(torch.as_tensor(g, device=device),
+                              torch.as_tensor(normal, device=device),
+                              torch.ones((1, 2, 2), dtype=torch.bool,
+                                         device=device), width, height)
+    return tm[:, live].T.contiguous()
+
+
+def record_sets(device, orbit: bool = True) -> dict:
+    """{name: frame_set} of the 1080p static scene, the three goldens
+    (800x600) and, with orbit, each of the orbit's first frames (one
+    PlanetEngine flying them in order) that has huge-kernel records."""
+    import numpy as np
+
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.engine.planet import PlanetEngine
+    from planet_tpu_torch.geom import camera as cam_mod
+
+    gold = pathlib.Path(__file__).resolve().parents[2] / "tests" / "goldens"
+    cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
+    sets = {"1080p static": frame_set(PlanetEngine(cfg, device=device),
+                                      scene_camera(cfg))}
+    cfg800 = EngineConfig()
+    for name in ("frame", "nearclip", "farclip"):
+        cam = cam_mod.Camera(position=np.load(gold / f"{name}_cam.npy"),
+                             angles=np.load(gold / f"{name}_angles.npy"))
+        sets[f"golden {name}"] = frame_set(PlanetEngine(cfg800, device=device),
+                                           cam)
+    if orbit:
+        eng = PlanetEngine(cfg, device=device)
+        for i, (alt, cam) in enumerate(orbit_cameras(cfg)):
+            fs = frame_set(eng, cam)
+            if fs["huge_recs"].shape[0]:
+                sets[f"orbit {i} ({alt:.0f} m)"] = fs
+    return sets
+
+
+def gather_sectors(idx, n: int) -> int:
+    """The distinct 32-byte sectors that reading the 32 words of records
+    `idx` from a (32, n) f32 column-major matrix touches."""
+    import torch
+
+    rows = torch.arange(32, device=idx.device, dtype=torch.int64)[:, None]
+    words = rows * n + idx.to(torch.int64)[None]
+    return int(torch.unique(words // 8).numel())
 
 
 def fused_tile_inputs(device):
@@ -132,17 +217,53 @@ def fused_tile_inputs(device):
             torch.as_tensor(octs, device=device))
 
 
-def calls(device, records=None, fused=None) -> list:
-    """[(key or None, label, call, setup)]: the main path's
-    kernels at its shapes, each timed as call(*setup()) — K1 on 256 tiles
-    of octaves 6-18 (noise_stages.tile_inputs) and at the fused frame's
-    occupancy (`fused`, else fused_tile_inputs), K4 at the refine-probe
-    shape (5 x 4096 points, ridged 6) and at 2^20 points x 18 octaves, K5
-    at 6 x 2048^2, K2 on the 1080p scene's span records (`records`, else
-    scene_records) into a fresh framebuffer each call. The key is the
-    kernel's in chip_smoke.py's kernels line ("tile_fused": its tile
-    entry's queued_fused_ms). Inputs come from numpy seeds and the scene's
-    camera; the modules are imported here, so they come from whichever
+def host_ms(fn, reps: int = 7) -> float:
+    """Median ms of `reps` calls of fn() by the host clock, each between
+    two synchronizations: for calls that synchronize themselves."""
+    import time
+
+    import numpy as np
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def routed(fs: dict) -> dict:
+    """What K2 and K3 draw on one frame set in this tree's main path: the
+    class buffers and device counts of coverage_cuda.route_records where
+    the tree has it ("counts" set), else the exact record sets."""
+    from planet_tpu_torch.raster import coverage_cuda as cc
+
+    if not hasattr(cc, "route_records"):
+        return dict(span=fs["span_recs"], huge=fs["huge_recs"], counts=None)
+    span_buf, huge_buf, counts = cc.route_records(fs["tm"], fs["live"],
+                                                  fs["span"])
+    return dict(span=span_buf, huge=huge_buf, counts=counts)
+
+
+def calls(device, sets=None, fused=None) -> list:
+    """[(key or None, label, call, setup)]: the main path's kernels at its
+    shapes, each timed as call(*setup()) — K1 on 256 tiles of octaves 6-18
+    (noise_stages.tile_inputs) and at the fused frame's occupancy
+    (`fused`, else fused_tile_inputs), K4 at the refine-probe shape (5 x
+    4096 points, ridged 6) and at 2^20 points x 18 octaves, K5 at 6 x
+    2048^2; on each frame set of `sets` (else record_sets): K2 on its span
+    records as the tree's main path draws them (routed), K3 on its huge
+    records (the huge class and the clipped straddlers), each into a fresh
+    framebuffer a call; K3 on screen_triangle_records at 1080p; and K6 on
+    the 1080p scene: this tree's route_records, or on a tree before it the
+    two record gathers its route fed (given the indices: its route
+    synchronizes, see host_calls). The key is the kernel's in
+    chip_smoke.py's kernels line ("tile_fused": its tile entry's
+    queued_fused_ms). Inputs come from numpy seeds and the scenes'
+    cameras; the modules are imported here, so they come from whichever
     tree is first on sys.path."""
     import numpy as np
     import torch
@@ -158,14 +279,20 @@ def calls(device, records=None, fused=None) -> list:
     fused = fused_tile_inputs(device) if fused is None else fused
     probe = noise_stages.noise_inputs(5 * 4096, device)
     sphere = noise_stages.noise_inputs(1 << 20, device)
-    recs = scene_records(device) if records is None else records
+    sets = record_sets(device) if sets is None else sets
     tile_kw = dict(kind="ridged", gain=0.55, amplitude=8848.0)
 
-    def fresh_fb():
-        return (torch.full((SCENE_H, SCENE_W), cov._EMPTY, dtype=torch.int32,
-                           device=device),)
+    def fresh_fb(width, height):
+        return lambda: (torch.full((height, width), cov._EMPTY,
+                                   dtype=torch.int32, device=device),)
 
-    return [
+    def span_call(r):
+        if r["counts"] is None:
+            return lambda fb: cc.raster_span_cuda(r["span"], fb)
+        return lambda fb: cc.raster_span_cuda(r["span"], fb,
+                                              count=r["counts"][0:1])
+
+    out = [
         ("tile", "K1 tile, 256 tiles x octaves 6-18",
          lambda: tile_cuda.tiles_cuda(*corners, octs, **tile_kw), tuple),
         ("tile_fused", f"K1 tile, fused occupancy, {FUSED_LIVE} of "
@@ -180,9 +307,60 @@ def calls(device, records=None, fused=None) -> list:
         ("field", "K5 field 6x2048^2",
          lambda: field_cuda.field_kernel(2048, 6371000.0, device=device),
          tuple),
-        ("span", f"K2 span, 1080p scene, {recs.shape[0]} records",
-         lambda fb: cc.raster_span_cuda(recs, fb), fresh_fb),
     ]
+    for name, fs in sets.items():
+        r = routed(fs)
+        fb = fresh_fb(fs["width"], fs["height"])
+        out.append(("span" if name == "1080p static" else None,
+                    f"K2 span, {name}, {fs['span_recs'].shape[0]} records",
+                    span_call(r), fb))
+        if fs["huge_recs"].shape[0]:
+            hrecs = fs["huge_recs"]
+            out.append(("huge" if name == "golden nearclip" else None,
+                        f"K3 huge, {name}, {hrecs.shape[0]} records",
+                        lambda fb, h=hrecs: cc.raster_huge_cuda(h, fb), fb))
+    tri = screen_triangle_records(SCENE_W, SCENE_H, device)
+    out.append((None, "K3 huge, screen-filling triangle 1080p, 2 records",
+                lambda fb: cc.raster_huge_cuda(tri, fb),
+                fresh_fb(SCENE_W, SCENE_H)))
+    fs = sets["1080p static"]
+    if hasattr(cc, "route_records"):
+        out.append(("gather", "K6 route + gather, 1080p",
+                    lambda: cc.route_records_cuda(fs["tm"], fs["live"],
+                                                  fs["span"]), tuple))
+    else:
+        out.append(("gather", "K6 route + gather, 1080p",
+                    lambda: (cc.gather_records_cuda(fs["tm"], fs["span_idx"]),
+                             cc.gather_records_cuda(fs["tm"],
+                                                    fs["huge_idx"])),
+                    tuple))
+    return out
+
+
+def host_calls(sets: dict) -> list:
+    """[(label, call)] timed by the host clock (host_ms): the 1080p scene's
+    route and gather as the tree's raster_frame runs them (this tree: one
+    route_records; before it: route, which synchronizes on its two
+    nonzero() calls, and the two gathers), and the route alone on a tree
+    before this one."""
+    from planet_tpu_torch.raster import coverage_cuda as cc
+
+    fs = sets["1080p static"]
+    tm, live, span = fs["tm"], fs["live"], fs["span"]
+    if hasattr(cc, "route_records"):
+        return [("K6 route + gather, 1080p, host clock",
+                 lambda: cc.route_records_cuda(tm, live, span))]
+
+    def composed():
+        s, h = cc.route(tm, live, span)
+        if s.numel():
+            cc.gather_records_cuda(tm, s)
+        if h.numel():
+            cc.gather_records_cuda(tm, h)
+
+    return [("K6 route + gather, 1080p, host clock", composed),
+            ("route alone, 1080p, host clock",
+             lambda: cc.route(tm, live, span))]
 
 
 def main(argv=None) -> int:
@@ -202,7 +380,8 @@ def main(argv=None) -> int:
         return 2
     _cuda.library()
     dev = torch.device("cuda")
-    runs = {label: (fn, setup) for _, label, fn, setup in calls(dev)}
+    sets = record_sets(dev)
+    runs = {label: (fn, setup) for _, label, fn, setup in calls(dev, sets)}
     points = noise_stages.noise_inputs(1 << 22, dev)
     for name in noise_stages.NOISE_VARIANTS:
         runs[f"t_noise {name}"] = (
@@ -211,6 +390,9 @@ def main(argv=None) -> int:
     for name, (fn, setup) in runs.items():
         fn(*setup())
         ms[name] = common.time_ms(fn, setup, reps=args.reps)
+    for name, fn in host_calls(sets):
+        fn()
+        ms[name] = host_ms(fn, reps=args.reps)
     torch.cuda.synchronize()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

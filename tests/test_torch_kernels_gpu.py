@@ -7,13 +7,19 @@ no CUDA device. On a machine with one:
 Bars: K1 tiles (also with count-0 tiles among live ones, and a negative
 amplitude), K4 noise (at the refine-probe shape and at sizes that are no
 multiple of its block), K5 field (full cube and strips, at n = 128 and
-256) and K6 record gather bitwise; K2 span and K3 huge raster framebuffers
-bitwise equal to their plain versions (built with -fmad=false and IEEE
+256) and K6 route and gather (records in candidate order and counts,
+with dead, far-straddler, tall and span-class candidates, all dead, all
+huge, all span) bitwise; K2 span and K3 huge raster framebuffers bitwise
+equal to their plain versions (built with -fmad=false and IEEE
 division/sqrt), K2 also on adversarial records (near-horizontal and
 near-vertical edges, slivers, one-pixel and full-width bboxes, bboxes
-clamped at the screen edge, -0.0 edge words, edges it scans whole), with
+clamped at the screen edge, -0.0 edge words, edges it scans whole), K3 on
+them too and on a screen-filling triangle, both
+drawing the first `count` records where the count is on the device, with
 and without wireframe, and the one documented difference (a NaN shade
-packs as 1023 on the card, as torch converts NaN in the plain version); K5's row strips equal to the full cube's rows; one
+packs as 1023 on the card, as torch converts NaN in the plain version)
+for both; the routed raster (K6 -> K2 -> K3) with no host
+synchronisation; K5's row strips equal to the full cube's rows; one
 CUDA-graph replay of the fused frame's geometry step bitwise equal to the
 same step run eagerly on the card; every variant of the attribution tools
 (planet_tpu_torch/tools: t_noise, t_tile, t_lut, t_span) bitwise equal to
@@ -33,7 +39,8 @@ from planet_tpu_torch.models import heightfield
 from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
 from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import coverage_cuda as tcc
-from planet_tpu_torch.tools import lut, noise_stages, span_parts
+from planet_tpu_torch.tools import (kernel_times, lut, noise_stages,
+                                    span_parts)
 from torch_scenes import (EDGE, SCREEN, VIEW, adversarial_records,
                           nan_shade_records, screen_scene, view_scene)
 
@@ -90,20 +97,60 @@ def test_tile_kernel_dead_tiles_bitwise(dev, amplitude):
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
-def test_gather_kernel_bitwise(dev):
-    rng = np.random.default_rng(7)
-    tm = torch.as_tensor(rng.normal(size=(32, 1000)).astype(np.float32),
-                         device=dev)
-    idx = np.concatenate([rng.integers(0, 1000, 777), [1000, -1, 999, 0]])
-    idx = torch.as_tensor(idx.astype(np.int32), device=dev)
-    got = tcc.gather_records(tm, idx)
-    assert torch.equal(got, tcc.gather_records_plain(tm, idx))
+def _route_inputs(n, seed):
+    """(tm (32, n), live, span) on the CPU: random records among which dead
+    candidates, far-straddlers (row 28 > 0), tall ones (span > 16) and
+    live span-class ones; dead candidates carry NaN words."""
+    rng = np.random.default_rng(seed)
+    tm = rng.normal(size=(32, n)).astype(np.float32)
+    live = rng.uniform(size=n) < 0.3
+    far = rng.uniform(size=n) < 0.1
+    tm[28] = np.where(live, np.where(far, 1.0 / 40.0, -1.0), 0.0)
+    tm[:, ~live & (rng.uniform(size=n) < 0.2)] = np.nan
+    span = rng.integers(1, 24, n).astype(np.int32)
+    return (torch.from_numpy(tm), torch.from_numpy(live),
+            torch.from_numpy(span))
+
+
+def _assert_route_equal(got, want):
+    sk, hk, ck = (t.cpu() for t in got)
+    sp, hp, cp = want
+    assert torch.equal(ck, cp), (ck, cp)
+    ns, nh = (int(v) for v in cp)
+    assert torch.equal(sk[:ns].view(torch.int32), sp.view(torch.int32))
+    assert torch.equal(hk[:nh].view(torch.int32), hp.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["mixed", "all dead", "all huge",
+                                  "all span", "one block", "every live"])
+def test_gather_kernel_bitwise(dev, case):
+    """K6, the route and the gather, against route + gather_records_plain:
+    records (in candidate order) and counts bit for bit. The route's
+    record classes replace the old gather's out-of-range indices: dead
+    candidates give no record, far-straddlers and tall records go to the
+    huge class."""
+    tm, live, span = _route_inputs(1000 if case == "one block" else 5000, 7)
+    if case == "all dead":
+        live = torch.zeros_like(live)
+    elif case == "all huge":
+        span = torch.full_like(span, 17)
+    elif case == "all span":
+        tm[28] = torch.where(live, -1.0, 0.0)
+        span = torch.ones_like(span)
+    elif case == "every live":
+        live = torch.ones_like(live)
+    before = _cuda.launches["gather"]
+    got = tcc.route_records(tm.to(dev), live.to(dev), span.to(dev))
+    assert _cuda.launches["gather"] == before + 1
+    want = tcc.route_records_plain(tm, live, span)
+    _assert_route_equal(got, want)
+    if case == "mixed":
+        assert int(want[2][0]) > 0 and int(want[2][1]) > 0
     with pytest.raises(ValueError):
-        tcc.gather_records_cuda(tm, idx.long())
+        tcc.route_records_cuda(tm.to(dev), live.to(dev), span.to(dev).long())
 
 
-@pytest.mark.parametrize("wireframe", [False, True])
-def test_raster_kernels_match_plain(dev, wireframe):
+def _scene_setups(dev):
     for clip, normal, valid, w, h, far in (
             screen_scene(11, SCREEN["width"], SCREEN["height"],
                          SCREEN["sizes"]) + (SCREEN["width"],
@@ -111,21 +158,97 @@ def test_raster_kernels_match_plain(dev, wireframe):
             view_scene(VIEW["seed"], VIEW["width"], VIEW["height"],
                        VIEW["far"]) + (VIEW["width"], VIEW["height"],
                                        VIEW["far"])):
-        tm, live, span = tcov.setup_t(
+        yield tcov.setup_t(
             *(torch.as_tensor(a, device=dev) for a in (clip, normal, valid)),
-            w, h, far_w=far)
-        span_idx, huge_idx = tcc.route(tm, live, span)
-        for idx, kernel, plain in ((span_idx, tcc.raster_span_cuda,
-                                    tcc.raster_span_plain),
-                                   (huge_idx, tcc.raster_huge_cuda,
-                                    tcc.raster_huge_plain)):
-            assert idx.numel() > 0
-            recs = tcc.gather_records(tm, idx)
+            w, h, far_w=far) + (w, h)
+
+
+@pytest.mark.parametrize("wireframe", [False, True])
+def test_raster_kernels_match_plain(dev, wireframe):
+    for tm, live, span, w, h in _scene_setups(dev):
+        span_recs, huge_recs, _ = tcc.route_records_plain(tm, live, span)
+        for recs, kernel, plain in ((span_recs, tcc.raster_span_cuda,
+                                     tcc.raster_span_plain),
+                                    (huge_recs, tcc.raster_huge_cuda,
+                                     tcc.raster_huge_plain)):
+            assert recs.shape[0] > 0
             fbk = torch.full((h, w), EMPTY, dtype=torch.int32, device=dev)
             fbp = fbk.clone()
             kernel(recs, fbk, wireframe)
             plain(recs, fbp, wireframe)
             _assert_fb_bars(fbk, fbp)
+
+
+@pytest.mark.parametrize("wireframe", [False, True])
+def test_huge_kernel_adversarial_records_bitwise(dev, wireframe):
+    """K3 on the view scene's huge records and on the adversarial records
+    (which it treats like any other, with its 1/w tests): bitwise equal to
+    its plain version."""
+    tm, live, span, w, h = list(_scene_setups(dev))[1]     # view scene
+    for recs, width, height in (
+            (tcc.route_records_plain(tm, live, span)[1], w, h),
+            (adversarial_records(**EDGE).to(dev), EDGE["width"],
+             EDGE["height"])):
+        fbk = torch.full((height, width), EMPTY, dtype=torch.int32,
+                         device=dev)
+        fbp = fbk.clone()
+        tcc.raster_huge_cuda(recs, fbk, wireframe)
+        tcc.raster_huge_plain(recs, fbp, wireframe)
+        _assert_fb_bars(fbk, fbp)
+
+
+def test_huge_kernel_screen_filling_triangle_bitwise(dev):
+    """K3 on a triangle covering every pixel of a 1920x1080 screen and one
+    whose bbox is the screen but covers none."""
+    recs = kernel_times.screen_triangle_records(1920, 1080, dev)
+    for wf in (False, True):
+        fbk = torch.full((1080, 1920), EMPTY, dtype=torch.int32, device=dev)
+        fbp = fbk.clone()
+        tcc.raster_huge_cuda(recs, fbk, wf)
+        tcc.raster_huge_plain(recs, fbp, wf)
+        _assert_fb_bars(fbk, fbp)
+    assert bool((fbp != EMPTY).any())
+
+
+@pytest.mark.parametrize("kernel", ["span", "huge"])
+def test_raster_kernels_draw_the_device_count(dev, kernel):
+    """K2 and K3 with the record count on the device draw exactly the
+    first `count` records of a larger buffer (0, some, all, and more than
+    the buffer holds)."""
+    recs = adversarial_records(**EDGE).to(dev)
+    cuda = tcc.raster_span_cuda if kernel == "span" else tcc.raster_huge_cuda
+    plain = (tcc.raster_span_plain if kernel == "span"
+             else tcc.raster_huge_plain)
+    for n in (0, 5, recs.shape[0], recs.shape[0] + 7):
+        count = torch.tensor([n], dtype=torch.int32, device=dev)
+        fbk = torch.full((EDGE["height"], EDGE["width"]), EMPTY,
+                         dtype=torch.int32, device=dev)
+        fbp = fbk.clone()
+        cuda(recs, fbk, count=count)
+        plain(recs[:n], fbp)
+        _assert_fb_bars(fbk, fbp)
+
+
+def test_routed_raster_reads_no_host_between_setup_and_k3(dev):
+    """raster_frame's routed part (K6 -> K2 -> K3 on setup_t's outputs)
+    under torch.cuda.set_sync_debug_mode("error"): nothing in it
+    synchronizes with the host, and it draws what the plain composition
+    draws."""
+    for tm, live, span, w, h in _scene_setups(dev):
+        fb = torch.full((h, w), EMPTY, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            counts = tcc.raster_routed(tm, live, span, fb)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        span_recs, huge_recs, want_counts = tcc.route_records_plain(
+            tm, live, span)
+        assert torch.equal(counts, want_counts)
+        fbp = torch.full_like(fb, EMPTY)
+        tcc.raster_span_plain(span_recs, fbp)
+        tcc.raster_huge_plain(huge_recs, fbp)
+        _assert_fb_bars(fb, fbp)
 
 
 @pytest.mark.parametrize("wireframe", [False, True])
@@ -142,6 +265,17 @@ def test_span_kernel_adversarial_records_bitwise(dev, wireframe):
     assert int((want != EMPTY).sum()) > 0
 
 
+def _assert_nan_shade_difference(dev, cuda, plain, recs, fb):
+    got = cuda(recs.to(dev), fb.to(dev)).cpu()
+    want = plain(recs, fb.clone())
+    covered = want != EMPTY
+    assert torch.equal(got != EMPTY, covered) and int(covered.sum()) > 0
+    nan_q = int(torch.tensor([float("nan")]).to(torch.int32)[0])
+    assert torch.equal(got[covered] & 1023,
+                       torch.full_like(got[covered], 1023))
+    assert torch.equal(want[covered], (got[covered] & 0x7FFFFC00) | nan_q)
+
+
 def test_span_kernel_nan_shade_difference_as_documented(dev):
     """The one known K2/plain difference (ROADMAP.md section 3), held as
     documented: on records whose every fragment has a NaN shade, the
@@ -150,14 +284,18 @@ def test_span_kernel_nan_shade_difference_as_documented(dev):
     version packs torch's int32 conversion of NaN."""
     recs = nan_shade_records(**EDGE)
     fb = torch.full((EDGE["height"], EDGE["width"]), EMPTY, dtype=torch.int32)
-    got = tcc.raster_span(recs.to(dev), fb.to(dev)).cpu()
-    want = tcc.raster_span_plain(recs, fb.clone())
-    covered = want != EMPTY
-    assert torch.equal(got != EMPTY, covered) and int(covered.sum()) > 0
-    nan_q = int(torch.tensor([float("nan")]).to(torch.int32)[0])
-    assert torch.equal(got[covered] & 1023,
-                       torch.full_like(got[covered], 1023))
-    assert torch.equal(want[covered], (got[covered] & 0x7FFFFC00) | nan_q)
+    _assert_nan_shade_difference(dev, tcc.raster_span,
+                                 tcc.raster_span_plain, recs, fb)
+
+
+def test_huge_kernel_nan_shade_difference_as_documented(dev):
+    """The same documented difference for K3 (fragment() is shared): the
+    records' fragments that pass the 1/w tests have NaN shades, which the
+    kernel packs as 1023."""
+    recs = nan_shade_records(**EDGE)
+    fb = torch.full((EDGE["height"], EDGE["width"]), EMPTY, dtype=torch.int32)
+    _assert_nan_shade_difference(dev, tcc.raster_huge,
+                                 tcc.raster_huge_plain, recs, fb)
 
 
 def test_frame_on_card_matches_cpu(dev):

@@ -105,7 +105,8 @@ def test_gather_matches_jax_bitwise():
     idx = idx.astype(np.int32)
     want = np.asarray(jcov._gather_packed_t(jnp.asarray(tm),
                                             jnp.asarray(idx))).T
-    got = tcc.gather_records(torch.from_numpy(tm), torch.from_numpy(idx))
+    got = tcc.gather_records_plain(torch.from_numpy(tm),
+                                   torch.from_numpy(idx))
     np.testing.assert_array_equal(got.numpy(), want)
     assert (got.numpy()[-4:-2] == 0).all()        # out of range -> dead
 
@@ -183,11 +184,13 @@ def test_nearclip_helpers_match_jax():
 def test_wrappers_dispatch_plain_on_cpu():
     rng = np.random.default_rng(3)
     tm = torch.from_numpy(rng.normal(size=(32, 10)).astype(F))
-    idx = torch.tensor([1, 3, 10], dtype=torch.int32)
-    np.testing.assert_array_equal(tcc.gather_records(tm, idx).numpy(),
-                                  tcc.gather_records_plain(tm, idx).numpy())
+    live = torch.from_numpy(rng.uniform(size=10) < 0.7)
+    span = torch.from_numpy(rng.integers(1, 30, 10).astype(np.int32))
+    for got, want in zip(tcc.route_records(tm, live, span),
+                         tcc.route_records_plain(tm, live, span)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
     with pytest.raises(ValueError):
-        tcc.gather_records_cuda(tm, idx)        # CPU tensor: no kernel
+        tcc.route_records_cuda(tm, live, span)  # CPU tensor: no kernel
     fb = torch.full((4, 4), EMPTY, dtype=torch.int32)
     with pytest.raises(ValueError):
         tcc.raster_span_cuda(torch.zeros((1, 32)), fb)

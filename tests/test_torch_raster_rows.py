@@ -56,8 +56,9 @@ def _setup_records(clip, normal, valid, width, height, far_w=None,
     tcl = nearclip.clipped_tris(clip, normal, torch.nonzero(smask).squeeze(1),
                                 width, height, far_w=far_w)
     crecs = nearclip.records_from_tris(tcl)[tcl.live]
-    return (cc.gather_records(tm, s_idx),
-            torch.cat([cc.gather_records(tm, h_idx), crecs]).contiguous())
+    return (cc.gather_records_plain(tm, s_idx),
+            torch.cat([cc.gather_records_plain(tm, h_idx),
+                       crecs]).contiguous())
 
 
 @pytest.fixture(scope="module")
