@@ -24,10 +24,12 @@ result line is printed:
    dead, huge, span or live; the sectors its 1080p reads touch), K2 on
    the span and K3 on the huge records and a screen-filling triangle
    (framebuffers bitwise equal, with and without wireframe; each K3 set
-   timed under its own name), the routed raster K6 -> K2 -> K3 with the
-   counts on the device against the plain composition, and run under
-   torch.cuda.set_sync_debug_mode("error") (no host read between setup
-   and K3);
+   timed under its own name), K2 and K3 on records whose every fragment
+   has a NaN shade (tests/torch_scenes.nan_shade_records: bitwise, every
+   shade packed as 0, as planet_tpu converts NaN to int32), the routed
+   raster K6 -> K2 -> K3 with the counts on the device against the plain
+   composition, and run under torch.cuda.set_sync_debug_mode("error") (no
+   host read between setup and K3);
 4. the host-orchestrated path, PlanetEngine(...).render on the card,
    against the oracle's frame / nearclip / farclip golden images at their
    test bars;
@@ -71,11 +73,24 @@ result line is printed:
    tools' queued timer (tools/common.time_calls: calls queued behind a
    spin kernel, so a short kernel's time holds no host launch time):
    tools/kernel_times.calls on phase 3's record sets and fused
-   occupancy, and its host_calls (K6 by the host clock).
+   occupancy, and its host_calls (K6 by the host clock);
+9. the single-card rest (`single_card_rest`), at 1920x1080 with the
+   driver's supersample rule (8), each part's counts reset before and
+   read after: (a) the splat kernel S1 against its plain version at the
+   main path's two shapes (PlanetEngine's leaves, DeviceRenderer's
+   render_cap rows) and the splat raster card against CPU bit for bit
+   (run under set_sync_debug_mode("error")), then, counted alone,
+   PlanetEngine and DeviceRenderer splat frames (ms; the orbit's leaf ids
+   equal to phase 5's exact-mode ids; one S1 launch a frame); (b) the terrain and heightmap API
+   on the card bitwise against the oracle goldens (f64) and within 1e-5
+   (K4); (c) run_interactive on a 30-line script on PlanetEngine and on
+   DeviceInteractiveEngine(preview=2), ms a frame, the PNG dumps equal to
+   the full frames, and the driver's --profile trace holding K1; (d)
+   entry()'s forward on the card against CPU tensors.
 
 The second-to-last lines are a JSON summary of the kernels (launches from
-phase 5b, from phase 7 for the field kernel and from phase 8 for the t_*
-kernels, which also carry each variant's ms; each kernel's time, single
+phase 5b, from phase 7 for the field kernel, from phase 9a's frames for
+S1 and from phase 8 for the t_* kernels, which also carry each variant's ms; each kernel's time, single
 launch and queued, its plain version's, a library call's where one
 computes the same function — none routes and gathers, so K6 gives the
 composed torch sequence's time as composed_ms instead — and its bound,
@@ -170,6 +185,469 @@ def ssim(a, b, window: int = 8) -> float:
     return float(s.mean())
 
 
+# phase 9c's scripted interactive session: moves, look keys, speed digits,
+# a slot save and recall, the wireframe toggle, the timing toggle and two
+# PNG dumps, one frame a line ("q" ends it)
+INTERACTIVE_SCRIPT = (
+    "w", "w w", "3 w", "d", "a", "s", "up", "down", "left", "right",
+    "sf1", "4 w", "w", "f1", "p", "png", "p", "left up", "w", "sf2 d",
+    "right", "5 s", "f2", "png", "2 w", "down", "a d", "t", "t", "w", "q")
+
+
+def png_pixels(path) -> np.ndarray:
+    """The (H, W) u8 pixels of a grayscale PNG written by io/png.py."""
+    import zlib
+    data = pathlib.Path(path).read_bytes()
+    width, height = (int.from_bytes(data[16 + 4 * i:20 + 4 * i], "big")
+                     for i in range(2))
+    idat = data[data.index(b"IDAT") + 4:data.index(b"IEND") - 8]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    return raw.reshape(height, -1)[:, 1:].reshape(height, width)
+
+
+def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
+                     reps=10, log=print, event_ms=None, bound=None):
+    """Phase 9: the single-card modules ported last, at the given size
+    (1920x1080 on the card; a CPU rehearsal passes a small one), each part
+    with the launch counts set to 0 before it and read after:
+
+    (a) the splat raster (raster_mode="splat", supersample by the driver's
+        rule max(4, round(width / 240))), with and without wireframe: S1
+        against its plain version at both of the main path's shapes
+        (PlanetEngine's leaves of the static scene, on the card and on CPU
+        copies; DeviceRenderer's render_cap rows, padding invalid), each
+        card call under set_sync_debug_mode("error"); the splat raster on
+        the card equal to the CPU's, and DeviceRenderer's frame equal to
+        the splat of its first n_leaves rows; S1's times at both shapes.
+        Then the main path alone, the counts set to 0 before it and read
+        after: PlanetEngine splat frames (median ms, host clock +
+        synchronize), DeviceRenderer splat frames (static, then the orbit,
+        leaf ids equal to the exact mode's `orbit_ids`), one S1 launch a
+        frame;
+    (b) the terrain and heightmap API on the device: height_f64 and the
+        f64 octave sums bitwise equal to the oracle goldens,
+        generate_tile_f64 equal to tiles32, generate_tiles_df within 1e-5
+        relative (K4);
+    (c) run_interactive on INTERACTIVE_SCRIPT on PlanetEngine and on
+        DeviceInteractiveEngine(preview=2): ms a frame (render + the
+        display fetch + synchronize, host clock; median), each PNG dump
+        equal to its frame's full image; driver.main with --profile writes
+        a trace whose device events include K1;
+    (d) entry()'s forward on the device against the same forward on CPU
+        tensors (clip within 1e-5 of max(|clip|, 1), shade within 1e-5).
+
+    event_ms(fn) times a call with CUDA events and bound(ops, bytes) gives
+    a least time (main's helpers; the card only). Returns {name: number}
+    for the summary, and on the card S1's rows under "splat"
+    (PlanetEngine's shape) and "splat_device_rows"."""
+    import contextlib
+    import io
+    import json as json_mod
+    import tempfile
+
+    import torch
+
+    from planet_tpu_torch import _cuda, entry
+    from planet_tpu_torch.engine import device_step
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.engine.planet import (PlanetEngine, splat_raster,
+                                                splat_valid)
+    from planet_tpu_torch.geom import camera as cam_mod
+    from planet_tpu_torch.geom import cubesphere
+    from planet_tpu_torch.geom import quadid
+    from planet_tpu_torch.io import checkpoint, driver
+    from planet_tpu_torch.models.terrain import RidgedTerrain
+    from planet_tpu_torch.nums import df as dfm
+    from planet_tpu_torch.ops import heightmap, perlin
+    from planet_tpu_torch.raster import splat
+    from planet_tpu_torch.tess import mesh
+    from planet_tpu_torch.tess.vertex import PatchVertices
+
+    cuda = dev.type == "cuda"
+    res = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    @contextlib.contextmanager
+    def no_host_reads():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+
+    def counted(tag, kernels):
+        got = dict(_cuda.launches)
+        log(f"[9{tag}] launches: {got}")
+        for k in kernels:
+            check(got[k] > 0, f"phase 9{tag} launched no {k} kernel")
+
+    def vp_of(cfg, cam):
+        rot = cam_mod.camera_rotation(cam)
+        pf = cam_mod.proj_factor_from_fovy(np.deg2rad(cfg.fovy_deg))
+        return (cam_mod.perspective_lh(pf, width / height, cfg.near_plane,
+                                       cfg.far_plane)
+                @ cam_mod.view_from_rotation(rot)).astype(np.float32)
+
+    def host_ms(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    # ------------------------------------------------------- (a) splat
+    # first the checks and the kernel's own timing, then the main path's
+    # frames alone between a reset of the counts and their reading
+    ss = max(4, round(width / 240))
+    cfg = EngineConfig(window_w=width, window_h=height, raster_mode="splat",
+                       raster_supersample=ss)
+    eng = PlanetEngine(cfg, device=dev)
+    out = eng.frame(camera)
+    grid_mask = torch.as_tensor(mesh.grid_uv_skirt(cfg.patch_verts)[3],
+                                device=dev)
+    valid = grid_mask[None].expand(out.n_leaves, -1, -1)
+    pv_cpu = PatchVertices(*(a.cpu() for a in out.vertices))
+    sv = splat_valid(out.vertices, valid)
+    for wf in (False, True):
+        # the splat kernel (S1) against its plain version on the same
+        # inputs, on the card and on CPU copies, then the whole raster
+        kargs = (out.vertices.clip, out.vertex_shade, sv, width, height,
+                 max(ss, 2) if wf else ss, wf)
+        with no_host_reads():
+            keys = splat.splat_keys(*kargs)
+        keys_p = splat.splat_keys_plain(*kargs)
+        keys_c = splat.splat_keys_plain(*(a.cpu() if torch.is_tensor(a)
+                                          else a for a in kargs))
+        same_k = same_bits(keys, keys_p) and same_bits(keys.cpu(), keys_c)
+        img, dep = splat_raster(out.vertices, out.vertex_shade, valid, cfg,
+                                width, height, wf)
+        img_p, dep_p = splat_raster(pv_cpu, out.vertex_shade.cpu(),
+                                    valid.cpu(), cfg, width, height, wf)
+        cov = float(torch.isfinite(dep).float().mean())
+        same = same_bits(img.cpu(), img_p) and same_bits(dep.cpu(), dep_p)
+        log(f"[9a] splat, static scene, PlanetEngine's {out.n_leaves} "
+            f"leaves, supersample {kargs[5]}{', wireframe' if wf else ''}: "
+            f"{cov:.4f} of pixels covered; S1 keys equal to the plain "
+            f"version's on {dev.type} and on the CPU: {same_k}; image and "
+            f"depth {dev.type} == CPU bit for bit: {same}")
+        check(same_k, f"9a S1 splat keys != plain (wireframe {wf})")
+        check(same, f"9a splat on the device != on the CPU (wireframe {wf})")
+        check(cov > (0.1 if wf else 0.5),
+              "9a splat covers too little of the screen")
+    g = out.vertices.clip.shape[1]
+
+    def s1_row(clip, shade, sv):
+        """S1's times at the main path's shape (PlanetEngine's leaves, or
+        DeviceRenderer's render_cap rows, padding invalid) and its bound:
+        per fragment of a valid cell the blend of 5 values (35), the w test
+        and reciprocal (2), the NDC (3), the pixel (8), range and depth
+        tests (2) and the two clamped quantizations (10); the inputs read
+        once, each covered pixel's key written once."""
+        from planet_tpu_torch.tools import common as tool_common
+        kargs = (clip, shade, sv, width, height, ss)
+        n_rows = clip.shape[0]
+        cells = int((sv[:, :-1, :-1] & sv[:, :-1, 1:] & sv[:, 1:, :-1]
+                     & sv[:, 1:, 1:]).sum())
+        covered = int((splat.splat_keys_plain(*kargs) != splat._EMPTY).sum())
+        return dict(
+            ms=event_ms(lambda: splat.splat_keys_cuda(*kargs)),
+            queued_ms=tool_common.time_ms(
+                lambda: splat.splat_keys_cuda(*kargs)),
+            plain_ms=event_ms(lambda: splat.splat_keys_plain(*kargs)),
+            bound=bound(cells * ss * ss * 60,
+                        n_rows * g * g * 21 + covered * 4),
+            fragments=n_rows * (g - 1) ** 2 * ss * ss, cells=cells,
+            max_abs_err=0.0)
+
+    def log_s1(row, what):
+        log(f"[9a] S1 splat kernel, {what}: {row['fragments']} fragments "
+            f"({row['cells']} valid cells x {ss * ss}): {row['ms']:.4f} ms "
+            f"(queued {row['queued_ms']:.4f}), plain {row['plain_ms']:.3f} "
+            f"ms, bound {row['bound'][0]:.5f} ms ({row['bound'][1]})")
+
+    if cuda:
+        res["splat"] = s1_row(out.vertices.clip, out.vertex_shade, sv)
+        log_s1(res["splat"], f"PlanetEngine's {out.n_leaves} leaves")
+    # DeviceRenderer: S1 on all its render_cap rows (padding rows invalid)
+    # against the plain version on the same card tensors, its splat raster
+    # with no host read, and its frame equal to the splat of its first
+    # n_leaves rows
+    rend = device_step.DeviceRenderer(cfg, width, height, device=dev)
+    pool = rend.init_pool()
+    args = (*dfm.from_f64_np(camera.position), vp_of(cfg, camera))
+    for wf in (False, True):
+        rend.wireframe = wf
+        fr = rend.render(pool, *args)
+        geom = rend.last_geometry
+        n = fr.n_leaves
+        gsv = splat_valid(geom.vertices, geom.valid)
+        kargs = (geom.vertices.clip, geom.vertex_shade, gsv, width, height,
+                 max(ss, 2) if wf else ss, wf)
+        with no_host_reads():
+            keys = splat.splat_keys(*kargs)
+            img_all, dep_all = splat_raster(geom.vertices, geom.vertex_shade,
+                                            geom.valid, cfg, width, height,
+                                            wf)
+        same_k = same_bits(keys, splat.splat_keys_plain(*kargs))
+        img_n, dep_n = splat_raster(
+            PatchVertices(*(a[:n] for a in geom.vertices)),
+            geom.vertex_shade[:n], geom.valid[:n], cfg, width, height, wf)
+        same = (same_bits(img_all, fr.image) and same_bits(dep_all, fr.depth)
+                and same_bits(img_n, fr.image) and same_bits(dep_n, fr.depth))
+        log(f"[9a] DeviceRenderer splat{', wireframe' if wf else ''}: "
+            f"{n} leaves on {geom.valid.shape[0]} rows; S1 keys on all rows "
+            f"equal to the plain version's: {same_k}; its splat raster ran "
+            f"under set_sync_debug_mode('error') and equals the frame and "
+            f"the splat of the first {n} rows bit for bit: {same}")
+        check(same_k, f"9a DeviceRenderer S1 keys != plain (wireframe {wf})")
+        check(same, f"9a DeviceRenderer splat != the splat of its leaves' "
+              f"rows (wireframe {wf})")
+        check(bool(torch.isfinite(fr.image).all()), "9a device splat: finite")
+        check(not fr.overflowed, "9a device splat: overflowed")
+    rend.wireframe = False
+    if cuda:
+        res["splat_device_rows"] = s1_row(geom.vertices.clip,
+                                          geom.vertex_shade, gsv)
+        log_s1(res["splat_device_rows"],
+               f"DeviceRenderer's {geom.valid.shape[0]} rows")
+
+    # the main path: PlanetEngine frames, DeviceRenderer frames and the
+    # orbit, counted alone
+    _cuda.reset_launches()
+    frame_ms = []
+    for i in range(reps + 2):
+        ms, (_, image, depth) = host_ms(lambda: eng.render(camera))
+        check(bool(torch.isfinite(image).all()), "9a splat image not finite")
+        frame_ms.append(ms)
+    static_ms = []
+    for i in range(reps):
+        ms, fr = host_ms(lambda: rend.render(pool, *args))
+        static_ms.append(ms)
+        static_leaves = fr.n_leaves
+        check(bool(torch.isfinite(fr.image).all()), "9a device splat: finite")
+        check(not fr.overflowed, "9a device splat: overflowed")
+    pool = rend.init_pool()
+    orbit_ms = []
+    for i, cam in enumerate(orbit):
+        ms, fr = host_ms(lambda: rend.render(
+            pool, *dfm.from_f64_np(cam.position), vp_of(cfg, cam)))
+        orbit_ms.append(ms)
+        g_o = rend.last_geometry
+        ids = quadid.from_words(g_o.leaf_lo[:fr.n_leaves].cpu().numpy(),
+                                g_o.leaf_hi[:fr.n_leaves].cpu().numpy())
+        check(np.array_equal(ids, orbit_ids[i]),
+              f"9a device splat orbit frame {i}: leaf ids differ from the "
+              "exact mode's")
+        check(bool(torch.isfinite(fr.image).all()), f"9a orbit {i}: finite")
+    counted("a", ("tile", "noise", "splat"))
+    n_frames = reps + 2 + reps + len(orbit)
+    check(_cuda.launches["splat"] == n_frames,
+          f"9a {n_frames} splat frames launched S1 "
+          f"{_cuda.launches['splat']} times")
+    res["splat_launches"] = _cuda.launches["splat"]
+    res["planet_splat_static_ms"] = float(np.median(frame_ms[2:]))
+    log(f"[9a] PlanetEngine splat frame {width}x{height}: median of "
+        f"{reps} warm frames {res['planet_splat_static_ms']:.3f} ms (min "
+        f"{min(frame_ms[2:]):.3f}, max {max(frame_ms[2:]):.3f}; host clock "
+        f"+ synchronize)")
+    res["device_splat_static_ms"] = float(np.median(static_ms[2:]))
+    log(f"[9a] DeviceRenderer splat frame: {static_leaves} leaves; median of "
+        f"frames 2-{reps - 1} {res['device_splat_static_ms']:.3f} ms (frames: "
+        + ", ".join(f"{m:.2f}" for m in static_ms) + ")")
+    res["device_splat_orbit_ms"] = orbit_ms
+    log("[9a] DeviceRenderer splat orbit: leaf ids equal to the exact "
+        "mode's on every frame; ms " + ", ".join(f"{m:.2f}" for m in orbit_ms))
+    log(f"[9a] S1 launches in the main path's {n_frames} frames "
+        f"({reps + 2} PlanetEngine, {reps} DeviceRenderer, {len(orbit)} "
+        f"orbit): {res['splat_launches']}")
+
+    # --------------------------------------------- (b) terrain, heightmap
+    _cuda.reset_launches()
+    gold = ROOT / "tests" / "goldens"
+    ridged = RidgedTerrain()
+    pts = torch.as_tensor(np.load(gold / "pts_sphere.npy"), device=dev)
+    for name, depth, max_depth in (("terrain_d0_md1", 0, 1),
+                                   ("terrain_d6_md18", 6, 18),
+                                   ("terrain_d18_md18", 18, 18)):
+        got = ridged.height_f64(pts, depth, max_depth).cpu().numpy()
+        want = np.load(gold / f"{name}.npy")
+        check(np.array_equal(got, want), f"9b height_f64 on {dev.type} != "
+              f"{name} at {int((got != want).sum())} of {want.size} points "
+              f"(max abs err {np.abs(got - want).max()}): torch's "
+              f"{dev.type} float64 ops differ from the oracle's")
+    pf = torch.as_tensor(np.load(gold / "pts_fbm.npy"), device=dev)
+    for name, fn, kw in (
+            ("fbm_o4_g05", perlin.fbm_f64, dict(gain=0.5, octaves=4)),
+            ("ridged_o18_g055", perlin.ridged_f64,
+             dict(gain=0.55, octaves=18)),
+            ("fbm_lac17_o5", perlin.fbm_f64,
+             dict(lacunarity=1.7, gain=0.5, octaves=5))):
+        kw["gain"] = np.float32(kw["gain"])
+        got = fn(pf[:, 0], pf[:, 1], pf[:, 2], **kw).cpu().numpy()
+        want = np.load(gold / f"{name}.npy")
+        check(np.array_equal(got, want), f"9b {fn.__name__} on {dev.type} "
+              f"!= {name} (max abs err {np.abs(got - want).max()})")
+    tiles32 = np.load(gold / "tiles32.npy")
+    paths = [(int(r[0]), [int(c) for c in r[1:] if c >= 0])
+             for r in np.load(gold / "tile_paths.npy")]
+    corners = np.stack([cubesphere.corners_from_path(f, d, 6371000.0)
+                        for f, d in paths])
+    for i, (f, d) in enumerate(paths):
+        got = heightmap.generate_tile_f64(
+            torch.as_tensor(corners[i], device=dev), 32, ridged, len(d),
+            18).cpu().numpy()
+        check(np.array_equal(got, tiles32[i]), f"9b generate_tile_f64 on "
+              f"{dev.type} != tiles32[{i}] (max abs err "
+              f"{np.abs(got - tiles32[i]).max()})")
+    ch, cl = (torch.as_tensor(a, device=dev)
+              for a in dfm.from_f64_np(corners))
+    depths = np.array([len(d) for _, d in paths])
+    worst = 0.0
+    for depth in np.unique(depths):
+        sel = torch.as_tensor(np.nonzero(depths == depth)[0], device=dev)
+        got = heightmap.generate_tiles_df(ch[sel], cl[sel], 32, ridged,
+                                          int(depth), 18).cpu().numpy()
+        want = tiles32[depths == depth]
+        worst = max(worst, float((np.abs(got - want)
+                                  / np.maximum(np.abs(want), 884.8)).max()))
+    check(worst <= 1e-5, f"9b generate_tiles_df: {worst} relative > 1e-5")
+    log(f"[9b] on {dev.type}: height_f64 bitwise equal to the 3 terrain "
+        f"goldens, fbm_f64 / ridged_f64 to 3 octave goldens, "
+        f"generate_tile_f64 to all {len(paths)} tiles32 tiles; "
+        f"generate_tiles_df within {worst:.3g} relative (bar 1e-5)")
+    counted("b", ("noise",))
+
+    # ---------------------------------------------------- (c) interactive
+    class Timed:
+        """run_interactive's engine with each frame timed and kept."""
+
+        def __init__(self, engine, fetch_full):
+            self.engine, self.fetch_full = engine, fetch_full
+            self.ms, self.images = [], []
+
+        @property
+        def wireframe(self):
+            return self.engine.wireframe
+
+        @wireframe.setter
+        def wireframe(self, v):
+            self.engine.wireframe = v
+
+        @property
+        def skirts(self):
+            return self.engine.skirts
+
+        @skirts.setter
+        def skirts(self, v):
+            self.engine.skirts = v
+
+        def render(self, cam, w=None, h=None):
+            def one():
+                o = self.engine.render(cam, w, h)
+                if self.fetch_full:     # PlanetEngine's display: the frame
+                    o[1].cpu()
+                return o
+            ms, o = host_ms(one)
+            self.ms.append(ms)
+            self.images.append(o[1])
+            return o
+
+    cfgi = EngineConfig(window_w=width, window_h=height,
+                        raster_supersample=ss)
+    script = "\n".join(INTERACTIVE_SCRIPT) + "\n"
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, make, key in (
+                ("PlanetEngine", lambda: Timed(PlanetEngine(cfgi, device=dev),
+                                               True), "planet"),
+                ("DeviceInteractiveEngine(preview=2)", lambda: Timed(
+                    driver.DeviceInteractiveEngine(cfgi, width, height,
+                                                   preview=2, device=dev),
+                    False), "device")):
+            _cuda.reset_launches()
+            teng = make()
+            _, slots = checkpoint.default_state(cfgi.radius)
+            outdir = pathlib.Path(tmp) / key
+            outdir.mkdir()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                driver.run_interactive(teng, camera.copy(), slots, width,
+                                       height, str(outdir),
+                                       stream=io.StringIO(script))
+            n = len(INTERACTIVE_SCRIPT) - 1
+            check(text.getvalue().count("frametime:") == n,
+                  f"9c {label}: {n} frames expected")
+            dumps = sorted(outdir.iterdir())
+            check(len(dumps) == 2, f"9c {label}: two PNG dumps expected")
+            for path in dumps:
+                i = int(path.stem.split("_")[1])
+                im = teng.images[i]
+                if im.dtype != torch.uint8:
+                    im = (torch.clamp(im, 0.0, 1.0) * 255.0 + 0.5).to(
+                        torch.uint8)
+                check(np.array_equal(png_pixels(path), im.cpu().numpy()),
+                      f"9c {label}: {path.name} != its full frame")
+            res[f"interactive_{key}_ms"] = float(np.median(teng.ms[2:]))
+            log(f"[9c] run_interactive, {label}, {width}x{height}, {n} "
+                f"frames: median {res[f'interactive_{key}_ms']:.3f} ms a "
+                f"frame (frames 2-{n - 1}; min {min(teng.ms[2:]):.3f}, max "
+                f"{max(teng.ms[2:]):.3f}); PNG dumps equal to the full "
+                f"frames")
+            counted("c", ("tile", "span", "gather", "huge")
+                    + (("noise",) if key == "device" else ()))
+            del teng
+        # the driver as a user runs it, in a process of its own: in this
+        # long-lived one, the profiler's later sessions recorded none of the
+        # port's ctypes-launched kernels (PERF.md section 7)
+        prof = pathlib.Path(tmp) / "profile"
+        run = subprocess.run(
+            [sys.executable, "-m", "planet_tpu_torch.io.driver", "--frames",
+             "2", "--width", str(width), "--height", str(height),
+             "--altitude", "20000", "--out", str(pathlib.Path(tmp) / "f"),
+             "--save", str(pathlib.Path(tmp) / "none.npz"), "--no-save",
+             "--profile", str(prof), "--backend", dev.type],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        check(run.returncode == 0, f"9c driver --profile failed: "
+              f"{run.stderr[-2000:]}")
+        events = json_mod.loads((prof / "trace.json").read_text()).get(
+            "traceEvents", [])
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        tag = "(anonymous namespace)::"
+        ours = sorted({e["name"][len(tag):].split("(")[0] for e in kernels
+                       if e.get("name", "").startswith(tag)})
+        k1 = sum("tiles_kernel" in e.get("name", "") for e in kernels)
+        log(f"[9c] driver --profile (its own process): {len(events)} trace "
+            f"events, {len(kernels)} device kernel events, {k1} of K1; the "
+            f"port's kernels in the trace: {ours}")
+        if cuda:
+            check(k1 > 0, "9c the --profile trace shows no K1 kernel")
+
+    # ------------------------------------------------------- (d) entry()
+    _cuda.reset_launches()
+    forward, args = entry.entry(device=dev)
+    clip, shade = forward(*args)
+    sync()
+    counted("d", ("noise",))
+    clip_p, shade_p = forward(*(a.cpu() for a in args))
+    clip, shade = clip.cpu().numpy(), shade.cpu().numpy()
+    clip_p, shade_p = clip_p.numpy(), shade_p.numpy()
+    rel = float((np.abs(clip - clip_p) / np.maximum(np.abs(clip_p), 1.0))
+                .max())
+    ds = float(np.abs(shade - shade_p).max())
+    log(f"[9d] entry() forward, {clip.shape[0]} leaves: {dev.type} against "
+        f"CPU tensors: clip within {rel:.3g} of max(|clip|, 1) (bar 1e-5), "
+        f"shade within {ds:.3g} (bar 1e-5)")
+    check(np.isfinite(clip).all() and np.isfinite(shade).all(),
+          "9d entry forward not finite")
+    check(rel <= 1e-5 and ds <= 1e-5, "9d entry forward off its CPU run")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -209,6 +687,8 @@ def main() -> int:
     from planet_tpu_torch.raster import coverage as cov
     from planet_tpu_torch.raster import coverage_cuda as cc
     from planet_tpu_torch.tools import kernel_times
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import EDGE, nan_shade_records
 
     dev = torch.device(DEVICE)
 
@@ -509,6 +989,19 @@ def main() -> int:
                                          fs["height"], "K2"))
     for name, (recs, w, h) in huge_sets.items():
         err3 = max(err3, records_compare(name, recs, w, h, "K3"))
+    # records whose every fragment has a NaN shade (tests/torch_scenes):
+    # K2, K3 and their plain versions pack each such shade as 0, as
+    # planet_tpu converts NaN to int32
+    nan_recs = nan_shade_records(**EDGE, device=dev)
+    for key, plain in (("K2", cc.raster_span_plain),
+                       ("K3", cc.raster_huge_plain)):
+        records_compare("NaN-shade records", nan_recs, EDGE["width"],
+                        EDGE["height"], key)
+        fb = fresh_fb(EDGE["width"], EDGE["height"])()[0]
+        keys = plain(nan_recs, fb)
+        keys = keys[keys != cov._EMPTY]
+        check(keys.numel() > 0 and not bool((keys & 1023).any()),
+              f"{key}: NaN shades do not pack as 0")
     for name, fs in sets.items():
         w, h = fs["width"], fs["height"]
         routed_recs = fs["huge_recs"][fs["huge_idx"].numel():]
@@ -1017,10 +1510,24 @@ def main() -> int:
         report[key]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
         report[key]["variants"] = {r["name"]: r["ms"] for r in rows}
 
+    # ------------------------------------------------------------ phase 9
+    t9 = time.perf_counter()
+    rest = single_card_rest(dev, W_1080, H_1080, camera=bench_cam(),
+                            orbit=list(orbit_cams()), orbit_ids=orbit_ids,
+                            log=lambda m: print(m, flush=True),
+                            event_ms=time_ms, bound=bound_ms)
+    report["splat"] = rest.pop("splat")
+    report["splat"]["device_rows"] = {
+        k: v for k, v in rest.pop("splat_device_rows").items()
+        if k != "max_abs_err"}
+    print(f"[9] the single-card rest in {time.perf_counter() - t9:.1f} s: "
+          + json.dumps(rest), flush=True)
+
     check(not any(m == "jax" or m.startswith(("jax.", "planet_tpu."))
                   or m == "planet_tpu" for m in sys.modules),
           "jax or planet_tpu was imported")
     launches = dict(launches_dev, field=launches_field["field"],
+                    splat=rest["splat_launches"],
                     **{k: launches_tools[k] for k in tool_rows})
     replaces = {
         "tile": ("planet_tpu_torch/csrc/tile.cu",
@@ -1035,6 +1542,9 @@ def main() -> int:
                    "planet_tpu/raster/coverage_pallas.py:471"),
         "field": ("planet_tpu_torch/csrc/field.cu",
                   "planet_tpu/ops/kernels/field_pallas.py:149"),
+        # no Pallas kernel: planet_tpu's XLA splat (upsample, pack, scatter)
+        "splat": ("planet_tpu_torch/csrc/splat.cu",
+                  "planet_tpu/raster/splat.py:30"),
         "t_noise": ("planet_tpu_torch/csrc/bench_noise.cu",
                     noise_stages.REPLACES["t_noise"]),
         "t_tile": ("planet_tpu_torch/csrc/bench_noise.cu",
@@ -1056,6 +1566,10 @@ def main() -> int:
             library_ms=report[k].get("library_ms")))
         if k in queued:
             kernels[-1]["queued_ms"] = queued[k]
+        if k == "splat":
+            kernels[-1].update(queued_ms=report[k]["queued_ms"],
+                               fragments=report[k]["fragments"],
+                               device_rows=report[k]["device_rows"])
         if k == "tile":
             kernels[-1]["queued_fused_ms"] = queued["tile_fused"]
         if k == "gather":

@@ -25,6 +25,13 @@ __device__ __forceinline__ float edge_value(const float* r, int k, float rx,
   return (r[3 * k] * ry - r[3 * k + 1] * rx) + r[3 * k + 2];
 }
 
+// min(v, vmax) converted to int32 as planet_tpu converts it (XLA's
+// convert): NaN -> 0. fminf alone returns vmax for a NaN v, so the NaN is
+// tested first; finite values keep the clamp.
+__device__ __forceinline__ int clamped_i32(float v, float vmax) {
+  return v != v ? 0 : (int)fminf(v, vmax);
+}
+
 // One fragment of record r at pixel (px, py); rx/ry are its offsets from
 // the bbox-min pixel.
 template <bool kIwTest>
@@ -55,8 +62,8 @@ __device__ __forceinline__ void fragment(const float* r, int px, int py,
   const float nlen = sqrtf((nx * nx + ny * ny) + nz * nz);
   const float ndl = (ny * kLightY + nz * kLightZ) / (nlen > 0.0f ? nlen : 1.0f);
   const float shade = sqrtf(0.001f + (ndl < 0.0f ? 0.0f : ndl));
-  const int zq = (int)fminf((z * 0.5f + 0.5f) * 2097151.0f, 2097150.0f);
-  const int sq = (int)fminf(shade * 1023.0f, 1023.0f);
+  const int zq = clamped_i32((z * 0.5f + 0.5f) * 2097151.0f, 2097150.0f);
+  const int sq = clamped_i32(shade * 1023.0f, 1023.0f);
   atomicMin(fb + (size_t)py * width + px, (zq << 10) | sq);
 }
 

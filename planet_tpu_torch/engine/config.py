@@ -4,9 +4,9 @@ nothing of planet_tpu).
 
 The reference has no config system: everything is a compile-time constant
 (SURVEY.md section 5 lists them all). Defaults here are those exact values.
-planet_tpu's leaf_pad, gen_pad, use_pallas, raster_supersample and
-check_finite are jit-bucket sizes, the TPU-kernel switch and options of
-paths the port does not have, so they are not copied.
+planet_tpu's leaf_pad, gen_pad and use_pallas are jit-bucket sizes and the
+TPU-kernel switch, so they are not copied (the port's device switch is the
+engines' `device`).
 """
 
 from __future__ import annotations
@@ -32,9 +32,12 @@ class EngineConfig:
     gain: float = 0.55
     coord_scale: float = 0.00001
     amplitude: float = 8848.0
-    # rasterizer: the port has the exact-coverage triangle raster only
-    # (raster/coverage.py); planet_tpu's "splat" mode is still to port
+    # rasterizer: "exact" = exact-coverage triangle raster (render.cpp
+    # semantics, raster/coverage_cuda.py); "splat" = depth-tested vertex
+    # splats (raster/splat.py)
     raster_mode: str = "exact"
+    raster_supersample: int = 4        # splat fragments per cell edge
+    check_finite: bool = False         # per-frame NaN/inf tile guard
     # LOD quality dial: multiplies the split threshold d (split iff
     # 2*dist^2 < lod_quality * d). 1.0 is exactly the reference rule
     # (main.cpp:558-571, the hardcoded 2.5 ladder); larger values refine

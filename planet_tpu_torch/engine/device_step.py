@@ -12,7 +12,9 @@ trip.
                   6 + 12*depth // max_lod (dead slots: count 0, zeros)
   5. tessellate   store + touch, crop variants, camera-relative DF corners,
                   skirt, gather, tess.vertex.tessellate_blend + lambert
-  6. raster       raster.coverage_cuda.raster_frame (K6, K2, K3)
+  6. raster       raster.coverage_cuda.raster_frame (K6, K2, K3), or with
+                  raster_mode="splat" engine.planet.splat_raster (the
+                  splat raster, raster/splat.py)
 
 Stages 1-5 are the geometry step. It is a fixed sequence of tensor ops and
 kernel launches that reads no value back to the host, so DeviceRenderer
@@ -34,9 +36,9 @@ silently bakes in, anything else):
     DeviceRenderer carries over to every replay.
 
 Left out (ROADMAP): `stop_after` (TPU stage bisection), raster_out="packed"
-and `dynamic_roots` (sharding, P12), `jit=False`, the splat raster mode
-(P11) and the skirt toggle (P13); the TPU-only `optimization_barrier`
-seams have no counterpart here.
+and `dynamic_roots` (sharding, P12) and `jit=False`; the skirt size is
+baked into the step, as in planet_tpu; the TPU-only
+`optimization_barrier` seams have no counterpart here.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ import torch
 from planet_tpu_torch import _cuda
 from planet_tpu_torch.cache import device_pool as dp
 from planet_tpu_torch.engine.config import EngineConfig
+from planet_tpu_torch.engine.planet import splat_raster
 from planet_tpu_torch.geom import cubesphere
 from planet_tpu_torch.geom import quadid
 from planet_tpu_torch.lod import refine_device
@@ -119,9 +122,8 @@ def build_geometry_step(cfg: EngineConfig, *, device, cap: int = 4096,
     if 6 + (12 * max_lod) // cfg.max_lod > MAX_OCTAVES:
         raise ValueError(f"max_lod {max_lod} needs more than {MAX_OCTAVES} "
                          "octaves")
-    if cfg.raster_mode != "exact":
-        raise ValueError(f"raster_mode {cfg.raster_mode!r}: the port has "
-                         "the exact raster only")
+    if cfg.raster_mode not in ("exact", "splat"):
+        raise ValueError(f"raster_mode {cfg.raster_mode!r}")
     roots = _roots(cfg.radius, device)
     dim = cfg.tile_dim
     grid = cfg.patch_verts + 2
@@ -248,16 +250,23 @@ def _read_meta(geom: Geometry):
     return n, n_gen, bool(ovf)
 
 
-def raster(geom: Geometry, cfg: EngineConfig, width: int, height: int):
+def raster(geom: Geometry, cfg: EngineConfig, width: int, height: int,
+           wireframe: bool = False):
     """Stage 6 on the leaves the geometry step kept: (DeviceFrame, the
-    raster's RasterCounters). Reads the step's three counters (one
-    device-to-host copy; the raster syncs anyway)."""
+    exact raster's RasterCounters, None in splat mode). Reads the step's
+    three counters (one device-to-host copy; the exact raster syncs
+    anyway). The splat mode runs on all render_cap rows, whose padding
+    rows are invalid, and reads nothing else on the host."""
     n, n_gen, ovf = _read_meta(geom)
     pv = geom.vertices
+    if cfg.raster_mode == "splat":
+        image, depth = splat_raster(pv, geom.vertex_shade, geom.valid, cfg,
+                                    width, height, wireframe)
+        return DeviceFrame(image, depth, n, n_gen, ovf), None
     image, depth, counters = coverage_cuda.raster_frame(
         pv.clip[:n], pv.normal[:n], geom.valid[:n], width, height,
         cell_mask=mesh.cell_triangle_mask(cfg.patch_verts),
-        far_w=cfg.far_plane)
+        wireframe=wireframe, far_w=cfg.far_plane)
     return (DeviceFrame(image, depth, n, n_gen, ovf or counters.overflowed),
             counters)
 
@@ -296,10 +305,12 @@ class DeviceRenderer:
 
     fetch="u8" quantizes the image on the device exactly as
     io/png.write_png does (clip, * 255 + 0.5, truncate);
-    preview=k > 1 (u8 only) adds a [::k, ::k] subsampled image."""
+    preview=k > 1 (u8 only) adds a [::k, ::k] subsampled image.
+    `wireframe` (reference key P) is a raster option, read each frame.
+    device: "cuda" (the default) or "cpu"."""
 
     def __init__(self, cfg: EngineConfig, width: int, height: int, *,
-                 device, fetch: str = "f32", preview: int = 1, **kw):
+                 device="cuda", fetch: str = "f32", preview: int = 1, **kw):
         if fetch not in ("f32", "u8"):
             raise ValueError(fetch)
         if preview > 1 and fetch != "u8":
@@ -309,6 +320,7 @@ class DeviceRenderer:
         self.device = torch.device(device)
         self.fetch = fetch
         self.preview = int(preview)
+        self.wireframe = False
         self._step = build_geometry_step(cfg, device=self.device, **kw)
         self._cam_hi = torch.zeros(3, dtype=torch.float32, device=self.device)
         self._cam_lo = torch.zeros(3, dtype=torch.float32, device=self.device)
@@ -369,7 +381,7 @@ class DeviceRenderer:
         are on `self.last_counters`."""
         geom = self.geometry(pool, cam_hi, cam_lo, view_proj)
         frame, self.last_counters = raster(geom, self.cfg, self.width,
-                                           self.height)
+                                           self.height, self.wireframe)
         if self.fetch == "u8":
             image = (torch.clamp(frame.image, 0.0, 1.0) * 255.0 + 0.5).to(
                 torch.uint8)

@@ -11,7 +11,10 @@ A frame, in planet_tpu's stage order:
               octave schedule, main.cpp:827), stored in place in the pool;
   4. tessellate device: the vertex program + per-vertex shade over all
               leaves;
-  5. raster   device (render only): the exact-coverage raster.
+  5. raster   device (render only): the exact-coverage raster, or with
+              raster_mode="splat" the depth-tested splat raster
+              (raster/splat.py) on the back-face-culled, k x k upsampled
+              patch grids.
 
 Host->device traffic per frame is the leaf corners and the per-leaf plan;
 tiles live in the device pool between frames. On a CUDA device every
@@ -26,6 +29,7 @@ here are exactly the frame's leaves.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Optional
 
@@ -39,8 +43,9 @@ from planet_tpu_torch.lod import refine as lod_refine
 from planet_tpu_torch.nums import df as dfm
 from planet_tpu_torch.ops.kernels import tile_cuda
 from planet_tpu_torch.ops.kernels.perlin_cuda import MAX_OCTAVES
-from planet_tpu_torch.raster import coverage_cuda
+from planet_tpu_torch.raster import coverage, coverage_cuda
 from planet_tpu_torch.raster import shade as shade_mod
+from planet_tpu_torch.raster import splat
 from planet_tpu_torch.tess import mesh
 from planet_tpu_torch.tess import vertex
 
@@ -76,17 +81,21 @@ class PlanetEngine:
     besides the camera, which the caller owns — reference Planet struct,
     main.cpp:161-181).
 
-    device: where tiles, tessellation and the raster run ("cuda" or
-    "cpu"). pool: a TilePool to start from (TilePool.from_state carries a
-    planet_tpu pool across); a fresh one otherwise. timing: when True, each
-    stage ends with a device synchronize and its host wall time lands in
-    FrameStats.stage_ms."""
+    device: where tiles, tessellation and the raster run ("cuda", the
+    default, or "cpu"). pool: a TilePool to start from (TilePool.from_state
+    carries a planet_tpu pool across); a fresh one otherwise. height_fn:
+    the host refiner's probe heights (points (..., 3) f64 -> f32; tests
+    pass zeros for a smooth sphere), the terrain's by default. timing:
+    when True, each stage ends with a device synchronize and its host wall
+    time lands in FrameStats.stage_ms. With config.check_finite, each
+    frame that generates tiles reads one count back from the device and
+    adds its non-finite tiles to `nonfinite_tiles`."""
 
-    def __init__(self, config: EngineConfig, device, *,
-                 pool: Optional[TilePool] = None):
-        if config.raster_mode != "exact":
-            raise ValueError(f"raster_mode {config.raster_mode!r}: the port "
-                             "has the exact raster only")
+    def __init__(self, config: EngineConfig = EngineConfig(),
+                 device="cuda", *, pool: Optional[TilePool] = None,
+                 height_fn=None):
+        if config.raster_mode not in ("exact", "splat"):
+            raise ValueError(f"raster_mode {config.raster_mode!r}")
         # the tile kernel's octave bound, checked once for every depth
         if config.octaves_for_depth(config.max_lod) > MAX_OCTAVES:
             raise ValueError(f"max_lod {config.max_lod} needs more than "
@@ -103,11 +112,14 @@ class PlanetEngine:
         pf = cam_mod.proj_factor_from_fovy(np.deg2rad(c.fovy_deg))
         self.proj = cam_mod.perspective_lh(
             pf, c.window_w / c.window_h, c.near_plane, c.far_plane)
+        self._height_fn = height_fn
         # runtime toggles (reference keys P / K, main.cpp:980-994)
         self.wireframe = False
         self.skirts = True
         self.timing = False
         self.last_counters = None
+        # failure detection: non-finite tiles seen (config.check_finite)
+        self.nonfinite_tiles = 0
         # probe-height memo (pure function of quad id) — see lod.refine
         self._probe_cache: dict = {}
 
@@ -139,6 +151,7 @@ class PlanetEngine:
         if len(self._probe_cache) > 1_000_000:
             self._probe_cache.clear()
         res = lod_refine.refine(camera.position, c.max_lod, c.radius,
+                                height_fn=self._height_fn,
                                 probe_cache=self._probe_cache,
                                 quality=c.lod_quality)
         n = len(res.ids)
@@ -160,6 +173,15 @@ class PlanetEngine:
                 self._tensor(chn), self._tensor(cln), self._tensor(octs),
                 kind="ridged", lacunarity=c.lacunarity, gain=c.gain,
                 amplitude=c.amplitude, dim=c.tile_dim)
+            if c.check_finite:
+                # step-level NaN/inf guard, one host read a frame (the
+                # reference's closest analogue is its per-frame GL error
+                # poll, main.cpp:1100-1115)
+                bad = int((~torch.isfinite(tiles)).flatten(1).any(1).sum())
+                if bad:
+                    self.nonfinite_tiles += bad
+                    logging.getLogger(__name__).error(
+                        "%d non-finite tiles generated this frame", bad)
             self.pool.store(resolved.slot[gen_idx], tiles)
             texels = len(gen_idx) * c.tile_dim * c.tile_dim
         lap = self._lap(stage_ms, "generate", lap)
@@ -199,10 +221,10 @@ class PlanetEngine:
 
     def render(self, camera: cam_mod.Camera,
                width: Optional[int] = None, height: Optional[int] = None):
-        """Full frame: tessellate + exact raster. Returns (FrameOutput,
-        image (H, W) f32, depth (H, W) f32 NDC z, +inf where empty), all
-        on the engine's device; the raster's counters are on
-        `self.last_counters`."""
+        """Full frame: tessellate + raster. Returns (FrameOutput, image
+        (H, W) f32, depth (H, W) f32 NDC z, +inf where empty), all on the
+        engine's device; the exact raster's counters are on
+        `self.last_counters` (None in splat mode)."""
         c = self.config
         width = width or c.window_w
         height = height or c.window_h
@@ -211,6 +233,12 @@ class PlanetEngine:
         grid_mask = mesh.grid_uv_skirt(c.patch_verts)[3]
         valid = self._tensor(np.broadcast_to(
             grid_mask[None], (out.n_leaves,) + grid_mask.shape))
+        if c.raster_mode == "splat":
+            image, depth = splat_raster(out.vertices, out.vertex_shade, valid,
+                                        c, width, height, self.wireframe)
+            self.last_counters = None
+            self._lap(out.stats.stage_ms, "raster", t0)
+            return out, image, depth
         image, depth, counters = coverage_cuda.raster_frame(
             out.vertices.clip, out.vertices.normal, valid, width, height,
             cell_mask=mesh.cell_triangle_mask(c.patch_verts),
@@ -218,3 +246,28 @@ class PlanetEngine:
         self.last_counters = counters
         self._lap(out.stats.stage_ms, "raster", t0)
         return out, image, depth
+
+
+def splat_valid(pv: vertex.PatchVertices, valid):
+    """valid without the vertices whose outward sphere normal faces away
+    from the camera (the reference's CW front-face cull, main.cpp:811-816),
+    the dot product summed in one fixed order, so the cull is the same on
+    every device."""
+    w, n = pv.world, pv.snormal
+    return valid & (((w[..., 0] * n[..., 0] + w[..., 1] * n[..., 1])
+                     + w[..., 2] * n[..., 2]) < 0.0)
+
+
+def splat_raster(pv: vertex.PatchVertices, vshade, valid, config: EngineConfig,
+                 width: int, height: int, wireframe: bool = False):
+    """The splat raster mode (planet_tpu engine/planet._raster_fn, "splat"):
+    the back-face cull (splat_valid), each cell upsampled k x k (k =
+    config.raster_supersample, at least 2 with wireframe, whose cell edges
+    exist only from k = 2) and splatted (raster/splat.splat_keys, the splat
+    kernel on the card), one hole-fill round. Returns (image, depth)."""
+    k = config.raster_supersample
+    if wireframe:
+        k = max(k, 2)
+    keys = splat.splat_keys(pv.clip, vshade, splat_valid(pv, valid), width,
+                            height, k, wireframe)
+    return coverage.decode_packed(splat._fill_holes(keys))

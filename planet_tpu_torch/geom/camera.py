@@ -31,6 +31,23 @@ def perspective_lh(proj_factor: float, aspect_ratio: float,
     return m
 
 
+def ortho_lh(left: float, right: float, bottom: float, top: float,
+             near: float, far: float) -> np.ndarray:
+    """Left-handed orthographic projection mapping near -> -1, far -> 1
+    (reference Mat4OrthoLH, math.h:270-283). Library-surface parity: the
+    planet frame path is perspective-only, like the reference (which also
+    never calls its ortho constructor); kept for embedding UIs."""
+    m = np.zeros((4, 4), np.float32)
+    m[0, 0] = np.float32(2.0 / (right - left))
+    m[1, 1] = np.float32(2.0 / (top - bottom))
+    m[2, 2] = np.float32(2.0 / (far - near))
+    m[0, 3] = np.float32((right + left) / (left - right))
+    m[1, 3] = np.float32((top + bottom) / (bottom - top))
+    m[2, 3] = np.float32((far + near) / (near - far))
+    m[3, 3] = np.float32(1.0)
+    return m
+
+
 def proj_factor_from_fovy(fovy_rad: float) -> float:
     """1 / tan(fovy/2) (reference InitCameraInfo, main.cpp:527-535)."""
     return float(1.0 / np.tan(0.5 * np.float32(fovy_rad)))
@@ -95,3 +112,25 @@ def camera_rotation(cam: Camera) -> np.ndarray:
     base = np.stack([right, up, forward], axis=1)   # columns
     ax, ay, az = (float(a) for a in cam.angles)
     return (base @ rot_y(ay) @ rot_x(ax) @ rot_z(az)).astype(np.float32)
+
+
+def update_camera(cam: Camera, move: np.ndarray, look: np.ndarray,
+                  move_speed: float, look_speed: float, dt: float) -> np.ndarray:
+    """Advance camera state in place; returns the world rotation used.
+
+    move: (3,) in camera space (x=strafe, z=forward); look: (3,) Euler rate
+    multipliers — semantics of the reference's WASD/arrow handling
+    (main.cpp:1039-1065).
+    """
+    cam.angles = (cam.angles + np.asarray(look, np.float32)
+                  * np.float32(look_speed) * np.float32(dt))
+    rot = camera_rotation(cam)
+    delta = (rot[:, 0] * move[0] + rot[:, 1] * move[1] + rot[:, 2] * move[2])
+    cam.position = cam.position + delta.astype(np.float64) * (move_speed * dt)
+    return rot
+
+
+def speed_for_digit(digit: int) -> float:
+    """Move speed for number keys 1-8: 10^digit m/s (reference
+    main.cpp:947-954)."""
+    return float(10.0 ** int(digit))

@@ -30,6 +30,11 @@ and centimetres of height flip whole pixel runs.
 Octave counts may differ per element (`octaves` a tensor): octave i then
 contributes only where i < count — what planet_tpu's mixed-octave tile mode
 computes, and what stopping the octave loop at the count computes.
+
+The module also holds planet_tpu ops/perlin's public functions: the f64
+specification path (perlin3_f64, fbm_f64, ridged_f64) on float64 tensors,
+bit-identical to the oracle, and the double-float path (perlin3_df,
+fbm_df, ridged_df), which runs K4 (ops/kernels/perlin_cuda.noise_df).
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ import numpy as np
 import torch
 
 from planet_tpu_torch.nums import df as dfm
-from planet_tpu_torch.ops.tables import PERLIN_TABLE, PERLIN_VECTORS
+from planet_tpu_torch.ops.tables import (PERLIN_TABLE, PERLIN_VECTORS,
+                                         fused_gradient_tables)
 
 
 def packed_sign_table() -> np.ndarray:
@@ -210,3 +216,148 @@ def accumulate_octaves(kind: str, octaves, lacunarity: float, gain,
             value = value + contrib
         amplitude = np.float32(amplitude * gain)
     return value
+
+
+# ---------------------------------------------------------------------------
+# The f64 specification path (planet_tpu ops/perlin.perlin3_f64, fbm_f64,
+# ridged_f64) on torch float64 tensors, on their device (arrays go to
+# `device`, the card unless the caller asks for the CPU): the op order of
+# ops/perlin_np.py, which the oracle goldens hold bit for bit. Each torch
+# op rounds once, so the card gives the host's bits.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _f64_tables(device: str):
+    """The permutation (int64) and the three fused gradient sign tables
+    (f32) on `device` (tables.fused_gradient_tables)."""
+    perm = torch.as_tensor(PERLIN_TABLE.astype(np.int64), device=device)
+    return (perm,) + tuple(torch.as_tensor(t, device=device)
+                           for t in fused_gradient_tables())
+
+
+def as_f64(x, device) -> torch.Tensor:
+    """x as float64: a tensor stays on its device, anything else goes to
+    `device`."""
+    if torch.is_tensor(x):
+        return x.to(torch.float64)
+    return torch.as_tensor(x, dtype=torch.float64, device=device)
+
+
+def _xyz_f64(x, y, z, device):
+    """Three coordinates as float64 tensors on x's device (see as_f64)."""
+    x = as_f64(x, device)
+    return (x,) + tuple(torch.as_tensor(c, dtype=torch.float64,
+                                        device=x.device) for c in (y, z))
+
+
+def perlin3_f64(x, y, z, device="cuda"):
+    """Specification path: float64 coordinates in (tensors stay on their
+    device; arrays go to `device`), float32 noise out, bit-identical to
+    the reference C build (perlin.h:50-88): the FLOOR-macro cell split in
+    double, the fade in double narrowed to f32, frac and frac - 1 narrowed
+    to f32 after the offset, the gradient dots and lerps in f32."""
+    x, y, z = _xyz_f64(x, y, z, device)
+    perm, sx, sy, sz = _f64_tables(str(x.device))
+
+    def floor_ref(a):
+        return torch.trunc(torch.where(a < 0.0, a - 1.0, a)).to(torch.int64)
+
+    ix, iy, iz = floor_ref(x), floor_ref(y), floor_ref(z)
+    fx64, fy64, fz64 = x - ix, y - iy, z - iz
+    u, v, w = (fade64(t).to(torch.float32) for t in (fx64, fy64, fz64))
+    fx, fy, fz = (t.to(torch.float32) for t in (fx64, fy64, fz64))
+    fxm1, fym1, fzm1 = ((t - 1.0).to(torch.float32)
+                        for t in (fx64, fy64, fz64))
+
+    def hash3(a, b, c):
+        r1 = perm[a & 255]
+        r2 = perm[(r1 + b) & 255]
+        return (r2 + c) & 255
+
+    def grad(s, gx, gy, gz):
+        return (gx * sx[s] + gy * sy[s]) + gz * sz[s]
+
+    g000 = grad(hash3(ix, iy, iz), fx, fy, fz)
+    g100 = grad(hash3(ix + 1, iy, iz), fxm1, fy, fz)
+    g010 = grad(hash3(ix, iy + 1, iz), fx, fym1, fz)
+    g110 = grad(hash3(ix + 1, iy + 1, iz), fxm1, fym1, fz)
+    g001 = grad(hash3(ix, iy, iz + 1), fx, fy, fzm1)
+    g101 = grad(hash3(ix + 1, iy, iz + 1), fxm1, fy, fzm1)
+    g011 = grad(hash3(ix, iy + 1, iz + 1), fx, fym1, fzm1)
+    g111 = grad(hash3(ix + 1, iy + 1, iz + 1), fxm1, fym1, fzm1)
+    x00 = _lerp(g000, g100, u)
+    x10 = _lerp(g010, g110, u)
+    x01 = _lerp(g001, g101, u)
+    x11 = _lerp(g011, g111, u)
+    return _lerp(_lerp(x00, x10, v), _lerp(x01, x11, v), w)
+
+
+def fbm_f64(x, y, z, lacunarity=2.0, gain=np.float32(0.5), octaves=6,
+            device="cuda"):
+    """fBm: value += noise * amp; freq *= lacunarity (f64); amp *= gain
+    (f32) (main.cpp:689-705)."""
+    x, y, z = _xyz_f64(x, y, z, device)
+    gain = np.float32(gain)
+    freq = np.float64(1.0)
+    amp = np.float32(1.0)
+    value = torch.zeros(torch.broadcast_shapes(x.shape, y.shape, z.shape),
+                        dtype=torch.float32, device=x.device)
+    for _ in range(octaves):
+        f = float(freq)
+        value = value + perlin3_f64(x * f, y * f, z * f) * float(amp)
+        freq = freq * np.float64(lacunarity)
+        amp = amp * gain
+    return value
+
+
+def ridged_f64(x, y, z, lacunarity=2.0, gain=np.float32(0.5), octaves=6,
+               device="cuda"):
+    """Ridged multifractal with the reference's unclamped weight feedback
+    (main.cpp:721-731): v = (1 - |n|)^2; value += v * amp * weight;
+    weight = v."""
+    x, y, z = _xyz_f64(x, y, z, device)
+    gain = np.float32(gain)
+    freq = np.float64(1.0)
+    amp = np.float32(1.0)
+    shape = torch.broadcast_shapes(x.shape, y.shape, z.shape)
+    weight = torch.ones(shape, dtype=torch.float32, device=x.device)
+    value = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    for _ in range(octaves):
+        f = float(freq)
+        n = perlin3_f64(x * f, y * f, z * f)
+        v = 1.0 - torch.abs(n)
+        v = v * v
+        value = value + v * float(amp) * weight
+        weight = v
+        freq = freq * np.float64(lacunarity)
+        amp = amp * gain
+    return value
+
+
+# ---------------------------------------------------------------------------
+# The double-float path (planet_tpu ops/perlin.perlin3_df, fbm_df,
+# ridged_df) over (hi, lo) f32 coordinate pairs of one shape, through K4
+# (ops/kernels/perlin_cuda.noise_df: the kernel on CUDA tensors, its plain
+# version, accumulate_octaves, on CPU tensors). The port's fraction and
+# fade are the reference's f64 ones (module docstring), so these agree
+# with the f64 path to ~1e-7, inside planet_tpu's parity bars.
+# ---------------------------------------------------------------------------
+
+
+def fbm_df(x, y, z, lacunarity=2.0, gain=np.float32(0.5), octaves=6):
+    from planet_tpu_torch.ops.kernels import perlin_cuda
+    return perlin_cuda.fbm_df(x, y, z, lacunarity=lacunarity, gain=gain,
+                              octaves=octaves)
+
+
+def ridged_df(x, y, z, lacunarity=2.0, gain=np.float32(0.5), octaves=6):
+    from planet_tpu_torch.ops.kernels import perlin_cuda
+    return perlin_cuda.ridged_df(x, y, z, lacunarity=lacunarity, gain=gain,
+                                 octaves=octaves)
+
+
+def perlin3_df(x, y, z):
+    """One noise evaluation of double-float coordinates: one fBm octave
+    (amplitude 1, so the sum is the noise itself)."""
+    return fbm_df(x, y, z, octaves=1)

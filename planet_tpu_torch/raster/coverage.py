@@ -78,10 +78,12 @@ class Tris(NamedTuple):
 
 
 def to_i32(x: torch.Tensor) -> torch.Tensor:
-    """float32 -> int32 truncating toward zero and saturating out of
-    range, as XLA's convert does (a bare .to(torch.int32) wraps on CPU)."""
+    """float32 -> int32 as XLA's convert does: truncating toward zero,
+    saturating out of range, and NaN -> 0 (a bare .to(torch.int32) wraps
+    on the CPU and turns NaN into INT_MIN)."""
     big = x >= 2.0**31
     val = torch.clamp(x, min=-(2.0**31), max=2.0**31 - 128).to(torch.int32)
+    val = torch.where(torch.isnan(x), torch.zeros_like(val), val)
     return torch.where(big, torch.full_like(val, _INT_MAX), val)
 
 
@@ -295,23 +297,32 @@ def _merge(flat, r, px, py, rx, ry, width, iw_test, wireframe):
         nlen > 0.0, nlen, torch.ones_like(nlen))
     shade = torch.sqrt(0.001 + torch.where(ndl < 0.0, torch.zeros_like(ndl),
                                            ndl))
-    zq = torch.clamp_max((z * 0.5 + 0.5) * float(2**_DEPTH_BITS - 1),
-                         float(2**_DEPTH_BITS - 2)).to(torch.int32)
-    sq = torch.clamp_max(shade * float(2**_SHADE_BITS - 1),
-                         float(2**_SHADE_BITS - 1)).to(torch.int32)
+    # a NaN shade (an infinite edge word) packs as 0, as XLA converts it
+    zq = to_i32(torch.clamp_max((z * 0.5 + 0.5) * float(2**_DEPTH_BITS - 1),
+                                float(2**_DEPTH_BITS - 2)))
+    sq = to_i32(torch.clamp_max(shade * float(2**_SHADE_BITS - 1),
+                                float(2**_SHADE_BITS - 1)))
     packed = (zq << _SHADE_BITS) | sq
     idx = py[keep] * width + px[keep]
     flat.scatter_reduce_(0, idx, packed, reduce="amin")
 
 
+def _div(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x / d correctly rounded on every device: CUDA divides by a Python
+    number as a multiply by its reciprocal, so the divisor is a 0-dim
+    tensor on x's device (made by a fill)."""
+    return x / x.new_full((), float(d))
+
+
 def decode_packed(img_packed, background: float = 0.0):
     """(H, W) packed int32 framebuffer -> (image, depth): shade in [0, 1]
-    and NDC depth, with `background` / +inf where nothing was drawn."""
+    and NDC depth, with `background` / +inf where nothing was drawn (the
+    same bits on every device, and planet_tpu's)."""
     empty = img_packed == _EMPTY
-    shade = (img_packed & (2**_SHADE_BITS - 1)).to(torch.float32) \
-        / float(2**_SHADE_BITS - 1)
+    shade = _div((img_packed & (2**_SHADE_BITS - 1)).to(torch.float32),
+                 2**_SHADE_BITS - 1)
     image = torch.where(empty, torch.full_like(shade, background), shade)
-    depth = ((img_packed >> _SHADE_BITS).to(torch.float32)
-             / float(2**_DEPTH_BITS - 1)) * 2.0 - 1.0
+    depth = _div((img_packed >> _SHADE_BITS).to(torch.float32),
+                 2**_DEPTH_BITS - 1) * 2.0 - 1.0
     depth = torch.where(empty, torch.full_like(depth, float("inf")), depth)
     return image, depth

@@ -14,8 +14,9 @@ with the skirt flag set, plus a validity mask. The vertex program is a pure arra
 is needed until rasterization, where the strip's triangles are enumerated
 directly from grid coordinates.
 
-The exact reference strip indices decide which dense-grid triangles are
-drawn (cell_triangle_mask).
+The exact reference vertex ordering (vertex_list) and strip indices are
+also provided; the strip decides which dense-grid triangles are drawn
+(cell_triangle_mask).
 """
 
 from __future__ import annotations
@@ -27,6 +28,29 @@ import numpy as np
 PATCH_VERTS = 30          # patch_size_in_verts (reference main.cpp:391)
 PATCH_QUADS = PATCH_VERTS - 1
 GRID = PATCH_VERTS + 2    # the dense grid: interior + skirt ring
+
+
+@functools.lru_cache()
+def vertex_list(n: int = PATCH_VERTS) -> np.ndarray:
+    """The exact reference vertex array: (n*n + 4n, 3) f32 of (u, v, skirt).
+
+    Ordering (reference main.cpp:402-425): bottom skirt row, then n rows of
+    [left skirt, n interior, right skirt], then top skirt row.
+    """
+    div = 1.0 / (n - 1)
+    verts = []
+    for x in range(n):
+        verts.append((x * div, 0.0, 1.0))
+    for y in range(n):
+        verts.append((0.0, y * div, 1.0))
+        for x in range(n):
+            verts.append((x * div, y * div, 0.0))
+        verts.append((1.0, y * div, 1.0))
+    for x in range(n):
+        verts.append((x * div, 1.0, 1.0))
+    out = np.array(verts, dtype=np.float32)
+    assert out.shape[0] == n * n + 4 * n
+    return out
 
 
 @functools.lru_cache()

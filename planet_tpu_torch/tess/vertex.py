@@ -8,10 +8,13 @@ vertices pulled down by skirt_size), take a normal from central
 differences of four height taps in the local tangent frame, and project
 to clip space. All math is float32 on the tensors' device.
 
-Tile sampling uses planet_tpu's blend matrices: the engine only samples
-tiles at three rect variants per axis (full tile, parent-crop low/high
-half), so bilinear sampling is a constant sparse linear map per (variant,
-tap), applied as batched matrix products. Those products and the final
+Tile sampling, two forms as in planet_tpu. The engines use the blend
+matrices (`tessellate_blend`): they only sample tiles at three rect
+variants per axis (full tile, parent-crop low/high half), so bilinear
+sampling is a constant sparse linear map per (variant, tap), applied as
+batched matrix products. `tessellate` takes any tile rect per quad and
+samples with `sample_bilinear` (GL_LINEAR + CLAMP_TO_EDGE, a gather of
+four texels), as the forward step of planet_tpu_torch.entry does. Those products and the final
 view-projection are plain float32 matrix products (torch.einsum, as
 planet_tpu left them to XLA, outside any kernel); TF32 is switched off
 for them because TF32 keeps ~10 mantissa bits, which would move vertex
@@ -122,6 +125,69 @@ def blend_matrices(dim: int = 32, n: int = mesh.PATCH_VERTS) -> np.ndarray:
                 w[v, ti, j, xa] += np.float32(1.0 - fx)
                 w[v, ti, j, xb] += np.float32(fx)
     return w
+
+
+def sample_bilinear(tile, u, v):
+    """GL_LINEAR + CLAMP_TO_EDGE sampling of (..., H, W) f32 tiles at
+    normalized coordinates u, v of shape (..., *S), one tile per leading
+    index (planet_tpu's per-tile sample_bilinear, vmapped): texel centres
+    sit at (i + 0.5) / W (glTexImage2D + GL_LINEAR, render.cpp:415-435).
+    Returns (..., *S)."""
+    h, w = tile.shape[-2:]
+    su = u * float(w) - 0.5
+    sv = v * float(h) - 0.5
+    x0 = torch.floor(su)
+    y0 = torch.floor(sv)
+    fx = su - x0
+    fy = sv - y0
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    xa, xb = x0i.clamp(0, w - 1), (x0i + 1).clamp(0, w - 1)
+    ya, yb = y0i.clamp(0, h - 1), (y0i + 1).clamp(0, h - 1)
+    lead = tile.shape[:-2]
+    flat = tile.reshape(lead + (h * w,))
+
+    def tap(yi, xi):
+        idx = (yi * w + xi).reshape(lead + (-1,))
+        return torch.gather(flat, -1, idx).reshape(u.shape)
+
+    t00, t10 = tap(ya, xa), tap(ya, xb)
+    t01, t11 = tap(yb, xa), tap(yb, xb)
+    return _lerp(_lerp(t00, t10, fx), _lerp(t01, t11, fx), fy)
+
+
+def tessellate(corners_rel, corner_normals, tiles, rect_lo, rect_hi,
+               pixel_size, skirt_size, view_proj,
+               grid: int = mesh.GRID) -> PatchVertices:
+    """The vertex program with gathered tile sampling (planet_tpu
+    tess/vertex.tessellate).
+
+    corners_rel (Q, 4, 3) f32 camera-relative corners (p0, p1 the first
+    row, p2, p3 the second); corner_normals (Q, 4, 3) f32 unit sphere
+    normals; tiles (Q, H, W) f32; rect_lo/rect_hi (Q, 2) f32 tile-rect uv
+    corners; pixel_size (Q, 2) f32 one-texel uv step of the normal taps;
+    skirt_size (Q,) f32; view_proj (4, 4) f32 (out = M @ v). Returns
+    PatchVertices of (Q, grid, grid)."""
+    q = corners_rel.shape[0]
+    dev = tiles.device
+    u2d, v2d, _ = _grid_tables(grid, str(dev))
+    uu = u2d[None, :, :, None]
+    vv = v2d[None, :, :, None]
+    lo = rect_lo.to(torch.float32)[:, None, None, :]
+    hi = rect_hi.to(torch.float32)[:, None, None, :]
+    tex = lo + (hi - lo) * torch.cat([uu, vv], dim=-1)
+    tu, tv = tex[..., 0], tex[..., 1]
+    ps = pixel_size.to(torch.float32)[:, None, None, :]
+    pu = ps[..., 0].expand(tu.shape)
+    pvs = ps[..., 1].expand(tv.shape)
+    tiles = tiles.to(torch.float32)
+    hgt = sample_bilinear(tiles, tu, tv)
+    x0 = sample_bilinear(tiles, tu - pu, tv)
+    x1 = sample_bilinear(tiles, tu + pu, tv)
+    y0 = sample_bilinear(tiles, tu, tv - pvs)
+    y1 = sample_bilinear(tiles, tu, tv + pvs)
+    return _assemble(corners_rel, corner_normals, hgt, x0, x1, y0, y1,
+                     skirt_size, view_proj, q, grid)
 
 
 def tessellate_blend(corners_rel, corner_normals, tiles, variant_x,

@@ -1,8 +1,11 @@
 """The port's copies of planet_tpu's numpy-only modules (the port imports
 nothing of planet_tpu) against the originals, one case per copied module:
-tables, cube-sphere roots, mesh index arrays, EngineConfig fields and
-octave schedule, camera matrices on seeded inputs, the host noise chain on
-the oracle's point goldens, and PNG and checkpoint round trips."""
+tables, cube-sphere roots and subdivision (corners_from_path on the tile
+goldens' paths), mesh index arrays and the reference vertex list,
+EngineConfig fields and octave schedule, camera matrices and camera motion
+(update_camera, speed_for_digit, ortho_lh) on seeded inputs, the host
+noise chain on the oracle's point goldens, and PNG and checkpoint round
+trips."""
 
 import dataclasses
 import zlib
@@ -107,6 +110,63 @@ def _camera(tmp_path):
     np.testing.assert_array_equal(cam.copy().position, cam.position)
 
 
+def _camera_motion(tmp_path):
+    """update_camera, speed_for_digit and ortho_lh (the cases of
+    tests/test_models_camera.py:45-79) against the originals."""
+    rng = np.random.default_rng(4)
+    for _ in range(10):
+        pos = rng.normal(size=3) * 7e6
+        ang = rng.uniform(-3, 3, 3).astype(np.float32)
+        move = rng.normal(size=3).astype(np.float32)
+        look = rng.normal(size=3).astype(np.float32)
+        tc, jc = t_camera.Camera(pos, ang), j_camera.Camera(pos, ang)
+        np.testing.assert_array_equal(
+            t_camera.update_camera(tc, move, look, 1000.0, 2.0, 0.5),
+            j_camera.update_camera(jc, move, look, 1000.0, 2.0, 0.5))
+        np.testing.assert_array_equal(tc.position, jc.position)
+        np.testing.assert_array_equal(tc.angles, jc.angles)
+    for d in range(1, 9):
+        assert t_camera.speed_for_digit(d) == j_camera.speed_for_digit(d)
+    assert t_camera.speed_for_digit(8) == 1e8
+    for box in ((-2, 2, -1, 1, 5, 15), (0, 800, 600, 0, 1, 2e7)):
+        np.testing.assert_array_equal(t_camera.ortho_lh(*box),
+                                      j_camera.ortho_lh(*box))
+    m = t_camera.ortho_lh(-2, 2, -1, 1, 5, 15)
+    assert abs((m @ np.array([0, 0, 5, 1], np.float32))[2] + 1.0) < 1e-6
+    assert abs((m @ np.array([0, 0, 15, 1], np.float32))[2] - 1.0) < 1e-6
+    cam = t_camera.Camera(position=np.array([0.0, 0.0, -7e6]))
+    fwd = t_camera.camera_rotation(cam)[:, 2].astype(np.float64)
+    cam2 = cam.copy()
+    t_camera.update_camera(cam2, np.array([0.0, 0.0, 1.0]), np.zeros(3),
+                           1000.0, 2.0, 0.5)
+    np.testing.assert_allclose(cam2.position - cam.position, fwd * 500.0,
+                               rtol=1e-6)
+
+
+def _subdivision(tmp_path):
+    """subdivision_grid, child_corners and corners_from_path on the tile
+    goldens' paths."""
+    radius = 6371000.0
+    roots = t_cubesphere.root_corners(radius)
+    np.testing.assert_array_equal(
+        t_cubesphere.subdivision_grid(roots, radius),
+        j_cubesphere.subdivision_grid(roots, radius))
+    np.testing.assert_array_equal(t_cubesphere.child_corners(roots, radius),
+                                  j_cubesphere.child_corners(roots, radius))
+    for row in np.load(GOLD + "tile_paths.npy"):
+        face, digits = int(row[0]), [int(c) for c in row[1:] if c >= 0]
+        np.testing.assert_array_equal(
+            t_cubesphere.corners_from_path(face, digits, radius),
+            j_cubesphere.corners_from_path(face, digits, radius))
+
+
+def _vertex_list(tmp_path):
+    for n in (4, 7, t_mesh.PATCH_VERTS):
+        got = t_mesh.vertex_list(n)
+        assert got.dtype == np.float32 and got.shape == (n * n + 4 * n, 3)
+        np.testing.assert_array_equal(got, j_mesh.vertex_list(n))
+
+
 def _perlin_np(tmp_path):
     pts = np.concatenate([np.load(GOLD + "pts_fbm.npy"),
                           np.load(GOLD + "pts_sphere.npy") * 1e-5])
@@ -162,7 +222,9 @@ def _checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("check", [_tables, _cubesphere, _mesh, _config,
-                                   _camera, _perlin_np, _png, _checkpoint],
+                                   _camera, _camera_motion, _subdivision,
+                                   _vertex_list, _perlin_np, _png,
+                                   _checkpoint],
                          ids=lambda f: f.__name__.strip("_"))
 def test_copy_matches_original(check, tmp_path):
     check(tmp_path)

@@ -16,9 +16,9 @@ near-vertical edges, slivers, one-pixel and full-width bboxes, bboxes
 clamped at the screen edge, -0.0 edge words, edges it scans whole), K3 on
 them too and on a screen-filling triangle, both
 drawing the first `count` records where the count is on the device, with
-and without wireframe, and the one documented difference (a NaN shade
-packs as 1023 on the card, as torch converts NaN in the plain version)
-for both; the routed raster (K6 -> K2 -> K3) with no host
+and without wireframe, and on records whose every shade is NaN (packed as
+0, planet_tpu's conversion) for both; the splat kernel's keys bitwise
+equal to its plain version (k = 1-8, wireframe); the routed raster (K6 -> K2 -> K3) with no host
 synchronisation; K5's row strips equal to the full cube's rows; one
 CUDA-graph replay of the fused frame's geometry step bitwise equal to the
 same step run eagerly on the card; every variant of the attribution tools
@@ -39,6 +39,7 @@ from planet_tpu_torch.models import heightfield
 from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
 from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import coverage_cuda as tcc
+from planet_tpu_torch.raster import splat
 from planet_tpu_torch.tools import (kernel_times, lut, noise_stages,
                                     span_parts)
 from torch_scenes import (EDGE, SCREEN, VIEW, adversarial_records,
@@ -265,37 +266,60 @@ def test_span_kernel_adversarial_records_bitwise(dev, wireframe):
     assert int((want != EMPTY).sum()) > 0
 
 
-def _assert_nan_shade_difference(dev, cuda, plain, recs, fb):
-    got = cuda(recs.to(dev), fb.to(dev)).cpu()
+@pytest.mark.parametrize("k", [1, 2, 3, 6, 8])
+@pytest.mark.parametrize("wireframe", [False, True])
+def test_splat_kernel_bitwise(dev, k, wireframe):
+    """The splat kernel (csrc/splat.cu) against splat_keys_plain: seeded
+    patch grids with fragments behind the camera, at w <= 1e-9, off
+    screen, at coordinates outside int32, with NaN coordinates, depths and
+    shades; keys equal bit for bit, one launch."""
+    rng = np.random.default_rng(k + 10 * wireframe)
+    q, g = 5, 9
+    clip = rng.normal(0.0, 0.7, (q, g, g, 4)).astype(np.float32)
+    clip[..., 3] = rng.uniform(-0.2, 2.0, (q, g, g))
+    clip[0, 0, :6] = [[np.nan, 0.1, 0.2, 1.0], [1e12, -1e12, 0.0, 1.0],
+                      [-1e12, 1e12, 0.0, 1.0], [0.1, 0.1, 0.1, 1e-10],
+                      [0.1, 0.1, np.nan, 1.0], [0.1, 0.1, 0.1, 1e-9]]
+    shade = rng.uniform(-0.1, 1.1, (q, g, g)).astype(np.float32)
+    shade[1, 2, 2:5] = [np.nan, np.inf, -np.inf]
+    valid = rng.uniform(size=(q, g, g)) < 0.9
+    args = [torch.as_tensor(a) for a in (clip, shade, valid)]
+    want = splat.splat_keys_plain(*args, 61, 47, k, wireframe)
+    before = _cuda.launches["splat"]
+    got = splat.splat_keys(*(a.to(dev) for a in args), 61, 47, k, wireframe)
+    assert _cuda.launches["splat"] == before + 1
+    _assert_fb_bars(got, want)
+    assert int((want != EMPTY).sum()) > 20
+
+
+def _assert_nan_shades_bitwise(dev, cuda, plain, key):
+    recs = nan_shade_records(**EDGE)
+    fb = torch.full((EDGE["height"], EDGE["width"]), EMPTY, dtype=torch.int32)
+    before = _cuda.launches[key]
+    got = cuda(recs.to(dev), fb.to(dev))
+    assert _cuda.launches[key] == before + 1
     want = plain(recs, fb.clone())
+    _assert_fb_bars(got, want)
     covered = want != EMPTY
-    assert torch.equal(got != EMPTY, covered) and int(covered.sum()) > 0
-    nan_q = int(torch.tensor([float("nan")]).to(torch.int32)[0])
-    assert torch.equal(got[covered] & 1023,
-                       torch.full_like(got[covered], 1023))
-    assert torch.equal(want[covered], (got[covered] & 0x7FFFFC00) | nan_q)
+    assert int(covered.sum()) > 0
+    assert torch.equal(want[covered] & 1023,
+                       torch.zeros_like(want[covered]))
 
 
-def test_span_kernel_nan_shade_difference_as_documented(dev):
-    """The one known K2/plain difference (ROADMAP.md section 3), held as
-    documented: on records whose every fragment has a NaN shade, the
-    kernel covers the same pixels with the same depth field, and packs the
-    shade as 1023 (the card's fminf returns the number) where the plain
-    version packs torch's int32 conversion of NaN."""
-    recs = nan_shade_records(**EDGE)
-    fb = torch.full((EDGE["height"], EDGE["width"]), EMPTY, dtype=torch.int32)
-    _assert_nan_shade_difference(dev, tcc.raster_span,
-                                 tcc.raster_span_plain, recs, fb)
+def test_span_kernel_nan_shades_bitwise(dev):
+    """K2 on records whose every fragment has a NaN shade, against its
+    plain version: equal bit for bit, every shade packed as 0 (planet_tpu
+    converts NaN to int32 as 0; the kernel tests the NaN before its
+    fminf clamp, which would return the number)."""
+    _assert_nan_shades_bitwise(dev, tcc.raster_span, tcc.raster_span_plain,
+                               "span")
 
 
-def test_huge_kernel_nan_shade_difference_as_documented(dev):
-    """The same documented difference for K3 (fragment() is shared): the
-    records' fragments that pass the 1/w tests have NaN shades, which the
-    kernel packs as 1023."""
-    recs = nan_shade_records(**EDGE)
-    fb = torch.full((EDGE["height"], EDGE["width"]), EMPTY, dtype=torch.int32)
-    _assert_nan_shade_difference(dev, tcc.raster_huge,
-                                 tcc.raster_huge_plain, recs, fb)
+def test_huge_kernel_nan_shades_bitwise(dev):
+    """The same for K3 (fragment() is shared): the records' fragments that
+    pass the 1/w tests have NaN shades, packed as 0 by both."""
+    _assert_nan_shades_bitwise(dev, tcc.raster_huge, tcc.raster_huge_plain,
+                               "huge")
 
 
 def test_frame_on_card_matches_cpu(dev):

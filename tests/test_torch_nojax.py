@@ -1,8 +1,10 @@
 """planet_tpu_torch imports neither jax nor planet_tpu: in a fresh
 interpreter, import every module of the package (the attribution tools
-under planet_tpu_torch/tools included), render one tiny LOD frame and one
-small cube-sphere field frame on the CPU, run the driver's non-interactive
-loop and the three tools at their small sizes, then check sys.modules. And no source file of the
+under planet_tpu_torch/tools included), render one tiny LOD frame in each
+raster mode and one small cube-sphere field frame on the CPU, run the
+terrain and heightmap API, the driver's non-interactive and interactive
+loops, the entry forward step and the three tools at their small sizes,
+then check sys.modules. And no source file of the
 port, nor chip_smoke.py, names a jax or planet_tpu module in an import."""
 
 import ast
@@ -26,6 +28,10 @@ SCRIPT = textwrap.dedent("""
     tools = {"planet_tpu_torch.tools." + m
              for m in ("common", "noise_stages", "lut", "span_parts")}
     assert tools <= set(names), sorted(tools - set(names))
+    rest = {"planet_tpu_torch." + m
+            for m in ("raster.splat", "models.terrain", "ops.heightmap",
+                      "utils.timing", "io.driver", "entry")}
+    assert rest <= set(names), sorted(rest - set(names))
     from planet_tpu_torch.engine.config import EngineConfig
     from planet_tpu_torch.engine.planet import PlanetEngine
     from planet_tpu_torch.geom import camera as cam_mod
@@ -44,6 +50,38 @@ SCRIPT = textwrap.dedent("""
                      "--altitude", "2e7", "--backend", "cpu", "--no-save",
                      "--out", d])
         assert os.path.exists(os.path.join(d, "frame_0000.png"))
+    import io
+    from planet_tpu_torch import entry
+    from planet_tpu_torch.models import terrain
+    from planet_tpu_torch.nums import df as tdf
+    from planet_tpu_torch.ops import heightmap, perlin
+    from planet_tpu_torch.utils import timing
+    seng = PlanetEngine(EngineConfig(window_w=64, window_h=48,
+                                     raster_mode="splat",
+                                     raster_supersample=2), device="cpu")
+    with timing.timed("nojax-splat", sync=torch.device("cpu")):
+        _, simage, sdepth = seng.render(cam)
+    assert np.isfinite(sdepth.numpy()).mean() > 0.2
+    pts = np.load("tests/goldens/pts_sphere.npy")[:64]
+    ridged = terrain.RidgedTerrain()
+    h64 = ridged.height_f64(pts, 6, 18, device="cpu")
+    p3 = [tuple(torch.as_tensor(a) for a in tdf.from_f64_np(pts[:, k]))
+          for k in range(3)]
+    assert float((ridged.height_df(*p3, 6, 18) - h64).abs().max()) < 0.2
+    ch, cl = (torch.as_tensor(a) for a in tdf.from_f64_np(
+        np.load("tests/goldens/tile_corners.npy")[:2]))
+    tiles = heightmap.generate_tiles_df(ch, cl, 32, ridged, 3, 18)
+    assert tiles.shape == (2, 32, 32)
+    assert perlin.perlin3_f64(pts[:, 0], pts[:, 1], pts[:, 2],
+                              device="cpu").shape == (64,)
+    with tempfile.TemporaryDirectory() as d:
+        driver.run_interactive(seng, cam.copy(), [cam.copy()] * 12, 64, 48,
+                               d, stream=io.StringIO("w p\\npng\\nq\\n"))
+        assert os.listdir(d) == ["interactive_0001.png"]
+    forward, args = entry.entry(device="cpu")
+    clip, shade = forward(*[a if i == 7 else a[:2]
+                            for i, a in enumerate(args)])
+    assert bool(torch.isfinite(clip).all()) and shade.shape == (2, 32, 32)
     from planet_tpu_torch.tools import lut, noise_stages, span_parts
     for tool in (noise_stages, lut, span_parts):
         assert tool.main(["--device", "cpu", "--small", "--reps", "1"]) == 0

@@ -194,3 +194,33 @@ def test_wrappers_dispatch_plain_on_cpu():
     fb = torch.full((4, 4), EMPTY, dtype=torch.int32)
     with pytest.raises(ValueError):
         tcc.raster_span_cuda(torch.zeros((1, 32)), fb)
+
+
+def test_nan_shades_pack_as_planet_tpu_packs_them():
+    """Fragments whose shade is NaN (here every other patch's normals are
+    NaN, the other patches finite) against planet_tpu's coverage.raster_frame
+    called eagerly (jax.disable_jit: no fusion, so no FMA contraction):
+    the packed framebuffers are equal bit for bit, and the NaN shades pack
+    as 0, as XLA converts NaN to int32 (coverage.to_i32 and the kernels'
+    fragment() do the same; the GPU tests hold K2 and K3 to the plain
+    version on torch_scenes.nan_shade_records). One row-job class and a
+    huge cap of 2 keep the eager XLA raster short."""
+    import jax
+
+    w, h = 96, 72
+    clip, normal, valid = screen_scene(
+        11, w, h, ((40, 1.5), (12, 8.0), (4, 30.0), (2, 90.0)))
+    normal = normal.copy()
+    normal[::2] = np.nan
+    got, _ = _packed_port(clip, normal, valid, w, h)
+    with jax.disable_jit():
+        want, counters = jcov.raster_frame(
+            jnp.asarray(clip), jnp.asarray(normal), jnp.asarray(valid), w, h,
+            decode=False, ladder=((128, 256),), tri_cap=256, huge_cap=2,
+            clip_cap=8, clip_run_cap=8)
+    assert not bool(counters.overflowed) and int(counters.n_huge) > 0
+    np.testing.assert_array_equal(got, np.asarray(want))
+    nan_q = int(tcov.to_i32(torch.tensor([float("nan")]))[0])
+    assert nan_q == 0
+    shades = got[got != EMPTY] & 1023
+    assert (shades == 0).sum() > 100 and (shades > 0).sum() > 100

@@ -16,9 +16,9 @@ goldens' records (span, huge and clipped near-plane straddlers):
   with and without wireframe, for the span and the huge kernel's tests;
 * tiles_plain writes exactly 0.0 * amplitude on tiles whose octave count
   is 0, whatever their corners hold, and the live tiles as alone;
-* torch_scenes.nan_shade_records, the GPU test's records for the one known
-  kernel/plain difference (a NaN shade), give every fragment a NaN shade
-  in the plain version and are scanned whole.
+* torch_scenes.nan_shade_records (records whose every fragment has a NaN
+  shade, which the GPU tests hold K2 and K3 to bit for bit) pack every
+  shade as 0, as planet_tpu converts NaN to int32, and are scanned whole.
 """
 
 import pathlib
@@ -212,15 +212,16 @@ def test_fragments_inside_the_intervals_give_the_bbox_scans_image(
 
 def test_nan_shade_records_shade_every_fragment_nan():
     """Every covered pixel of the plain version holds the key of a NaN
-    shade, (zq << 10) | torch's int32 conversion of NaN, and every row of
-    these records is its whole bbox (the kernel's scan path)."""
+    shade, (zq << 10) | 0 (XLA converts NaN to int32 as 0, and so does
+    coverage.to_i32), and every row of these records is its whole bbox
+    (the kernel's scan path)."""
     recs = nan_shade_records(**EDGE)
     fb = cc.raster_span_plain(recs, torch.full(
         (EDGE["height"], EDGE["width"]), cov._EMPTY, dtype=torch.int32))
     keys = fb[fb != cov._EMPTY]
-    nan_q = int(torch.tensor([float("nan")]).to(torch.int32)[0])
+    assert int(cov.to_i32(torch.tensor([float("nan")]))[0]) == 0
     assert len(keys) > 0
-    assert torch.equal(keys, (keys & 0x7FFFFC00) | nan_q)
+    assert torch.equal(keys, keys & 0x7FFFFC00)
     rec, _, lo, hi = cc.row_intervals_plain(recs)
     bw = (recs[:, 26] - recs[:, 24]).long() + 1
     assert torch.equal(lo, torch.zeros_like(lo))

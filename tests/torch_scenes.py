@@ -159,11 +159,9 @@ def nan_shade_records(seed, width, height, device="cpu"):
     +inf (edge 0, 1, 2 in turn). That edge then passes everywhere and its
     value is inf, so the interpolated normal is inf or NaN and the shade
     NaN, while z stays >= -1 where its weight is positive (its key's depth
-    saturates). The span kernel scans these records whole. They pin the
-    one known difference between K2 and its plain version (ROADMAP.md
-    section 3): the card's fminf packs a NaN shade as 1023, torch's
-    clamp_max keeps the NaN and .to(int32) converts it as the platform
-    does."""
+    saturates). The span kernel scans these records whole. K2, K3 and
+    their plain versions pack each such shade as 0, as planet_tpu's
+    float -> int32 conversion (XLA's) turns NaN into 0."""
     recs = adversarial_records(seed, width, height, device)[:24].clone()
     for i in range(len(recs)):
         recs[i, 3 * (i % 3) + 2] = float("inf")
