@@ -86,7 +86,19 @@ result line is printed:
    (K4); (c) run_interactive on a 30-line script on PlanetEngine and on
    DeviceInteractiveEngine(preview=2), ms a frame, the PNG dumps equal to
    the full frames, and the driver's --profile trace holding K1; (d)
-   entry()'s forward on the card against CPU tensors.
+   entry()'s forward on the card against CPU tensors;
+10. the multi-card slice (planet_tpu_torch.parallel, `sharded_paths`) on
+   the one card, counts reset before and read after: (a) on an NCCL world
+   of one rank, sharded_field_step (both seams) bitwise equal to
+   unsharded_field_step at 6x1024^2 and within the field bars of the
+   composed frame, and sharded_field_step_fused at config 5's 6x8192^2
+   bitwise equal to field_cube (seconds); (b) build_sharded_render over the
+   24 subtree roots at 1920x1080 (phase 5's camera) bitwise equal to the
+   single-device frame from those roots, its leaves phase 5b's with the
+   depth-0 ones split, warm frame ms; (c) four ranks' shares in turn in
+   this process, their packed framebuffers folded by torch.minimum
+   bitwise equal to (b)'s; (d) four processes on the card over gloo,
+   bitwise equal to (b); K1, K2, K4, K5 and K6 launched (K3 printed).
 
 The second-to-last lines are a JSON summary of the kernels (launches from
 phase 5b, from phase 7 for the field kernel, from phase 9a's frames for
@@ -648,6 +660,261 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
     return res
 
 
+def sharded_paths(dev, width, height, *, camera_args, static_ids,
+                  field_n, config5_n, ranks=4, reps=10, log=print):
+    """Phase 10: the multi-card slice (planet_tpu_torch.parallel) on one
+    card, at `width` x `height` and the given field sizes (1920x1080, 1024
+    and config 5's 8192 on the card; a CPU rehearsal passes small ones and
+    runs gloo where the card runs NCCL). The caller sets the launch counts
+    to 0 before it and reads them after.
+
+    (a) NCCL, a world of one rank: sharded_field_step (ridged 6, K4) with
+        seam "exchange" and "clamp" bitwise equal to unsharded_field_step,
+        stats at rtol 1e-6; heights within 0.2 m of the composed frame
+        heightfield.frame_cube(field_n, fused=False), shade within 1e-3
+        (with "exchange" off the face-edge texels, whose differences it
+        changes by design); sharded_field_step_fused at config5_n (K5's
+        strip form) bitwise equal to field_cuda.field_cube, in seconds;
+    (b) NCCL, a world of one rank: build_sharded_render over all 24
+        subtree roots, run until it generates nothing, bitwise equal
+        (image and depth) to the single-device DeviceRenderer from the 24
+        roots run as long; its leaf ids are phase 5b's `static_ids` with each
+        depth-0 leaf (a face that does not split from 6 roots) replaced by
+        its four children; the median ms of `reps` warm frames;
+    (c) `ranks` ranks in turn in this process, each with its share of the
+        roots, its own pool and its own graph: the torch.minimum fold of
+        their packed framebuffers bitwise equal to (b)'s single-device
+        one, the leaf sets disjoint with (b)'s set as their union; each
+        rank's warm frame ms;
+    (d) `ranks` processes on this one card over gloo (CUDA tensors):
+        build_sharded_render with N = ranks, its last frame bitwise equal
+        to (b)'s.
+
+    Returns {name: number} for the [10] line."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import torch_ranks
+    from planet_tpu_torch.cache import device_pool
+    from planet_tpu_torch.engine import device_step
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.geom import quadid
+    from planet_tpu_torch.models import heightfield
+    from planet_tpu_torch.ops.kernels import field_cuda
+    from planet_tpu_torch.parallel import facemesh, sharded, sharded_lod
+
+    cuda = dev.type == "cuda"
+    cfg = EngineConfig(window_w=width, window_h=height)
+    radius = cfg.radius
+    res = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def ids_of(q_lo, q_hi, n):
+        return set(int(q) for q in quadid.from_words(
+            q_lo[:n].cpu().numpy(), q_hi[:n].cpu().numpy()))
+
+    def frame_counts(frame):
+        return frame.n_leaves, frame.n_generated, frame.overflowed
+
+    def converge(render, tag, counts=frame_counts):
+        """Frames until one generates nothing (at most 4); the last one's
+        output. counts(output) -> (leaves, generated, overflowed)."""
+        for i in range(4):
+            sync()
+            t0 = time.perf_counter()
+            out = render()
+            sync()
+            n, n_gen, ovf = counts(out)
+            log(f"[10{tag}] frame {i}: leaves {n}, tiles generated {n_gen},"
+                f" overflowed {ovf}; {(time.perf_counter() - t0) * 1e3:.3f}"
+                " ms")
+            check(not ovf, f"10{tag}: overflowed")
+            if n_gen == 0:
+                return out
+        raise SmokeFailure(f"10{tag}: still generating after 4 frames")
+
+    def warm_ms(render):
+        times = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            render()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        kw = {"device_id": torch.device("cuda", 0)} if cuda else {}
+        backend = "nccl" if cuda else "gloo"
+        dist.init_process_group(backend,
+                                init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1, **kw)
+        try:
+            # --------------------------------------------------- (a) field
+            t_a = time.perf_counter()
+            mesh = sharded.make_mesh(1, device_type=dev.type)
+            px, py, pz = facemesh.face_grid_points_df(field_n, radius,
+                                                      device=dev)
+            comps = (*px, *py, *pz)
+            xyscale = field_cuda.default_xyscale(field_n, radius)
+            hc, sc = heightfield.frame_cube(field_n, radius, fused=False,
+                                            device=dev)
+            inner = (slice(None), slice(1, -1), slice(1, -1))
+            for seam in sharded.SEAMS:
+                h, sh, st = sharded.sharded_field_step(
+                    mesh, octaves=6, xyscale=xyscale, seam=seam)(*comps)
+                uh, ush, ust = sharded.unsharded_field_step(
+                    octaves=6, xyscale=xyscale, seam=seam)(*comps)
+                sync()
+                check(same_bits(h, uh) and same_bits(sh, ush),
+                      f"10a {seam}: sharded != unsharded")
+                check(torch.allclose(st, ust, rtol=1e-6, atol=0.0),
+                      f"10a {seam}: stats {st.tolist()} != {ust.tolist()}")
+                eh = float((h - hc).abs().max())
+                es = float((sh - sc)[inner if seam == "exchange" else ...]
+                           .abs().max())
+                check(eh <= 0.2 and es <= 1e-3, f"10a {seam}: off the "
+                      f"composed frame by {eh} m / {es} in shade")
+                check(bool(torch.isfinite(sh).all()),
+                      f"10a {seam}: not finite")
+                res[f"field_{seam}_vs_composed"] = [eh, es]
+                log(f"[10a] sharded_field_step 6x{field_n}^2 ridged 6, seam "
+                    f"{seam}: bitwise equal to unsharded_field_step, stats "
+                    f"{st.tolist()}; within {eh:.3g} m / {es:.3g} of "
+                    "frame_cube(fused=False)"
+                    + (" off the face-edge texels" if seam == "exchange"
+                       else ""))
+            del px, py, pz, comps, hc, sc, h, sh, uh, ush
+            fused = sharded.sharded_field_step_fused(mesh, config5_n, radius)
+            sync()
+            t0 = time.perf_counter()
+            h5, s5, st5 = fused()
+            sync()
+            res["config5_s"] = time.perf_counter() - t0
+            f5h, f5s = field_cuda.field_cube(config5_n, radius, device=dev)
+            check(same_bits(h5, f5h) and same_bits(s5, f5s),
+                  "10a config 5: the fused sharded step != field_cube")
+            check(float(st5[0]) == 6 * config5_n ** 2, "10a config 5: texels")
+            log(f"[10a] sharded_field_step_fused 6x{config5_n}^2 on one rank: "
+                f"{res['config5_s']:.4f} s; bitwise equal to field_cube; "
+                f"stats {st5.tolist()}; (a) in "
+                f"{time.perf_counter() - t_a:.1f} s")
+            del h5, s5, f5h, f5s
+
+            # ------------------------------------------ (b) LOD, one rank
+            t_b = time.perf_counter()
+            roots = sharded_lod.subtree_roots(radius, dev)
+            qmesh = sharded.make_mesh(1, axis="quads", device_type=dev.type)
+            fn = sharded_lod.build_sharded_render(cfg, qmesh, width, height)
+            pool = device_pool.init(cfg.cache_capacity, cfg.tile_dim, dev)
+            frame, (q_lo, q_hi, n, _) = converge(
+                lambda: fn(pool, *camera_args), "b",
+                lambda out: frame_counts(out[0]))
+            single = device_step.DeviceRenderer(cfg, width, height, device=dev,
+                                                roots=roots)
+            spool = single.init_pool()
+            want = converge(lambda: single.render(spool, *camera_args),
+                            "b single")
+            want_packed = device_step.raster_packed(
+                single.last_geometry, cfg, width, height)[0][0]
+            g = single.last_geometry
+            want_ids = ids_of(g.leaf_lo, g.leaf_hi, want.n_leaves)
+            check(same_bits(frame.image, want.image)
+                  and same_bits(frame.depth, want.depth),
+                  "10b: the sharded frame != the single-device frame")
+            got_ids = ids_of(q_lo, q_hi, n)
+            check(got_ids == want_ids, "10b: leaf ids != the single device's")
+            depth0 = {q for q in static_ids
+                      if quadid.depth_of(np.uint64(q)) == 0}
+            split = (static_ids - depth0) | {
+                int(quadid.make_child(np.uint64(q), c))
+                for q in depth0 for c in range(4)}
+            check(got_ids == split, "10b: leaf ids != phase 5b's with its "
+                  "depth-0 leaves split")
+            res["lod_leaves"] = [len(got_ids), len(static_ids), len(depth0)]
+            res["lod_world1_ms"] = warm_ms(lambda: fn(pool, *camera_args))
+            res["lod_single_ms"] = warm_ms(lambda: single.render(
+                spool, *camera_args))
+            log(f"[10b] build_sharded_render, {backend} world of 1, {width}x"
+                f"{height}, 24 roots: image and depth bitwise equal to the "
+                f"single-device 24-root frame; {len(got_ids)} leaves = "
+                f"phase 5b's {len(static_ids)} with its {len(depth0)} depth-0 "
+                f"leaves split; warm frame {res['lod_world1_ms']:.3f} ms "
+                f"(single device, 24 roots "
+                f"{res['lod_single_ms']:.3f} ms; median of {reps}); (b) in "
+                f"{time.perf_counter() - t_b:.1f} s")
+        finally:
+            dist.destroy_process_group()
+        del fn, pool, single, spool
+
+        # ---------------------------------------------- (c) ranks in turn
+        t_c = time.perf_counter()
+        fold, union, rank_ms = None, set(), []
+        for rank in range(ranks):
+            r = device_step.DeviceRenderer(
+                cfg, width, height, device=dev,
+                roots=sharded_lod.local_roots(roots, rank, ranks))
+            rpool = r.init_pool()
+
+            def rank_frame():
+                geom = r.geometry(rpool, *camera_args)
+                return device_step.raster_packed(geom, cfg, width, height)[0]
+
+            packed, n, _, _, q_lo, q_hi = converge(
+                rank_frame, f"c rank {rank}", lambda out: out[1:4])
+            part = ids_of(q_lo, q_hi, n)
+            check(not union & part, f"10c: rank {rank}'s leaves overlap")
+            union |= part
+            fold = packed if fold is None else torch.minimum(fold, packed)
+            rank_ms.append(warm_ms(rank_frame))
+            del r, rpool
+        check(union == want_ids, "10c: the ranks' leaves != (b)'s")
+        check(same_bits(fold, want_packed), "10c: the folded framebuffer != "
+              "the single-device framebuffer")
+        res["rank_ms"] = rank_ms
+        log(f"[10c] {ranks} ranks in turn, one card: the torch.minimum fold "
+            f"bitwise equal to (b)'s packed frame, leaf sets disjoint with "
+            f"(b)'s as their union; warm frame ms by rank "
+            + ", ".join(f"{t:.3f}" for t in rank_ms)
+            + f"; (c) in {time.perf_counter() - t_c:.1f} s")
+
+        # ---------------------------------- (d) processes over gloo, one card
+        t_d = time.perf_counter()
+        case = dict(mesh=(ranks,), max_lod=None, probe="ridged6",
+                    frames=[camera_args] * 4)
+        spec = dict(cfg=dict(window_w=width, window_h=height), width=width,
+                    height=height, caps={}, device=dev.type,
+                    cases={"d": case})
+        torch_ranks.spawn(torch_ranks.lod_worker, ranks, f"{tmp}/d", spec)
+        union = set()
+        for rank in range(ranks):
+            def load(key, frame=3):
+                return torch_ranks.load(f"{tmp}/d", f"d.f{frame}", key, rank)
+            counts = load("counts")
+            check(counts[3] == 0 and counts[4] == 0,
+                  f"10d rank {rank}: generating or overflowed: {counts}")
+            check(np.array_equal(load("image"), want.image.cpu().numpy())
+                  and np.array_equal(load("depth"), want.depth.cpu().numpy()),
+                  f"10d rank {rank}: the composite != (b)'s frame")
+            union |= set(int(q) for q in quadid.from_words(load("q_lo"),
+                                                           load("q_hi")))
+        check(union == want_ids, "10d: the ranks' leaves != (b)'s")
+        res["gloo_rank_ms"] = [
+            float(torch_ranks.load(f"{tmp}/d", "d.f3", "ms", r))
+            for r in range(ranks)]
+        log(f"[10d] {ranks} processes on one card over gloo: build_sharded_"
+            f"render's 4th frame bitwise equal to (b)'s on every rank, leaves "
+            f"as (b)'s; its ms by rank (host clock, collectives included) "
+            + ", ".join(f"{t:.3f}" for t in res["gloo_rank_ms"])
+            + f"; (d) in {time.perf_counter() - t_d:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1172,7 +1439,8 @@ def main() -> int:
             print(f"[5a] first geometry call (warm-up + capture + replay): "
                   f"{time.perf_counter() - t0:.2f} s; graph kernels per "
                   f"replay {rend._tally}", flush=True)
-        want = step(pool_e, *(torch.as_tensor(a, device=dev) for a in gargs))
+        want = step(pool_e, *(torch.as_tensor(a, device=dev) for a in gargs),
+                    *device_step.face_roots(cfg800.radius, dev))
         for field in ("leaf_lo", "leaf_hi", "leaf_depth", "slot", "tiles",
                       "valid", "vertex_shade", "meta"):
             check(same_bits(getattr(got, field), getattr(want, field)),
@@ -1247,6 +1515,9 @@ def main() -> int:
               flush=True)
     print(f"[5b] 1080p static: median of frames 2-9 "
           f"{float(np.median(static_ms[2:])):.3f} ms", flush=True)
+    static_ids = set(int(q) for q in quadid.from_words(
+        rend.last_geometry.leaf_lo[:fr.n_leaves].cpu().numpy(),
+        rend.last_geometry.leaf_hi[:fr.n_leaves].cpu().numpy()))
     # where a warm fused frame's time goes: the geometry graph replay
     # (inputs copied in, replay, synchronize), then the raster
     split = []
@@ -1522,6 +1793,24 @@ def main() -> int:
         if k != "max_abs_err"}
     print(f"[9] the single-card rest in {time.perf_counter() - t9:.1f} s: "
           + json.dumps(rest), flush=True)
+
+    # ----------------------------------------------------------- phase 10
+    t10 = time.perf_counter()
+    _cuda.reset_launches()
+    shard = sharded_paths(
+        dev, W_1080, H_1080,
+        camera_args=device_args(cfg1080, bench_cam(), W_1080, H_1080),
+        static_ids=static_ids, field_n=FIELD_N["config2"],
+        config5_n=FIELD_N["config5"], log=lambda m: print(m, flush=True))
+    launches_sharded = dict(_cuda.launches)
+    print(f"[10] launches, sharded paths (phase 10, this process): "
+          f"{launches_sharded}", flush=True)
+    for k in ("tile", "span", "gather", "noise", "field"):
+        check(launches_sharded[k] > 0, f"phase 10 launched no {k} kernel")
+    shard["huge_launches"] = launches_sharded["huge"]
+    print(f"[10] the multi-card slice on one card in "
+          f"{time.perf_counter() - t10:.1f} s: " + json.dumps(shard),
+          flush=True)
 
     check(not any(m == "jax" or m.startswith(("jax.", "planet_tpu."))
                   or m == "planet_tpu" for m in sys.modules),

@@ -35,9 +35,14 @@ silently bakes in, anything else):
   * kernels launch through planet_tpu_torch._cuda.launch, whose counts
     DeviceRenderer carries over to every replay.
 
-Left out (ROADMAP): `stop_after` (TPU stage bisection), raster_out="packed"
-and `dynamic_roots` (sharding, P12) and `jit=False`; the skirt size is
-baked into the step, as in planet_tpu; the TPU-only
+The step takes its refinement roots as inputs: the six cube faces
+(`face_roots`) by default, or, in the sharded engine
+(parallel/sharded_lod.py), each rank's own subtrees; `raster_packed`
+returns the packed int32 framebuffer, whose elementwise min over ranks is
+the depth test across them.
+
+Left out (ROADMAP): `stop_after` (TPU stage bisection) and `jit=False`;
+the skirt size is baked into the step, as in planet_tpu; the TPU-only
 `optimization_barrier` seams have no counterpart here.
 """
 
@@ -58,6 +63,7 @@ from planet_tpu_torch.lod import refine_device
 from planet_tpu_torch.nums import df as dfm
 from planet_tpu_torch.ops.kernels import tile_cuda
 from planet_tpu_torch.ops.kernels.perlin_cuda import MAX_OCTAVES
+from planet_tpu_torch.raster import coverage as cov
 from planet_tpu_torch.raster import coverage_cuda
 from planet_tpu_torch.raster import shade as shade_mod
 from planet_tpu_torch.tess import mesh
@@ -91,22 +97,27 @@ class DeviceFrame(NamedTuple):
     preview: Optional[torch.Tensor] = None   # (H//k, W//k) u8, preview=k > 1
 
 
-def _roots(radius: float, device):
+def face_roots(radius: float, device="cuda"):
+    """The six cube faces as refinement roots: (lo, hi (6,) int32 id words,
+    ch, cl (6, 4, 3) f32 DF corners, depth (6,) int32 zeros) on
+    `device`."""
     corners = cubesphere.root_corners(radius)
     ids = np.array([quadid.make_root(f) for f in range(6)], np.uint64)
     lo, hi = quadid.to_words(ids)
     ch, cl = dfm.from_f64_np(corners)
     return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
-                 for a in (lo, hi, ch, cl))
+                 for a in (lo, hi, ch, cl, np.zeros(6, np.int32)))
 
 
 def build_geometry_step(cfg: EngineConfig, *, device, cap: int = 4096,
                         render_cap: int = 512, gen_cap: int = 256,
                         max_lod: Optional[int] = None,
                         probe: str = "ridged6"):
-    """Returns step(pool, cam_hi (3,), cam_lo (3,), view_proj (4, 4)) ->
-    Geometry: stages 1-5 on `device`, updating the pool in place (tiles,
-    keys, ticks, render tick).
+    """Returns step(pool, cam_hi (3,), cam_lo (3,), view_proj (4, 4),
+    root_lo, root_hi (R,) int32 id words, root_ch, root_cl (R, 4, 3) f32
+    DF corners, root_depth (R,) int32) -> Geometry: stages 1-5 on
+    `device` from the R refinement roots (face_roots: the whole planet),
+    updating the pool in place (tiles, keys, ticks, render tick).
 
     cap bounds the refinement buffers; render_cap the leaves cached,
     generated and drawn per frame (the DFS sort puts real leaves first, so
@@ -124,7 +135,6 @@ def build_geometry_step(cfg: EngineConfig, *, device, cap: int = 4096,
                          "octaves")
     if cfg.raster_mode not in ("exact", "splat"):
         raise ValueError(f"raster_mode {cfg.raster_mode!r}")
-    roots = _roots(cfg.radius, device)
     dim = cfg.tile_dim
     grid = cfg.patch_verts + 2
     grid_mask = torch.as_tensor(mesh.grid_uv_skirt(cfg.patch_verts)[3],
@@ -133,12 +143,13 @@ def build_geometry_step(cfg: EngineConfig, *, device, cap: int = 4096,
                    np.float32(np.float64(cfg.coord_scale)
                               - np.float64(np.float32(cfg.coord_scale))))
 
-    def step(pool: dp.PoolState, cam_hi, cam_lo, view_proj) -> Geometry:
+    def step(pool: dp.PoolState, cam_hi, cam_lo, view_proj, root_lo,
+             root_hi, root_ch, root_cl, root_depth) -> Geometry:
         # ------------------------------------------------ 1. refinement
         ref = refine_device.refine_device(
-            cam_hi, cam_lo, *roots, max_lod=max_lod, cap=cap,
-            radius=cfg.radius, probe=probe, quality=cfg.lod_quality,
-            transposed=True)
+            cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
+            max_lod=max_lod, cap=cap, radius=cfg.radius, probe=probe,
+            root_depth=root_depth, quality=cfg.lod_quality, transposed=True)
         n = ref.n_leaves
         rows = torch.arange(cap, device=device, dtype=_I32)
 
@@ -250,37 +261,63 @@ def _read_meta(geom: Geometry):
     return n, n_gen, bool(ovf)
 
 
+def raster_packed(geom: Geometry, cfg: EngineConfig, width: int,
+                  height: int, wireframe: bool = False):
+    """The exact raster on the leaves the geometry step kept, undecoded:
+    ((packed (H, W) int32, n_leaves, n_generated, overflowed, leaf_lo,
+    leaf_hi (render_cap,) int32), RasterCounters). The packed keys' min
+    is the depth test, so frames drawn apart (the sharded engine's ranks)
+    composite exactly by an elementwise min. Reads the step's three
+    counters (one device-to-host copy; the raster syncs anyway)."""
+    if cfg.raster_mode != "exact":
+        raise ValueError("packed raster output requires raster_mode='exact'")
+    n, n_gen, ovf = _read_meta(geom)
+    pv = geom.vertices
+    packed, counters = coverage_cuda.raster_frame(
+        pv.clip[:n], pv.normal[:n], geom.valid[:n], width, height,
+        cell_mask=mesh.cell_triangle_mask(cfg.patch_verts), decode=False,
+        wireframe=wireframe, far_w=cfg.far_plane)
+    return ((packed, n, n_gen, ovf or counters.overflowed, geom.leaf_lo,
+             geom.leaf_hi), counters)
+
+
 def raster(geom: Geometry, cfg: EngineConfig, width: int, height: int,
            wireframe: bool = False):
     """Stage 6 on the leaves the geometry step kept: (DeviceFrame, the
-    exact raster's RasterCounters, None in splat mode). Reads the step's
-    three counters (one device-to-host copy; the exact raster syncs
-    anyway). The splat mode runs on all render_cap rows, whose padding
-    rows are invalid, and reads nothing else on the host."""
-    n, n_gen, ovf = _read_meta(geom)
-    pv = geom.vertices
+    exact raster's RasterCounters, None in splat mode). The splat mode runs
+    on all render_cap rows, whose padding rows are invalid, and reads
+    nothing on the host but the step's three counters."""
     if cfg.raster_mode == "splat":
-        image, depth = splat_raster(pv, geom.vertex_shade, geom.valid, cfg,
-                                    width, height, wireframe)
+        n, n_gen, ovf = _read_meta(geom)
+        image, depth = splat_raster(geom.vertices, geom.vertex_shade,
+                                    geom.valid, cfg, width, height,
+                                    wireframe)
         return DeviceFrame(image, depth, n, n_gen, ovf), None
-    image, depth, counters = coverage_cuda.raster_frame(
-        pv.clip[:n], pv.normal[:n], geom.valid[:n], width, height,
-        cell_mask=mesh.cell_triangle_mask(cfg.patch_verts),
-        wireframe=wireframe, far_w=cfg.far_plane)
-    return (DeviceFrame(image, depth, n, n_gen, ovf or counters.overflowed),
-            counters)
+    (packed, n, n_gen, ovf, _, _), counters = raster_packed(
+        geom, cfg, width, height, wireframe)
+    image, depth = cov.decode_packed(packed)
+    return DeviceFrame(image, depth, n, n_gen, ovf), counters
+
+
+def _root_tensors(roots, radius: float, device) -> tuple:
+    if roots is None:
+        return face_roots(radius, device)
+    return tuple(torch.as_tensor(r, device=device).clone() for r in roots)
 
 
 def build_device_render(cfg: EngineConfig, width: int, height: int, *,
-                        device, **kw):
+                        device, roots=None, **kw):
     """Returns fn(pool, cam_hi, cam_lo, view_proj) -> DeviceFrame: the
-    geometry step and the raster, run eagerly; the pool is updated in
-    place. Keywords as build_geometry_step."""
+    geometry step from `roots` (the five root arrays of
+    build_geometry_step's step; None: face_roots) and the raster, run
+    eagerly; the pool is updated in place. Keywords as
+    build_geometry_step."""
     step = build_geometry_step(cfg, device=device, **kw)
+    roots = _root_tensors(roots, cfg.radius, device)
 
     def render(pool, cam_hi, cam_lo, view_proj) -> DeviceFrame:
         geom = step(pool, *(_f32(a).to(device)
-                            for a in (cam_hi, cam_lo, view_proj)))
+                            for a in (cam_hi, cam_lo, view_proj)), *roots)
         return raster(geom, cfg, width, height)[0]
 
     return render
@@ -291,7 +328,9 @@ class DeviceRenderer:
     once as a CUDA graph and replayed per frame on CUDA (run eagerly on the
     CPU), then the raster.
 
-    The camera and view-projection enter through static input tensors. The
+    The camera and view-projection enter through static input tensors,
+    copied in before each replay; the refinement roots (`roots`, as
+    build_device_render takes them) are static inputs filled once. The
     capture is made on the first frame rendered into a pool: a warm-up run
     of the step on a side stream first uploads the lazily built tables and
     creates the library handles (nothing may be copied from the host during
@@ -310,7 +349,8 @@ class DeviceRenderer:
     device: "cuda" (the default) or "cpu"."""
 
     def __init__(self, cfg: EngineConfig, width: int, height: int, *,
-                 device="cuda", fetch: str = "f32", preview: int = 1, **kw):
+                 device="cuda", roots=None, fetch: str = "f32",
+                 preview: int = 1, **kw):
         if fetch not in ("f32", "u8"):
             raise ValueError(fetch)
         if preview > 1 and fetch != "u8":
@@ -322,6 +362,7 @@ class DeviceRenderer:
         self.preview = int(preview)
         self.wireframe = False
         self._step = build_geometry_step(cfg, device=self.device, **kw)
+        self._roots = _root_tensors(roots, cfg.radius, self.device)
         self._cam_hi = torch.zeros(3, dtype=torch.float32, device=self.device)
         self._cam_lo = torch.zeros(3, dtype=torch.float32, device=self.device)
         self._vp = torch.zeros((4, 4), dtype=torch.float32,
@@ -338,7 +379,8 @@ class DeviceRenderer:
                        self.device)
 
     def _run_step(self, pool):
-        return self._step(pool, self._cam_hi, self._cam_lo, self._vp)
+        return self._step(pool, self._cam_hi, self._cam_lo, self._vp,
+                          *self._roots)
 
     def _capture(self, pool: dp.PoolState):
         saved = [t.clone() for t in pool]

@@ -126,6 +126,10 @@ def words_valid(lo, hi):
     return hi < 0
 
 
+def words_equal(lo_a, hi_a, lo_b, hi_b):
+    return (lo_a == lo_b) & (hi_a == hi_b)
+
+
 def _digit_at(lo, hi, pos):
     """2-bit field at bit `pos` (int32 tensor, 0 <= pos < 64) of the id."""
     in_lo = pos < 32

@@ -26,10 +26,11 @@ leaves or children exceed `cap`. The "ridged6" probe is K4
 (ops/kernels/perlin_cuda.noise_df) on the 1e-5-scaled double-float probe
 points, times 8848 (refine_device.py:230-241).
 
-Left out, as TPU-only: the `tight` width ladder (lax.cond width sizing,
-bit-identical results by its own docstring) and the lane-major layout's
-window/sort tricks; and, until the sharded path (ROADMAP P12), the
-per-chip subtree roots (`root_depth` / dynamic_roots).
+Roots may be any frontier of quads of one tree, with their depths
+(`root_depth`): the sharded engine refines each rank's depth-1 subtrees
+(parallel/sharded_lod.py). Left out, as TPU-only: the `tight` width ladder
+(lax.cond width sizing, bit-identical results by its own docstring) and
+the lane-major layout's window/sort tricks.
 """
 
 from __future__ import annotations
@@ -128,10 +129,12 @@ def _probe_heights(probe, p):
 
 def refine_device(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
                   max_lod: int, cap: int, radius: float,
-                  probe: str = "zero", quality: float = 1.0,
+                  probe: str = "zero", root_depth=None, quality: float = 1.0,
                   transposed: bool = False) -> DeviceRefineResult:
     """Device refinement from R roots: (R,) int32 id words and (R, 4, 3)
     f32 DF corners, all on one device with the (3,) f32 DF camera.
+    root_depth: the roots' (R,) int32 quad depths (None: 0, the six faces);
+    the split threshold's lod term is max_lod - depth (main.cpp:560-571).
 
     probe: "zero" (smooth sphere, ConstantZero generator, main.cpp:836-841)
     or "ridged6" (the production terrain through K4). quality multiplies
@@ -161,6 +164,8 @@ def refine_device(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
     f_cor = torch.zeros((24, cap), dtype=f32, device=dev)
     f_int[0, :n_roots] = root_lo
     f_int[1, :n_roots] = root_hi
+    if root_depth is not None:
+        f_int[2, :n_roots] = root_depth
     f_cor[:12, :n_roots] = root_ch.permute(1, 2, 0).reshape(12, n_roots)
     f_cor[12:, :n_roots] = root_cl.permute(1, 2, 0).reshape(12, n_roots)
     f_n = torch.full((), n_roots, dtype=i32, device=dev)

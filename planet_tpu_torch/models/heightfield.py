@@ -5,8 +5,8 @@ Unlike the quadtree engine (engine.planet), these evaluate a whole
 fixed-resolution heightfield: per-texel sphere position -> multi-octave
 noise height -> central-difference normal -> Lambert shade. The flat patch
 (config 1), the full 6-face cube sphere (config 2) and its row strips
-(config 5, one strip at a time on one card; planet_tpu's multi-chip
-sharding is not ported yet).
+(config 5: one strip at a time on one card, or a strip a rank through
+parallel/sharded.py).
 
 Entry points run on the card unless the caller passes device="cpu": the
 kernels (K4 for the noise of given points, K5 for the whole-cube frame)

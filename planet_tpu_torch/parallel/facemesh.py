@@ -8,8 +8,8 @@ u along p0->p1 and v along p0->p2.
 Edge naming: 0 = v=0 row (u increasing), 1 = u=1 column (v increasing),
 2 = v=1 row (u increasing), 3 = u=0 column (v increasing).
 
-The halo exchange that planet_tpu builds on this topology (sharding, its
-parallel/sharded.py) is not ported yet; `edge_adjacency` is.
+The sharded field step's face-seam exchange (parallel/sharded.py) routes
+its halos through `edge_adjacency`.
 """
 
 from __future__ import annotations

@@ -21,27 +21,36 @@ and without wireframe, and on records whose every shade is NaN (packed as
 equal to its plain version (k = 1-8, wireframe); the routed raster (K6 -> K2 -> K3) with no host
 synchronisation; K5's row strips equal to the full cube's rows; one
 CUDA-graph replay of the fused frame's geometry step bitwise equal to the
-same step run eagerly on the card; every variant of the attribution tools
+same step run eagerly on the card, from the six faces and from the 24
+subtree roots; the sharded LOD render on an NCCL world of one rank, and
+four ranks' shares run in turn and folded by torch.minimum, each bitwise
+equal to the single-device frame from the 24 roots; every variant of the
+attribution tools
 (planet_tpu_torch/tools: t_noise, t_tile, t_lut, t_span) bitwise equal to
 its plain version, full noise equal to K4, full tile equal to K1."""
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from planet_tpu_torch import _cuda
+from planet_tpu_torch.cache import device_pool
 from planet_tpu_torch.engine import device_step
 from planet_tpu_torch.engine.config import EngineConfig
 from planet_tpu_torch.engine.planet import PlanetEngine
 from planet_tpu_torch.geom import camera as cam_mod
+from planet_tpu_torch.geom import quadid
 from planet_tpu_torch.nums import df as tdf
 from planet_tpu_torch.models import heightfield
 from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
+from planet_tpu_torch.parallel import sharded, sharded_lod
 from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import coverage_cuda as tcc
 from planet_tpu_torch.raster import splat
 from planet_tpu_torch.tools import (kernel_times, lut, noise_stages,
                                     span_parts)
+import torch_ranks
 from torch_scenes import (EDGE, SCREEN, VIEW, adversarial_records,
                           nan_shade_records, screen_scene, view_scene)
 
@@ -406,7 +415,7 @@ def test_graph_replay_equals_eager_step(dev):
             assert all(_cuda.launches[k] - before[k] == n
                        for k, n in r._tally.items()), r._tally
         assert r._tally["tile"] == 1 and r._tally["noise"] == 19
-        want = step(pool_e, *args)
+        want = step(pool_e, *args, *device_step.face_roots(cfg.radius, dev))
         for name in ("leaf_lo", "leaf_hi", "leaf_depth", "slot", "tiles",
                      "valid", "vertex_shade", "meta"):
             assert _same_bits(getattr(got, name), getattr(want, name)), name
@@ -414,6 +423,92 @@ def test_graph_replay_equals_eager_step(dev):
             assert _same_bits(a, b)
         for a, b in zip(pool_g, pool_e):
             assert torch.equal(a, b)
+
+
+def test_graph_replay_equals_eager_step_dynamic_roots(dev):
+    """The step from the 24 subtree roots: two replays equal the eager step
+    bit for bit, the roots (given on the host) copied into the graph's
+    static inputs once."""
+    cfg = EngineConfig(cache_capacity=256)
+    args = torch_ranks.lod_camera_args(cfg, 160, 120)
+    roots = sharded_lod.subtree_roots(cfg.radius, dev)
+    kw = dict(cap=1024, render_cap=512, gen_cap=512, max_lod=4)
+    r = device_step.DeviceRenderer(cfg, 160, 120, device=dev,
+                                   roots=[t.cpu() for t in roots], **kw)
+    step = device_step.build_geometry_step(cfg, device=dev, **kw)
+    pool_g, pool_e = r.init_pool(), r.init_pool()
+    targs = [torch.as_tensor(a, device=dev) for a in args]
+    for _ in range(2):
+        got = r.geometry(pool_g, *args)
+        want = step(pool_e, *targs, *roots)
+        for name in ("leaf_lo", "leaf_hi", "leaf_depth", "slot", "tiles",
+                     "valid", "vertex_shade", "meta"):
+            assert _same_bits(getattr(got, name), getattr(want, name)), name
+        for a, b in zip(got.vertices, want.vertices):
+            assert _same_bits(a, b)
+    assert int(want.meta[0]) > 24
+
+
+def _sharded_scene(dev):
+    cfg = EngineConfig(cache_capacity=256)
+    kw = dict(cap=1024, render_cap=512, gen_cap=512, max_lod=4,
+              probe="ridged6")
+    args = torch_ranks.lod_camera_args(cfg, 160, 120)
+    roots = sharded_lod.subtree_roots(cfg.radius, dev)
+    r = device_step.DeviceRenderer(cfg, 160, 120, device=dev, roots=roots,
+                                   **kw)
+    frame = r.render(r.init_pool(), *args)
+    (packed, n, *_), _ = device_step.raster_packed(r.last_geometry, cfg,
+                                                   160, 120)
+    g = r.last_geometry
+    ids = set(int(q) for q in quadid.from_words(
+        g.leaf_lo[:n].cpu().numpy(), g.leaf_hi[:n].cpu().numpy()))
+    assert not frame.overflowed and n > 24
+    return cfg, kw, args, roots, frame, packed, ids
+
+
+def test_sharded_render_world_of_one_equals_single_device(dev, tmp_path):
+    """chip_smoke.py phase 10(b) at 160x120: build_sharded_render on an
+    NCCL world of one rank over all 24 roots."""
+    cfg, kw, args, _, want, _, want_ids = _sharded_scene(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        fn = sharded_lod.build_sharded_render(
+            cfg, sharded.make_mesh(1, axis="quads"), 160, 120, **kw)
+        pool = device_pool.init(cfg.cache_capacity, cfg.tile_dim, dev)
+        frame, (q_lo, q_hi, n, n_gen) = fn(pool, *args)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(frame.image, want.image)
+    assert torch.equal(frame.depth, want.depth)
+    assert (frame.n_leaves, frame.n_generated, frame.overflowed) == (
+        want.n_leaves, want.n_generated, False)
+    assert set(int(q) for q in quadid.from_words(
+        q_lo[:n].cpu().numpy(), q_hi[:n].cpu().numpy())) == want_ids
+
+
+def test_sharded_ranks_in_turn_fold_to_single_device(dev):
+    """chip_smoke.py phase 10(c) at 160x120: four ranks' shares, each with
+    its own pool and graph, folded by torch.minimum."""
+    cfg, kw, args, roots, want, packed, want_ids = _sharded_scene(dev)
+    fold, got = None, set()
+    for rank in range(4):
+        r = device_step.DeviceRenderer(
+            cfg, 160, 120, device=dev,
+            roots=sharded_lod.local_roots(roots, rank, 4), **kw)
+        geom = r.geometry(r.init_pool(), *args)
+        (pk, n, _, ovf, q_lo, q_hi), _ = device_step.raster_packed(
+            geom, cfg, 160, 120)
+        assert not ovf
+        part = set(int(q) for q in quadid.from_words(
+            q_lo[:n].cpu().numpy(), q_hi[:n].cpu().numpy()))
+        assert not got & part
+        got |= part
+        fold = pk if fold is None else torch.minimum(fold, pk)
+    assert got == want_ids
+    assert torch.equal(fold, packed)
 
 
 def _same_bits(a, b):

@@ -3,9 +3,11 @@ interpreter, import every module of the package (the attribution tools
 under planet_tpu_torch/tools included), render one tiny LOD frame in each
 raster mode and one small cube-sphere field frame on the CPU, run the
 terrain and heightmap API, the driver's non-interactive and interactive
-loops, the entry forward step and the three tools at their small sizes,
-then check sys.modules. And no source file of the
-port, nor chip_smoke.py, names a jax or planet_tpu module in an import."""
+loops, the entry forward step, the three tools at their small sizes and
+the sharded field and LOD paths on a gloo world of one rank, then check
+sys.modules. And no source file of the port, nor chip_smoke.py, nor the
+tests' helpers that the port's ranks and chip_smoke.py import, names a
+jax or planet_tpu module in an import."""
 
 import ast
 import pathlib
@@ -30,7 +32,8 @@ SCRIPT = textwrap.dedent("""
     assert tools <= set(names), sorted(tools - set(names))
     rest = {"planet_tpu_torch." + m
             for m in ("raster.splat", "models.terrain", "ops.heightmap",
-                      "utils.timing", "io.driver", "entry")}
+                      "utils.timing", "io.driver", "entry",
+                      "parallel.sharded", "parallel.sharded_lod")}
     assert rest <= set(names), sorted(rest - set(names))
     from planet_tpu_torch.engine.config import EngineConfig
     from planet_tpu_torch.engine.planet import PlanetEngine
@@ -85,6 +88,30 @@ SCRIPT = textwrap.dedent("""
     from planet_tpu_torch.tools import lut, noise_stages, span_parts
     for tool in (noise_stages, lut, span_parts):
         assert tool.main(["--device", "cpu", "--small", "--reps", "1"]) == 0
+    import torch.distributed as dist
+    from planet_tpu_torch.cache import device_pool
+    from planet_tpu_torch.parallel import facemesh, sharded, sharded_lod
+    from planet_tpu_torch.nums import df as dfm
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method="file://" + d + "/store",
+                                rank=0, world_size=1)
+        mesh = sharded.make_mesh(1, device_type="cpu")
+        pts = np.stack([facemesh.face_grid_points(f, 8, 6.371e6)
+                        for f in range(6)])
+        comps = [torch.from_numpy(a) for k in range(3)
+                 for a in dfm.from_f64_np(pts[..., k])]
+        h, sh, stats = sharded.sharded_field_step(mesh, octaves=2)(*comps)
+        assert h.shape == (6, 8, 8) and float(stats[0]) == 6 * 64
+        qmesh = sharded.make_mesh(1, axis="quads", device_type="cpu")
+        render = sharded_lod.build_sharded_render(
+            EngineConfig(), qmesh, 32, 24, cap=256, render_cap=64,
+            gen_cap=64, max_lod=2, probe="zero")
+        frame, _ = render(
+            device_pool.init(64, 32, "cpu"),
+            *dfm.from_f64_np(np.array([0.0, 0.0, -1.9113e7])),
+            np.eye(4, dtype=np.float32))
+        assert frame.n_leaves == 24 and not frame.overflowed
+        dist.destroy_process_group()
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     print(len(names), "modules;", "jax modules:", bad)
     ref = sorted(m for m in sys.modules
@@ -113,7 +140,8 @@ def _imported(path: pathlib.Path):
 
 def test_port_sources_import_no_reference_package():
     files = sorted((ROOT / "planet_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_scenes.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_scenes.py",
+              ROOT / "tests" / "torch_ranks.py"]
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported(f)
            if m.split(".")[0] in ("jax", "planet_tpu")]
     assert len(files) > 40

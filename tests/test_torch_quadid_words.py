@@ -89,3 +89,18 @@ def test_words_dfs_key_matches_host_order():
     dev_order = torch.argsort(key, stable=True).numpy()
     np.testing.assert_array_equal(dev_order,
                                   np.argsort(host_keys, kind="stable"))
+
+
+def test_words_equal_bitwise(words):
+    jlo, jhi, tlo, thi = words
+    # each id against itself, its neighbour in the list, and an id that
+    # differs from it in one word only
+    for shift in (0, 1):
+        blo, bhi = np.roll(np.asarray(jlo), shift), np.roll(np.asarray(jhi),
+                                                            shift)
+        _eq(jq.words_equal(jlo, jhi, jnp.asarray(blo), jnp.asarray(bhi)),
+            tq.words_equal(tlo, thi, torch.from_numpy(blo),
+                           torch.from_numpy(bhi)))
+    _eq(jq.words_equal(jlo, jhi, jlo ^ 1, jhi),
+        tq.words_equal(tlo, thi, tlo ^ 1, thi))
+    assert bool(tq.words_equal(tlo, thi, tlo, thi).all())
