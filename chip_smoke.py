@@ -98,7 +98,17 @@ result line is printed:
    depth-0 ones split, warm frame ms; (c) four ranks' shares in turn in
    this process, their packed framebuffers folded by torch.minimum
    bitwise equal to (b)'s; (d) four processes on the card over gloo,
-   bitwise equal to (b); K1, K2, K4, K5 and K6 launched (K3 printed).
+   bitwise equal to (b); K1, K2, K4, K5 and K6 launched (K3 printed);
+11. the stage bisection and the dry run (`stage_ladder`), counts reset
+   before and read after: (a) planet_tpu_torch.tools.stage_times in a
+   process of its own, its rung table (ms by CUDA events, marginal ms,
+   each rung's device events in one torch.profiler session, launches a
+   frame) for static-1080p and moving-1080p, each rung's leaves phase
+   5b's; (b) from phase 5b's pool before its last static frame, the
+   "geometry" rung bitwise equal to DeviceRenderer.geometry and the
+   "full" rung's frame bitwise equal to phase 5b's; (c)
+   entry.dryrun_multichip(4), four gloo processes sharing the card; K1,
+   K2, K4 and K6 launched in this process.
 
 The second-to-last lines are a JSON summary of the kernels (launches from
 phase 5b, from phase 7 for the field kernel, from phase 9a's frames for
@@ -915,6 +925,138 @@ def sharded_paths(dev, width, height, *, camera_args, static_ids,
     return res
 
 
+def stage_ladder(dev, width, height, *, camera_args, static_pool,
+                 static_frame, orbit_leaves, tool_args=(), ranks=4,
+                 log=print):
+    """Phase 11: the stage bisection (stop_after) and dryrun_multichip.
+    The caller sets the launch counts to 0 before it and reads them after.
+
+    (a) planet_tpu_torch.tools.stage_times in a process of its own (a
+        fresh process, so that torch.profiler sees the ctypes-launched
+        kernels; `tool_args` passes --device cpu --small in a CPU
+        rehearsal): its rung table for static-1080p and moving-1080p, then
+        its report: every rung of both scenes present, each rung's
+        n_leaves phase 5b's (`static_frame.n_leaves`; `orbit_leaves`,
+        frames 1 on), and on the card each rung's replay holding device
+        events, K4 launched by every rung, K1 once by every rung from
+        "generate" on, K6 and K2 by "full";
+    (b) from phase 5b's pool state before its last static frame
+        (`static_pool`) and its camera, in this process: the "geometry"
+        rung's Geometry and pool bit for bit those of phase 5b's renderer's
+        geometry(), and the "full" rung's frame bit for bit phase 5b's last
+        static frame (`static_frame`);
+    (c) entry.dryrun_multichip(ranks) with the ranks' tensors on `dev`.
+
+    Returns {name: number} for the [11] line."""
+    import tempfile
+
+    from planet_tpu_torch import entry
+    from planet_tpu_torch.cache import device_pool
+    from planet_tpu_torch.engine import device_step
+    from planet_tpu_torch.engine.config import EngineConfig
+
+    cuda = dev.type == "cuda"
+    res = {}
+
+    # ------------------------------------------ (a) the ladder, a process
+    t_a = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stages_") as tmp:
+        out = pathlib.Path(tmp) / "stage_times.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", "planet_tpu_torch.tools.stage_times",
+             "--json", str(out), *tool_args], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            log(f"[11a] {line}")
+        check(proc.returncode == 0, "11a: stage_times exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        report = json.loads(out.read_text())
+    scenes = report["scenes"]
+    check(list(scenes) == ["static-1080p", "moving-1080p"],
+          f"11a: scenes {list(scenes)}")
+    for scene, rows in scenes.items():
+        check([r["rung"] for r in rows] == list(device_step.RUNGS),
+              f"11a {scene}: rungs {[r['rung'] for r in rows]}")
+        for r in rows:
+            want = (static_frame.n_leaves if scene == "static-1080p"
+                    else orbit_leaves[1:len(r["n_leaves"]) + 1])
+            check(r["n_leaves"] == want, f"11a {scene} {r['rung']}: "
+                  f"leaves {r['n_leaves']} != phase 5b's {want}")
+            if not cuda:
+                continue
+            check(r["kernels"] > 0, f"11a {scene} {r['rung']}: no device "
+                  "events in its window")
+            check(r["launches"].get("noise", 0) > 0,
+                  f"11a {scene} {r['rung']}: no K4 launch")
+            if r["rung"] not in ("refine", "cache"):
+                check(r["launches"].get("tile", 0) == 1,
+                      f"11a {scene} {r['rung']}: K1 launches "
+                      f"{r['launches']}")
+            if r["rung"] == "full":
+                check(r["launches"].get("gather", 0) > 0
+                      and r["launches"].get("span", 0) > 0,
+                      f"11a {scene} full: raster launches {r['launches']}")
+    res["stage_ms"] = {scene: {r["rung"]: r["ms"] for r in rows}
+                       for scene, rows in scenes.items()}
+    res["stage_kernels"] = {scene: {r["rung"]: r.get("kernels")
+                                    for r in rows}
+                            for scene, rows in scenes.items()}
+    res["stage_card"] = report["card"]
+    log(f"[11a] stage_times: every rung of both scenes draws phase 5b's "
+        f"leaves; (a) in {time.perf_counter() - t_a:.1f} s")
+
+    # ------------------------------ (b) the geometry and full rungs, here
+    t_b = time.perf_counter()
+    cfg = EngineConfig(window_w=width, window_h=height)
+
+    def pool_at(state):
+        pool = device_pool.init(cfg.cache_capacity, cfg.tile_dim, dev)
+        for t, v in zip(pool, state):
+            t.copy_(v)
+        return pool
+
+    base = device_step.DeviceRenderer(cfg, width, height, device=dev)
+    rung = device_step.DeviceRenderer(cfg, width, height, device=dev,
+                                      stop_after="geometry")
+    pool_base, pool_rung = pool_at(static_pool), pool_at(static_pool)
+    want = base.geometry(pool_base, *camera_args)
+    got = rung.geometry(pool_rung, *camera_args)
+    for name in ("leaf_lo", "leaf_hi", "leaf_depth", "slot", "tiles",
+                 "valid", "vertex_shade", "meta"):
+        check(same_bits(getattr(got, name), getattr(want, name)),
+              f"11b: the geometry rung's {name} != DeviceRenderer.geometry's")
+    for a, b in zip(got.vertices, want.vertices):
+        check(same_bits(a, b), "11b: the geometry rung's vertices != "
+              "DeviceRenderer.geometry's")
+    cap = cfg.cache_capacity
+    for a, b in zip(pool_rung, pool_base):
+        check(same_bits(a[:cap] if a.dim() else a, b[:cap] if b.dim() else b),
+              "11b: the geometry rung's pool != DeviceRenderer.geometry's")
+    full = device_step.DeviceRenderer(cfg, width, height, device=dev,
+                                      stop_after="full")
+    frame = full.render(pool_at(static_pool), *camera_args)
+    check(same_bits(frame.image, static_frame.image)
+          and same_bits(frame.depth, static_frame.depth)
+          and frame.n_leaves == static_frame.n_leaves,
+          "11b: the full rung's frame != phase 5b's static frame")
+    log(f"[11b] from phase 5b's pool before its last static frame: the "
+        f"geometry rung bitwise equal to DeviceRenderer.geometry (leaves, "
+        f"slots, tiles, vertices, shade, counters, pool), the full rung's "
+        f"frame bitwise equal to phase 5b's ({frame.n_leaves} leaves); "
+        f"(b) in {time.perf_counter() - t_b:.1f} s")
+    del base, rung, full, pool_base, pool_rung
+
+    # -------------------------------------------- (c) dryrun_multichip
+    t_c = time.perf_counter()
+    entry.dryrun_multichip(ranks, device=dev.type)
+    res["dryrun_s"] = time.perf_counter() - t_c
+    log(f"[11c] dryrun_multichip({ranks}) on {dev.type}: (a) the field "
+        f"step, (a2) the 2-axis mesh bitwise, (b) the LOD composite bitwise "
+        f"equal to the single-device step over the 24 roots, (b2) the "
+        f"2-axis LOD mesh bitwise; {res['dryrun_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1501,6 +1643,8 @@ def main() -> int:
     pool = rend.init_pool()
     static_ms = []
     for i in range(10):
+        if i == 9:      # phase 11 renders this frame again from this state
+            static_pool = [t.clone() for t in pool]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fr = rend.render(pool, *device_args(cfg1080, bench_cam(), W_1080,
@@ -1515,6 +1659,7 @@ def main() -> int:
               flush=True)
     print(f"[5b] 1080p static: median of frames 2-9 "
           f"{float(np.median(static_ms[2:])):.3f} ms", flush=True)
+    static_frame = fr
     static_ids = set(int(q) for q in quadid.from_words(
         rend.last_geometry.leaf_lo[:fr.n_leaves].cpu().numpy(),
         rend.last_geometry.leaf_hi[:fr.n_leaves].cpu().numpy()))
@@ -1810,6 +1955,24 @@ def main() -> int:
     shard["huge_launches"] = launches_sharded["huge"]
     print(f"[10] the multi-card slice on one card in "
           f"{time.perf_counter() - t10:.1f} s: " + json.dumps(shard),
+          flush=True)
+
+    # ----------------------------------------------------------- phase 11
+    t11 = time.perf_counter()
+    _cuda.reset_launches()
+    ladder = stage_ladder(
+        dev, W_1080, H_1080,
+        camera_args=device_args(cfg1080, bench_cam(), W_1080, H_1080),
+        static_pool=static_pool, static_frame=static_frame,
+        orbit_leaves=[len(ids) for ids in orbit_ids],
+        log=lambda m: print(m, flush=True))
+    launches_ladder = dict(_cuda.launches)
+    print(f"[11] launches, stage rungs and the dryrun's reference (phase "
+          f"11, this process): {launches_ladder}", flush=True)
+    for k in ("tile", "noise", "gather", "span"):
+        check(launches_ladder[k] > 0, f"phase 11 launched no {k} kernel")
+    print(f"[11] the stage ladder and dryrun_multichip in "
+          f"{time.perf_counter() - t11:.1f} s: " + json.dumps(ladder),
           flush=True)
 
     check(not any(m == "jax" or m.startswith(("jax.", "planet_tpu."))

@@ -133,26 +133,30 @@ def _stats(h):
 
 def _row_halos(h, group, idx: int, n: int):
     """(from_above, from_below): the last row of rank idx - 1's strip and
-    the first row of rank idx + 1's (None where there is no neighbour)."""
+    the first row of rank idx + 1's (None where there is no neighbour).
+    gloo sends and receives host memory only, so over gloo a strip on a
+    card sends and receives its rows through the host."""
     if n == 1:
         return None, None
+    via = "cpu" if dist.get_backend(group) == "gloo" else h.device
     ops, above, below = [], None, None
     row = (h.shape[0], 1, h.shape[2])   # contiguous: NCCL receives into it
     if idx > 0:
-        above = h.new_empty(row)
-        ops += [dist.P2POp(dist.isend, h[:, :1].contiguous(),
+        above = h.new_empty(row, device=via)
+        ops += [dist.P2POp(dist.isend, h[:, :1].contiguous().to(via),
                            dist.get_global_rank(group, idx - 1), group),
                 dist.P2POp(dist.irecv, above,
                            dist.get_global_rank(group, idx - 1), group)]
     if idx < n - 1:
-        below = h.new_empty(row)
-        ops += [dist.P2POp(dist.isend, h[:, -1:].contiguous(),
+        below = h.new_empty(row, device=via)
+        ops += [dist.P2POp(dist.isend, h[:, -1:].contiguous().to(via),
                            dist.get_global_rank(group, idx + 1), group),
                 dist.P2POp(dist.irecv, below,
                            dist.get_global_rank(group, idx + 1), group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return above, below
+    return tuple(None if t is None else t.to(h.device)
+                 for t in (above, below))
 
 
 def sharded_field_step(mesh: DeviceMesh, *, octaves: int = 6,

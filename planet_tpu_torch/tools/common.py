@@ -191,6 +191,25 @@ def sass_census(library: str, match=("noise", "field", "tile", "stage"),
 
 
 @functools.lru_cache(maxsize=None)
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's SM clock now (nvidia-smi clocks.sm), in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
     out = subprocess.run(

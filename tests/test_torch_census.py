@@ -5,7 +5,13 @@ reads both packages' sources with `ast` and imports neither.
 A planet_tpu module maps to the port's module of the same path, except
 the Pallas kernel modules, whose counterparts are the CUDA wrappers
 (RENAMED). A name found under another name or in another module of the
-port stands in ELSEWHERE.
+port stands in ELSEWHERE. The root `__graft_entry__.py` maps to the port's
+`entry.py`.
+
+The keywords of planet_tpu's build_device_render and DeviceRenderer
+stand in the port's (whose build_device_render forwards the rest to
+build_geometry_step), in KEYWORDS_ELSEWHERE with what takes their place,
+or in KEYWORDS_LEFT_OUT with the reason.
 """
 
 import ast
@@ -59,6 +65,25 @@ LEFT_OUT = {
 }
 
 
+# planet_tpu's build_device_render keywords -> what the port has instead
+KEYWORDS_ELSEWHERE = {
+    # the untraced step: the port's build_device_render runs the step
+    # eagerly (DeviceRenderer captures it, as jit=True compiles it)
+    "jit": ("build_device_render", None),
+    # the step always takes its roots as inputs (face_roots by default)
+    "dynamic_roots": ("build_device_render", "roots"),
+    # the packed framebuffer comes from raster_packed
+    "raster_out": ("raster_packed", None),
+}
+KEYWORDS_LEFT_OUT = {
+    "interpret": "Pallas interpret mode for the TPU kernels; the port's "
+                 "kernels run their plain versions on CPU tensors",
+    "raster_cfg": "the TPU raster's class caps (coverage_pallas."
+                  "raster_frame_auto's keywords); the port has one raster, "
+                  "coverage_cuda.raster_frame",
+}
+
+
 def _public(path: pathlib.Path) -> set:
     tree = ast.parse(path.read_text(), str(path))
     return {n.name for n in tree.body
@@ -91,3 +116,50 @@ def test_tables_name_what_planet_tpu_has():
     for module, name in list(LEFT_OUT) + list(ELSEWHERE):
         assert name in _public(REF / module), (module, name)
     assert all(reason for reason in LEFT_OUT.values())
+
+
+def test_graft_entry_has_its_counterparts():
+    have = _public(PORT / "entry.py")
+    names = _public(ROOT / "__graft_entry__.py")
+    assert names == {"entry", "dryrun_multichip"}
+    assert names <= have, names - have
+
+
+def _keywords(path: pathlib.Path, func: str) -> set:
+    """The keyword names of a module's function (or a class's __init__)."""
+    tree = ast.parse(path.read_text(), str(path))
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef) and node.name == func:
+            node = next(n for n in node.body
+                        if isinstance(n, ast.FunctionDef)
+                        and n.name == "__init__")
+        elif not (isinstance(node, ast.FunctionDef) and node.name == func):
+            continue
+        args = node.args
+        return {a.arg for a in args.args + args.kwonlyargs} - {"self"}
+    raise AssertionError(f"{path}: no {func}")
+
+
+def test_device_step_keywords_have_their_counterparts():
+    ref = REF / "engine" / "device_step.py"
+    port = PORT / "engine" / "device_step.py"
+    forwarded = _keywords(port, "build_geometry_step")
+    have = _keywords(port, "build_device_render") | forwarded
+    want = _keywords(ref, "build_device_render")
+    assert "stop_after" in want and "stop_after" in have
+    public = _public(port)
+    for name in sorted(want):
+        if name in KEYWORDS_LEFT_OUT:
+            assert name not in have, f"{name} is ported: drop it"
+        elif name in KEYWORDS_ELSEWHERE:
+            func, keyword = KEYWORDS_ELSEWHERE[name]
+            assert func in public, (name, func)
+            assert keyword is None or keyword in have, (name, keyword)
+        else:
+            assert name in have, f"build_device_render's {name} has no " \
+                                 "counterpart in the port"
+    assert set(KEYWORDS_ELSEWHERE) | set(KEYWORDS_LEFT_OUT) <= want
+    assert all(KEYWORDS_LEFT_OUT.values())
+    renderer = _keywords(port, "DeviceRenderer") | forwarded
+    assert (_keywords(ref, "DeviceRenderer") - {"cfg"}) <= renderer
+    assert "stop_after" in renderer

@@ -22,7 +22,9 @@ equal to its plain version (k = 1-8, wireframe); the routed raster (K6 -> K2 -> 
 synchronisation; K5's row strips equal to the full cube's rows; one
 CUDA-graph replay of the fused frame's geometry step bitwise equal to the
 same step run eagerly on the card, from the six faces and from the 24
-subtree roots; the sharded LOD render on an NCCL world of one rank, and
+subtree roots, and each stop_after rung's graph bitwise equal to that cut
+step run eagerly; dryrun_multichip on two gloo ranks sharing the card;
+the sharded LOD render on an NCCL world of one rank, and
 four ranks' shares run in turn and folded by torch.minimum, each bitwise
 equal to the single-device frame from the 24 roots; every variant of the
 attribution tools
@@ -447,6 +449,64 @@ def test_graph_replay_equals_eager_step_dynamic_roots(dev):
         for a, b in zip(got.vertices, want.vertices):
             assert _same_bits(a, b)
     assert int(want.meta[0]) > 24
+
+
+def _flat(out):
+    """The tensors of a Geometry or a Truncated, nested tuples opened."""
+    if isinstance(out, device_step.Truncated):
+        out = (out.meta, *out.outputs.values())
+    for x in out:
+        if isinstance(x, tuple):
+            yield from x
+        else:
+            yield x
+
+
+@pytest.mark.parametrize("rung", device_step.STAGES)
+def test_stop_after_rungs_captured_equal_eager(dev, rung):
+    """Each stop_after rung captured as a graph of its own: replays from
+    two cameras (the golden one, then one 10 % nearer) equal the cut step
+    run eagerly on the card, outputs and pool bit for bit; a replay
+    launches K4 19 times and K1 once from "generate" on."""
+    cfg = EngineConfig()
+    pos = np.load(GOLD + "frame_cam.npy")
+    angles = np.load(GOLD + "frame_angles.npy")
+    kw = dict(cap=1024, render_cap=512, gen_cap=128, stop_after=rung)
+    r = device_step.DeviceRenderer(cfg, 800, 600, device=dev, **kw)
+    step = device_step.build_geometry_step(cfg, device=dev, **kw)
+    pool_g, pool_e = r.init_pool(), r.init_pool()
+    roots = device_step.face_roots(cfg.radius, dev)
+    cap = cfg.cache_capacity
+    for scale in (1.0, 0.9):
+        cam = cam_mod.Camera(position=pos * scale, angles=angles)
+        rot = cam_mod.camera_rotation(cam)
+        pf = cam_mod.proj_factor_from_fovy(np.deg2rad(cfg.fovy_deg))
+        vp = (cam_mod.perspective_lh(pf, 4 / 3, cfg.near_plane,
+                                     cfg.far_plane)
+              @ cam_mod.view_from_rotation(rot)).astype(np.float32)
+        args = (*tdf.from_f64_np(cam.position), vp)
+        got = r.geometry(pool_g, *args)
+        want = step(pool_e, *(torch.as_tensor(a, device=dev) for a in args),
+                    *roots)
+        assert type(got) is type(want)
+        pairs = list(zip(_flat(got), _flat(want)))
+        assert len(pairs) == len(list(_flat(want))) > 2
+        for i, (a, b) in enumerate(pairs):
+            assert _same_bits(a, b), (rung, scale, i)
+        for a, b in zip(pool_g, pool_e):
+            assert torch.equal(a[:cap] if a.dim() else a,
+                               b[:cap] if b.dim() else b)
+    assert int(got.meta[0]) > 0
+    tally = r.graph_launches
+    assert tally["noise"] == 19, tally
+    assert tally["tile"] == (0 if rung in ("refine", "cache") else 1), tally
+
+
+def test_dryrun_multichip_on_the_card(dev):
+    """entry.dryrun_multichip(2): two gloo ranks sharing the card, every
+    check of (a) and (b) (2 is below the 2-axis meshes' 4)."""
+    from planet_tpu_torch import entry
+    entry.dryrun_multichip(2)
 
 
 def _sharded_scene(dev):

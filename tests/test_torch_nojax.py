@@ -4,8 +4,9 @@ under planet_tpu_torch/tools included), render one tiny LOD frame in each
 raster mode and one small cube-sphere field frame on the CPU, run the
 terrain and heightmap API, the driver's non-interactive and interactive
 loops, the entry forward step, the three tools at their small sizes and
-the sharded field and LOD paths on a gloo world of one rank, then check
-sys.modules. And no source file of the port, nor chip_smoke.py, nor the
+the sharded field and LOD paths on a gloo world of one rank, one
+truncated rung of the device step and dryrun_multichip on one spawned
+CPU rank, then check sys.modules. And no source file of the port, nor chip_smoke.py, nor the
 tests' helpers that the port's ranks and chip_smoke.py import, names a
 jax or planet_tpu module in an import."""
 
@@ -33,7 +34,8 @@ SCRIPT = textwrap.dedent("""
     rest = {"planet_tpu_torch." + m
             for m in ("raster.splat", "models.terrain", "ops.heightmap",
                       "utils.timing", "io.driver", "entry",
-                      "parallel.sharded", "parallel.sharded_lod")}
+                      "parallel.sharded", "parallel.sharded_lod",
+                      "parallel.ranks", "tools.stage_times")}
     assert rest <= set(names), sorted(rest - set(names))
     from planet_tpu_torch.engine.config import EngineConfig
     from planet_tpu_torch.engine.planet import PlanetEngine
@@ -112,6 +114,14 @@ SCRIPT = textwrap.dedent("""
             np.eye(4, dtype=np.float32))
         assert frame.n_leaves == 24 and not frame.overflowed
         dist.destroy_process_group()
+    from planet_tpu_torch.engine import device_step
+    tess = device_step.DeviceRenderer(EngineConfig(), 32, 24, device="cpu",
+                                      stop_after="tess", cap=256,
+                                      render_cap=64, gen_cap=64, max_lod=2)
+    frame = tess.render(tess.init_pool(), *dfm.from_f64_np(
+        np.array([0.0, 0.0, -1.9113e7])), np.eye(4, dtype=np.float32))
+    assert frame.n_leaves == 6 and not frame.image.any()
+    entry.dryrun_multichip(1, device="cpu")
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     print(len(names), "modules;", "jax modules:", bad)
     ref = sorted(m for m in sys.modules
