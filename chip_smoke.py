@@ -17,7 +17,11 @@ result line is printed:
    K1 tiles (bitwise, lacunarity 2.0 and 1.7, and at the fused frame's
    occupancy — most slots count 0 — with a positive and a negative
    amplitude), K4 noise (bitwise, at the refine-probe shape 5 x 4096 x 6
-   octaves, at 2^20 points x 18 octaves and fBm at lacunarity 1.7); on
+   octaves, at 2^20 points x 18 octaves and fBm at lacunarity 1.7), R1
+   refine (bitwise in ids, depths, DF corners, n_leaves and the overflow
+   flag, as the fused frame calls it: cap 4096, max_lod 18, ridged probes;
+   on the 1080p static camera, the 8 orbit cameras, cap 64, which
+   overflows, and the 24 subtree roots; one launch a level); on
    the record sets of tools/kernel_times.record_sets (the 1080p static
    scene, the three goldens, the orbit frames with huge records): K6
    route + gather (records and counts bitwise, also with every candidate
@@ -38,13 +42,15 @@ result line is printed:
 5a. the fused device frame's CUDA graph: two replays of the geometry step
    bitwise equal to the same step run eagerly on the card, the replay's
    CUDA-event time, and a torch.profiler trace of one replay whose device
-   events include the K1 and K4 kernels;
+   events include the K1 and R1 kernels and no K4 (R1 inlines its probe
+   noise; the replay launches R1 once a level);
 5b. the fused device frame, DeviceRenderer(...).render through graph
    replays: the golden / nearclip / farclip scenes at their bars, the
    1920x1080 static scene (10 frames) and the 8-frame orbit, each orbit
    frame's leaf ids equal to phase 5's PlanetEngine on the same camera;
 6. launch counts: each kernel of each path launched during that path's
-   phases (4-5: tile, gather, span, huge; 5b: those and noise) > 0;
+   phases (4-5: tile, gather, span, huge; 5b: those and refine) > 0, and
+   K4 not launched by 5b;
 7. the cube-sphere field path (models/heightfield), counts reset before
    and read after: config 1 (flat 256x256 patch, fBm 4, through K4)
    bitwise equal to K4's plain version on the same noise coordinates and
@@ -98,7 +104,8 @@ result line is printed:
    depth-0 ones split, warm frame ms; (c) four ranks' shares in turn in
    this process, their packed framebuffers folded by torch.minimum
    bitwise equal to (b)'s; (d) four processes on the card over gloo,
-   bitwise equal to (b); K1, K2, K4, K5 and K6 launched (K3 printed);
+   bitwise equal to (b); K1, K2, K4, K5, K6 and R1 launched (K3
+   printed);
 11. the stage bisection and the dry run (`stage_ladder`), counts reset
    before and read after: (a) planet_tpu_torch.tools.stage_times in a
    process of its own, its rung table (ms by CUDA events, marginal ms,
@@ -108,10 +115,12 @@ result line is printed:
    "geometry" rung bitwise equal to DeviceRenderer.geometry and the
    "full" rung's frame bitwise equal to phase 5b's; (c)
    entry.dryrun_multichip(4), four gloo processes sharing the card; K1,
-   K2, K4 and K6 launched in this process.
+   K2, R1 and K6 launched in this process, and every rung launching R1
+   and no K4.
 
 The second-to-last lines are a JSON summary of the kernels (launches from
-phase 5b, from phase 7 for the field kernel, from phase 9a's frames for
+phase 5b, from phase 7 for the field and noise kernels (K4 is off the fused
+frame since R1), from phase 9a's frames for
 S1 and from phase 8 for the t_* kernels, which also carry each variant's ms; each kernel's time, single
 launch and queued, its plain version's, a library call's where one
 computes the same function — none routes and gathers, so K6 gives the
@@ -467,7 +476,8 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
               f"9a device splat orbit frame {i}: leaf ids differ from the "
               "exact mode's")
         check(bool(torch.isfinite(fr.image).all()), f"9a orbit {i}: finite")
-    counted("a", ("tile", "noise", "splat"))
+    counted("a", ("tile", "refine", "splat"))
+    check(_cuda.launches["noise"] == 0, "9a: the splat frames launched K4")
     n_frames = reps + 2 + reps + len(orbit)
     check(_cuda.launches["splat"] == n_frames,
           f"9a {n_frames} splat frames launched S1 "
@@ -621,7 +631,7 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
                 f"{max(teng.ms[2:]):.3f}); PNG dumps equal to the full "
                 f"frames")
             counted("c", ("tile", "span", "gather", "huge")
-                    + (("noise",) if key == "device" else ()))
+                    + (("refine",) if key == "device" else ()))
             del teng
         # the driver as a user runs it, in a process of its own: in this
         # long-lived one, the profiler's later sessions recorded none of the
@@ -986,8 +996,10 @@ def stage_ladder(dev, width, height, *, camera_args, static_pool,
                 continue
             check(r["kernels"] > 0, f"11a {scene} {r['rung']}: no device "
                   "events in its window")
-            check(r["launches"].get("noise", 0) > 0,
-                  f"11a {scene} {r['rung']}: no K4 launch")
+            check(r["launches"].get("refine", 0) > 0
+                  and r["launches"].get("noise", 0) == 0,
+                  f"11a {scene} {r['rung']}: launches {r['launches']} (R1 "
+                  "expected, K4 not)")
             if r["rung"] not in ("refine", "cache"):
                 check(r["launches"].get("tile", 0) == 1,
                       f"11a {scene} {r['rung']}: K1 launches "
@@ -1237,6 +1249,71 @@ def main() -> int:
         if "noise" not in report:       # the main path's shape
             report["noise"] = dict(ms=ms, plain_ms=plain_ms, bound=bound4)
     report["noise"]["max_abs_err"] = err4
+
+    # R1: the fused frame's refine as the main path calls it (cap 4096,
+    # max_lod 18, ridged probes, the six faces) against its plain version
+    # (every level at full width, its probes through K4) bit for bit, on
+    # the 1080p static camera, the orbit, an overflowing cap and the 24
+    # subtree roots with their depths
+    from planet_tpu_torch.lod import refine_device as lod_refine_device
+    from planet_tpu_torch.ops.kernels import refine_cuda
+    from planet_tpu_torch.parallel import sharded_lod
+    faces = device_step.face_roots(cfg1080.radius, dev)[:4]
+    subtrees = sharded_lod.subtree_roots(cfg1080.radius, dev)
+
+    def refine_inputs(cam, roots=faces, **kw):
+        c = [torch.as_tensor(a, device=dev)
+             for a in dfm.from_f64_np(cam.position)]
+        return (*c, *roots), dict(dict(
+            max_lod=cfg1080.max_lod, cap=4096, radius=cfg1080.radius,
+            probe="ridged6"), **kw)
+
+    r1_cases = [("1080p static", refine_inputs(bench_cam())),
+                *((f"orbit frame {i}", refine_inputs(cam))
+                  for i, cam in enumerate(orbit_cams())),
+                ("1080p static, cap 64 (overflows)",
+                 refine_inputs(bench_cam(), cap=64)),
+                ("1080p static, the 24 subtree roots",
+                 refine_inputs(bench_cam(), roots=subtrees[:4],
+                               root_depth=subtrees[4]))]
+    err_r1, r1_leaves = 0.0, []
+    for label, (args, kw) in r1_cases:
+        got = refine_cuda.refine_cuda(*args, **kw)
+        want = lod_refine_device.refine_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err_r1 = max(err_r1, float((got[1] - want[1]).abs().max()))
+        for name, a, b in zip(("ids and depths", "corners", "n_leaves",
+                               "overflowed"), got, want):
+            check(same_bits(a, b), f"R1 {label}: {name} != plain (max abs "
+                  f"err {err_r1})")
+        check(bool(got[3]) == ("overflows" in label),
+              f"R1 {label}: overflowed {bool(got[3])}")
+        r1_leaves.append(int(got[2]))
+        print(f"[3] R1 refine, {label}: {int(got[2])} leaves, overflowed "
+              f"{bool(got[3])}; bitwise equal to plain (ids, depths, DF "
+              f"corners, counts)", flush=True)
+    args, kw = r1_cases[0][1]
+    n_r1 = r1_leaves[0]
+    splits_r1 = (n_r1 - 6) // 3          # every split slot's 4 children
+    ops_r1, f64_r1 = tool_common.refine_work(n_r1 + splits_r1, splits_r1)
+    # read once: the camera and the six roots; written once: the (27, cap)
+    # leaf rows, n_leaves and the flag
+    bytes_r1 = 24 + 6 * (3 * 4 + 2 * 48) + 4096 * 27 * 4 + 5
+    before = _cuda.launches["refine"]
+    report["refine"] = dict(
+        max_abs_err=err_r1,
+        ms=time_ms(lambda: refine_cuda.refine_cuda(*args, **kw)),
+        plain_ms=time_ms(lambda: lod_refine_device.refine_plain(*args,
+                                                                **kw)),
+        bound=bound_ms(ops_r1, bytes_r1, f64_r1))
+    check(_cuda.launches["refine"] - before == REPS * (kw["max_lod"] + 1),
+          "R1: not one launch a level")
+    print(f"[3] R1 refine, 1080p static ({n_r1} leaves, {n_r1 + splits_r1} "
+          f"live slots evaluated, {splits_r1} split, {kw['max_lod'] + 1} "
+          f"launches a refine): kernel {report['refine']['ms']:.3f} ms, "
+          f"plain {report['refine']['plain_ms']:.3f} ms, bound "
+          f"{report['refine']['bound'][0]:.5f} ms "
+          f"({report['refine']['bound'][1]})", flush=True)
 
     def raster_compare(name, width, height, kernel, plain, key,
                        wireframe=False):
@@ -1607,13 +1684,19 @@ def main() -> int:
     busy_us = sum(e.device_time_total for e in events)
     print(f"[5a] profiler, one replay: {sum(e.count for e in events)} device "
           f"events, {len(events)} distinct, {busy_us / 1e3:.3f} ms device "
-          f"time; K1 {'tiles_kernel' in names}, K4 "
+          f"time; K1 {'tiles_kernel' in names}, R1 "
+          f"{'evaluate_kernel' in names and 'compact_kernel' in names}, K4 "
           f"{'noise_kernel' in names}", flush=True)
     for e in sorted(events, key=lambda e: -e.device_time_total)[:6]:
         print(f"[5a]   {e.device_time_total / 1e3:8.3f} ms x{e.count:5d}  "
               f"{e.key[:90]}", flush=True)
-    check("tiles_kernel" in names and "noise_kernel" in names,
-          "the profiled replay shows no K1/K4 kernel")
+    check("tiles_kernel" in names and "evaluate_kernel" in names
+          and "compact_kernel" in names,
+          "the profiled replay shows no K1/R1 kernel")
+    check("noise_kernel" not in names, "the profiled replay launched K4")
+    check(rend._tally["refine"] == cfg800.max_lod + 1
+          and rend._tally["noise"] == 0,
+          f"the replay's launches {rend._tally}: R1 not one a level, or K4")
     del rend, step, pool_g, pool_e, got, want
 
     # ----------------------------------------------------------- phase 5b
@@ -1707,9 +1790,11 @@ def main() -> int:
     for k in ("tile", "gather", "span", "huge"):
         check(launches_host[k] > 0, f"kernel {k} was not launched by the "
               "host-orchestrated path")
-    for k in ("tile", "noise", "gather", "span", "huge"):
+    for k in ("tile", "refine", "gather", "span", "huge"):
         check(launches_dev[k] > 0, f"kernel {k} was not launched by the "
               "fused device path")
+    check(launches_dev["noise"] == 0, "the fused device path launched K4 "
+          "(its probes run inside R1)")
 
     # ------------------------------------------------------------ phase 7
     # the cube-sphere field path, its counts from 0 (BASELINE configs 1, 2
@@ -1950,7 +2035,7 @@ def main() -> int:
     launches_sharded = dict(_cuda.launches)
     print(f"[10] launches, sharded paths (phase 10, this process): "
           f"{launches_sharded}", flush=True)
-    for k in ("tile", "span", "gather", "noise", "field"):
+    for k in ("tile", "span", "gather", "noise", "field", "refine"):
         check(launches_sharded[k] > 0, f"phase 10 launched no {k} kernel")
     shard["huge_launches"] = launches_sharded["huge"]
     print(f"[10] the multi-card slice on one card in "
@@ -1969,7 +2054,7 @@ def main() -> int:
     launches_ladder = dict(_cuda.launches)
     print(f"[11] launches, stage rungs and the dryrun's reference (phase "
           f"11, this process): {launches_ladder}", flush=True)
-    for k in ("tile", "noise", "gather", "span"):
+    for k in ("tile", "refine", "gather", "span"):
         check(launches_ladder[k] > 0, f"phase 11 launched no {k} kernel")
     print(f"[11] the stage ladder and dryrun_multichip in "
           f"{time.perf_counter() - t11:.1f} s: " + json.dumps(ladder),
@@ -1979,6 +2064,7 @@ def main() -> int:
                   or m == "planet_tpu" for m in sys.modules),
           "jax or planet_tpu was imported")
     launches = dict(launches_dev, field=launches_field["field"],
+                    noise=launches_field["noise"],
                     splat=rest["splat_launches"],
                     **{k: launches_tools[k] for k in tool_rows})
     replaces = {
@@ -1994,6 +2080,11 @@ def main() -> int:
                    "planet_tpu/raster/coverage_pallas.py:471"),
         "field": ("planet_tpu_torch/csrc/field.cu",
                   "planet_tpu/ops/kernels/field_pallas.py:149"),
+        # no Pallas kernel: planet_tpu's jitted device refine, with K4 at
+        # its probes
+        "refine": ("planet_tpu_torch/csrc/refine.cu",
+                   "planet_tpu/lod/refine_device.py:153, "
+                   "planet_tpu/ops/kernels/perlin_pallas.py:370"),
         # no Pallas kernel: planet_tpu's XLA splat (upsample, pack, scatter)
         "splat": ("planet_tpu_torch/csrc/splat.cu",
                   "planet_tpu/raster/splat.py:30"),

@@ -64,6 +64,21 @@ OPS_TILE_UV = TILE_DIM * OPS_DF_MUL / TILE_DIM**2
 OPS_TILE_BLEND = 3 * ((2 * OPS_DF_ADD + OPS_DF_MUL)
                       + 2 * (OPS_DF_MUL + OPS_DF_ADD) / TILE_DIM
                       + 2 * OPS_DF_ADD / TILE_DIM**2)
+# R1 (csrc/refine.cu), counted the same way: df div 18 (the quotient, an
+# error-free product, a two_sum, the residual's 5, the second quotient, a
+# quick_two_sum), df sqrt 19 (the sqrt and its reciprocal, the product,
+# an error-free square, a two_sum, the correction's 5, a quick_two_sum),
+# |p|^2 67 and normalize 131. An evaluated frontier slot: the corner sums
+# (18), the midpoint's normalize, per probe its length, displacement and
+# camera distance (5 x 151 and 5 x 129), the diagonals (274), the
+# threshold (65, 74 with a quality factor) and the five compares (15);
+# with ridged probes each probe also scales its point (27), runs 6
+# octaves of the noise core and scales the height (1). A split slot adds
+# its children's 5 edge and centre sums and their normalizes (955).
+OPS_DF_DIV = 18
+OPS_DF_SQRT = 19
+OPS_REFINE_SLOT = 1903
+OPS_REFINE_SPLIT = 955
 # host seconds a queued call may take: the spin ahead of the timed calls
 # lasts this long for each of them
 QUEUE_S = 0.5e-3
@@ -157,7 +172,23 @@ def noise_work(octaves: int, kind: str = "ridged", lacunarity: float = 2.0):
     return f32, octaves * F64_OPS_OCTAVE
 
 
-def sass_census(library: str, match=("noise", "field", "tile", "stage"),
+def refine_work(slots: int, splits: int, probe: str = "ridged6",
+                quality: float = 1.0):
+    """(f32 operations, f64 operations) of a refine that evaluates `slots`
+    live frontier slots of which `splits` split (dead slots and emptied
+    levels are no part of its work)."""
+    f32 = (slots * (OPS_REFINE_SLOT + (OPS_DF_MUL if quality != 1.0 else 0))
+           + splits * OPS_REFINE_SPLIT)
+    f64 = 0.0
+    if probe == "ridged6":
+        ops, f64_ops = noise_work(6)
+        f32 += slots * 5 * (3 * OPS_DF_MUL + ops + 1)
+        f64 = slots * 5 * f64_ops
+    return float(f32), float(f64)
+
+
+def sass_census(library: str, match=("noise", "field", "tile", "stage",
+                                    "refine"),
                 opcodes=("I2F", "I2FP", "F2F", "F2I", "DADD", "DMUL", "DFMA",
                          "FADD", "FMUL", "FFMA", "LDS", "SHFL")) -> dict:
     """{kernel name: {opcode: count, "all": instructions}} of the compiled

@@ -9,7 +9,8 @@ from that tree's own sources: run it as old, new, new, old and compare
 within the run. Times (tools/common.time_ms: the median of REPS calls
 queued behind a spin kernel) the calls of `calls` — the set that
 chip_smoke.py phase 8 times for the kernels line: K1 at phase 3's shape
-and at the fused frame's occupancy, K4, K5, K2 and K3 on the record sets
+and at the fused frame's occupancy, K4, R1 (on trees that have it), K5,
+K2 and K3 on the record sets
 of `record_sets` (the 1080p static scene, the three goldens, the orbit
 frames with huge records) and on a screen-filling triangle, and K6 on
 the 1080p scene — and t_noise's variants (noise_stages.NOISE_VARIANTS,
@@ -248,13 +249,37 @@ def routed(fs: dict) -> dict:
     return dict(span=span_buf, huge=huge_buf, counts=counts)
 
 
+def refine_call(device):
+    """R1 on the 1080p static scene's camera from the six faces, as the
+    fused frame calls it (refine_device's CUDA route), or None on a tree
+    without R1."""
+    try:
+        from planet_tpu_torch.ops.kernels import refine_cuda
+    except ImportError:
+        return None
+    import torch
+
+    from planet_tpu_torch.engine import device_step
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.nums import df as dfm
+
+    cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
+    cam = [torch.as_tensor(a, device=device)
+           for a in dfm.from_f64_np(scene_camera(cfg).position)]
+    roots = device_step.face_roots(cfg.radius, device)[:4]
+    return lambda: refine_cuda.refine_cuda(
+        *cam, *roots, max_lod=cfg.max_lod, cap=4096, radius=cfg.radius,
+        probe="ridged6")
+
+
 def calls(device, sets=None, fused=None) -> list:
     """[(key or None, label, call, setup)]: the main path's kernels at its
     shapes, each timed as call(*setup()) — K1 on 256 tiles of octaves 6-18
     (noise_stages.tile_inputs) and at the fused frame's occupancy
     (`fused`, else fused_tile_inputs), K4 at the refine-probe shape (5 x
-    4096 points, ridged 6) and at 2^20 points x 18 octaves, K5 at 6 x
-    2048^2; on each frame set of `sets` (else record_sets): K2 on its span
+    4096 points, ridged 6) and at 2^20 points x 18 octaves, R1 (where the
+    tree has it: ops/kernels/refine_cuda) on the 1080p scene's camera from
+    the six faces (max_lod 18, cap 4096, ridged probes), K5 at 6 x 2048^2; on each frame set of `sets` (else record_sets): K2 on its span
     records as the tree's main path draws them (routed), K3 on its huge
     records (the huge class and the clipped straddlers), each into a fresh
     framebuffer a call; K3 on screen_triangle_records at 1080p; and K6 on
@@ -308,6 +333,10 @@ def calls(device, sets=None, fused=None) -> list:
          lambda: field_cuda.field_kernel(2048, 6371000.0, device=device),
          tuple),
     ]
+    refine = refine_call(device)
+    if refine is not None:
+        out.insert(4, ("refine", "R1 refine, 1080p static camera, ridged6, "
+                                 "cap 4096", refine, tuple))
     for name, fs in sets.items():
         r = routed(fs)
         fb = fresh_fb(fs["width"], fs["height"])

@@ -416,7 +416,8 @@ def test_graph_replay_equals_eager_step(dev):
         if frame:     # the first call also ran the warm-up
             assert all(_cuda.launches[k] - before[k] == n
                        for k, n in r._tally.items()), r._tally
-        assert r._tally["tile"] == 1 and r._tally["noise"] == 19
+        assert r._tally["tile"] == 1 and r._tally["refine"] == 19
+        assert r._tally["noise"] == 0
         want = step(pool_e, *args, *device_step.face_roots(cfg.radius, dev))
         for name in ("leaf_lo", "leaf_hi", "leaf_depth", "slot", "tiles",
                      "valid", "vertex_shade", "meta"):
@@ -467,7 +468,8 @@ def test_stop_after_rungs_captured_equal_eager(dev, rung):
     """Each stop_after rung captured as a graph of its own: replays from
     two cameras (the golden one, then one 10 % nearer) equal the cut step
     run eagerly on the card, outputs and pool bit for bit; a replay
-    launches K4 19 times and K1 once from "generate" on."""
+    launches R1 19 times (a launch a level), K4 never, and K1 once from
+    "generate" on."""
     cfg = EngineConfig()
     pos = np.load(GOLD + "frame_cam.npy")
     angles = np.load(GOLD + "frame_angles.npy")
@@ -498,7 +500,7 @@ def test_stop_after_rungs_captured_equal_eager(dev, rung):
                                b[:cap] if b.dim() else b)
     assert int(got.meta[0]) > 0
     tally = r.graph_launches
-    assert tally["noise"] == 19, tally
+    assert tally["refine"] == 19 and tally["noise"] == 0, tally
     assert tally["tile"] == (0 if rung in ("refine", "cache") else 1), tally
 
 

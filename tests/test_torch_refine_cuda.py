@@ -1,0 +1,211 @@
+"""R1, the device refine kernel (planet_tpu_torch/csrc/refine.cu, wrapper
+ops/kernels/refine_cuda.py), against its plain version
+(lod/refine_device.refine_plain), and the premise it rests on.
+
+On the CPU: the wrapper's metadata checks (CPU tensors, wrong dtypes,
+shapes that do not fit), refine_device counting no launch, and
+planet_tpu's `tight` premise: a plain run that evaluates each level over
+[0, f_n) only and stops at an empty frontier (refine_plain(narrow=True),
+what R1 does on the card) equals the full-width run bit for bit — leaf
+ids, depths, DF corners, n_leaves and the overflow flag — on the 1080p
+static camera, the 8 orbit cameras, an overflowing cap, quality 1.5 and
+the 24 subtree roots with their depths, with both probes; and the narrow
+run gives planet_tpu's own laddered refine_device its leaf ids.
+
+Marked `gpu` (skipped without a card): R1 equals the plain version on the
+same inputs on the card, bit for bit, on the same cases plus the oracle's
+max_lod 18 LOD scenes (whose DFS-ordered ids are also the oracle's), and
+R1 captured in a CUDA graph equals R1 run eagerly."""
+
+import numpy as np
+import pytest
+import torch
+
+from planet_tpu_torch import _cuda
+from planet_tpu_torch.engine import device_step
+from planet_tpu_torch.engine.config import EngineConfig
+from planet_tpu_torch.geom import quadid as tq
+from planet_tpu_torch.lod import refine_device as trd
+from planet_tpu_torch.nums import df as tdf
+from planet_tpu_torch.ops.kernels import refine_cuda
+from planet_tpu_torch.parallel import sharded_lod
+from planet_tpu_torch.tools import kernel_times
+
+torch.set_num_threads(1)
+CFG = EngineConfig(window_w=1920, window_h=1080)
+CAP = 4096                    # the fused frame's (build_geometry_step)
+GOLD = "tests/goldens/"
+
+# name -> (camera position, refine keywords, roots: "faces" | "subtrees")
+CASES = {
+    "static-1080p": (kernel_times.scene_camera(CFG).position, {}, "faces"),
+    **{f"orbit-{i}": (cam.position, {}, "faces")
+       for i, (_, cam) in enumerate(kernel_times.orbit_cameras(CFG))},
+    "overflow-cap64": (kernel_times.scene_camera(CFG).position,
+                       dict(cap=64), "faces"),
+    "quality-1.5": (kernel_times.scene_camera(CFG).position,
+                    dict(quality=1.5), "faces"),
+    "subtree-roots": (kernel_times.scene_camera(CFG).position, {},
+                      "subtrees"),
+}
+
+
+def _inputs(name, device):
+    """(args, keywords) of refine_plain / refine_cuda for case `name`."""
+    pos, kw, roots = CASES[name]
+    cam = [torch.as_tensor(a, device=device) for a in tdf.from_f64_np(pos)]
+    if roots == "faces":
+        r = device_step.face_roots(CFG.radius, device)[:4]
+        depth = None
+    else:
+        *r, depth = sharded_lod.subtree_roots(CFG.radius, device)
+    kw = dict(dict(max_lod=CFG.max_lod, cap=CAP, radius=CFG.radius,
+                   root_depth=depth), **kw)
+    return (*cam, *r), kw
+
+
+def _same(got, want):
+    """Two (l_int, l_cor, n_leaves, overflowed) results equal bit for bit."""
+    for a, b in zip(got, want):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype.is_floating_point:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- the CPU
+
+
+def test_wrapper_raises_for_cpu_tensors():
+    args, kw = _inputs("static-1080p", "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        refine_cuda.refine_cuda(*args, probe="ridged6", **kw)
+
+
+@pytest.mark.parametrize("which,bad", [
+    (0, lambda t: t.double()),                  # cam_hi f64
+    (2, lambda t: t.long()),                    # root_lo i64
+    (4, lambda t: t.half()),                    # root_ch f16
+    (1, lambda t: t[:2]),                       # cam_lo (2,)
+    (3, lambda t: t[:5]),                       # root_hi (5,) of 6 roots
+    (5, lambda t: t.reshape(6, 12)),            # root_cl (6, 12)
+    (2, lambda t: t.reshape(2, 3)),             # root_lo not (R,)
+])
+def test_wrapper_raises_for_bad_metadata(which, bad):
+    args, kw = _inputs("static-1080p", "cpu")
+    args = list(args)
+    args[which] = bad(args[which])
+    with pytest.raises(ValueError, match="expected"):
+        refine_cuda.refine_cuda(*args, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(cap=5), dict(max_lod=-1),
+                                dict(probe="fbm")])
+def test_wrapper_raises_for_arguments_that_do_not_fit(kw):
+    args, base = _inputs("static-1080p", "cpu")
+    with pytest.raises(ValueError):
+        refine_cuda.refine_cuda(*args, **dict(base, **kw))
+
+
+def test_refine_device_on_the_cpu_counts_no_launch():
+    args, kw = _inputs("static-1080p", "cpu")
+    before = dict(_cuda.launches)
+    res = trd.refine_device(*args, probe="ridged6", **kw)
+    assert _cuda.launches == before
+    assert int(res.n_leaves) > 6
+
+
+@pytest.mark.parametrize("probe", trd.PROBES)
+@pytest.mark.parametrize("name", list(CASES))
+def test_narrow_plain_equals_full_width(name, probe):
+    """planet_tpu's `tight` premise, the one R1 rests on: evaluating only
+    [0, f_n) a level and stopping at an empty frontier changes no bit."""
+    args, kw = _inputs(name, "cpu")
+    full = trd.refine_plain(*args, probe=probe, **kw)
+    narrow = trd.refine_plain(*args, probe=probe, narrow=True, **kw)
+    _same(narrow, full)
+    assert int(full[2]) > 6
+    assert bool(full[3]) == (name == "overflow-cap64")
+
+
+def test_narrow_plain_gives_planet_tpu_laddered_leaves():
+    """planet_tpu's refine_device with its default `tight` ladder and the
+    narrow plain run: the same leaf ids and depths in the same order (DF
+    corners differ in the last bits: XLA:CPU contracts planet_tpu's to
+    FMA, tests/test_torch_refine_device.py)."""
+    from planet_tpu.lod import refine_device as jrd
+    pos = CASES["static-1080p"][0]
+    cam_hi, cam_lo = tdf.from_f64_np(pos)
+    roots = [t.numpy() for t in device_step.face_roots(CFG.radius, "cpu")[:4]]
+    want = jrd.refine_device(cam_hi, cam_lo, *roots, max_lod=CFG.max_lod,
+                             cap=1024, radius=CFG.radius,
+                             probe_fn_name="zero")
+    args, kw = _inputs("static-1080p", "cpu")
+    got = trd.refine_plain(*args, probe="zero", narrow=True,
+                           **dict(kw, cap=1024))
+    n = int(got[2])
+    assert n == int(want.n_leaves) > 6
+    for a, b in ((want.leaf_lo, got[0][0]), (want.leaf_hi, got[0][1]),
+                 (want.leaf_depth, got[0][2])):
+        np.testing.assert_array_equal(np.asarray(a)[:n], b[:n].numpy())
+
+
+# ------------------------------------------------------------- the card
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("probe", trd.PROBES)
+@pytest.mark.parametrize("name", list(CASES))
+def test_r1_equals_plain(dev, name, probe):
+    args, kw = _inputs(name, dev)
+    want = trd.refine_plain(*args, probe=probe, **kw)
+    before = _cuda.launches["refine"]
+    got = refine_cuda.refine_cuda(*args, probe=probe, **kw)
+    assert _cuda.launches["refine"] == before + kw["max_lod"] + 1
+    _same(got, want)
+
+
+@pytest.mark.gpu
+def test_r1_equals_plain_on_the_oracle_lod_scenes(dev):
+    """The LOD golden cameras at max_lod 18 (tests/test_lod.py:28-43): R1
+    equals the plain version, and its leaves in DFS order are the
+    oracle's ids."""
+    cams = np.load(GOLD + "lod_cams.npy")
+    counts = np.load(GOLD + "lod_leaf_counts.npy")
+    all_ids = np.load(GOLD + "lod_leaf_ids.npy")
+    roots = device_step.face_roots(CFG.radius, dev)[:4]
+    offset = 0
+    for cam, count in zip(cams, counts):
+        c = [torch.as_tensor(a, device=dev) for a in tdf.from_f64_np(cam)]
+        kw = dict(max_lod=18, cap=1024, radius=CFG.radius, probe="ridged6")
+        want = trd.refine_plain(*c, *roots, **kw)
+        got = refine_cuda.refine_cuda(*c, *roots, **kw)
+        _same(got, want)
+        n = int(got[2])
+        lo, hi = got[0][0, :n], got[0][1, :n]
+        order = torch.argsort(tq.words_dfs_key(lo, hi), stable=True)
+        ids = tq.from_words(lo[order].cpu().numpy(), hi[order].cpu().numpy())
+        np.testing.assert_array_equal(ids, all_ids[offset:offset + count])
+        offset += count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("probe", trd.PROBES)
+def test_captured_r1_equals_eager(dev, probe):
+    args, kw = _inputs("static-1080p", dev)
+    want = refine_cuda.refine_cuda(*args, probe=probe, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with _cuda.captured() as tally, torch.cuda.graph(graph):
+        got = refine_cuda.refine_cuda(*args, probe=probe, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tally["refine"] == kw["max_lod"] + 1
+    _same(got, want)
