@@ -21,7 +21,9 @@ result line is printed:
    refine (bitwise in ids, depths, DF corners, n_leaves and the overflow
    flag, as the fused frame calls it: cap 4096, max_lod 18, ridged probes;
    on the 1080p static camera, the 8 orbit cameras, cap 64, which
-   overflows, and the 24 subtree roots; one launch a level); on
+   overflows, the 24 subtree roots and the dense camera of
+   tools/r1_s1_parts, 300 m above the ridged surface at LOD quality 16;
+   one launch, one kernel, a level); on
    the record sets of tools/kernel_times.record_sets (the 1080p static
    scene, the three goldens, the orbit frames with huge records): K6
    route + gather (records and counts bitwise, also with every candidate
@@ -79,7 +81,9 @@ result line is printed:
    tools' queued timer (tools/common.time_calls: calls queued behind a
    spin kernel, so a short kernel's time holds no host launch time):
    tools/kernel_times.calls on phase 3's record sets and fused
-   occupancy, and its host_calls (K6 by the host clock);
+   occupancy (with R1 and S1 at phase 9a's shapes), and its host_calls
+   (K6 by the host clock); R1's queued time over the static camera's
+   live levels, beside its bound;
 9. the single-card rest (`single_card_rest`), at 1920x1080 with the
    driver's supersample rule (8), each part's counts reset before and
    read after: (a) the splat kernel S1 against its plain version at the
@@ -249,7 +253,8 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
         copies; DeviceRenderer's render_cap rows, padding invalid), each
         card call under set_sync_debug_mode("error"); the splat raster on
         the card equal to the CPU's, and DeviceRenderer's frame equal to
-        the splat of its first n_leaves rows; S1's times at both shapes.
+        the splat of its first n_leaves rows; S1's times at both shapes,
+        with and without wireframe.
         Then the main path alone, the counts set to 0 before it and read
         after: PlanetEngine splat frames (median ms, host clock +
         synchronize), DeviceRenderer splat frames (static, then the orbit,
@@ -382,6 +387,7 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
         once, each covered pixel's key written once."""
         from planet_tpu_torch.tools import common as tool_common
         kargs = (clip, shade, sv, width, height, ss)
+        wargs = (clip, shade, sv, width, height, max(ss, 2), True)
         n_rows = clip.shape[0]
         cells = int((sv[:, :-1, :-1] & sv[:, :-1, 1:] & sv[:, 1:, :-1]
                      & sv[:, 1:, 1:]).sum())
@@ -390,6 +396,8 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
             ms=event_ms(lambda: splat.splat_keys_cuda(*kargs)),
             queued_ms=tool_common.time_ms(
                 lambda: splat.splat_keys_cuda(*kargs)),
+            queued_wireframe_ms=tool_common.time_ms(
+                lambda: splat.splat_keys_cuda(*wargs)),
             plain_ms=event_ms(lambda: splat.splat_keys_plain(*kargs)),
             bound=bound(cells * ss * ss * 60,
                         n_rows * g * g * 21 + covered * 4),
@@ -399,7 +407,8 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
     def log_s1(row, what):
         log(f"[9a] S1 splat kernel, {what}: {row['fragments']} fragments "
             f"({row['cells']} valid cells x {ss * ss}): {row['ms']:.4f} ms "
-            f"(queued {row['queued_ms']:.4f}), plain {row['plain_ms']:.3f} "
+            f"(queued {row['queued_ms']:.4f}; with wireframe, queued "
+            f"{row['queued_wireframe_ms']:.4f}), plain {row['plain_ms']:.3f} "
             f"ms, bound {row['bound'][0]:.5f} ms ({row['bound'][1]})")
 
     if cuda:
@@ -1107,7 +1116,7 @@ def main() -> int:
     from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
     from planet_tpu_torch.raster import coverage as cov
     from planet_tpu_torch.raster import coverage_cuda as cc
-    from planet_tpu_torch.tools import kernel_times
+    from planet_tpu_torch.tools import kernel_times, r1_s1_parts
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_scenes import EDGE, nan_shade_records
 
@@ -1261,21 +1270,25 @@ def main() -> int:
     faces = device_step.face_roots(cfg1080.radius, dev)[:4]
     subtrees = sharded_lod.subtree_roots(cfg1080.radius, dev)
 
-    def refine_inputs(cam, roots=faces, **kw):
-        c = [torch.as_tensor(a, device=dev)
-             for a in dfm.from_f64_np(cam.position)]
+    def refine_inputs(pos, roots=faces, **kw):
+        c = [torch.as_tensor(a, device=dev) for a in dfm.from_f64_np(pos)]
         return (*c, *roots), dict(dict(
             max_lod=cfg1080.max_lod, cap=4096, radius=cfg1080.radius,
             probe="ridged6"), **kw)
 
-    r1_cases = [("1080p static", refine_inputs(bench_cam())),
-                *((f"orbit frame {i}", refine_inputs(cam))
+    r1_cases = [("1080p static", refine_inputs(bench_cam().position)),
+                *((f"orbit frame {i}", refine_inputs(cam.position))
                   for i, cam in enumerate(orbit_cams())),
                 ("1080p static, cap 64 (overflows)",
-                 refine_inputs(bench_cam(), cap=64)),
+                 refine_inputs(bench_cam().position, cap=64)),
                 ("1080p static, the 24 subtree roots",
-                 refine_inputs(bench_cam(), roots=subtrees[:4],
-                               root_depth=subtrees[4]))]
+                 refine_inputs(bench_cam().position, roots=subtrees[:4],
+                               root_depth=subtrees[4])),
+                # the dense frontier: 300 m above the ridged surface at LOD
+                # quality 16 (3,177 leaves, up to 384 slots a level)
+                ("dense camera", refine_inputs(
+                    r1_s1_parts.dense_camera(cfg1080),
+                    quality=r1_s1_parts.DENSE_QUALITY))]
     err_r1, r1_leaves = 0.0, []
     for label, (args, kw) in r1_cases:
         got = refine_cuda.refine_cuda(*args, **kw)
@@ -1289,6 +1302,10 @@ def main() -> int:
         check(bool(got[3]) == ("overflows" in label),
               f"R1 {label}: overflowed {bool(got[3])}")
         r1_leaves.append(int(got[2]))
+        if len(r1_leaves) == 1:        # the static camera: its live levels
+            r1_live = sum(1 for n in r1_s1_parts.frontier_sizes(
+                got[0][2, :int(got[2])].cpu().numpy(), kw["max_lod"], 6)
+                if n)
         print(f"[3] R1 refine, {label}: {int(got[2])} leaves, overflowed "
               f"{bool(got[3])}; bitwise equal to plain (ids, depths, DF "
               f"corners, counts)", flush=True)
@@ -1314,6 +1331,10 @@ def main() -> int:
           f"plain {report['refine']['plain_ms']:.3f} ms, bound "
           f"{report['refine']['bound'][0]:.5f} ms "
           f"({report['refine']['bound'][1]})", flush=True)
+    args_d, kw_d = r1_cases[-1][1]
+    print(f"[3] R1 refine, dense camera ({r1_leaves[-1]} leaves): kernel "
+          f"{time_ms(lambda: refine_cuda.refine_cuda(*args_d, **kw_d)):.3f} "
+          f"ms", flush=True)
 
     def raster_compare(name, width, height, kernel, plain, key,
                        wireframe=False):
@@ -1682,17 +1703,17 @@ def main() -> int:
               if getattr(e, "device_time_total", 0) > 0]
     names = " ".join(e.key for e in events)
     busy_us = sum(e.device_time_total for e in events)
+    r1_events = sum(e.count for e in events if "level_kernel" in e.key)
     print(f"[5a] profiler, one replay: {sum(e.count for e in events)} device "
           f"events, {len(events)} distinct, {busy_us / 1e3:.3f} ms device "
-          f"time; K1 {'tiles_kernel' in names}, R1 "
-          f"{'evaluate_kernel' in names and 'compact_kernel' in names}, K4 "
-          f"{'noise_kernel' in names}", flush=True)
+          f"time; K1 {'tiles_kernel' in names}, R1 {r1_events} kernels "
+          f"(level_kernel), K4 {'noise_kernel' in names}", flush=True)
     for e in sorted(events, key=lambda e: -e.device_time_total)[:6]:
         print(f"[5a]   {e.device_time_total / 1e3:8.3f} ms x{e.count:5d}  "
               f"{e.key[:90]}", flush=True)
-    check("tiles_kernel" in names and "evaluate_kernel" in names
-          and "compact_kernel" in names,
-          "the profiled replay shows no K1/R1 kernel")
+    check("tiles_kernel" in names and r1_events == cfg800.max_lod + 1,
+          f"the profiled replay shows no K1, or R1 not one kernel a level "
+          f"({r1_events})")
     check("noise_kernel" not in names, "the profiled replay launched K4")
     check(rend._tally["refine"] == cfg800.max_lod + 1
           and rend._tally["noise"] == 0,
@@ -1995,6 +2016,13 @@ def main() -> int:
         print(f"[8] queued timing, {label}: {ms:.4f} ms (median of {REPS}; "
               f"phase 3/7b's single-launch timing is in the kernels line)",
               flush=True)
+    # R1's bound counts its work; its time is the chain of live levels
+    report["refine"]["ms_per_live_level"] = queued["refine"] / r1_live
+    print(f"[8] R1 refine, 1080p static: {queued['refine']:.4f} ms queued "
+          f"over {r1_live} live levels of {cfg1080.max_lod + 1}: "
+          f"{report['refine']['ms_per_live_level'] * 1e3:.2f} us a live "
+          f"level (bound {report['refine']['bound'][0]:.5f} ms for the "
+          "whole refine)", flush=True)
     for label, fn in kernel_times.host_calls(sets):
         print(f"[8] host clock, {label}: "
               f"{kernel_times.host_ms(fn, REPS):.4f} ms", flush=True)
@@ -2115,6 +2143,8 @@ def main() -> int:
                                device_rows=report[k]["device_rows"])
         if k == "tile":
             kernels[-1]["queued_fused_ms"] = queued["tile_fused"]
+        if k == "refine":
+            kernels[-1]["ms_per_live_level"] = report[k]["ms_per_live_level"]
         if k == "gather":
             kernels[-1].update(composed_ms=report[k]["composed_ms"],
                                host_ms=report[k]["host_ms"],

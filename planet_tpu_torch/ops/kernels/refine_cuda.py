@@ -6,9 +6,11 @@ the entry point, which runs the plain version, refine_device.refine_plain,
 for CPU tensors. planet_tpu has no Pallas refine kernel: its device refine
 (planet_tpu/lod/refine_device.py:153) is one jit whose probes call K4
 (perlin_pallas.py:370) and whose while_loop skips dead slots and stops at
-an empty frontier. R1 is that program as CUDA C++: a launch a level, K4's
-noise core inlined at the probes, dead slots and emptied levels skipped on
-the card, bit for bit equal to refine_plain.
+an empty frontier. R1 is that program as CUDA C++: one launch a level, a
+warp a live frontier slot with the five probes' 30 noise octaves on its
+lanes (`lane_map`), the level's compaction by the last block to finish,
+dead slots and emptied levels skipped on the card, bit for bit equal to
+refine_plain.
 
 The frontier and leaf layout is refine_plain's: ints (3, cap) (id lo, id
 hi, depth) and corners (24, cap) (hi rows 0-11, lo rows 12-23, row =
@@ -27,6 +29,21 @@ from planet_tpu_torch import _cuda
 from planet_tpu_torch.ops.kernels import perlin_cuda
 
 PROBES = ("zero", "ridged6")
+# the probes a slot (its 4 corners, then the normalized midpoint) and the
+# ridged octaves a probe; a warp's lanes
+N_PROBES, PROBE_OCTAVES, WARP = 5, 6, 32
+
+
+def lane_map():
+    """R1's evaluation of one slot by one warp: [(probe, octave)] of lanes
+    0-31 (lane l < 30 takes probe l // 6 and octave l % 6; lanes 30 and 31
+    repeat probe 4's octaves 0 and 1, which nothing folds), and the fold
+    lane of each probe, 6j: the first lane whose shuffles gather probe j's
+    octaves 0-5 in order (every lane of the probe folds the same values)."""
+    lanes = [(min(lane // PROBE_OCTAVES, N_PROBES - 1), lane % PROBE_OCTAVES)
+             for lane in range(WARP)]
+    folds = [PROBE_OCTAVES * j for j in range(N_PROBES)]
+    return lanes, folds
 
 
 def frontier(root_lo, root_hi, root_ch, root_cl, root_depth, cap: int):
@@ -84,7 +101,46 @@ def _check_args(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
                              f"{cam_hi.device}, got {t.device}")
     for name, t, dtype, shape in named[:2]:     # the kernel reads these
         _cuda.check_cuda(t, name, dtype, shape)
-    return n_roots
+
+
+def _levels(key: str, symbol: str, head: tuple, tail: tuple, calls: int,
+            cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
+            max_lod: int, cap: int, radius: float, probe: str, root_depth,
+            quality: float):
+    """`calls` calls of C entry `symbol` (counted under `key`), call L with
+    the arguments head, level L's operands and tail, on buffers allocated
+    from metadata: the first frontier and the next one (swapped after each
+    call), the children's scratch, the flags, the state (the counts f_n =
+    the roots' count, l_n and overflowed of even levels, the same of odd
+    levels, the blocks' ticket) and the leaf buffers. Returns refine_cuda's
+    result after max_lod + 1 levels."""
+    _check_args(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
+                root_depth, max_lod=max_lod, cap=cap, probe=probe)
+    dev = cam_hi.device
+    i32 = torch.int32
+    cur = frontier(root_lo, root_hi, root_ch, root_cl, root_depth, cap)
+    nxt = (torch.empty_like(cur[0]), torch.empty_like(cur[1]))
+    kid_int = torch.empty((4, 3, cap), dtype=i32, device=dev)
+    kid_cor = torch.empty((4, 24, cap), dtype=torch.float32, device=dev)
+    flags = torch.empty((cap,), dtype=i32, device=dev)
+    state = torch.zeros((7,), dtype=i32, device=dev)
+    state[0].fill_(root_lo.shape[0])
+    l_int = torch.zeros((3, cap), dtype=i32, device=dev)
+    l_cor = torch.zeros((24, cap), dtype=torch.float32, device=dev)
+    tables = (perlin_cuda.kernel_tables(2.0, str(dev)) if probe == "ridged6"
+              else (None, None, None))
+    ptrs = [None if t is None else t.data_ptr() for t in tables]
+    for level in range(calls):
+        _cuda.launch(key, symbol, *head, cur[0].data_ptr(), cur[1].data_ptr(),
+                     nxt[0].data_ptr(), nxt[1].data_ptr(), kid_int.data_ptr(),
+                     kid_cor.data_ptr(), flags.data_ptr(), state.data_ptr(),
+                     l_int.data_ptr(), l_cor.data_ptr(), cam_hi.data_ptr(),
+                     cam_lo.data_ptr(), *ptrs, int(cap), int(max_lod),
+                     int(probe == "ridged6"), int(quality != 1.0),
+                     *split_f32(radius), *split_f32(quality), level, *tail)
+        cur, nxt = nxt, cur
+    q = 3 * ((int(max_lod) + 1) % 2)      # the parity the last level wrote
+    return l_int, l_cor, state[q + 1], state[q + 2] != 0
 
 
 def refine_cuda(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
@@ -95,32 +151,29 @@ def refine_cuda(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
     Returns (l_int (3, cap) int32 leaf id lo, id hi, depth; l_cor (24, cap)
     f32 leaf corners; n_leaves () int32; overflowed () bool), leaves in
     level order at [0, n_leaves) and zeros after them. One launch a level
-    (its evaluate and compact kernels), max_lod + 1 in all."""
-    n_roots = _check_args(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
-                          root_depth, max_lod=max_lod, cap=cap, probe=probe)
-    dev = cam_hi.device
-    i32 = torch.int32
-    cur = frontier(root_lo, root_hi, root_ch, root_cl, root_depth, cap)
-    nxt = (torch.empty_like(cur[0]), torch.empty_like(cur[1]))
-    kid_int = torch.empty((4, 3, cap), dtype=i32, device=dev)
-    kid_cor = torch.empty((4, 24, cap), dtype=torch.float32, device=dev)
-    flags = torch.empty((cap,), dtype=i32, device=dev)
-    state = torch.zeros((3,), dtype=i32, device=dev)   # f_n, l_n, overflow
-    state[0].fill_(n_roots)
-    l_int = torch.zeros((3, cap), dtype=i32, device=dev)
-    l_cor = torch.zeros((24, cap), dtype=torch.float32, device=dev)
-    ridged = probe == "ridged6"
-    tables = (perlin_cuda.kernel_tables(2.0, str(dev)) if ridged
-              else (None, None, None))
-    ptrs = [None if t is None else t.data_ptr() for t in tables]
-    rad, qual = split_f32(radius), split_f32(quality)
-    for _ in range(int(max_lod) + 1):
-        _cuda.launch("refine", "planet_refine_level", cur[0].data_ptr(),
-                     cur[1].data_ptr(), nxt[0].data_ptr(), nxt[1].data_ptr(),
-                     kid_int.data_ptr(), kid_cor.data_ptr(),
-                     flags.data_ptr(), state.data_ptr(), l_int.data_ptr(),
-                     l_cor.data_ptr(), cam_hi.data_ptr(), cam_lo.data_ptr(),
-                     *ptrs, int(cap), int(max_lod), int(ridged),
-                     int(quality != 1.0), *rad, *qual)
-        cur, nxt = nxt, cur
-    return l_int, l_cor, state[1], state[2] != 0
+    (one kernel: the level's evaluation and compaction), max_lod + 1 in
+    all."""
+    return _levels("refine", "planet_refine_level", (), (), int(max_lod) + 1,
+                   cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
+                   max_lod=max_lod, cap=cap, radius=radius, probe=probe,
+                   root_depth=root_depth, quality=quality)
+
+
+# planet_t_refine's variants (csrc/refine.cu RefineVariant): "fused" is
+# planet_refine_level; "split" the same level with its compaction as a
+# second kernel; "one block" the whole refine in one launch of one block
+DESIGNS = {"fused": 0, "split": 1, "one block": 2}
+
+
+def refine_design(design: str, cam_hi, cam_lo, root_lo, root_hi, root_ch,
+                  root_cl, *, max_lod: int, cap: int, radius: float,
+                  probe: str = "zero", root_depth=None, quality: float = 1.0):
+    """Bench-only: refine_cuda's result by R1 design `design` of DESIGNS
+    (counted in _cuda.launches["t_refine"], a count a C call: max_lod + 1
+    calls, or one for "one block")."""
+    levels = int(max_lod) + 1
+    return _levels("t_refine", "planet_t_refine", (DESIGNS[design],),
+                   (levels,), 1 if design == "one block" else levels,
+                   cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
+                   max_lod=max_lod, cap=cap, radius=radius, probe=probe,
+                   root_depth=root_depth, quality=quality)

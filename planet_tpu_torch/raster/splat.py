@@ -15,8 +15,10 @@ bit for bit on the same inputs.
 
 planet_tpu writes the splat in XLA, not Pallas. The engines' splat
 (`splat_keys`: upsample, project, pack, depth test) is one hand-written
-CUDA kernel on the card (csrc/splat.cu, launch key "splat"), because the
-composed torch ops took most of a 1080p splat frame there; on CPU tensors
+CUDA kernel on the card (csrc/splat.cu, launch key "splat": a thread, or
+two lanes, a grid cell walking its fragments through a weight table in
+`weights`' order, formed at `table_slot`), because the composed torch ops
+took most of a 1080p splat frame there; on CPU tensors
 it runs `splat_keys_plain` — `upsample_cells`, then `pack_keys`'s
 projection, packing and one scatter_reduce "amin" — which the kernel
 equals bit for bit. `splat_frame` is planet_tpu's API on fragments
@@ -105,6 +107,19 @@ def weights(k: int, wireframe: bool = False):
                 (one - fu) * (one - fv), fu * (one - fv), (one - fu) * fv,
                 fu * fv)))
     return tuple(out)
+
+
+def table_slot(i: int, j: int, k: int, wireframe: bool = False) -> int:
+    """The position of point (i, j) of a cell's k x k points in `weights`'
+    order (rows i, columns j; with wireframe the row i == 0, then the
+    column j == 0 below it), -1 for a point wireframe drops: where the
+    splat kernel's block stores the point's weights in its table
+    (csrc/splat.cu:table_slot), with no division."""
+    if not wireframe:
+        return i * k + j
+    if i == 0:
+        return j
+    return k + i - 1 if j == 0 else -1
 
 
 def upsample_cells(clip, shade, valid, k: int, wireframe: bool = False):

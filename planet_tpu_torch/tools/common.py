@@ -80,8 +80,9 @@ OPS_DF_SQRT = 19
 OPS_REFINE_SLOT = 1903
 OPS_REFINE_SPLIT = 955
 # host seconds a queued call may take: the spin ahead of the timed calls
-# lasts this long for each of them
-QUEUE_S = 0.5e-3
+# lasts this long for each of them (R1's wrapper, ~30 host calls, takes
+# ~0.5 ms)
+QUEUE_S = 2e-3
 
 
 def parser(doc: str) -> argparse.ArgumentParser:

@@ -12,7 +12,8 @@ chip_smoke.py phase 8 times for the kernels line: K1 at phase 3's shape
 and at the fused frame's occupancy, K4, R1 (on trees that have it), K5,
 K2 and K3 on the record sets
 of `record_sets` (the 1080p static scene, the three goldens, the orbit
-frames with huge records) and on a screen-filling triangle, and K6 on
+frames with huge records) and on a screen-filling triangle, S1 at phase
+9a's two shapes with and without wireframe (`splat_inputs`), and K6 on
 the 1080p scene — and t_noise's variants (noise_stages.NOISE_VARIANTS,
 which phase 8 times through noise_stages.bench) on DIR's tree; then, by
 the host clock, the 1080p scene's route and gather as DIR's raster_frame
@@ -44,6 +45,9 @@ FUSED_SLOTS, FUSED_LIVE = 256, 24
 # the first frames of tools/bench_moving.py's descending orbit (48 frames
 # from 20 km to 3 km)
 ORBIT_FRAMES = 8
+# host seconds each queued call may take (tools/common.QUEUE_S, set for
+# both trees of a comparison)
+QUEUE_S = 2e-3
 
 
 def scene_camera(cfg):
@@ -272,6 +276,51 @@ def refine_call(device):
         probe="ridged6")
 
 
+def splat_inputs(device) -> dict:
+    """{name: S1's arguments (clip, shade, valid, width, height, k,
+    wireframe)} as chip_smoke.py phase 9a times them: the 1080p static
+    scene in splat mode (supersample 8, the driver's rule for 1920 wide)
+    through PlanetEngine's leaves ("PlanetEngine") and through
+    DeviceRenderer's render_cap rows, padding rows invalid ("DeviceRenderer
+    rows"), each also with wireframe (k 8, "..., wireframe")."""
+    import numpy as np
+    import torch
+
+    from planet_tpu_torch.engine import device_step
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.engine.planet import PlanetEngine, splat_valid
+    from planet_tpu_torch.geom import camera as cam_mod
+    from planet_tpu_torch.nums import df as dfm
+    from planet_tpu_torch.tess import mesh
+
+    ss = max(4, round(SCENE_W / 240))
+    cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H,
+                       raster_mode="splat", raster_supersample=ss)
+    cam = scene_camera(cfg)
+    out = PlanetEngine(cfg, device=device).frame(cam)
+    grid = torch.as_tensor(mesh.grid_uv_skirt(cfg.patch_verts)[3],
+                           device=device)
+    valid = grid[None].expand(out.n_leaves, -1, -1)
+    grids = {"PlanetEngine": (out.vertices.clip, out.vertex_shade,
+                              splat_valid(out.vertices, valid))}
+    rend = device_step.DeviceRenderer(cfg, SCENE_W, SCENE_H, device=device)
+    vp = (cam_mod.perspective_lh(
+        cam_mod.proj_factor_from_fovy(np.deg2rad(cfg.fovy_deg)),
+        SCENE_W / SCENE_H, cfg.near_plane, cfg.far_plane)
+        @ cam_mod.view_from_rotation(cam_mod.camera_rotation(cam))) \
+        .astype(np.float32)
+    rend.render(rend.init_pool(), *dfm.from_f64_np(cam.position), vp)
+    geom = rend.last_geometry
+    grids["DeviceRenderer rows"] = (
+        geom.vertices.clip, geom.vertex_shade,
+        splat_valid(geom.vertices, geom.valid))
+    out = {}
+    for name, grid3 in grids.items():
+        out[name] = (*grid3, SCENE_W, SCENE_H, ss, False)
+        out[f"{name}, wireframe"] = (*grid3, SCENE_W, SCENE_H, ss, True)
+    return out
+
+
 def calls(device, sets=None, fused=None) -> list:
     """[(key or None, label, call, setup)]: the main path's kernels at its
     shapes, each timed as call(*setup()) — K1 on 256 tiles of octaves 6-18
@@ -352,6 +401,10 @@ def calls(device, sets=None, fused=None) -> list:
     out.append((None, "K3 huge, screen-filling triangle 1080p, 2 records",
                 lambda fb: cc.raster_huge_cuda(tri, fb),
                 fresh_fb(SCENE_W, SCENE_H)))
+    from planet_tpu_torch.raster import splat
+    for name, sargs in splat_inputs(device).items():
+        out.append((None, f"S1 splat, {name}",
+                    lambda a=sargs: splat.splat_keys_cuda(*a), tuple))
     fs = sets["1080p static"]
     if hasattr(cc, "route_records"):
         out.append(("gather", "K6 route + gather, 1080p",
@@ -407,6 +460,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
+    common.QUEUE_S = max(common.QUEUE_S, QUEUE_S)     # an older tree's too
     _cuda.library()
     dev = torch.device("cuda")
     sets = record_sets(dev)

@@ -9,13 +9,18 @@ planet_tpu's `tight` premise: a plain run that evaluates each level over
 what R1 does on the card) equals the full-width run bit for bit — leaf
 ids, depths, DF corners, n_leaves and the overflow flag — on the 1080p
 static camera, the 8 orbit cameras, an overflowing cap, quality 1.5 and
-the 24 subtree roots with their depths, with both probes; and the narrow
-run gives planet_tpu's own laddered refine_device its leaf ids.
+the 24 subtree roots with their depths and a dense camera (300 m above
+the ridged surface at LOD quality 16), with both probes; the narrow run
+gives planet_tpu's own laddered refine_device its leaf ids; and R1's
+lane map: each lane's one octave of the probes' noise, folded in order
+from its probe's fold lane, is ops/perlin.accumulate_octaves bit for bit
+at the refine's five probes.
 
 Marked `gpu` (skipped without a card): R1 equals the plain version on the
 same inputs on the card, bit for bit, on the same cases plus the oracle's
-max_lod 18 LOD scenes (whose DFS-ordered ids are also the oracle's), and
-R1 captured in a CUDA graph equals R1 run eagerly."""
+max_lod 18 LOD scenes (whose DFS-ordered ids are also the oracle's), R1
+captured in a CUDA graph equals R1 run eagerly, and R1's bench-only
+designs (refine_cuda.DESIGNS) equal the plain version."""
 
 import numpy as np
 import pytest
@@ -29,7 +34,8 @@ from planet_tpu_torch.lod import refine_device as trd
 from planet_tpu_torch.nums import df as tdf
 from planet_tpu_torch.ops.kernels import refine_cuda
 from planet_tpu_torch.parallel import sharded_lod
-from planet_tpu_torch.tools import kernel_times
+from planet_tpu_torch.ops import perlin
+from planet_tpu_torch.tools import kernel_times, r1_s1_parts
 
 torch.set_num_threads(1)
 CFG = EngineConfig(window_w=1920, window_h=1080)
@@ -47,6 +53,10 @@ CASES = {
                     dict(quality=1.5), "faces"),
     "subtree-roots": (kernel_times.scene_camera(CFG).position, {},
                       "subtrees"),
+    # 300 m above the ridged surface at LOD quality 16: 3,177 leaves,
+    # frontiers of up to 384 slots a level
+    "dense": (r1_s1_parts.dense_camera(CFG),
+              dict(quality=r1_s1_parts.DENSE_QUALITY), "faces"),
 }
 
 
@@ -150,6 +160,66 @@ def test_narrow_plain_gives_planet_tpu_laddered_leaves():
         np.testing.assert_array_equal(np.asarray(a)[:n], b[:n].numpy())
 
 
+def test_lane_map():
+    """R1's warp: lanes 0-29 hold each (probe, octave) once, in order;
+    lanes 30 and 31 repeat probe 4's octaves 0 and 1; probe j folds from
+    lane 6j."""
+    lanes, folds = refine_cuda.lane_map()
+    assert len(lanes) == 32
+    assert lanes[:30] == [(j, o) for j in range(5) for o in range(6)]
+    assert lanes[30:] == [(4, 0), (4, 1)]
+    assert folds == [0, 6, 12, 18, 24]
+    assert all(lanes[f] == (j, 0) for j, f in enumerate(folds))
+
+
+def test_lane_octaves_folded_equal_accumulate_octaves():
+    """The refine's five probes (a level's corners and normalized
+    midpoints, on the 1080p static camera's leaves as a frontier, scaled
+    by 1e-5): each lane's one octave of noise, computed apart, folded in
+    octave order from its probe's fold lane (noise.cuh add_octave), equals
+    ops/perlin.accumulate_octaves("ridged", 6) bit for bit, probe for
+    probe."""
+    args, kw = _inputs("static-1080p", "cpu")
+    res = trd.refine_plain(*args, probe="ridged6", narrow=True, **kw)
+    w = int(res[2])
+    cor = res[1][:, :w]
+    corners = (cor[:12].view(4, 3, w), cor[12:].view(4, 3, w))
+    csum = tuple(((c[0] + c[1]) + c[2]) + c[3] for c in corners)
+    mid = trd._df_normalize3(csum, trd._split_const(CFG.radius, args[0]))
+    probes = tuple(torch.cat([c.transpose(0, 1), m[:, None]], dim=1)
+                   for c, m in zip(corners, mid))        # (3, 5, w)
+    sh = np.float32(trd._PROBE_SCALE)
+    sl = np.float32(np.float64(trd._PROBE_SCALE) - np.float64(sh))
+    xh, xl = perlin._df_scale(probes[0], probes[1], sh, sl)   # (3, 5, w)
+    coords = [t for a in range(3) for t in (xh[a], xl[a])]
+    parts = [tdf.int24_parts(h, l) for h, l in zip(coords[::2], coords[1::2])]
+    perm, signs = perlin._tables("cpu")
+
+    def octave(o):
+        args = []
+        for cell, frac64 in (tdf.shift_frac48(*p, o) for p in parts):
+            args += [cell.long(), *perlin.frac_parts(frac64)]
+        return perlin.noise3_core(perm, signs, *args)    # (5, w)
+
+    lanes, folds = refine_cuda.lane_map()
+    noise = {o: octave(o) for o in range(refine_cuda.PROBE_OCTAVES)}
+    lane_vals = [noise[o][j] for j, o in lanes]            # each (w,)
+    want = perlin.accumulate_octaves("ridged", 6, 2.0, np.float32(0.55),
+                                     *coords)              # (5, w)
+    for j, f in enumerate(folds):
+        value = torch.zeros(w)
+        weight = torch.ones(w)
+        amp = np.float32(1.0)
+        for k in range(refine_cuda.PROBE_OCTAVES):
+            assert lanes[f + k] == (j, k)
+            v = 1.0 - torch.abs(lane_vals[f + k])
+            v = v * v
+            value = value + (v * float(amp)) * weight
+            weight = v
+            amp = np.float32(amp * np.float32(0.55))
+        assert torch.equal(value.view(torch.int32), want[j].view(torch.int32))
+
+
 # ------------------------------------------------------------- the card
 
 
@@ -194,6 +264,23 @@ def test_r1_equals_plain_on_the_oracle_lod_scenes(dev):
         ids = tq.from_words(lo[order].cpu().numpy(), hi[order].cpu().numpy())
         np.testing.assert_array_equal(ids, all_ids[offset:offset + count])
         offset += count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", list(refine_cuda.DESIGNS))
+@pytest.mark.parametrize("name", ["static-1080p", "dense", "overflow-cap64",
+                                  "subtree-roots"])
+def test_r1_designs_equal_plain(dev, name, design):
+    """The bench-only designs of R1 (the level kernel, the same with its
+    compaction a second kernel, the whole refine in one block) equal the
+    plain version bit for bit; one C call a level, or one a refine."""
+    args, kw = _inputs(name, dev)
+    want = trd.refine_plain(*args, probe="ridged6", **kw)
+    before = _cuda.launches["t_refine"]
+    got = refine_cuda.refine_design(design, *args, probe="ridged6", **kw)
+    calls = 1 if design == "one block" else kw["max_lod"] + 1
+    assert _cuda.launches["t_refine"] == before + calls
+    _same(got, want)
 
 
 @pytest.mark.gpu

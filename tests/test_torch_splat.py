@@ -12,21 +12,35 @@ tests/test_torch_splat_engine.py).
   seeded inputs with off-screen, behind-camera, NaN, w <= 1e-9 and
   out-of-int32-range fragments and NaN shades that land on screen;
 * splat_keys (the splat kernel's dispatcher) runs its plain version on
-  CPU tensors, and upsample_cells' weight table is the weights the
-  kernel forms.
+  CPU tensors, upsample_cells' weight table is the weights the kernel
+  forms, and the kernel's fragment loop, walked in Python through the
+  table as its blocks form it, gives `weights`' order for k = 2-32, with
+  and without wireframe.
+
+Marked `gpu` (skipped without a card): S1 bit for bit against the plain
+version at k = 1, 2, 8, 32, with and without wireframe, on grids with
+invalid padding rows, NaN shades and cells that straddle the screen's
+edges; and its bench-only variants that store keys.
 """
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
-from planet_tpu.raster import splat as jsplat
+from planet_tpu_torch import _cuda
 from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import splat
+from planet_tpu_torch.tools import r1_s1_parts
 
 torch.set_num_threads(1)
+
+
+def _jax():
+    """jax.numpy and planet_tpu's splat, imported by the tests that compare
+    with them (the GPU tests below run where jax is not installed)."""
+    import jax.numpy as jnp
+    from planet_tpu.raster import splat as jsplat
+    return jnp, jsplat
 
 
 def _t(a):
@@ -116,6 +130,7 @@ def test_to_i32_converts_as_xla():
     x = np.array([np.nan, -np.nan, np.inf, -np.inf, 1e12, -1e12, 2.0**31,
                   -(2.0**31), 2.0**31 - 128, -2.5, 2.5, -0.0, 0.99,
                   -0.99, 1023.7, 2097150.9], np.float32)
+    jnp, _ = _jax()
     got = tcov.to_i32(_t(x)).numpy()
     want = np.asarray(jnp.asarray(x).astype(jnp.int32))
     np.testing.assert_array_equal(got, want)
@@ -154,6 +169,7 @@ def _fragments(seed, q=3, g=6):
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 @pytest.mark.parametrize("wireframe", [False, True])
 def test_upsample_and_splat_bitwise_equal_planet_tpu(k, wireframe):
+    jnp, jsplat = _jax()
     clip, shade, valid = _fragments(k + 10 * wireframe)
     got = splat.upsample_cells(_t(clip), _t(shade), _t(valid), k,
                                wireframe=wireframe)
@@ -170,6 +186,7 @@ def test_upsample_and_splat_bitwise_equal_planet_tpu(k, wireframe):
 
 @pytest.mark.parametrize("fill_rounds", [0, 1, 2, 3])
 def test_hole_fill_rounds_bitwise_equal_planet_tpu(fill_rounds):
+    jnp, jsplat = _jax()
     clip, shade, valid = _fragments(20 + fill_rounds, q=4, g=8)
     # sparse fragments: most pixels start empty, the fills close them
     args = splat.upsample_cells(_t(clip), _t(shade), _t(valid), 2)
@@ -221,10 +238,11 @@ def test_splat_keys_dispatch_plain_on_cpu(k, wireframe):
 
 
 def test_weight_table_is_upsample_cells_weights():
-    """splat.weights, the plain version's table, equals the weights the
-    splat kernel forms for fragment f (csrc/splat.cu:cell_weights: rows i
-    and columns j, with wireframe row 0 then column 0; fu the double
-    j / (k - 1) rounded to f32; f32 products)."""
+    """splat.weights, the plain version's table, equals the weights of
+    fragment f's point (i, j) (rows i and columns j, with wireframe row 0
+    then column 0; fu the double j / (k - 1) rounded to f32; f32
+    products), the formula of the splat kernel's table
+    (csrc/splat.cu:form_table)."""
     one = np.float32(1.0)
     for k in (2, 3, 6, 8, 32):
         for wf in (False, True):
@@ -247,3 +265,94 @@ def test_weight_table_is_upsample_cells_weights():
     c, _, _ = splat.upsample_cells(clip, torch.zeros((1, 2, 2)),
                                    torch.ones((1, 2, 2), dtype=torch.bool), 4)
     assert c[0, 0, 0, :, 0].tolist() == [w[2] for w in splat.weights(4)]
+
+
+@pytest.mark.parametrize("k", range(2, 33))
+@pytest.mark.parametrize("wireframe", [False, True])
+def test_kernel_table_walk_is_weights_order(k, wireframe):
+    """The splat kernel's fragment loop, walked in Python: each block forms
+    its table as csrc/splat.cu:form_table does (lane j < k forms column j,
+    warp w of 8 the rows w, w + 8, ..., each point (i, j) at
+    splat.table_slot, the kernel's table_slot, with no division; each slot
+    written once), then a cell's thread walks f = 0, 1, ... frags - 1
+    through it. The walk yields splat.weights(k, wireframe) exactly, in
+    order, wireframe's row-then-column order included."""
+    one = np.float32(1.0)
+    frags = 2 * k - 1 if wireframe else k * k
+    table = [None] * frags
+    for lane in range(32):
+        if lane >= k:
+            continue
+        fu = np.float32(np.float64(lane) / np.float64(k - 1))
+        for warp in range(8):
+            for i in range(warp, k, 8):
+                f = splat.table_slot(i, lane, k, wireframe)
+                if f < 0:
+                    assert wireframe and i and lane
+                    continue
+                assert table[f] is None
+                fv = np.float32(np.float64(i) / np.float64(k - 1))
+                table[f] = tuple(float(x) for x in (
+                    (one - fu) * (one - fv), fu * (one - fv), (one - fu) * fv,
+                    fu * fv))
+    walk = tuple(table[f] for f in range(frags))
+    assert walk == splat.weights(k, wireframe)
+
+
+# ------------------------------------------------------------- the card
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _screen_grids(seed, q=6, g=12):
+    """(Q, G, G) grids for a 61 x 47 screen: _fragments' culled and kept
+    fragments in patches 0-2; patch 3 a regular grid from NDC -1.3 to 1.3
+    whose cells straddle all four screen edges, with NaN shades on screen;
+    patches 4-5 invalid, as DeviceRenderer's padding rows are."""
+    clip, shade, valid = _fragments(seed, q=q, g=g)
+    lin = np.linspace(-1.3, 1.3, g, dtype=np.float32)
+    clip[3, ..., 0] = lin[None, :]
+    clip[3, ..., 1] = lin[:, None]
+    clip[3, ..., 2] = np.linspace(-0.5, 0.5, g, dtype=np.float32)[:, None]
+    clip[3, ..., 3] = 1.0
+    valid[3] = True
+    shade[3, 2::3, 2::3] = np.nan
+    valid[4:] = False
+    return [_t(a) for a in (clip, shade, valid)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 8, 32])
+@pytest.mark.parametrize("wireframe", [False, True])
+def test_s1_equals_plain(dev, k, wireframe):
+    """S1 (csrc/splat.cu) against splat_keys_plain on the CPU, bit for
+    bit, one launch: every kind of culled fragment, NaN shades, cells that
+    straddle the screen's edges and invalid padding rows."""
+    args = _screen_grids(k + 40 * wireframe)
+    want = splat.splat_keys_plain(*args, 61, 47, k, wireframe)
+    before = _cuda.launches["splat"]
+    got = splat.splat_keys(*(a.to(dev) for a in args), 61, 47, k, wireframe)
+    assert _cuda.launches["splat"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert int((want != tcov._EMPTY).sum()) > 40
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [v for v, (_, stores) in
+                                     r1_s1_parts.SPLAT_VARIANTS.items()
+                                     if stores])
+@pytest.mark.parametrize("wireframe", [False, True])
+def test_s1_bench_variants_equal_plain(dev, variant, wireframe):
+    """S1's bench-only variants that store keys (the first design by
+    division and by multiply-high, the cell kernel with its read skip and
+    with 4 lanes a cell) equal the plain version bit for bit."""
+    args = _screen_grids(7 + wireframe)
+    want = splat.splat_keys_plain(*args, 61, 47, 8, wireframe)
+    got = r1_s1_parts.t_splat(variant, *(a.to(dev) for a in args), 61, 47,
+                              8, wireframe)
+    assert torch.equal(got.cpu(), want)
