@@ -35,7 +35,14 @@ result line is printed:
    shade packed as 0, as planet_tpu converts NaN to int32), the routed
    raster K6 -> K2 -> K3 with the counts on the device against the plain
    composition, and run under torch.cuda.set_sync_debug_mode("error") (no
-   host read between setup and K3);
+   host read between setup and K3); C1, the triangle setup, against its
+   plain version (live, span, straddler mask and live record columns
+   bitwise) on DeviceRenderer's render_cap rows with the leaf count on the
+   device (the 1080p static camera, the orbit's first frame) and on
+   PlanetEngine's leaves without one (1080p static, the near-clip
+   golden), each timed beside its bound; C2, the clipped straddlers'
+   records, against its plain version on the first clip_cap straddlers of
+   each of those sets (live records and the dead marks bitwise);
 4. the host-orchestrated path, PlanetEngine(...).render on the card,
    against the oracle's frame / nearclip / farclip golden images at their
    test bars;
@@ -46,13 +53,17 @@ result line is printed:
    CUDA-event time, and a torch.profiler trace of one replay whose device
    events include the K1 and R1 kernels and no K4 (R1 inlines its probe
    noise; the replay launches R1 once a level);
-5b. the fused device frame, DeviceRenderer(...).render through graph
-   replays: the golden / nearclip / farclip scenes at their bars, the
-   1920x1080 static scene (10 frames) and the 8-frame orbit, each orbit
-   frame's leaf ids equal to phase 5's PlanetEngine on the same camera;
+5b. the fused device frame, DeviceRenderer(...).render through two graph
+   replays a frame (the geometry step, then the raster: C1, K6, K2, C2,
+   K3 on all render_cap rows, no host read): the golden / nearclip / farclip
+   scenes at their bars, the 1920x1080 static scene (10 frames; then one
+   more whole render under torch.cuda.set_sync_debug_mode("error"),
+   bitwise the last frame; then the geometry and raster replays timed
+   apart) and the 8-frame orbit, each orbit frame's leaf ids equal to
+   phase 5's PlanetEngine on the same camera;
 6. launch counts: each kernel of each path launched during that path's
-   phases (4-5: tile, gather, span, huge; 5b: those and refine) > 0, and
-   K4 not launched by 5b;
+   phases (4-5: tile, gather, span, huge; 5b: those, refine, setup and
+   clip) > 0, and K4 not launched by 5b;
 7. the cube-sphere field path (models/heightfield), counts reset before
    and read after: config 1 (flat 256x256 patch, fBm 4, through K4)
    bitwise equal to K4's plain version on the same noise coordinates and
@@ -81,7 +92,9 @@ result line is printed:
    tools' queued timer (tools/common.time_calls: calls queued behind a
    spin kernel, so a short kernel's time holds no host launch time):
    tools/kernel_times.calls on phase 3's record sets and fused
-   occupancy (with R1 and S1 at phase 9a's shapes), and its host_calls
+   occupancy (with R1 and S1 at phase 9a's shapes, C1 and C2 on phase
+   3's setup inputs, and K3's near-clip pass on all 2 clip_cap records
+   against the live ones compacted first), and its host_calls
    (K6 by the host clock); R1's queued time over the static camera's
    live levels, beside its bound;
 9. the single-card rest (`single_card_rest`), at 1920x1080 with the
@@ -425,7 +438,7 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
         rend.wireframe = wf
         fr = rend.render(pool, *args)
         geom = rend.last_geometry
-        n = fr.n_leaves
+        n = int(fr.n_leaves)
         gsv = splat_valid(geom.vertices, geom.valid)
         kargs = (geom.vertices.clip, geom.vertex_shade, gsv, width, height,
                  max(ss, 2) if wf else ss, wf)
@@ -460,6 +473,7 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
     # the main path: PlanetEngine frames, DeviceRenderer frames and the
     # orbit, counted alone
     _cuda.reset_launches()
+    captures0 = rend.raster_captures
     frame_ms = []
     for i in range(reps + 2):
         ms, (_, image, depth) = host_ms(lambda: eng.render(camera))
@@ -469,7 +483,7 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
     for i in range(reps):
         ms, fr = host_ms(lambda: rend.render(pool, *args))
         static_ms.append(ms)
-        static_leaves = fr.n_leaves
+        static_leaves = int(fr.n_leaves)
         check(bool(torch.isfinite(fr.image).all()), "9a device splat: finite")
         check(not fr.overflowed, "9a device splat: overflowed")
     pool = rend.init_pool()
@@ -487,10 +501,13 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
         check(bool(torch.isfinite(fr.image).all()), f"9a orbit {i}: finite")
     counted("a", ("tile", "refine", "splat"))
     check(_cuda.launches["noise"] == 0, "9a: the splat frames launched K4")
+    # the orbit's new pool captures both graphs again, the raster after a
+    # warm-up run that launches S1 once
     n_frames = reps + 2 + reps + len(orbit)
-    check(_cuda.launches["splat"] == n_frames,
-          f"9a {n_frames} splat frames launched S1 "
-          f"{_cuda.launches['splat']} times")
+    warmups = rend.raster_captures - captures0
+    check(_cuda.launches["splat"] == n_frames + warmups,
+          f"9a {n_frames} splat frames and {warmups} raster warm-ups "
+          f"launched S1 {_cuda.launches['splat']} times")
     res["splat_launches"] = _cuda.launches["splat"]
     res["planet_splat_static_ms"] = float(np.median(frame_ms[2:]))
     log(f"[9a] PlanetEngine splat frame {width}x{height}: median of "
@@ -596,7 +613,9 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
                 return o
             ms, o = host_ms(one)
             self.ms.append(ms)
-            self.images.append(o[1])
+            # DeviceRenderer's image is its raster graph's output buffer,
+            # which the next frame writes
+            self.images.append(o[1].clone())
             return o
 
     cfgi = EngineConfig(window_w=width, window_h=height,
@@ -748,7 +767,8 @@ def sharded_paths(dev, width, height, *, camera_args, static_ids,
             q_lo[:n].cpu().numpy(), q_hi[:n].cpu().numpy()))
 
     def frame_counts(frame):
-        return frame.n_leaves, frame.n_generated, frame.overflowed
+        return (int(frame.n_leaves), int(frame.n_generated),
+                bool(frame.overflowed))
 
     def converge(render, tag, counts=frame_counts):
         """Frames until one generates nothing (at most 4); the last one's
@@ -895,7 +915,8 @@ def sharded_paths(dev, width, height, *, camera_args, static_ids,
                 return device_step.raster_packed(geom, cfg, width, height)[0]
 
             packed, n, _, _, q_lo, q_hi = converge(
-                rank_frame, f"c rank {rank}", lambda out: out[1:4])
+                rank_frame, f"c rank {rank}",
+                lambda out: (int(out[1]), int(out[2]), bool(out[3])))
             part = ids_of(q_lo, q_hi, n)
             check(not union & part, f"10c: rank {rank}'s leaves overlap")
             union |= part
@@ -997,7 +1018,7 @@ def stage_ladder(dev, width, height, *, camera_args, static_pool,
         check([r["rung"] for r in rows] == list(device_step.RUNGS),
               f"11a {scene}: rungs {[r['rung'] for r in rows]}")
         for r in rows:
-            want = (static_frame.n_leaves if scene == "static-1080p"
+            want = (int(static_frame.n_leaves) if scene == "static-1080p"
                     else orbit_leaves[1:len(r["n_leaves"]) + 1])
             check(r["n_leaves"] == want, f"11a {scene} {r['rung']}: "
                   f"leaves {r['n_leaves']} != phase 5b's {want}")
@@ -1058,12 +1079,12 @@ def stage_ladder(dev, width, height, *, camera_args, static_pool,
     frame = full.render(pool_at(static_pool), *camera_args)
     check(same_bits(frame.image, static_frame.image)
           and same_bits(frame.depth, static_frame.depth)
-          and frame.n_leaves == static_frame.n_leaves,
+          and int(frame.n_leaves) == int(static_frame.n_leaves),
           "11b: the full rung's frame != phase 5b's static frame")
     log(f"[11b] from phase 5b's pool before its last static frame: the "
         f"geometry rung bitwise equal to DeviceRenderer.geometry (leaves, "
         f"slots, tiles, vertices, shade, counters, pool), the full rung's "
-        f"frame bitwise equal to phase 5b's ({frame.n_leaves} leaves); "
+        f"frame bitwise equal to phase 5b's ({int(frame.n_leaves)} leaves); "
         f"(b) in {time.perf_counter() - t_b:.1f} s")
     del base, rung, full, pool_base, pool_rung
 
@@ -1118,7 +1139,7 @@ def main() -> int:
     from planet_tpu_torch.raster import coverage_cuda as cc
     from planet_tpu_torch.tools import kernel_times, r1_s1_parts
     sys.path.insert(0, str(ROOT / "tests"))
-    from torch_scenes import EDGE, nan_shade_records
+    from torch_scenes import EDGE, counter_values, nan_shade_records
 
     dev = torch.device(DEVICE)
 
@@ -1570,10 +1591,72 @@ def main() -> int:
           f"{report['huge']['plain_ms']:.3f} ms "
           f"({report['huge']['shape']})", flush=True)
 
+    # C1, the triangle setup: against its plain version (setup_t and
+    # straddle_mask_t) at the main path's shapes (kernel_times.
+    # setup_inputs: DeviceRenderer's render_cap rows with the leaf count
+    # on the device, PlanetEngine's leaves without one); bitwise in live,
+    # span and the straddler mask, and in every live record column
+    setups = kernel_times.setup_inputs(dev)
+    straddlers = {}
+    for name, args in setups.items():
+        got, want = cc.setup_cuda(*args), cc.setup_plain(*args)
+        cols = torch.nonzero(want[1]).squeeze(1)
+        ok = (all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+              and same_bits(got[0][:, cols], want[0][:, cols]))
+        rows = (args[0].shape[0] if args[7] is None else int(args[7][0]))
+        g = args[0].shape[1]
+        row = dict(
+            max_abs_err=0.0 if ok else float("nan"),
+            ms=time_ms(lambda: cc.setup_cuda(*args)),
+            plain_ms=time_ms(lambda: cc.setup_plain(*args)),
+            library_ms=None, candidates=int(want[1].numel()),
+            live=int(cols.numel()), straddlers=int(want[3].sum()),
+            bound=bound_ms(*tool_common.setup_work(
+                rows, g, want[1].numel(), cols.numel())))
+        print(f"[3] C1 setup, {name}: {row['candidates']} candidates on "
+              f"{args[0].shape[0]} rows ({rows} live), {row['live']} live, "
+              f"{row['straddlers']} straddlers; live, span, straddlers and "
+              f"live records equal to plain: {ok}; kernel {row['ms']:.4f} "
+              f"ms, plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound'][0]:.5f} ms ({row['bound'][1]})", flush=True)
+        check(ok, f"C1 != plain on {name}")
+        straddlers[name] = row["straddlers"]
+        if name == "1080p static, DeviceRenderer rows":
+            report["setup"] = row
+    check(any(straddlers.values()), "no C1 input set reaches the straddler "
+          f"mask: {straddlers}")
+    # C2, the clipped straddlers' records, on the first clip_cap straddlers
+    # of each set: every live record bitwise, every record's dead marks
+    # (row 28 = 0, row 25 = +inf) bitwise
+    for name, args in kernel_times.clip_inputs(setups).items():
+        got, want = cc.clip_records_cuda(*args), cc.clip_records_plain(*args)
+        live = want[:, 28] != 0.0
+        ok = (same_bits(got[live], want[live])
+              and same_bits(got[:, 25], want[:, 25])
+              and same_bits(got[:, 28], want[:, 28]))
+        slots = args[2].shape[0]
+        used = min(straddlers[name], slots)
+        row = dict(
+            max_abs_err=0.0 if ok else float("nan"),
+            ms=time_ms(lambda: cc.clip_records_cuda(*args)),
+            plain_ms=time_ms(lambda: cc.clip_records_plain(*args)),
+            library_ms=None, slots=slots, straddlers=used,
+            live_records=int(live.sum()),
+            bound=bound_ms(*tool_common.clip_work(slots, used)))
+        print(f"[3] C2 clip, {name}: {slots} slots, {used} straddlers, "
+              f"{row['live_records']} live records; equal to plain: {ok}; "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound'][0]:.5f} ms ({row['bound'][1]})",
+              flush=True)
+        check(ok, f"C2 != plain on {name}")
+        if name == "1080p static, DeviceRenderer rows":
+            report["clip"] = row
+
     # ------------------------------------------------------------ phase 4
     def check_golden(tag, name, n_leaves, image, depth, rc):
         """The golden-scene bars (tests/test_golden_*.py)."""
         image, depth = image.cpu().numpy(), depth.cpu().numpy()
+        n_leaves, rc = int(n_leaves), counter_values(rc)
         meta = np.load(GOLD / f"{name}_meta.npy")
         gold_img = np.load(GOLD / f"{name}_image.npy")
         gold_dep = np.load(GOLD / f"{name}_depth.npy")
@@ -1624,7 +1707,7 @@ def main() -> int:
         st = out.stats
         check(bool(torch.isfinite(image).all()), "1080p image not finite")
         print(f"[5] 1080p static frame {i}: leaves {out.n_leaves}, live "
-              f"triangles {eng.last_counters.n_tris}, tiles generated "
+              f"triangles {int(eng.last_counters.n_tris)}, tiles generated "
               f"{st.tiles_generated}; ms "
               + ", ".join(f"{k} {st.stage_ms[k]:.3f}" for k in STAGES)
               + f"; frame {sum(st.stage_ms.values()):.3f}", flush=True)
@@ -1652,8 +1735,8 @@ def main() -> int:
         check(bool(torch.isfinite(image).all()), f"orbit frame {i} not finite")
         print(f"[5] orbit frame {i} alt {orbit_alts[i]:.0f} m: leaves "
               f"{out.n_leaves}, tiles generated {st.tiles_generated}, live "
-              f"triangles {eng.last_counters.n_tris}, huge "
-              f"{eng.last_counters.n_huge}; frame "
+              f"triangles {int(eng.last_counters.n_tris)}, huge "
+              f"{int(eng.last_counters.n_huge)}; frame "
               f"{sum(st.stage_ms.values()):.3f} ms", flush=True)
     launches_host = dict(_cuda.launches)
 
@@ -1729,10 +1812,11 @@ def main() -> int:
             t0 = time.perf_counter()
             fr = rend.render(pool, *device_args(rend.cfg, cam, width, height))
             torch.cuda.synchronize()
-            print(f"[5b] {tag} frame {i}: leaves {fr.n_leaves}, tiles "
-                  f"generated {fr.n_generated}, overflowed {fr.overflowed}; "
+            print(f"[5b] {tag} frame {i}: leaves {int(fr.n_leaves)}, tiles "
+                  f"generated {int(fr.n_generated)}, overflowed "
+                  f"{bool(fr.overflowed)}; "
                   f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
-            if fr.n_generated == 0:
+            if int(fr.n_generated) == 0:
                 return fr
         raise SmokeFailure(f"{tag}: still generating after 4 frames")
 
@@ -1745,42 +1829,63 @@ def main() -> int:
 
     rend = device_step.DeviceRenderer(cfg1080, W_1080, H_1080, device=dev)
     pool = rend.init_pool()
+    static_args = device_args(cfg1080, bench_cam(), W_1080, H_1080)
     static_ms = []
     for i in range(10):
         if i == 9:      # phase 11 renders this frame again from this state
             static_pool = [t.clone() for t in pool]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fr = rend.render(pool, *device_args(cfg1080, bench_cam(), W_1080,
-                                            H_1080))
+        fr = rend.render(pool, *static_args)
         torch.cuda.synchronize()
         static_ms.append((time.perf_counter() - t0) * 1e3)
         check(bool(torch.isfinite(fr.image).all()), "5b 1080p not finite")
         check(not fr.overflowed, "5b 1080p static: overflowed")
-        print(f"[5b] 1080p static frame {i}: leaves {fr.n_leaves}, tiles "
-              f"generated {fr.n_generated}, live triangles "
-              f"{rend.last_counters.n_tris}; frame {static_ms[-1]:.3f} ms",
-              flush=True)
+        print(f"[5b] 1080p static frame {i}: leaves {int(fr.n_leaves)}, "
+              f"tiles generated {int(fr.n_generated)}, live triangles "
+              f"{int(rend.last_counters.n_tris)}; frame "
+              f"{static_ms[-1]:.3f} ms", flush=True)
     print(f"[5b] 1080p static: median of frames 2-9 "
           f"{float(np.median(static_ms[2:])):.3f} ms", flush=True)
-    static_frame = fr
+    # the frame's buffers are the raster graph's: the next render writes
+    # them, so phase 11 gets a copy
+    static_frame = fr._replace(**{k: v.clone() for k, v in
+                                  fr._asdict().items() if v is not None})
     static_ids = set(int(q) for q in quadid.from_words(
         rend.last_geometry.leaf_lo[:fr.n_leaves].cpu().numpy(),
         rend.last_geometry.leaf_hi[:fr.n_leaves].cpu().numpy()))
+    # a whole warm frame (both graphs, the camera's upload, the launch
+    # tallies) with no host synchronisation: torch raises on one
+    pool_sync = [t.clone() for t in pool]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fr = rend.render(pool, *static_args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(same_bits(fr.image, static_frame.image)
+          and same_bits(fr.depth, static_frame.depth),
+          "5b: the frame under set_sync_debug_mode('error') != the last "
+          "static frame")
+    for t, v in zip(pool, pool_sync):
+        t.copy_(v)
+    print("[5b] 1080p static: a warm render() (geometry graph, raster graph "
+          f"{rend.graph_launches}) ran under "
+          "torch.cuda.set_sync_debug_mode('error') and equals the last "
+          "static frame bit for bit", flush=True)
     # where a warm fused frame's time goes: the geometry graph replay
-    # (inputs copied in, replay, synchronize), then the raster
+    # (inputs copied in, replay, synchronize), then the raster graph's
     split = []
     for i in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        geom = rend.geometry(pool, *device_args(cfg1080, bench_cam(), W_1080,
-                                                H_1080))
+        rend.geometry(pool, *static_args)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        device_step.raster(geom, cfg1080, W_1080, H_1080)
+        rend.rasterize()
         torch.cuda.synchronize()
         split.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
-    print("[5b] 1080p static, geometry replay / raster ms: "
+    print("[5b] 1080p static, geometry replay / raster replay ms: "
           + ", ".join(f"{g:.3f}/{r:.3f}" for g, r in split), flush=True)
     pool = rend.init_pool()
     for i, cam in enumerate(orbit_cams()):
@@ -1794,9 +1899,10 @@ def main() -> int:
                                 geom.leaf_hi[:fr.n_leaves].cpu().numpy())
         same = np.array_equal(ids, orbit_ids[i])
         print(f"[5b] orbit frame {i} alt {orbit_alts[i]:.0f} m: leaves "
-              f"{fr.n_leaves} (PlanetEngine {len(orbit_ids[i])}, ids "
+              f"{int(fr.n_leaves)} (PlanetEngine {len(orbit_ids[i])}, ids "
               f"{'equal' if same else 'DIFFER'}), tiles generated "
-              f"{fr.n_generated}, overflowed {fr.overflowed}; frame "
+              f"{int(fr.n_generated)}, overflowed {bool(fr.overflowed)}; "
+              "frame "
               f"{ms:.3f} ms", flush=True)
         check(bool(torch.isfinite(fr.image).all()), f"5b orbit {i}: finite")
         check(same, f"5b orbit frame {i}: leaf ids differ from PlanetEngine")
@@ -1811,7 +1917,7 @@ def main() -> int:
     for k in ("tile", "gather", "span", "huge"):
         check(launches_host[k] > 0, f"kernel {k} was not launched by the "
               "host-orchestrated path")
-    for k in ("tile", "refine", "gather", "span", "huge"):
+    for k in ("tile", "refine", "setup", "gather", "span", "clip", "huge"):
         check(launches_dev[k] > 0, f"kernel {k} was not launched by the "
               "fused device path")
     check(launches_dev["noise"] == 0, "the fused device path launched K4 "
@@ -2007,7 +2113,8 @@ def main() -> int:
     # on K6's buffer with the count on the device).
     queued, huge_queued = {}, {}
     for key, label, fn, setup in kernel_times.calls(dev, sets=sets,
-                                                    fused=fused):
+                                                    fused=fused,
+                                                    setups=setups):
         ms = tool_common.time_ms(fn, setup, reps=REPS)
         if key:
             queued[key] = ms
@@ -2116,6 +2223,15 @@ def main() -> int:
         # no Pallas kernel: planet_tpu's XLA splat (upsample, pack, scatter)
         "splat": ("planet_tpu_torch/csrc/splat.cu",
                   "planet_tpu/raster/splat.py:30"),
+        # no Pallas kernel: planet_tpu's XLA triangle setup and straddler
+        # mask
+        "setup": ("planet_tpu_torch/csrc/setup.cu",
+                  "planet_tpu/raster/coverage.py:428, "
+                  "planet_tpu/raster/nearclip.py:94"),
+        # no Pallas kernel: planet_tpu's XLA clip pass
+        "clip": ("planet_tpu_torch/csrc/setup.cu",
+                 "planet_tpu/raster/coverage.py:840, "
+                 "planet_tpu/raster/nearclip.py:292"),
         "t_noise": ("planet_tpu_torch/csrc/bench_noise.cu",
                     noise_stages.REPLACES["t_noise"]),
         "t_tile": ("planet_tpu_torch/csrc/bench_noise.cu",

@@ -1,0 +1,402 @@
+// Triangle-setup kernels of the exact raster. C1 (setup_kernel): the
+// per-candidate setup in one pass. (Q, G, G) patch grids of clip
+// positions, shading normals and validity -> for every cell triangle, in
+// coverage.setup_t's parity-major candidate order (N = 2 Q G G): its
+// 32-float record column of the (32, N) matrix (live candidates only),
+// live, span (the aligned 8-row blocks its clamped bbox touches) and the
+// near-plane straddler mask. C2 (clip_kernel, below): the clipped
+// straddlers' records.
+//
+// planet_tpu sets the triangles up in XLA (raster/coverage.py:_setup_t and
+// raster/nearclip.py:straddle_mask_t), not in Pallas, so this kernel
+// replaces no TPU kernel: on the card the composed torch ops were some 300
+// launches a frame and most of the fused frame's raster time (PERF.md).
+// Plain PyTorch version: planet_tpu_torch/raster/coverage_cuda.py:
+// setup_plain (coverage.setup_t and nearclip.straddle_mask_t, unchanged),
+// which it equals bit for bit in live, span, the straddler mask and every
+// live record column; the wrapper is coverage_cuda.setup.
+//
+// A thread a candidate. setup_t's lane rotations (coverage.tri3) become
+// index arithmetic: cell j of patch q gives T0 = (j, j + G, j + 1) and
+// T1 = (j + 1, j + G, j + G + 1), all mod G G (the wrap only reaches the
+// wrap-padding cells of the last grid row and column, which the cell table
+// kills). The thread reads its three vertices (the projection is
+// recomputed by each of the up to six triangles that share a vertex: the
+// reads hit L1/L2, and a projection pass would be another launch), and
+// runs setup_t's op order: project and snap, cull, bbox, the three edge
+// constants and top-left biases, the 1/area terms, the far-straddler
+// floor; then straddle_mask_t's det3 and frustum outcodes. Built with
+// -fmad=false -prec-div=true, so every product, sum and reciprocal rounds
+// as torch's; min and max propagate NaN as torch.minimum does.
+//
+// The leaf count: with a count pointer (the fused frame's geom.meta[0]) a
+// thread whose patch row is at or past it writes live = 0, span = 0 and
+// straddle = 0 and reads nothing (those rows are padding, all invalid, so
+// the plain version's live and straddle are 0 there too). Without one
+// (PlanetEngine) every row is evaluated. Record columns of dead
+// candidates are not written: every reader of the matrix (the route, K6)
+// reads a column only where live is set.
+//
+// C2, clip_kernel: coverage_cuda.clip_records on the card. The first
+// clip_cap straddlers' candidate indices (coverage_cuda.compact_indices;
+// N marks an empty slot) -> (2 clip_cap, 32) row records: slot k's
+// triangle A at row k, its triangle B at row clip_cap + k. A thread a
+// slot runs nearclip's op order: gather_tri_verts_t (the clamped corner
+// indices, an empty slot reading the last candidate's), clip_expand
+// (Sutherland-Hodgman against z + w >= 0: the rotation to the lone
+// vertex, the two edge parameters f0 / (f0 - f1) and f2 / (f2 - f0), the
+// interpolated positions and normals), then for each of A and B
+// setup_tris and records_from_tris (the same projection, cull, bbox and
+// record words as C1). A dead record (an empty slot, a slot whose clip
+// gives one triangle, a part culled) has row 28 = 0 * ilim and its bbox's
+// first row at +inf (so K3 never stages it). The plain version is
+// clip_records_plain's torch ops (nearclip.clipped_tris,
+// records_from_tris, the +inf fill), which it equals bit for bit in
+// every live record and in every record's row 28 and 25. They replace
+// planet_tpu's XLA clip pass (raster/coverage.py:_clipped, nearclip.py),
+// no Pallas kernel; as torch ops they were ~250 launches of a 512-slot
+// frame, straddlers or not (PERF.md).
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kSetupThreads = 256;
+constexpr float kWMin = 1e-9f;         // coverage._W_MIN
+constexpr float kSnap = 16.0f, kInvSnap = 0.0625f;
+
+// torch.minimum / torch.maximum: NaN if either operand is NaN
+__device__ __forceinline__ float tmin(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ float tmax(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+// coverage.to_i32: truncate toward zero, saturate, NaN -> 0
+__device__ __forceinline__ int to_i32(float x) {
+  if (x != x) return 0;
+  if (x >= 2147483648.0f) return 2147483647;
+  return (int)fminf(fmaxf(x, -2147483648.0f), 2147483520.0f);
+}
+
+struct Vert {
+  float x, y, z, w;                    // clip position
+  float nx, ny, nz;                    // shading normal
+  bool valid;
+};
+
+// coverage.edge_consts of edge a -> b relative to the bbox-min pixel
+// centre (ox, oy); FRONT_SIGN is 1
+__device__ __forceinline__ void edge(float xa, float ya, float xb, float yb,
+                                     float ox, float oy, float* dx,
+                                     float* dy, float* c, float* bias) {
+  const float DX = (xb - xa) * 1.0f;
+  const float DY = (yb - ya) * 1.0f;
+  *dx = DX;
+  *dy = DY;
+  *c = DX * (oy - ya) - DY * (ox - xa);
+  const bool topleft = (DY < 0.0f) || (DY == 0.0f && DX > 0.0f);
+  *bias = topleft ? -1.0f / 512.0f : 1.0f / 512.0f;
+}
+
+// coverage.project for one vertex: the w test, 1/w, the snapped screen
+// position; and z and the normal scaled by 1/w
+struct Projected {
+  bool okw;
+  float iw, sx, sy, z, nx, ny, nz;
+};
+
+__device__ __forceinline__ Projected project(float x, float y, float z,
+                                             float w, float nx, float ny,
+                                             float nz, bool valid,
+                                             float width, float height) {
+  Projected o;
+  o.okw = valid && w > kWMin;
+  o.iw = o.okw ? 1.0f / w : 0.0f;
+  const float px = (x * o.iw * 0.5f + 0.5f) * width;
+  const float py = (0.5f - y * o.iw * 0.5f) * height;
+  o.sx = rintf(px * kSnap) * kInvSnap;
+  o.sy = rintf(py * kSnap) * kInvSnap;
+  o.z = z * o.iw;
+  o.nx = nx * o.iw, o.ny = ny * o.iw, o.nz = nz * o.iw;
+  return o;
+}
+
+// A projected triangle's cull and bbox (coverage.setup_t and
+// nearclip.setup_tris): tri_ok is the three vertices' w tests and the
+// caller's own
+struct Tri {
+  float area2;
+  int px0, py0, px1, py1;
+  bool live;
+};
+
+__device__ __forceinline__ Tri cull(const Projected* v, bool tri_ok,
+                                    int wmax, int hmax) {
+  Tri t;
+  t.area2 = ((v[1].sx - v[0].sx) * (v[2].sy - v[0].sy)
+             - (v[1].sy - v[0].sy) * (v[2].sx - v[0].sx)) * 1.0f;
+  const float min_x = tmin(tmin(v[0].sx, v[1].sx), v[2].sx);
+  const float max_x = tmax(tmax(v[0].sx, v[1].sx), v[2].sx);
+  const float min_y = tmin(tmin(v[0].sy, v[1].sy), v[2].sy);
+  const float max_y = tmax(tmax(v[0].sy, v[1].sy), v[2].sy);
+  t.px0 = max(to_i32(ceilf(min_x - 0.5f)), 0);
+  t.px1 = min(to_i32(floorf(max_x - 0.5f)), wmax);
+  t.py0 = max(to_i32(ceilf(min_y - 0.5f)), 0);
+  t.py1 = min(to_i32(floorf(max_y - 0.5f)), hmax);
+  t.live = tri_ok && t.area2 > 0.0f && t.px0 <= t.px1 && t.py0 <= t.py1;
+  return t;
+}
+
+// The 32 record words (coverage.setup_t's rows, nearclip.records_from_tris)
+// of a triangle with its 1/area and row-28 word
+__device__ __forceinline__ void record(const Projected* v, const Tri& t,
+                                       float inv_area, float r28,
+                                       float* r) {
+  const float ox = (float)t.px0 + 0.5f, oy = (float)t.py0 + 0.5f;
+  edge(v[1].sx, v[1].sy, v[2].sx, v[2].sy, ox, oy, &r[0], &r[1], &r[2],
+       &r[29]);
+  edge(v[2].sx, v[2].sy, v[0].sx, v[0].sy, ox, oy, &r[3], &r[4], &r[5],
+       &r[30]);
+  edge(v[0].sx, v[0].sy, v[1].sx, v[1].sy, ox, oy, &r[6], &r[7], &r[8],
+       &r[31]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r[9 + k] = v[k].z * inv_area;
+    r[12 + k] = v[k].iw * inv_area;
+    r[15 + 3 * k] = v[k].nx * inv_area;
+    r[16 + 3 * k] = v[k].ny * inv_area;
+    r[17 + 3 * k] = v[k].nz * inv_area;
+  }
+  r[24] = (float)t.px0, r[25] = (float)t.py0;
+  r[26] = (float)t.px1, r[27] = (float)t.py1;
+  r[28] = r28;
+}
+
+__global__ void __launch_bounds__(kSetupThreads)
+setup_kernel(const float* __restrict__ clip, const float* __restrict__ normal,
+             const unsigned char* __restrict__ valid,
+             const unsigned char* __restrict__ cell_ok,
+             const int* __restrict__ count, int q, int g, float width,
+             float height, int wmax, int hmax, int has_far, float far_w,
+             float far_ilim, float* __restrict__ tm,
+             unsigned char* __restrict__ live_out, int* __restrict__ span_out,
+             unsigned char* __restrict__ straddle_out) {
+  const int gg = g * g;
+  const long long ncell = (long long)q * gg;
+  const long long n = 2 * ncell;
+  const long long i = (long long)blockIdx.x * kSetupThreads + threadIdx.x;
+  if (i >= n) return;
+  const int p = i >= ncell;
+  const long long rem = i - p * ncell;
+  const int qq = (int)(rem / gg);
+  const int j = (int)(rem - (long long)qq * gg);
+  if (count != nullptr && qq >= *count) {
+    live_out[i] = 0;
+    span_out[i] = 0;
+    straddle_out[i] = 0;
+    return;
+  }
+  const int j1 = j + 1 < gg ? j + 1 : j + 1 - gg;
+  const int jg = j + g < gg ? j + g : j + g - gg;
+  const int jg1 = j + g + 1 < gg ? j + g + 1 : j + g + 1 - gg;
+  const int idx[3] = {p ? j1 : j, jg, p ? jg1 : j1};
+
+  Vert v[3];
+  Projected pv[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const long long at = (long long)qq * gg + idx[k];
+    const float4 c = reinterpret_cast<const float4*>(clip)[at];
+    v[k].x = c.x, v[k].y = c.y, v[k].z = c.z, v[k].w = c.w;
+    v[k].nx = normal[at * 3], v[k].ny = normal[at * 3 + 1];
+    v[k].nz = normal[at * 3 + 2];
+    v[k].valid = valid[at] != 0;
+    pv[k] = project(v[k].x, v[k].y, v[k].z, v[k].w, v[k].nx, v[k].ny,
+                    v[k].nz, v[k].valid, width, height);
+  }
+  const bool cell = cell_ok[p * gg + j] != 0;
+
+  // ---------------------------------------------- coverage.setup_t
+  const Tri t = cull(pv, pv[0].okw && pv[1].okw && pv[2].okw && cell, wmax,
+                     hmax);
+  live_out[i] = t.live;
+  span_out[i] = (t.py1 >> 3) - (t.py0 >> 3) + 1;   // floor division by 8
+  if (t.live) {
+    const bool far = has_far && (v[0].w > far_w || v[1].w > far_w
+                                 || v[2].w > far_w);
+    float r[32];
+    record(pv, t, 1.0f / t.area2, far ? far_ilim : -1.0f, r);  // live * ilim
+#pragma unroll
+    for (int k = 0; k < 32; ++k) tm[(long long)k * n + i] = r[k];
+  }
+
+  // -------------------------------------- nearclip.straddle_mask_t
+  const float x0 = v[0].x, x1 = v[1].x, x2 = v[2].x;
+  const float y0 = v[0].y, y1 = v[1].y, y2 = v[2].y;
+  const float w0 = v[0].w, w1 = v[1].w, w2 = v[2].w;
+  const float det3 = (x0 * (y1 * w2 - y2 * w1) - y0 * (x1 * w2 - x2 * w1))
+                     + w0 * (x1 * y2 - x2 * y1);
+  const bool all_out =
+      (w0 - x0 < 0.0f && w1 - x1 < 0.0f && w2 - x2 < 0.0f)
+      || (w0 + x0 < 0.0f && w1 + x1 < 0.0f && w2 + x2 < 0.0f)
+      || (w0 - y0 < 0.0f && w1 - y1 < 0.0f && w2 - y2 < 0.0f)
+      || (w0 + y0 < 0.0f && w1 + y1 < 0.0f && w2 + y2 < 0.0f);
+  const bool wl = w0 <= kWMin || w1 <= kWMin || w2 <= kWMin;
+  const bool fpos = v[0].z + w0 > 0.0f || v[1].z + w1 > 0.0f
+                    || v[2].z + w2 > 0.0f;
+  straddle_out[i] = v[0].valid && v[1].valid && v[2].valid && wl && fpos
+                    && det3 < 0.0f && !all_out && cell;
+}
+
+constexpr int kClipThreads = 128;
+
+// One clipped triangle (nearclip.setup_tris then records_from_tris) into
+// its row record.
+__device__ __forceinline__ void clipped_record(const float (*c)[4],
+                                               const float (*nv)[3],
+                                               bool live, float width,
+                                               float height, int wmax,
+                                               int hmax, int has_far,
+                                               float far_w, float far_ilim,
+                                               float* __restrict__ out) {
+  Projected pv[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    pv[k] = project(c[k][0], c[k][1], c[k][2], c[k][3], nv[k][0], nv[k][1],
+                    nv[k][2], live, width, height);
+  const Tri t = cull(pv, live && pv[0].okw && pv[1].okw && pv[2].okw, wmax,
+                     hmax);
+  const bool far = has_far && (c[0][3] > far_w || c[1][3] > far_w
+                               || c[2][3] > far_w);
+  const float ilim = far ? far_ilim : -1.0f;
+  float r[32];
+  record(pv, t, t.live ? 1.0f / t.area2 : 0.0f,
+         t.live ? ilim : 0.0f * ilim, r);
+  if (!t.live) r[25] = __int_as_float(0x7f800000);      // +inf
+  float4* o = reinterpret_cast<float4*>(out);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    o[k] = make_float4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
+}
+
+__global__ void __launch_bounds__(kClipThreads)
+clip_kernel(const float* __restrict__ clip, const float* __restrict__ normal,
+            const int* __restrict__ s_idx, int slots, int q, int g,
+            float width, float height, int wmax, int hmax, int has_far,
+            float far_w, float far_ilim, float* __restrict__ recs) {
+  const int k = blockIdx.x * kClipThreads + threadIdx.x;
+  if (k >= slots) return;
+  // nearclip.gather_tri_verts_t
+  const long long gg = (long long)g * g, ncell = q * gg, n = 2 * ncell;
+  const long long idx = s_idx[k];
+  const bool ok = idx < n;
+  const long long i = idx < n - 1 ? idx : n - 1;
+  const long long p = i / ncell, rem = i % ncell;
+  const long long qq = rem / gg, j = rem % gg, lim = gg - 1;
+  const long long a01 = min(j + 1, lim), a10 = min(j + g, lim);
+  const long long a11 = min(j + g + 1, lim);
+  const long long vi[3] = {p == 0 ? j : a01, a10, p == 0 ? a01 : a11};
+  float vc[3][4], vn[3][3], f[3];
+  bool in[3];
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    const long long at = qq * gg + vi[t];
+    const float4 c = reinterpret_cast<const float4*>(clip)[at];
+    vc[t][0] = c.x, vc[t][1] = c.y, vc[t][2] = c.z, vc[t][3] = c.w;
+    vn[t][0] = normal[at * 3], vn[t][1] = normal[at * 3 + 1];
+    vn[t][2] = normal[at * 3 + 2];
+    f[t] = vc[t][2] + vc[t][3];
+    in[t] = f[t] > 0.0f;
+  }
+  // nearclip.clip_expand: rotate the lone vertex (the one inside when one
+  // is, else the one outside) to position 0
+  const int cnt = in[0] + in[1] + in[2];
+  const int first_in = in[0] ? 0 : (in[1] ? 1 : 2);
+  const int first_out = !in[0] ? 0 : (!in[1] ? 1 : 2);
+  const int r0 = cnt == 1 ? first_in : first_out;
+  const int r1 = r0 == 2 ? 0 : r0 + 1, r2 = r0 == 0 ? 2 : r0 - 1;
+  const bool usable = ok && (cnt == 1 || cnt == 2);
+  const float f0 = f[r0], f1 = f[r1], f2 = f[r2];
+  const float t01 = usable ? f0 / (f0 - f1) : 0.0f;
+  const float t20 = usable ? f2 / (f2 - f0) : 0.0f;
+  float i01c[4], i20c[4], i01n[3], i20n[3];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    i01c[a] = vc[r0][a] + (vc[r1][a] - vc[r0][a]) * t01;
+    i20c[a] = vc[r2][a] + (vc[r0][a] - vc[r2][a]) * t20;
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    i01n[a] = vn[r0][a] + (vn[r1][a] - vn[r0][a]) * t01;
+    i20n[a] = vn[r2][a] + (vn[r0][a] - vn[r2][a]) * t20;
+  }
+  const bool one = cnt == 1;
+  float ac[3][4], an[3][3], bc[3][4], bn[3][3];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    ac[0][a] = one ? vc[r0][a] : i01c[a];
+    ac[1][a] = one ? i01c[a] : vc[r1][a];
+    ac[2][a] = one ? i20c[a] : vc[r2][a];
+    bc[0][a] = i01c[a], bc[1][a] = vc[r2][a], bc[2][a] = i20c[a];
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    an[0][a] = one ? vn[r0][a] : i01n[a];
+    an[1][a] = one ? i01n[a] : vn[r1][a];
+    an[2][a] = one ? i20n[a] : vn[r2][a];
+    bn[0][a] = i01n[a], bn[1][a] = vn[r2][a], bn[2][a] = i20n[a];
+  }
+  clipped_record(ac, an, usable, width, height, wmax, hmax, has_far, far_w,
+                 far_ilim, recs + (long long)k * 32);
+  clipped_record(bc, bn, ok && cnt == 2, width, height, wmax, hmax, has_far,
+                 far_w, far_ilim, recs + (long long)(slots + k) * 32);
+}
+
+}  // namespace
+
+// clip (Q, G, G, 4) f32, normal (Q, G, G, 3) f32, valid (Q, G, G) bool,
+// cell_ok (2, G, G) bool, count: one int32 on the card or null; tm
+// (32, 2 Q G G) f32, live and straddle (2 Q G G) bool, span (2 Q G G)
+// int32. far_w <= 0: no far clip.
+extern "C" int planet_setup(const void* clip, const void* normal,
+                            const void* valid, const void* cell_ok,
+                            const void* count, int q, int g, int width,
+                            int height, float far_w, float far_ilim, void* tm,
+                            void* live, void* span, void* straddle,
+                            void* stream) {
+  if (q < 0 || g <= 0 || width <= 0 || height <= 0
+      || ((size_t)clip & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n = 2LL * q * g * g;
+  if (n == 0) return (int)cudaSuccess;
+  const long long blocks = (n + kSetupThreads - 1) / kSetupThreads;
+  setup_kernel<<<(unsigned)blocks, kSetupThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)clip, (const float*)normal, (const unsigned char*)valid,
+      (const unsigned char*)cell_ok, (const int*)count, q, g, (float)width,
+      (float)height, width - 1, height - 1, far_w > 0.0f, far_w, far_ilim,
+      (float*)tm, (unsigned char*)live, (int*)span,
+      (unsigned char*)straddle);
+  return (int)cudaGetLastError();
+}
+
+// clip (Q, G, G, 4) f32, normal (Q, G, G, 3) f32 (Q > 0), s_idx (slots,)
+// int32 candidate indices (2 Q G G or more: an empty slot); recs
+// (2 slots, 32) f32, 16-byte aligned. far_w <= 0: no far clip.
+extern "C" int planet_clip_records(const void* clip, const void* normal,
+                                   const void* s_idx, int slots, int q,
+                                   int g, int width, int height, float far_w,
+                                   float far_ilim, void* recs, void* stream) {
+  if (slots < 0 || q <= 0 || g <= 0 || width <= 0 || height <= 0
+      || ((size_t)clip & 15) != 0 || ((size_t)recs & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (slots == 0) return (int)cudaSuccess;
+  clip_kernel<<<(slots + kClipThreads - 1) / kClipThreads, kClipThreads, 0,
+                (cudaStream_t)stream>>>(
+      (const float*)clip, (const float*)normal, (const int*)s_idx, slots, q,
+      g, (float)width, (float)height, width - 1, height - 1, far_w > 0.0f,
+      far_w, far_ilim, (float*)recs);
+  return (int)cudaGetLastError();
+}

@@ -12,20 +12,26 @@ trip.
                   6 + 12*depth // max_lod (dead slots: count 0, zeros)
   5. tessellate   store + touch, crop variants, camera-relative DF corners,
                   skirt, gather, tess.vertex.tessellate_blend + lambert
-  6. raster       raster.coverage_cuda.raster_frame (K6, K2, K3), or with
+  6. raster       raster.coverage_cuda.raster_frame (C1, K6, K2, K3) on
+                  all render_cap rows, padding rows invalid and skipped by
+                  C1 through the leaf count on the device, or with
                   raster_mode="splat" engine.planet.splat_raster (the
                   splat raster, raster/splat.py)
 
 Stages 1-5 are the geometry step. It is a fixed sequence of tensor ops and
 kernel launches that reads no value back to the host, so DeviceRenderer
 captures it ONCE as a CUDA graph and replays it every frame — the analogue
-of planet_tpu's one-jit geometry step. The raster stays a second dispatch,
-as planet_tpu's DeviceRenderer splits it out (device_step.py:325-332); it
-runs on the leaves the step kept, after one read of the three frame
-counters. On the CPU the same step runs eagerly (the tests).
+of planet_tpu's one-jit geometry step. The raster is a second graph, as
+planet_tpu's DeviceRenderer splits it into a second jit
+(device_step.py:325-332): fixed shapes, the counters left on the device,
+nothing read back to the host between or after the two. The frame's
+counts (DeviceFrame.n_leaves, n_generated, overflowed) are 0-dim device
+tensors, as planet_tpu's are device scalars: the caller reads them where
+it prints or reduces them. On the CPU the same step runs eagerly (the
+tests).
 
-Rules for a stage added to the geometry step (a capture refuses, or
-silently bakes in, anything else):
+Rules for a stage added to the geometry step or the raster (a capture
+refuses, or silently bakes in, anything else):
   * no host sync: no .item(), int(tensor), bool(tensor), torch.nonzero,
     boolean-mask indexing, repeat_interleave with tensor repeats;
   * no host-to-device copy: no torch.tensor / torch.as_tensor of host data
@@ -54,6 +60,7 @@ is baked into the step, as in planet_tpu; the TPU-only
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -121,11 +128,15 @@ class Truncated(NamedTuple):
 
 
 class DeviceFrame(NamedTuple):
+    """One frame; every field a tensor on the frame's device. DeviceRenderer
+    returns its graphs' output buffers: the next render writes them (copy
+    what you keep)."""
+
     image: torch.Tensor       # (H, W) f32 (u8 with fetch="u8")
     depth: torch.Tensor       # (H, W) f32 NDC z, +inf where empty
-    n_leaves: int
-    n_generated: int
-    overflowed: bool
+    n_leaves: torch.Tensor    # () int32
+    n_generated: torch.Tensor  # () int32
+    overflowed: torch.Tensor  # () bool
     preview: Optional[torch.Tensor] = None   # (H//k, W//k) u8, preview=k > 1
 
 
@@ -321,43 +332,65 @@ def _f32(a) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32))
 
 
-def _read_meta(geom: Geometry):
-    n, n_gen, ovf = (int(v) for v in geom.meta.cpu())
-    return n, n_gen, bool(ovf)
+def _pinned(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """t, pinned when it is bound from the host to the card: a copy from
+    pinned memory can be queued (non_blocking), where a pageable one
+    synchronizes the stream; the pinned block's allocator keeps it until
+    the copy has run."""
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory()
+    return t
+
+
+def _upload(dst: torch.Tensor, src):
+    """Copy a camera input into a static input tensor, queued."""
+    dst.copy_(_pinned(_f32(src), dst.device), non_blocking=True)
+
+
+def _meta(out):
+    """The step's three counters as 0-dim device tensors (views of
+    out.meta, no host read): n_leaves, n_generated, overflowed."""
+    return out.meta[0], out.meta[1], out.meta[2] != 0
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_mask(patch_verts: int) -> np.ndarray:
+    return mesh.cell_triangle_mask(patch_verts)
 
 
 def raster_packed(geom: Geometry, cfg: EngineConfig, width: int,
                   height: int, wireframe: bool = False):
-    """The exact raster on the leaves the geometry step kept, undecoded:
-    ((packed (H, W) int32, n_leaves, n_generated, overflowed, leaf_lo,
-    leaf_hi (render_cap,) int32), RasterCounters). The packed keys' min
-    is the depth test, so frames drawn apart (the sharded engine's ranks)
-    composite exactly by an elementwise min. Reads the step's three
-    counters (one device-to-host copy; the raster syncs anyway)."""
+    """The exact raster on all render_cap rows of the geometry step's
+    output, undecoded: ((packed (H, W) int32, n_leaves, n_generated,
+    overflowed (0-dim device tensors), leaf_lo, leaf_hi (render_cap,)
+    int32), RasterCounters). The padding rows are invalid, and C1 skips
+    them through the leaf count (geom.meta[0]) on the device. The packed
+    keys' min is the depth test, so frames drawn apart (the sharded
+    engine's ranks) composite exactly by an elementwise min. Reads
+    nothing back to the host."""
     if cfg.raster_mode != "exact":
         raise ValueError("packed raster output requires raster_mode='exact'")
-    n, n_gen, ovf = _read_meta(geom)
     pv = geom.vertices
     packed, counters = coverage_cuda.raster_frame(
-        pv.clip[:n], pv.normal[:n], geom.valid[:n], width, height,
-        cell_mask=mesh.cell_triangle_mask(cfg.patch_verts), decode=False,
-        wireframe=wireframe, far_w=cfg.far_plane)
-    return ((packed, n, n_gen, ovf or counters.overflowed, geom.leaf_lo,
+        pv.clip, pv.normal, geom.valid, width, height,
+        cell_mask=_cell_mask(cfg.patch_verts), decode=False,
+        wireframe=wireframe, far_w=cfg.far_plane, count=geom.meta[0:1])
+    n, n_gen, ovf = _meta(geom)
+    return ((packed, n, n_gen, ovf | counters.overflowed, geom.leaf_lo,
              geom.leaf_hi), counters)
 
 
 def raster(geom: Geometry, cfg: EngineConfig, width: int, height: int,
            wireframe: bool = False):
-    """Stage 6 on the leaves the geometry step kept: (DeviceFrame, the
-    exact raster's RasterCounters, None in splat mode). The splat mode runs
-    on all render_cap rows, whose padding rows are invalid, and reads
-    nothing on the host but the step's three counters."""
+    """Stage 6 on all render_cap rows of the geometry step's output, whose
+    padding rows are invalid: (DeviceFrame, the exact raster's
+    RasterCounters, None in splat mode). Reads nothing back to the host,
+    so a CUDA graph can capture it."""
     if cfg.raster_mode == "splat":
-        n, n_gen, ovf = _read_meta(geom)
         image, depth = splat_raster(geom.vertices, geom.vertex_shade,
                                     geom.valid, cfg, width, height,
                                     wireframe)
-        return DeviceFrame(image, depth, n, n_gen, ovf), None
+        return DeviceFrame(image, depth, *_meta(geom)), None
     (packed, n, n_gen, ovf, _, _), counters = raster_packed(
         geom, cfg, width, height, wireframe)
     image, depth = cov.decode_packed(packed)
@@ -374,11 +407,10 @@ def _step_stage(stop_after: str) -> str:
 def unrastered(out, width: int, height: int) -> DeviceFrame:
     """The frame of a rung before "full" (a Geometry or a Truncated): a
     zero image and depth, as planet_tpu's truncated step returns, and the
-    step's three counters (one device-to-host copy)."""
-    n, n_gen, ovf = _read_meta(out)
+    step's three counters (device tensors, no host read)."""
     zero = torch.zeros((height, width), dtype=torch.float32,
                        device=out.meta.device)
-    return DeviceFrame(zero, zero, n, n_gen, ovf)
+    return DeviceFrame(zero, zero, *_meta(out))
 
 
 def _root_tensors(roots, radius: float, device) -> tuple:
@@ -399,12 +431,14 @@ def build_device_render(cfg: EngineConfig, width: int, height: int, *,
     stop_after: one of RUNGS. "full" (the default) rasterizes; a rung
     before it stops the step there and returns its `unrastered` frame.
     Other keywords as build_geometry_step."""
+    device = torch.device(device)
     step = build_geometry_step(cfg, device=device,
                                stop_after=_step_stage(stop_after), **kw)
     roots = _root_tensors(roots, cfg.radius, device)
 
     def render(pool, cam_hi, cam_lo, view_proj) -> DeviceFrame:
-        geom = step(pool, *(_f32(a).to(device)
+        geom = step(pool, *(_pinned(_f32(a), device).to(device,
+                                                         non_blocking=True)
                             for a in (cam_hi, cam_lo, view_proj)), *roots)
         if stop_after != "full":
             return unrastered(geom, width, height)
@@ -414,9 +448,10 @@ def build_device_render(cfg: EngineConfig, width: int, height: int, *,
 
 
 class DeviceRenderer:
-    """Two-dispatch device frame: the geometry step (stages 1-5), captured
-    once as a CUDA graph and replayed per frame on CUDA (run eagerly on the
-    CPU), then the raster.
+    """Two-graph device frame: the geometry step (stages 1-5) and the
+    raster (stage 6), each captured once as a CUDA graph and replayed per
+    frame on CUDA, with no host read between or after them (run eagerly
+    on the CPU).
 
     The camera and view-projection enter through static input tensors,
     copied in before each replay; the refinement roots (`roots`, as
@@ -426,11 +461,19 @@ class DeviceRenderer:
     creates the library handles (nothing may be copied from the host during
     capture); it runs on a copy of the pool's state, which is put back
     afterwards, so the warm-up changes nothing. Rendering into another pool
-    captures again. A capture that fails raises: there is no eager
-    fallback on the card.
+    captures again. The raster graph reads the geometry graph's output
+    buffers; it is captured after the geometry graph's first replay, with
+    the same warm-up on a side stream (the raster writes no state, so
+    there is nothing to put back), once for each value of `wireframe` (a
+    kernel argument the graph bakes in), lazily, and again after each
+    geometry capture. The raster graph holds fetch="u8", preview and
+    decode. A capture that fails raises: there is no eager fallback on
+    the card.
 
-    The graph's kernel launches are added to _cuda.launches on every
-    replay, so the counts mean "launched on the card".
+    The graphs' kernel launches are added to _cuda.launches on every
+    replay, so the counts mean "launched on the card". The frame `render`
+    returns is the raster graph's output buffers (and last_geometry the
+    geometry graph's): the next render writes them.
 
     stop_after (one of RUNGS) is the stage bisection of planet_tpu's
     build_device_render: "full" (the default) is the frame above; a stage
@@ -443,7 +486,8 @@ class DeviceRenderer:
     fetch="u8" quantizes the image on the device exactly as
     io/png.write_png does (clip, * 255 + 0.5, truncate);
     preview=k > 1 (u8 only) adds a [::k, ::k] subsampled image.
-    `wireframe` (reference key P) is a raster option, read each frame.
+    `wireframe` (reference key P) is a raster option, read each frame: each
+    value replays its own raster graph.
     device: "cuda" (the default) or "cpu"."""
 
     def __init__(self, cfg: EngineConfig, width: int, height: int, *,
@@ -471,6 +515,11 @@ class DeviceRenderer:
         self._graph_pool = None
         self._graph_out = None
         self._tally: dict = {}
+        # wireframe -> (raster graph, its (DeviceFrame, counters), tally)
+        self._rasters: dict = {}
+        # raster captures so far; each one's warm-up ran the raster's
+        # kernels once, eagerly (counted in _cuda.launches)
+        self.raster_captures = 0
         self.last_geometry: Optional[Geometry] = None
         self.last_counters = None
 
@@ -482,28 +531,67 @@ class DeviceRenderer:
         return self._step(pool, self._cam_hi, self._cam_lo, self._vp,
                           *self._roots)
 
-    def _capture(self, pool: dp.PoolState):
-        saved = [t.clone() for t in pool]
+    def _captured(self, fn, warm_up):
+        """(graph, fn()'s outputs, its kernel tally): fn captured as a CUDA
+        graph after warm_up() has run on a side stream."""
+        current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
+        side.wait_stream(current)
         with torch.cuda.stream(side):
-            self._run_step(pool)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        for t, v in zip(pool, saved):
-            t.copy_(v)
-        self._graph = self._graph_out = None
+            warm_up()
+        current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with _cuda.captured() as tally:
             with torch.cuda.graph(graph):
-                out = self._run_step(pool)
-        self._graph, self._graph_out, self._tally = graph, out, tally
+                out = fn()
+        return graph, out, tally
+
+    def _capture(self, pool: dp.PoolState):
+        saved = [t.clone() for t in pool]
+
+        def warm_up():
+            self._run_step(pool)
+            for t, v in zip(pool, saved):
+                t.copy_(v)
+
+        self._graph = self._graph_out = None
+        self._rasters = {}
+        self._graph, self._graph_out, self._tally = self._captured(
+            lambda: self._run_step(pool), warm_up)
         self._graph_pool = pool
+
+    def _fetch(self, frame: DeviceFrame) -> DeviceFrame:
+        if self.fetch != "u8":
+            return frame
+        image = (torch.clamp(frame.image, 0.0, 1.0) * 255.0 + 0.5).to(
+            torch.uint8)
+        preview = (image[::self.preview, ::self.preview]
+                   if self.preview > 1 else None)
+        return frame._replace(image=image, preview=preview)
+
+    def _raster(self, geom, wireframe: bool):
+        """Stage 6 and the fetch on a Geometry: (DeviceFrame, counters)."""
+        frame, counters = raster(geom, self.cfg, self.width, self.height,
+                                 wireframe)
+        return self._fetch(frame), counters
+
+    def _capture_raster(self, wireframe: bool):
+        def run():
+            return self._raster(self._graph_out, wireframe)
+
+        self._rasters[wireframe] = self._captured(run, run)
+        self.raster_captures += 1
 
     @property
     def graph_launches(self) -> dict:
-        """Kernel launches per replay of the captured step (empty before
-        the first capture, and on the CPU)."""
-        return dict(self._tally)
+        """Kernel launches per frame of the captured graphs: the geometry
+        step's and, once captured, the raster's for the current wireframe
+        setting (empty before the first capture, and on the CPU)."""
+        tally = dict(self._tally)
+        if bool(self.wireframe) in self._rasters:
+            for k, v in self._rasters[bool(self.wireframe)][2].items():
+                tally[k] = tally.get(k, 0) + v
+        return tally
 
     def geometry(self, pool: dp.PoolState, cam_hi, cam_lo, view_proj):
         """Stages 1-5 for one camera ((3,) f32 DF camera, (4, 4) f32
@@ -511,7 +599,7 @@ class DeviceRenderer:
         Geometry, or a Truncated when stop_after names an earlier stage."""
         for dst, src in ((self._cam_hi, cam_hi), (self._cam_lo, cam_lo),
                          (self._vp, view_proj)):
-            dst.copy_(_f32(src))
+            _upload(dst, src)
         if self.device.type != "cuda":
             geom = self._run_step(pool)
         else:
@@ -525,21 +613,31 @@ class DeviceRenderer:
 
     def render(self, pool: dp.PoolState, cam_hi, cam_lo,
                view_proj) -> DeviceFrame:
-        """One frame into `pool` (updated in place); the raster's counters
-        are on `self.last_counters`."""
-        geom = self.geometry(pool, cam_hi, cam_lo, view_proj)
-        if self.stop_after == "full":
-            frame, self.last_counters = raster(geom, self.cfg, self.width,
-                                               self.height, self.wireframe)
-        else:
-            frame = unrastered(geom, self.width, self.height)
+        """One frame into `pool` (updated in place): on CUDA a replay of the
+        geometry graph, then of the raster graph, with no host read; the
+        raster's counters are on `self.last_counters`."""
+        self.geometry(pool, cam_hi, cam_lo, view_proj)
+        return self.rasterize()
+
+    def rasterize(self) -> DeviceFrame:
+        """Stage 6 on the last geometry: on CUDA a replay of the raster
+        graph for the current `wireframe` (captured on first use), else the
+        raster run eagerly; a rung before "full" gives its unrastered
+        frame. The counters go to `self.last_counters`."""
+        geom = self.last_geometry
+        if self.stop_after != "full":
             self.last_counters = None
-        if self.fetch == "u8":
-            image = (torch.clamp(frame.image, 0.0, 1.0) * 255.0 + 0.5).to(
-                torch.uint8)
-            preview = (image[::self.preview, ::self.preview]
-                       if self.preview > 1 else None)
-            frame = frame._replace(image=image, preview=preview)
+            return self._fetch(unrastered(geom, self.width, self.height))
+        wireframe = bool(self.wireframe)
+        if self.device.type != "cuda":
+            frame, self.last_counters = self._raster(geom, wireframe)
+            return frame
+        if wireframe not in self._rasters:
+            self._capture_raster(wireframe)
+        graph, (frame, counters), tally = self._rasters[wireframe]
+        graph.replay()
+        _cuda.add_launches(tally)
+        self.last_counters = counters
         return frame
 
 
@@ -550,8 +648,11 @@ class PipelinedRenderer:
     the renderer makes one, else the full image — or None on the first
     call. On CUDA the copy goes into pinned host memory with
     non_blocking=True and an event marks its end, so the host reads a frame
-    while the card works on the next. Frames run in submission order
-    through one pool, so the output equals the sequential output."""
+    while the card works on the next; the frame's three counts are copied
+    the same way, and the returned DeviceFrame holds them as host 0-dim
+    tensors (its image and depth are the renderer's buffers, which the
+    next frame has written). Frames run in submission order through one
+    pool, so the output equals the sequential output."""
 
     def __init__(self, renderer: DeviceRenderer, pool: dp.PoolState):
         self._r = renderer
@@ -569,8 +670,14 @@ class PipelinedRenderer:
         if src.device.type == "cuda":
             host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
             host.copy_(src, non_blocking=True)
+            counts = torch.empty(3, dtype=torch.int32, pin_memory=True)
+            counts.copy_(torch.stack([frame.n_leaves, frame.n_generated,
+                                      frame.overflowed.to(_I32)]),
+                         non_blocking=True)
             event = torch.cuda.Event()
             event.record()
+            frame = frame._replace(n_leaves=counts[0], n_generated=counts[1],
+                                   overflowed=counts[2])
         else:
             host = src
         prev, self._pending = self._pending, (host, event, frame)
@@ -588,4 +695,5 @@ class PipelinedRenderer:
         host, event, frame = pending
         if event is not None:
             event.synchronize()
+            frame = frame._replace(overflowed=frame.overflowed != 0)
         return host.numpy(), frame

@@ -173,10 +173,11 @@ def _dryrun_rank(rank, world, out_dir, spec):
             cfg, lod_mesh, LOD_W, LOD_H, axis=axis, **LOD_RANK)
         pool = device_pool.init(cfg.cache_capacity, cfg.tile_dim, dev)
         frame, (q_lo, q_hi, n, n_gen) = render(pool, *dryrun_camera(cfg))
+        counts = torch.stack([frame.n_leaves, frame.n_generated,
+                              frame.overflowed.to(torch.int32), n, n_gen])
+        n = int(n)
         ranks.save(out_dir, name, rank, image=frame.image, depth=frame.depth,
-                   q_lo=q_lo[:n], q_hi=q_hi[:n],
-                   counts=np.array([frame.n_leaves, frame.n_generated,
-                                    int(frame.overflowed), n, n_gen]),
+                   q_lo=q_lo[:n], q_hi=q_hi[:n], counts=counts,
                    tiles_max=pool.tiles.abs().max())
 
 
@@ -259,20 +260,22 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
         want = single.render(device_pool.init(LOD_SINGLE_POOL, cfg.tile_dim,
                                               device), *dryrun_camera(cfg))
         g = single.last_geometry
+        w_n, w_gen, w_ovf = (int(v) for v in (want.n_leaves, want.n_generated,
+                                              want.overflowed))
         want_ids = set(quadid.from_words(
-            g.leaf_lo[:want.n_leaves].cpu().numpy(),
-            g.leaf_hi[:want.n_leaves].cpu().numpy()).tolist())
+            g.leaf_lo[:w_n].cpu().numpy(),
+            g.leaf_hi[:w_n].cpu().numpy()).tolist())
         image, depth = want.image.cpu().numpy(), want.depth.cpu().numpy()
-        _check(not want.overflowed and want.n_leaves >= 24
-               and want.n_generated > 0, f"(b) single device: {want}")
+        _check(not w_ovf and w_n >= 24 and w_gen > 0,
+               f"(b) single device: {(w_n, w_gen, w_ovf)}")
         counts = load("b", "counts")
         got_ids = set()
         for r in range(n):
             t_n, t_gen, ovf, _, _ = counts[r]
-            _check((t_n, t_gen, ovf) == (want.n_leaves, want.n_generated, 0),
+            _check((t_n, t_gen, ovf) == (w_n, w_gen, 0),
                    f"(b) rank {r}: leaves, generated, overflowed "
                    f"{(t_n, t_gen, ovf)} != the single device's "
-                   f"{(want.n_leaves, want.n_generated, 0)}")
+                   f"{(w_n, w_gen, 0)}")
             _check(_same(ranks.load(out, "b", "image", r), image)
                    and _same(ranks.load(out, "b", "depth", r), depth),
                    f"(b) rank {r}: the composite != the single device's")
@@ -285,7 +288,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
                    f"(b) rank {r}: no terrain in the pool")
         _check(got_ids == want_ids, "(b) the ranks' leaves != the single "
                "device's")
-        _check(sum(int(c[4]) for c in counts) == want.n_generated,
+        _check(sum(int(c[4]) for c in counts) == w_gen,
                "(b) the ranks' generated tiles do not sum to the single "
                "device's")
         _check(np.isfinite(image).all(), "(b) image not finite")
@@ -293,6 +296,5 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
             for r in range(n):
                 _check(_same(ranks.load(out, "b2", "image", r), image)
                        and _same(ranks.load(out, "b2", "depth", r), depth)
-                       and ranks.load(out, "b2", "counts", r)[0]
-                       == want.n_leaves,
+                       and ranks.load(out, "b2", "counts", r)[0] == w_n,
                        f"(b2) rank {r}: the 2-axis mesh's frame != (b)'s")

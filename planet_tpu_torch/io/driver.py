@@ -130,7 +130,7 @@ class DeviceInteractiveEngine:
         # the per-frame display fetch: the preview only
         shown = frame.preview if frame.preview is not None else frame.image
         shown.cpu()
-        n, gens = frame.n_leaves, frame.n_generated
+        n, gens = int(frame.n_leaves), int(frame.n_generated)
         dt = time.perf_counter() - t0
         stats = FrameStats(
             frametime_ms=dt * 1e3, fps=1.0 / max(dt, 1e-9),

@@ -112,7 +112,7 @@ def build_sharded_render(cfg: EngineConfig, mesh: DeviceMesh, width: int,
                          max_lod=None, probe: str = "ridged6"):
     """Returns this rank's fn(pool, cam_hi, cam_lo, view_proj) ->
     (DeviceFrame, (leaf_lo, leaf_hi (render_cap,) int32, n_leaves,
-    n_generated)): the rank's geometry step (one CUDA-graph replay on the
+    n_generated (0-dim int32))): the rank's geometry step (one CUDA-graph replay on the
     card) from its share of the 24 subtree roots (`local_roots` of
     subtree_roots at `shard_index(mesh, axis)`, fixed when built; planet_tpu
     passes all 24 to every call and shard_map slices them), the packed
@@ -140,15 +140,15 @@ def build_sharded_render(cfg: EngineConfig, mesh: DeviceMesh, width: int,
         geom = renderer.geometry(pool, cam_hi, cam_lo, view_proj)
         (packed, n, n_gen, ovf, q_lo, q_hi), _ = device_step.raster_packed(
             geom, cfg, width, height)
-        totals = torch.tensor([n, n_gen, int(ovf)], dtype=torch.int32,
-                              device=device)
+        totals = torch.stack([n, n_gen, ovf.to(torch.int32)])
         for group in groups:                 # inner axis first
             dist.all_reduce(packed, op=dist.ReduceOp.MIN, group=group)
             dist.all_reduce(totals, group=group)
         image, depth = coverage.decode_packed(packed)
-        t_n, t_gen, t_ovf = totals.tolist()
-        frame = device_step.DeviceFrame(image, depth, t_n, t_gen, t_ovf > 0)
-        # the words are the graph's output buffers: the next replay writes them
-        return frame, (q_lo.clone(), q_hi.clone(), n, n_gen)
+        frame = device_step.DeviceFrame(image, depth, totals[0], totals[1],
+                                        totals[2] > 0)
+        # the words and counts are the graph's output buffers: the next
+        # replay writes them
+        return frame, (q_lo.clone(), q_hi.clone(), n.clone(), n_gen.clone())
 
     return render

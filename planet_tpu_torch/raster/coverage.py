@@ -31,6 +31,7 @@ fragments with `scatter_reduce(amin)`. It is what the CUDA raster kernels
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -53,11 +54,18 @@ _FRAG_CHUNK = 1 << 20
 
 
 class RasterCounters(NamedTuple):
-    n_tris: int          # live (kept, front-facing, on-screen) triangles
-    n_per_class: tuple   # (span-kernel triangles, huge-kernel triangles)
-    n_huge: int          # live triangles the huge kernel rasterizes
-    overflowed: bool     # always False: records are compacted exactly
-    n_straddle: int      # near-plane straddlers clipped
+    """The raster's counters, tensors on the raster's device (as
+    planet_tpu's are device arrays): reading one is the caller's host
+    read."""
+
+    n_tris: torch.Tensor       # () int32 live (kept, front-facing,
+                               # on-screen) triangles
+    n_per_class: torch.Tensor  # (2,) int32 span-kernel, huge-kernel
+                               # triangles
+    n_huge: torch.Tensor       # () int32 live triangles the huge kernel
+                               # rasterizes
+    overflowed: torch.Tensor   # () bool more straddlers than clip_cap
+    n_straddle: torch.Tensor   # () int32 near-plane straddlers
 
 
 class Tris(NamedTuple):
@@ -143,16 +151,44 @@ def tri3(a, q: int, g: int):
     return st(a, g01), st(g10, g10), st(g01, g11)
 
 
-def cell_ok_mask(q: int, g: int, cell_mask, device):
-    """(N,) bool: drawn cell triangles (cell_mask, (2, G-1, G-1)) and never
-    the wrap-padding cells of the last grid row/column."""
+@functools.lru_cache(maxsize=None)
+def _cell_table(g: int, mask_key, device: str) -> torch.Tensor:
     cell_ok = np.zeros((g, g), bool)
     cell_ok[:g - 1, :g - 1] = True
     full = np.broadcast_to(cell_ok[None], (2, g, g)).copy()
-    if cell_mask is not None:
-        full[:, :g - 1, :g - 1] &= np.asarray(cell_mask, bool)
-    m = np.broadcast_to(full[:, None], (2, q, g, g)).reshape(-1)
-    return torch.tensor(m, device=device)
+    if mask_key is not None:
+        shape, bits = mask_key
+        full[:, :g - 1, :g - 1] &= np.frombuffer(bits, bool).reshape(shape)
+    return torch.tensor(full, device=device)
+
+
+def _mask_key(cell_mask):
+    if cell_mask is None:
+        return None
+    m = np.ascontiguousarray(cell_mask, bool)
+    return m.shape, m.tobytes()
+
+
+def cell_table(g: int, cell_mask, device) -> torch.Tensor:
+    """(2, G, G) bool: the drawn cell triangles of one patch by parity
+    (cell_mask, (2, G-1, G-1)), never the wrap-padding cells of the last
+    grid row/column. A device tensor built once per (g, mask, device) and
+    cached: the eager warm-up before a CUDA-graph capture uploads it, and
+    no frame copies it from the host again. Callers must not write it."""
+    return _cell_table(g, _mask_key(cell_mask), str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=16)       # PlanetEngine's Q varies by frame
+def _cell_ok(q: int, g: int, mask_key, device: str) -> torch.Tensor:
+    table = _cell_table(g, mask_key, device)
+    return table[:, None].expand(2, q, g, g).reshape(-1).clone()
+
+
+def cell_ok_mask(q: int, g: int, cell_mask, device):
+    """(N,) bool: cell_table for every patch of a Q-patch batch, in
+    setup_t's candidate order. Cached per (q, g, mask, device) as
+    cell_table is."""
+    return _cell_ok(q, g, _mask_key(cell_mask), str(torch.device(device)))
 
 
 def setup_t(clip, normal, valid, width: int, height: int, cell_mask=None,
@@ -240,8 +276,7 @@ def fragments(records, fb, *, iw_test: bool, wireframe: bool = False):
     m = recs.shape[0]
     while start < m:
         base = int(ends[start - 1]) if start else 0
-        stop = int(torch.searchsorted(
-            ends, torch.tensor([base + _FRAG_CHUNK]), right=True)[0])
+        stop = int(torch.searchsorted(ends, base + _FRAG_CHUNK, right=True))
         stop = max(stop, start + 1)
         sel = torch.arange(start, stop, device=recs.device)
         cnt = area[start:stop].to(recs.device)
@@ -307,11 +342,17 @@ def _merge(flat, r, px, py, rx, ry, width, iw_test, wireframe):
     flat.scatter_reduce_(0, idx, packed, reduce="amin")
 
 
+@functools.lru_cache(maxsize=None)
+def _const(value: float, device: str) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
 def _div(x: torch.Tensor, d: int) -> torch.Tensor:
     """x / d correctly rounded on every device: CUDA divides by a Python
     number as a multiply by its reciprocal, so the divisor is a 0-dim
-    tensor on x's device (made by a fill)."""
-    return x / x.new_full((), float(d))
+    tensor on x's device, made once per device and cached (the eager
+    warm-up before a capture makes it)."""
+    return x / _const(float(d), str(x.device))
 
 
 def decode_packed(img_packed, background: float = 0.0):

@@ -1,12 +1,23 @@
-"""The exact raster's fragment path on CUDA: the record route (K6), span
-kernel (K2), huge kernel (K3), and the `raster_frame` driver that queues
-them (planet_tpu raster/coverage_pallas.py's raster_frame_pallas, without
-its TPU-only machinery).
+"""The exact raster on CUDA: the triangle setup (C1), the record route
+(K6), span kernel (K2), huge kernel (K3), and the `raster_frame` driver
+that queues them (planet_tpu raster/coverage_pallas.py's
+raster_frame_pallas, without its TPU-only machinery).
 
 Each kernel wrapper takes a CUDA tensor and launches its kernel
-(csrc/raster.cu) or raises; given a CPU tensor it runs the plain PyTorch
-version beside it, which has the same signature:
+(csrc/setup.cu, csrc/raster.cu) or raises; given a CPU tensor it runs the
+plain PyTorch version beside it, which has the same signature:
 
+* clip_records(clip, normal, s_idx, width, height, far_w) -> (2K, 32)
+  f32 records of the clipped straddlers at candidate indices s_idx (K,)
+  int32 (N marks an empty slot): each slot's A triangle, then each one's
+  B (C2; plain: nearclip.clipped_tris and records_from_tris), dead records
+  with row 28 = 0 and their bbox's first row at +inf;
+* setup(clip, normal, valid, width, height, cell_mask, far_w, count) ->
+  (tm (32, N) f32, live (N,) bool, span (N,) int32, straddle (N,) bool):
+  coverage.setup_t's outputs and nearclip.straddle_mask_t's mask in one
+  pass (C1); with `count` (a (1,) int32 tensor: the leaf count, read on
+  the device) the patch rows at or past it come out dead (live, span and
+  straddle 0); the kernel writes tm's columns for live candidates only;
 * route_records(tm (32, N) f32, live (N,) bool, span (N,) int32) ->
   (span-class records, huge-class records, counts (2,) int32): each
   class's live records as rows in candidate order, the first counts[c]
@@ -37,12 +48,24 @@ goes to the span kernel, with no bound on width; every other live record
 goes to the huge kernel; near-plane straddlers are clipped
 (raster/nearclip.py) and their live parts go to the huge kernel too.
 Records are compacted to exactly the live ones, so there are no class
-caps and nothing can overflow. On the card the route, K2 and K3 are
-queued with no host read between them (`raster_routed`).
+caps. The straddlers are compacted on the device into clip_cap slots in
+candidate order (planet_tpu's _compact_indices: index N marks an empty
+slot), clipped and set up at that fixed size, and all 2 clip_cap records
+go to K3 (C2 builds them), which skips the dead ones; more straddlers
+than clip_cap set `overflowed`, as in planet_tpu. planet_tpu's
+clip_run_cap (a second compaction of the clipped triangles, a TPU cost
+cap like its class caps) has no counterpart. So raster_frame's shapes
+follow from its inputs' and it reads nothing back to the host: C1, K6,
+K2, C2 and K3 and the few torch ops between them are queued with no host
+read, and a CUDA graph can capture the whole raster
+(engine/device_step.DeviceRenderer).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from planet_tpu_torch import _cuda
@@ -64,12 +87,95 @@ ROUTE_TILE = 256
 # over a bbox of fewer than 2^24 rows and columns overflows, so rounding
 # keeps each edge monotone along a row (csrc/raster.cu kEdgeLimit)
 EDGE_LIMIT = 2.0**100
+# near-plane straddler slots (planet_tpu coverage.raster_frame's clip_cap)
+CLIP_CAP = 512
 
 
 def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type
+
+
+# ------------------------------------------------------------------- C1
+
+def _count_rows(x, q: int, g: int, count):
+    """(N,) bool: candidates whose patch row is below `count` ((1,) int32
+    on x's device), in setup_t's candidate order."""
+    rows = torch.arange(q, dtype=torch.int32, device=x.device) < count
+    return rows[None, :, None].expand(2, q, g * g).reshape(-1)
+
+
+def setup_plain(clip, normal, valid, width: int, height: int,
+                cell_mask=None, far_w=None, count=None):
+    tm, live, span = cov.setup_t(clip, normal, valid, width, height,
+                                 cell_mask, far_w=far_w)
+    straddle = nearclip.straddle_mask_t(clip, valid, cell_mask)
+    if count is not None:
+        ok = _count_rows(live, clip.shape[0], clip.shape[1], count)
+        live, straddle = live & ok, straddle & ok
+        span = torch.where(ok, span, torch.zeros_like(span))
+    return tm, live, span, straddle
+
+
+def setup_cuda(clip, normal, valid, width: int, height: int,
+               cell_mask=None, far_w=None, count=None):
+    q, g = clip.shape[0], clip.shape[1]
+    clip, normal, valid = (t.contiguous() for t in (clip, normal, valid))
+    _cuda.check_cuda(clip, "clip", torch.float32, (q, g, g, 4))
+    _cuda.check_cuda(normal, "normal", torch.float32, (q, g, g, 3))
+    _cuda.check_cuda(valid, "valid", torch.bool, (q, g, g))
+    if clip.data_ptr() % 16:
+        raise ValueError("clip: the setup kernel reads 16-byte aligned "
+                         "vertices")
+    if count is not None:
+        _cuda.check_cuda(count, "count", torch.int32, (1,))
+        if count.device != clip.device:
+            raise ValueError("count: expected the vertices' device")
+    if far_w is not None and not far_w > 0:
+        raise ValueError(f"far_w {far_w}: expected a positive far plane")
+    n = 2 * q * g * g
+    dev = clip.device
+    tm = torch.empty((32, n), dtype=torch.float32, device=dev)
+    live = torch.empty(n, dtype=torch.bool, device=dev)
+    span = torch.empty(n, dtype=torch.int32, device=dev)
+    straddle = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        table = cov.cell_table(g, cell_mask, dev)
+        far = (0.0, 0.0) if far_w is None else (
+            float(np.float32(far_w)), float(np.float32(1.0 / far_w)))
+        _cuda.launch("setup", "planet_setup", clip.data_ptr(),
+                     normal.data_ptr(), valid.data_ptr(), table.data_ptr(),
+                     None if count is None else count.data_ptr(), q, g,
+                     int(width), int(height), *far, tm.data_ptr(),
+                     live.data_ptr(), span.data_ptr(), straddle.data_ptr())
+    return tm, live, span, straddle
+
+
+def setup(clip, normal, valid, width: int, height: int, cell_mask=None,
+          far_w=None, count=None):
+    if _device_kind(clip) == "cuda":
+        return setup_cuda(clip, normal, valid, width, height, cell_mask,
+                          far_w, count)
+    return setup_plain(clip, normal, valid, width, height, cell_mask, far_w,
+                       count)
+
+
+def compact_indices(mask, cap: int):
+    """planet_tpu coverage._compact_indices on the device: (idx (cap,)
+    int32, the indices of the first `cap` set lanes in order, N (the
+    mask's length) in the slots past the last; count () int32, all the
+    set lanes). The k-th set lane is the first whose running count
+    reaches k: a cumsum and one searchsorted, no host read."""
+    run = torch.cumsum(mask, 0, dtype=torch.int32)
+    idx = torch.searchsorted(run, _ranks(cap, str(mask.device)),
+                             out_int32=True)
+    return idx, run[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _ranks(cap: int, device: str) -> torch.Tensor:
+    return torch.arange(1, cap + 1, dtype=torch.int32, device=device)
 
 
 # ------------------------------------------------------------------- K6
@@ -96,8 +202,8 @@ def gather_records_plain(tm, idx):
 
 def route_records_plain(tm, live, span):
     span_idx, huge_idx = route(tm, live, span)
-    counts = torch.tensor([span_idx.numel(), huge_idx.numel()],
-                          dtype=torch.int32, device=tm.device)
+    counts = torch.stack([span_idx.new_full((), span_idx.numel()),
+                          huge_idx.new_full((), huge_idx.numel())])
     return (gather_records_plain(tm, span_idx),
             gather_records_plain(tm, huge_idx), counts)
 
@@ -295,35 +401,84 @@ def raster_routed(tm, live, span, fb, wireframe: bool = False):
     return counts
 
 
+def clip_records_plain(clip, normal, s_idx, width: int, height: int,
+                       far_w=None):
+    tclip = nearclip.clipped_tris(clip, normal, s_idx.long(), width, height,
+                                  far_w=far_w)
+    recs = nearclip.records_from_tris(tclip)
+    recs[:, 25].masked_fill_(~tclip.live, float("inf"))
+    return recs
+
+
+def clip_records_cuda(clip, normal, s_idx, width: int, height: int,
+                      far_w=None):
+    q, g = clip.shape[0], clip.shape[1]
+    clip, normal = clip.contiguous(), normal.contiguous()
+    _cuda.check_cuda(clip, "clip", torch.float32, (q, g, g, 4))
+    _cuda.check_cuda(normal, "normal", torch.float32, (q, g, g, 3))
+    _cuda.check_cuda(s_idx, "s_idx", torch.int32)
+    if s_idx.dim() != 1 or s_idx.device != clip.device or not q:
+        raise ValueError("s_idx: one (K,) int32 tensor on the vertices' "
+                         "device, and at least one patch")
+    if clip.data_ptr() % 16:
+        raise ValueError("clip: the clip kernel reads 16-byte aligned "
+                         "vertices")
+    if far_w is not None and not far_w > 0:
+        raise ValueError(f"far_w {far_w}: expected a positive far plane")
+    k = s_idx.shape[0]
+    recs = torch.empty((2 * k, 32), dtype=torch.float32, device=clip.device)
+    if k:
+        far = (0.0, 0.0) if far_w is None else (
+            float(np.float32(far_w)), float(np.float32(1.0 / far_w)))
+        _cuda.launch("clip", "planet_clip_records", clip.data_ptr(),
+                     normal.data_ptr(), s_idx.data_ptr(), k, q, g,
+                     int(width), int(height), *far, recs.data_ptr())
+    return recs
+
+
+def clip_records(clip, normal, s_idx, width: int, height: int, far_w=None):
+    """The straddler slots' records at a fixed size: each slot's candidate
+    (s_idx, N for an empty slot) clipped into two triangles -> (2K, 32) f32,
+    the slots' A triangles, then their B triangles. A dead record (an empty
+    slot, or a clipped part that is culled) has row 28 = 0, which K3 and
+    its plain version skip, and its bbox's first row at +inf, so K3's
+    per-row bbox test never stages it (an empty slot's vertices are the
+    last candidate's: on the fused frame a padding row's NaN)."""
+    if _device_kind(clip) == "cuda":
+        return clip_records_cuda(clip, normal, s_idx, width, height, far_w)
+    return clip_records_plain(clip, normal, s_idx, width, height, far_w)
+
+
 def raster_frame(clip, normal, valid, width: int, height: int, *,
                  cell_mask=None, background: float = 0.0,
-                 decode: bool = True, wireframe: bool = False, far_w=None):
+                 decode: bool = True, wireframe: bool = False, far_w=None,
+                 clip_cap: int = CLIP_CAP, count=None):
     """Rasterize tessellated patches with exact triangle coverage.
 
     clip (Q, G, G, 4) f32, normal (Q, G, G, 3) f32, valid (Q, G, G) bool,
-    all on one device. Returns (image (H, W) f32, depth (H, W) f32 NDC z
-    with +inf empties, RasterCounters), or (packed (H, W) int32, counters)
-    with decode=False."""
-    tm, live, span = cov.setup_t(clip, normal, valid, width, height,
-                                 cell_mask, far_w=far_w)
+    all on one device; count: None, or a (1,) int32 tensor on that device
+    holding the live patch rows (the rows past it are padding, invalid;
+    the setup skips them on the card). Returns (image (H, W) f32, depth
+    (H, W) f32 NDC z with +inf empties, RasterCounters), or (packed (H, W)
+    int32, counters) with decode=False. Reads nothing back to the host;
+    the counters stay on the device."""
+    tm, live, span, straddle = setup(clip, normal, valid, width, height,
+                                     cell_mask, far_w, count)
     fb = torch.full((height, width), cov._EMPTY, dtype=torch.int32,
                     device=clip.device)
     counts = raster_routed(tm, live, span, fb, wireframe)
 
-    smask = nearclip.straddle_mask_t(clip, valid, cell_mask)
-    s_idx = torch.nonzero(smask).squeeze(1)
-    if s_idx.numel():
-        tclip = nearclip.clipped_tris(clip, normal, s_idx, width, height,
-                                      far_w=far_w)
-        recs = nearclip.records_from_tris(tclip)
-        recs = recs[tclip.live].contiguous()
-        if recs.shape[0]:
-            raster_huge(recs, fb, wireframe)
+    if straddle.numel():
+        s_idx, n_straddle = compact_indices(straddle, clip_cap)
+        raster_huge(clip_records(clip, normal, s_idx, width, height, far_w),
+                    fb, wireframe)
+    else:
+        n_straddle = torch.zeros((), dtype=torch.int32, device=fb.device)
 
-    n_span, n_huge = counts.tolist()
     counters = cov.RasterCounters(
-        n_tris=n_span + n_huge, n_per_class=(n_span, n_huge), n_huge=n_huge,
-        overflowed=False, n_straddle=int(s_idx.numel()))
+        n_tris=counts.sum(dtype=torch.int32), n_per_class=counts,
+        n_huge=counts[1], overflowed=n_straddle > clip_cap,
+        n_straddle=n_straddle)
     if not decode:
         return fb, counters
     image, depth = cov.decode_packed(fb, background)

@@ -79,6 +79,20 @@ OPS_DF_DIV = 18
 OPS_DF_SQRT = 19
 OPS_REFINE_SLOT = 1903
 OPS_REFINE_SPLIT = 955
+# C1 and C2 (csrc/setup.cu), counted the same way. A projected triangle:
+# each of its three vertices' projection (the w test, the reciprocal,
+# 4 + 4 operations to the screen, 3 + 3 to snap, z and the normal's 3
+# scaled: 21), the area (8), the bbox (8 min/max, 4 offsets, 4 roundings,
+# 4 clamps: 20), the live tests (3), 1/area, the bbox-min centre (4), the
+# three edges' constants and top-left tests (12 each), the 15 scaled
+# attributes and 4 converted bbox words (19) and the far test (3). C1's
+# live candidate adds the straddle test (det3 14, the outcodes 24, the w
+# and f tests 9, the sign 1: 48); C2's live slot is the clip (the three
+# f = z + w and their tests 6, the two edge parameters 4, 7 interpolated
+# words of each of two points at 3: 42; 52) and two triangles.
+OPS_TRIANGLE = 3 * 21 + 8 + 20 + 3 + 1 + 4 + 3 * 12 + 19 + 3
+OPS_SETUP_LIVE = OPS_TRIANGLE + 48
+OPS_CLIP_SLOT = 52 + 2 * OPS_TRIANGLE
 # host seconds a queued call may take: the spin ahead of the timed calls
 # lasts this long for each of them (R1's wrapper, ~30 host calls, takes
 # ~0.5 ms)
@@ -153,6 +167,27 @@ def bound_ms(ops: float = 0.0, nbytes: float = 0.0, lookups: float = 0.0,
         cands.append((lookups / (LOOKUPS_PER_SM_CLOCK * clock) * 1e3,
                       "lookups"))
     return max(cands)
+
+
+def setup_work(rows: int, grid: int, candidates: int, live: int):
+    """(f32 operations, bytes) of C1 on a batch whose first `rows` patch
+    rows (of grid x grid vertices) are live and whose `candidates`
+    triangles hold `live` live ones: each live row's vertices read once
+    (clip 16 B, normal 12 B, valid 1 B) and the cell table; each
+    candidate's live, span and straddle words written once, and each live
+    record's 128 bytes; OPS_SETUP_LIVE a live candidate."""
+    nbytes = (rows * grid * grid * (16 + 12 + 1) + 2 * grid * grid
+              + candidates * (1 + 4 + 1) + live * 128)
+    return float(live * OPS_SETUP_LIVE), float(nbytes)
+
+
+def clip_work(slots: int, live_slots: int):
+    """(f32 operations, bytes) of C2 on `slots` straddler slots of which
+    `live_slots` hold a straddler: the indices read once, each live slot's
+    three vertices (clip 16 B, normal 12 B) once, every one of the 2 slots
+    records written once; OPS_CLIP_SLOT a live slot."""
+    nbytes = slots * 4 + live_slots * 3 * (16 + 12) + 2 * slots * 128
+    return float(live_slots * OPS_CLIP_SLOT), float(nbytes)
 
 
 def noise_work(octaves: int, kind: str = "ridged", lacunarity: float = 2.0):

@@ -9,7 +9,8 @@ from that tree's own sources: run it as old, new, new, old and compare
 within the run. Times (tools/common.time_ms: the median of REPS calls
 queued behind a spin kernel) the calls of `calls` — the set that
 chip_smoke.py phase 8 times for the kernels line: K1 at phase 3's shape
-and at the fused frame's occupancy, K4, R1 (on trees that have it), K5,
+and at the fused frame's occupancy, K4, R1 and C1 (on trees that have
+them; C1 with C2 and K3's near-clip pass both ways), K5,
 K2 and K3 on the record sets
 of `record_sets` (the 1080p static scene, the three goldens, the orbit
 frames with huge records) and on a screen-filling triangle, S1 at phase
@@ -253,6 +254,104 @@ def routed(fs: dict) -> dict:
     return dict(span=span_buf, huge=huge_buf, counts=counts)
 
 
+def setup_inputs(device) -> dict:
+    """{name: C1's arguments (clip, normal, valid, width, height,
+    cell_mask, far_w, count)} at the main path's shapes: DeviceRenderer's
+    render_cap rows at 1920x1080 with the leaf count on the device (the
+    static camera's second frame, the orbit's first frame from an empty
+    pool), and PlanetEngine's leaves with no count (the 1080p static
+    scene; the near-clip golden at 800x600, whose straddlers reach the
+    mask). The tensors are copies: the renderer's next frame writes its
+    own."""
+    import numpy as np
+    import torch
+
+    from planet_tpu_torch.engine import device_step
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.engine.planet import PlanetEngine
+    from planet_tpu_torch.geom import camera as cam_mod
+    from planet_tpu_torch.tess import mesh
+    from planet_tpu_torch.tools import stage_times
+
+    cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
+    cm = mesh.cell_triangle_mask(cfg.patch_verts)
+    rend = device_step.DeviceRenderer(cfg, SCENE_W, SCENE_H, device=device)
+    out = {}
+    for name, cams in (("1080p static", [scene_camera(cfg)] * 2),
+                       ("orbit 0", [orbit_cameras(cfg)[0][1]])):
+        pool = rend.init_pool()
+        for cam in cams:
+            geom = rend.geometry(pool, *stage_times.camera_args(
+                cfg, cam, SCENE_W, SCENE_H))
+        out[f"{name}, DeviceRenderer rows"] = (
+            geom.vertices.clip.clone(), geom.vertices.normal.clone(),
+            geom.valid.clone(), SCENE_W, SCENE_H, cm, cfg.far_plane,
+            geom.meta[0:1].clone())
+    gm = torch.as_tensor(mesh.grid_uv_skirt(cfg.patch_verts)[3],
+                         device=device)
+    gold = pathlib.Path(__file__).resolve().parents[2] / "tests" / "goldens"
+    near = cam_mod.Camera(position=np.load(gold / "nearclip_cam.npy"),
+                          angles=np.load(gold / "nearclip_angles.npy"))
+    cfg800 = EngineConfig()
+    for name, c, cam in (("1080p static", cfg, scene_camera(cfg)),
+                         ("golden nearclip", cfg800, near)):
+        fr = PlanetEngine(c, device=device).frame(cam)
+        out[f"{name}, PlanetEngine leaves"] = (
+            fr.vertices.clip, fr.vertices.normal,
+            gm[None].expand(fr.n_leaves, -1, -1).contiguous(), c.window_w,
+            c.window_h, cm, c.far_plane, None)
+    return out
+
+
+def clip_inputs(setups: dict) -> dict:
+    """{name: C2's arguments (clip, normal, s_idx, width, height, far_w)}
+    on each C1 input set: the first CLIP_CAP straddlers of its mask, as
+    raster_frame compacts them."""
+    from planet_tpu_torch.raster import coverage_cuda as cc
+
+    out = {}
+    for name, (clip, normal, valid, w, h, cm, far, count) in setups.items():
+        straddle = cc.setup(clip, normal, valid, w, h, cm, far, count)[3]
+        s_idx, _ = cc.compact_indices(straddle, cc.CLIP_CAP)
+        out[name] = (clip, normal, s_idx, w, h, far)
+    return out
+
+
+def clip_pass_calls(clips: dict) -> list:
+    """[(label, call, setup)]: K3's share of raster_frame's near-clip pass
+    two ways on the records C2 makes of each set of `clips` (clip_inputs)
+    — all 2 clip_cap records (the dead ones skipped by K3, the shipped
+    form), and the live ones compacted on the device first (a cumsum, a
+    searchsorted, a gather) and drawn with count= — each into a fresh
+    framebuffer."""
+    import torch
+
+    from planet_tpu_torch.raster import coverage as cov
+    from planet_tpu_torch.raster import coverage_cuda as cc
+
+    out = []
+    for name, args in clips.items():
+        recs = cc.clip_records_cuda(*args)
+        w, h = args[3], args[4]
+
+        def compacted(fb, recs=recs):
+            live = recs[:, 28] != 0.0
+            idx, n = cc.compact_indices(live, live.shape[0])
+            rows = torch.clamp_max(idx, live.shape[0] - 1).long()
+            return cc.raster_huge_cuda(recs.index_select(0, rows), fb,
+                                       count=n.reshape(1))
+
+        def fb(w=w, h=h):
+            return (torch.full((h, w), cov._EMPTY, dtype=torch.int32,
+                               device=recs.device),)
+
+        out.append((f"K3 clip pass, {name}, all {recs.shape[0]} records",
+                    lambda fb, recs=recs: cc.raster_huge_cuda(recs, fb), fb))
+        out.append((f"K3 clip pass, {name}, live records compacted first",
+                    compacted, fb))
+    return out
+
+
 def refine_call(device):
     """R1 on the 1080p static scene's camera from the six faces, as the
     fused frame calls it (refine_device's CUDA route), or None on a tree
@@ -321,18 +420,22 @@ def splat_inputs(device) -> dict:
     return out
 
 
-def calls(device, sets=None, fused=None) -> list:
+def calls(device, sets=None, fused=None, setups=None) -> list:
     """[(key or None, label, call, setup)]: the main path's kernels at its
     shapes, each timed as call(*setup()) — K1 on 256 tiles of octaves 6-18
     (noise_stages.tile_inputs) and at the fused frame's occupancy
     (`fused`, else fused_tile_inputs), K4 at the refine-probe shape (5 x
     4096 points, ridged 6) and at 2^20 points x 18 octaves, R1 (where the
     tree has it: ops/kernels/refine_cuda) on the 1080p scene's camera from
-    the six faces (max_lod 18, cap 4096, ridged probes), K5 at 6 x 2048^2; on each frame set of `sets` (else record_sets): K2 on its span
+    the six faces (max_lod 18, cap 4096, ridged probes), K5 at 6 x 2048^2;
+    on each frame set of `sets` (else record_sets): K2 on its span
     records as the tree's main path draws them (routed), K3 on its huge
     records (the huge class and the clipped straddlers), each into a fresh
-    framebuffer a call; K3 on screen_triangle_records at 1080p; and K6 on
-    the 1080p scene: this tree's route_records, or on a tree before it the
+    framebuffer a call; K3 on screen_triangle_records at 1080p; S1 at
+    splat_inputs' shapes; C1 (where the tree has it) on each set of
+    setup_inputs (else `setups`), C2 on their straddlers (clip_inputs),
+    and K3's near-clip pass both ways on those sets (clip_pass_calls); and
+    K6 on the 1080p scene: this tree's route_records, or on a tree before it the
     two record gathers its route fed (given the indices: its route
     synchronizes, see host_calls). The key is the kernel's in
     chip_smoke.py's kernels line ("tile_fused": its tile entry's
@@ -405,6 +508,18 @@ def calls(device, sets=None, fused=None) -> list:
     for name, sargs in splat_inputs(device).items():
         out.append((None, f"S1 splat, {name}",
                     lambda a=sargs: splat.splat_keys_cuda(*a), tuple))
+    if hasattr(cc, "setup_cuda"):
+        setups = setup_inputs(device) if setups is None else setups
+        main = "1080p static, DeviceRenderer rows"
+        for name, args in setups.items():
+            out.append(("setup" if name == main else None, f"C1 setup, {name}",
+                        lambda a=args: cc.setup_cuda(*a), tuple))
+        clips = clip_inputs(setups)
+        for name, args in clips.items():
+            out.append(("clip" if name == main else None, f"C2 clip, {name}",
+                        lambda a=args: cc.clip_records_cuda(*a), tuple))
+        for label, fn, setup in clip_pass_calls(clips):
+            out.append((None, label, fn, setup))
     fs = sets["1080p static"]
     if hasattr(cc, "route_records"):
         out.append(("gather", "K6 route + gather, 1080p",

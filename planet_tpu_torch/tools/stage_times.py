@@ -9,7 +9,8 @@ and the stop_after ladders of tools/bench_lod_stages.py,
 bench_moving_stages.py and bench_raster_attrib.py). The rungs are
 engine/device_step.RUNGS: refine, cache, generate, uniforms, tess and
 geometry (DeviceRenderer(stop_after=...), one graph each), and full (the
-geometry replay and the raster, DeviceRenderer.render). The scenes:
+geometry replay and the raster graph's replay, DeviceRenderer.render).
+The scenes:
 
 * static-1080p: bench.py:230-234's camera at 1920x1080. The full step
   renders a pool until a frame generates nothing; each rung then renders
@@ -33,9 +34,9 @@ timed once more in reverse order after every graph exists, one replay's
 device events (its kernels
 and its copies and fills, from one torch.profiler session over all rungs,
 each rung's replay in a window of its own, with the device's busy ms in
-that window), the kernel launches a frame per kernel (the graph's tally
-from _cuda.captured, DeviceRenderer.graph_launches, plus the raster's
-launches on the full rung) and the frame's n_leaves. With --json it also
+that window), the kernel launches a frame per kernel (the graphs' tally
+from _cuda.captured, DeviceRenderer.graph_launches: on the full rung the
+geometry graph's and the raster graph's) and the frame's n_leaves. With --json it also
 writes the rows. Prints the card's nvidia-smi name and power limit first.
 
 --device cpu runs the step eagerly with the kernels' plain versions and
@@ -93,7 +94,7 @@ def _copy_pool(dst, src):
 def _counts(out):
     """(n_leaves, n_generated) of a rung's output."""
     if isinstance(out, device_step.DeviceFrame):
-        return out.n_leaves, out.n_generated
+        return int(out.n_leaves), int(out.n_generated)
     n, n_gen, _ = (int(v) for v in out.meta.cpu())
     return n, n_gen
 
@@ -150,8 +151,7 @@ class Ladder:
 
     def timed(self, rung: str, args):
         """(ms, host ms, output) of one call from an idle card: CUDA
-        events (the host's syncs inside the full rung's raster included),
-        and the host clock from the start event's record to the return of
+        events, and the host clock from the start event's record to the return of
         the call (on the CPU, both the host clock)."""
         if self.device.type != "cuda":
             t0 = time.perf_counter()

@@ -50,8 +50,9 @@ from planet_tpu_torch.parallel import sharded, sharded_lod
 from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import coverage_cuda as tcc
 from planet_tpu_torch.raster import splat
+from planet_tpu_torch.tess import mesh
 from planet_tpu_torch.tools import (kernel_times, lut, noise_stages,
-                                    span_parts)
+                                    span_parts, stage_times)
 import torch_ranks
 from torch_scenes import (EDGE, SCREEN, VIEW, adversarial_records,
                           nan_shade_records, screen_scene, view_scene)
@@ -683,3 +684,187 @@ def test_t_span_kernel_bitwise(dev, name, winh):
     assert torch.equal(got, want), span_parts.fb_diff(got, want)
     if span_parts.VARIANTS[name].bv in ("record", "side"):
         assert torch.equal(got, tcc.raster_span_plain(recs, fb.clone()))
+
+
+# ------------------------------------------------------------------ C1
+
+def _assert_setup_equal(got, want):
+    """C1's (tm, live, span, straddle) equal the plain version's bit for
+    bit: live, span and the straddler mask everywhere, tm on every live
+    column (the kernel writes no other)."""
+    tm_k, live_k, span_k, st_k = got
+    tm_p, live_p, span_p, st_p = want
+    assert torch.equal(live_k, live_p)
+    assert torch.equal(span_k, span_p)
+    assert torch.equal(st_k, st_p)
+    cols = torch.nonzero(live_p).squeeze(1)
+    assert _same_bits(tm_k[:, cols], tm_p[:, cols])
+    return int(cols.numel()), int(st_p.sum())
+
+
+def _setup_both(clip, normal, valid, w, h, cfg, count=None):
+    kw = dict(cell_mask=mesh.cell_triangle_mask(cfg.patch_verts),
+              far_w=cfg.far_plane, count=count)
+    return (tcc.setup_cuda(clip, normal, valid, w, h, **kw),
+            tcc.setup_plain(clip, normal, valid, w, h, **kw))
+
+
+def test_setup_kernel_bitwise_with_the_leaf_count(dev):
+    """C1 with the count pointer on DeviceRenderer's render_cap rows (the
+    padding rows NaN and invalid) at 1920x1080: the static camera and the
+    orbit's first frames, each equal to the plain version with the same
+    count bit for bit."""
+    cfg = EngineConfig(window_w=1920, window_h=1080)
+    r = device_step.DeviceRenderer(cfg, 1920, 1080, device=dev)
+    cams = [kernel_times.scene_camera(cfg)] + [
+        c for _, c in kernel_times.orbit_cameras(cfg)]
+    pool = r.init_pool()
+    for cam in cams:
+        geom = r.geometry(pool, *stage_times.camera_args(cfg, cam, 1920, 1080))
+        pv = geom.vertices
+        count = geom.meta[0:1]
+        n_live, _ = _assert_setup_equal(*_setup_both(
+            pv.clip, pv.normal, geom.valid, 1920, 1080, cfg, count))
+        assert n_live > 10000 and int(count[0]) < pv.clip.shape[0]
+
+
+def test_setup_kernel_bitwise_without_a_count(dev):
+    """C1 with no count (PlanetEngine's rows: every one evaluated) on the
+    1080p static scene and the near-clip golden, and on the random screen
+    and view scenes (near- and far-straddlers)."""
+    cfg = EngineConfig(window_w=1920, window_h=1080)
+    cam = kernel_times.scene_camera(cfg)
+    out = PlanetEngine(cfg, device=dev).frame(cam)
+    gm = torch.as_tensor(mesh.grid_uv_skirt(cfg.patch_verts)[3], device=dev)
+    valid = gm[None].expand(out.n_leaves, -1, -1)
+    n_live, _ = _assert_setup_equal(*_setup_both(
+        out.vertices.clip, out.vertices.normal, valid, 1920, 1080, cfg))
+    assert n_live > 10000
+    cfg800 = EngineConfig()
+    near = cam_mod.Camera(position=np.load(GOLD + "nearclip_cam.npy"),
+                          angles=np.load(GOLD + "nearclip_angles.npy"))
+    out = PlanetEngine(cfg800, device=dev).frame(near)
+    valid = gm[None].expand(out.n_leaves, -1, -1)
+    _, n_straddle = _assert_setup_equal(*_setup_both(
+        out.vertices.clip, out.vertices.normal, valid, 800, 600, cfg800))
+    assert n_straddle > 0
+    for clip, normal, valid, w, h, far in (
+            screen_scene(11, SCREEN["width"], SCREEN["height"],
+                         SCREEN["sizes"]) + (SCREEN["width"],
+                                             SCREEN["height"], None),
+            view_scene(VIEW["seed"], VIEW["width"], VIEW["height"],
+                       VIEW["far"]) + (VIEW["width"], VIEW["height"],
+                                       VIEW["far"])):
+        args = [torch.as_tensor(a, device=dev) for a in (clip, normal, valid)]
+        got = tcc.setup_cuda(*args, w, h, far_w=far)
+        _assert_setup_equal(got, tcc.setup_plain(*args, w, h, far_w=far))
+
+
+def _assert_clip_records_equal(got, want):
+    """C2's records equal the plain version's bit for bit: every live
+    record's 32 words, and every record's row 28 (dead: 0) and row 25
+    (dead: +inf)."""
+    live = want[:, 28] != 0.0
+    assert _same_bits(got[live], want[live])
+    for row in (25, 28):
+        assert _same_bits(got[:, row], want[:, row])
+    return int(live.sum())
+
+
+@pytest.mark.parametrize("clip_cap", [512, 3])
+def test_clip_kernel_bitwise(dev, clip_cap):
+    """C2 on the straddlers of the view scene (near- and far-clipped),
+    of the near-clip golden's PlanetEngine leaves and of DeviceRenderer's
+    padded rows at 1080p (every slot empty: its vertices are a padding
+    row's NaN), at the main path's 512 slots and at 3."""
+    cfg800 = EngineConfig()
+    near = cam_mod.Camera(position=np.load(GOLD + "nearclip_cam.npy"),
+                          angles=np.load(GOLD + "nearclip_angles.npy"))
+    out = PlanetEngine(cfg800, device=dev).frame(near)
+    gm = torch.as_tensor(mesh.grid_uv_skirt(cfg800.patch_verts)[3],
+                         device=dev)
+    clip, normal, valid = view_scene(VIEW["seed"], VIEW["width"],
+                                     VIEW["height"], VIEW["far"])
+    cases = [(*(torch.as_tensor(a, device=dev) for a in (clip, normal,
+                                                        valid)),
+              VIEW["width"], VIEW["height"], None, VIEW["far"]),
+             (out.vertices.clip, out.vertices.normal,
+              gm[None].expand(out.n_leaves, -1, -1), 800, 600,
+              mesh.cell_triangle_mask(cfg800.patch_verts),
+              cfg800.far_plane)]
+    cfg = EngineConfig(window_w=1920, window_h=1080)
+    r = device_step.DeviceRenderer(cfg, 1920, 1080, device=dev)
+    geom = r.geometry(r.init_pool(), *stage_times.camera_args(
+        cfg, kernel_times.scene_camera(cfg), 1920, 1080))
+    cases.append((geom.vertices.clip, geom.vertices.normal, geom.valid,
+                  1920, 1080, mesh.cell_triangle_mask(cfg.patch_verts),
+                  cfg.far_plane))
+    lives = []
+    for clip, normal, valid, w, h, cm, far in cases:
+        straddle = tcc.setup_plain(clip, normal, valid, w, h, cm, far)[3]
+        s_idx, _ = tcc.compact_indices(straddle, clip_cap)
+        lives.append(_assert_clip_records_equal(
+            tcc.clip_records_cuda(clip, normal, s_idx, w, h, far),
+            tcc.clip_records_plain(clip, normal, s_idx, w, h, far)))
+    assert lives[0] > 0 and lives[1] > 0 and lives[2] == 0
+
+
+def _frame_bits(frame):
+    return [frame.image.view(torch.int32) if frame.image.dtype
+            == torch.float32 else frame.image, frame.depth.view(torch.int32),
+            frame.n_leaves, frame.n_generated, frame.overflowed]
+
+
+@pytest.mark.parametrize("name", ["nearclip", "frame"])
+def test_captured_render_equals_eager_and_toggles_wireframe(dev, name):
+    """DeviceRenderer.render (the geometry graph, then the raster graph)
+    over three frames equals the eager build_device_render bit for bit in
+    image, depth and counts; the launches of a frame include C1, K6, K2
+    and K3; with wireframe toggled between frames each value's raster
+    graph equals the eager raster on the same geometry."""
+    cfg = EngineConfig()
+    cam = cam_mod.Camera(position=np.load(GOLD + f"{name}_cam.npy"),
+                         angles=np.load(GOLD + f"{name}_angles.npy"))
+    args = stage_times.camera_args(cfg, cam, 800, 600)
+    kw = dict(cap=1024, render_cap=512, gen_cap=512)
+    r = device_step.DeviceRenderer(cfg, 800, 600, device=dev, **kw)
+    eager = device_step.build_device_render(cfg, 800, 600, device=dev, **kw)
+    pool_g, pool_e = r.init_pool(), r.init_pool()
+    for _ in range(3):
+        got = r.render(pool_g, *args)
+        want = eager(pool_e, *args)
+        for a, b in zip(_frame_bits(got), _frame_bits(want)):
+            assert torch.equal(a, b)
+    assert all(r.graph_launches.get(k, 0) > 0
+               for k in ("setup", "gather", "span", "clip", "huge")), \
+        r.graph_launches
+    for wireframe in (True, False, True):
+        r.wireframe = wireframe
+        got = r.render(pool_g, *args)
+        want, _ = device_step.raster(r.last_geometry, cfg, 800, 600,
+                                     wireframe)
+        for a, b in zip(_frame_bits(got), _frame_bits(want)):
+            assert torch.equal(a, b)
+    assert set(r._rasters) == {False, True}
+
+
+def test_render_after_capture_syncs_nothing(dev):
+    """After the captures, a whole render (numpy camera inputs, u8 fetch
+    and preview) runs under set_sync_debug_mode("error"); its counts stay
+    device tensors."""
+    cfg = EngineConfig(window_w=1920, window_h=1080)
+    args = stage_times.camera_args(cfg, kernel_times.scene_camera(cfg),
+                                   1920, 1080)
+    r = device_step.DeviceRenderer(cfg, 1920, 1080, device=dev, fetch="u8",
+                                   preview=4)
+    pool = r.init_pool()
+    r.render(pool, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frame = r.render(pool, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert frame.n_leaves.is_cuda and frame.overflowed.dtype == torch.bool
+    assert int(frame.n_leaves) > 100 and not bool(frame.overflowed)
+    assert frame.preview.shape == (270, 480)

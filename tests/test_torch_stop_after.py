@@ -196,7 +196,7 @@ def test_rung_agrees_with_planet_tpu(rung):
                 assert np.isnan(image).all()
             else:
                 assert not image.any()
-        assert [frame.n_leaves, frame.n_generated,
+        assert [int(frame.n_leaves), int(frame.n_generated),
                 int(frame.overflowed)] == want, name
         assert not frame.image.any() and not frame.depth.any()
         cap = cfg.cache_capacity
@@ -204,7 +204,7 @@ def test_rung_agrees_with_planet_tpu(rung):
             np.testing.assert_array_equal(getattr(pool, k)[:cap].numpy(),
                                           np.asarray(getattr(jpool, k)), k)
         assert int(pool.now) == int(jpool.now)
-        seen.add((frame.n_leaves, frame.overflowed))
+        seen.add((int(frame.n_leaves), bool(frame.overflowed)))
     # one camera fits render_cap, the other overflows it
     assert seen == {(6, False), (kw["render_cap"], True)}, seen
 
@@ -233,7 +233,7 @@ def test_renderer_rungs_frames():
             continue
         gen = want.n_generated if rung == "geometry" else 0
         for f in frames:
-            assert (f.n_generated, f.overflowed) == (gen, False)
+            assert (int(f.n_generated), bool(f.overflowed)) == (gen, False)
             assert f.image.shape == f.depth.shape == (H, W)
             assert not f.image.any() and not f.depth.any()
         assert r.last_counters is None

@@ -111,6 +111,7 @@ def lod_worker(rank, world, out_dir, spec):
             ms = (time.perf_counter() - t0) * 1e3
             save(out_dir, f"{name}.f{i}", rank, image=frame.image,
                  depth=frame.depth, q_lo=q_lo[:n], q_hi=q_hi[:n],
-                 counts=np.array([n, n_gen, frame.n_leaves,
-                                  frame.n_generated, int(frame.overflowed),
-                                  index]), ms=np.array(ms))
+                 counts=np.array([int(n), int(n_gen), int(frame.n_leaves),
+                                  int(frame.n_generated),
+                                  int(frame.overflowed), index]),
+                 ms=np.array(ms))

@@ -166,3 +166,12 @@ def nan_shade_records(seed, width, height, device="cpu"):
     for i in range(len(recs)):
         recs[i, 3 * (i % 3) + 2] = float("inf")
     return recs
+
+
+def counter_values(rc):
+    """A RasterCounters of device tensors as host values: ints, the
+    per-class pair as a tuple of ints, the overflow flag as a bool."""
+    return type(rc)(n_tris=int(rc.n_tris),
+                    n_per_class=tuple(int(v) for v in rc.n_per_class),
+                    n_huge=int(rc.n_huge), overflowed=bool(rc.overflowed),
+                    n_straddle=int(rc.n_straddle))
