@@ -42,7 +42,12 @@ result line is printed:
    PlanetEngine's leaves without one (1080p static, the near-clip
    golden), each timed beside its bound; C2, the clipped straddlers'
    records, against its plain version on the first clip_cap straddlers of
-   each of those sets (live records and the dead marks bitwise);
+   each of those sets (live records and the dead marks bitwise); V1, the
+   vertex program and its shade, against its plain version (clip, world,
+   normal, height, snormal and shade bitwise, NaN by its bits) on
+   DeviceRenderer's 512 rows at 1080p (the "uniforms" rung's inputs, 302
+   padding rows) and on PlanetEngine's leaves of the three goldens, each
+   timed beside its bound;
 4. the host-orchestrated path, PlanetEngine(...).render on the card,
    against the oracle's frame / nearclip / farclip golden images at their
    test bars;
@@ -60,10 +65,11 @@ result line is printed:
    more whole render under torch.cuda.set_sync_debug_mode("error"),
    bitwise the last frame; then the geometry and raster replays timed
    apart) and the 8-frame orbit, each orbit frame's leaf ids equal to
-   phase 5's PlanetEngine on the same camera;
+   phase 5's PlanetEngine on the same camera; V1 launched once a geometry
+   replay (and once by each capture's eager warm-up);
 6. launch counts: each kernel of each path launched during that path's
-   phases (4-5: tile, gather, span, huge; 5b: those, refine, setup and
-   clip) > 0, and K4 not launched by 5b;
+   phases (4-5: tile, tess, gather, span, huge; 5b: those, refine, setup
+   and clip) > 0, and K4 not launched by 5b;
 7. the cube-sphere field path (models/heightfield), counts reset before
    and read after: config 1 (flat 256x256 patch, fBm 4, through K4)
    bitwise equal to K4's plain version on the same noise coordinates and
@@ -93,8 +99,9 @@ result line is printed:
    spin kernel, so a short kernel's time holds no host launch time):
    tools/kernel_times.calls on phase 3's record sets and fused
    occupancy (with R1 and S1 at phase 9a's shapes, C1 and C2 on phase
-   3's setup inputs, and K3's near-clip pass on all 2 clip_cap records
-   against the live ones compacted first), and its host_calls
+   3's setup inputs, V1 on phase 3's vertex inputs, and K3's near-clip
+   pass on all 2 clip_cap records against the live ones compacted
+   first), and its host_calls
    (K6 by the host clock); R1's queued time over the static camera's
    live levels, beside its bound;
 9. the single-card rest (`single_card_rest`), at 1920x1080 with the
@@ -132,8 +139,10 @@ result line is printed:
    "geometry" rung bitwise equal to DeviceRenderer.geometry and the
    "full" rung's frame bitwise equal to phase 5b's; (c)
    entry.dryrun_multichip(4), four gloo processes sharing the card; K1,
-   K2, R1 and K6 launched in this process, and every rung launching R1
-   and no K4.
+   K2, R1, V1 and K6 launched in this process, every rung launching R1
+   and no K4, the tess, geometry and full rungs V1 once, and no
+   matrix-product kernel (cuBLAS's or CUTLASS's, by name) in the tess
+   rung's trace.
 
 The second-to-last lines are a JSON summary of the kernels (launches from
 phase 5b, from phase 7 for the field and noise kernels (K4 is off the fused
@@ -499,7 +508,7 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
               f"9a device splat orbit frame {i}: leaf ids differ from the "
               "exact mode's")
         check(bool(torch.isfinite(fr.image).all()), f"9a orbit {i}: finite")
-    counted("a", ("tile", "refine", "splat"))
+    counted("a", ("tile", "refine", "tess", "splat"))
     check(_cuda.launches["noise"] == 0, "9a: the splat frames launched K4")
     # the orbit's new pool captures both graphs again, the raster after a
     # warm-up run that launches S1 once
@@ -658,7 +667,7 @@ def single_card_rest(dev, width, height, *, camera, orbit, orbit_ids,
                 f"frame (frames 2-{n - 1}; min {min(teng.ms[2:]):.3f}, max "
                 f"{max(teng.ms[2:]):.3f}); PNG dumps equal to the full "
                 f"frames")
-            counted("c", ("tile", "span", "gather", "huge")
+            counted("c", ("tile", "tess", "span", "gather", "huge")
                     + (("refine",) if key == "device" else ()))
             del teng
         # the driver as a user runs it, in a process of its own: in this
@@ -1038,11 +1047,22 @@ def stage_ladder(dev, width, height, *, camera_args, static_pool,
                 check(r["launches"].get("gather", 0) > 0
                       and r["launches"].get("span", 0) > 0,
                       f"11a {scene} full: raster launches {r['launches']}")
+            if r["rung"] in ("tess", "geometry", "full"):
+                check(r["launches"].get("tess", 0) == 1,
+                      f"11a {scene} {r['rung']}: V1 launches "
+                      f"{r['launches']} (one expected)")
+            if r["rung"] == "tess":
+                check(r["gemm_kernels"] == 0, f"11a {scene} tess: "
+                      f"{r['gemm_kernels']} matrix-product kernels in its "
+                      "trace")
     res["stage_ms"] = {scene: {r["rung"]: r["ms"] for r in rows}
                        for scene, rows in scenes.items()}
     res["stage_kernels"] = {scene: {r["rung"]: r.get("kernels")
                                     for r in rows}
                             for scene, rows in scenes.items()}
+    res["stage_gemm_kernels"] = {scene: {r["rung"]: r.get("gemm_kernels")
+                                         for r in rows}
+                                 for scene, rows in scenes.items()}
     res["stage_card"] = report["card"]
     log(f"[11a] stage_times: every rung of both scenes draws phase 5b's "
         f"leaves; (a) in {time.perf_counter() - t_a:.1f} s")
@@ -1137,6 +1157,7 @@ def main() -> int:
     from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
     from planet_tpu_torch.raster import coverage as cov
     from planet_tpu_torch.raster import coverage_cuda as cc
+    from planet_tpu_torch.tess import vertex_cuda
     from planet_tpu_torch.tools import kernel_times, r1_s1_parts
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_scenes import EDGE, counter_values, nan_shade_records
@@ -1651,6 +1672,38 @@ def main() -> int:
         check(ok, f"C2 != plain on {name}")
         if name == "1080p static, DeviceRenderer rows":
             report["clip"] = row
+    # V1, the vertex program and its shade: against its plain version
+    # (vertex.tessellate_blend and the pinned lambert) at the main path's
+    # shapes (kernel_times.tess_inputs: DeviceRenderer's 512 rows at 1080p
+    # from the "uniforms" rung, PlanetEngine's leaves on the three
+    # goldens), every output bitwise (NaNs by their bits: the padding rows)
+    tess_sets = kernel_times.tess_inputs(dev)
+    for name, args in tess_sets.items():
+        got, got_shade = vertex_cuda.tessellate_shaded_cuda(*args)
+        want, want_shade = vertex_cuda.tessellate_shaded_plain(*args)
+        diff = [f for f in got._fields
+                if not same_bits(getattr(got, f), getattr(want, f))]
+        if not same_bits(got_shade, want_shade):
+            diff.append("vertex_shade")
+        rows, grid = args[2].shape[0], got.clip.shape[1]
+        slerps = tool_common.tess_slerps(args[1], grid)
+        row = dict(
+            max_abs_err=0.0 if not diff else float("nan"),
+            ms=time_ms(lambda: vertex_cuda.tessellate_shaded_cuda(*args)),
+            plain_ms=time_ms(
+                lambda: vertex_cuda.tessellate_shaded_plain(*args)),
+            library_ms=None, rows=rows, slerps=slerps,
+            bound=bound_ms(*tool_common.tess_work(rows, grid, slerps)))
+        equal = "True" if not diff else f"False ({', '.join(diff)} differ)"
+        print(f"[3] V1 tess, {name}: {rows} rows x {grid}x{grid} "
+              f"vertices, {slerps} slerp interpolations; clip, world, "
+              f"normal, height, snormal and shade bitwise equal to plain: "
+              f"{equal}; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound'][0]:.5f} ms "
+              f"({row['bound'][1]})", flush=True)
+        check(not diff, f"V1 != plain on {name}: {diff}")
+        if name == "1080p static, DeviceRenderer rows":
+            report["tess"] = row
 
     # ------------------------------------------------------------ phase 4
     def check_golden(tag, name, n_leaves, image, depth, rc):
@@ -1826,8 +1879,10 @@ def main() -> int:
         check(not fr.overflowed, f"5b {name}: overflowed")
         check_golden("5b", name, fr.n_leaves, fr.image, fr.depth,
                      rend.last_counters)
+    renderers = [rend]
 
     rend = device_step.DeviceRenderer(cfg1080, W_1080, H_1080, device=dev)
+    renderers.append(rend)
     pool = rend.init_pool()
     static_args = device_args(cfg1080, bench_cam(), W_1080, H_1080)
     static_ms = []
@@ -1907,6 +1962,17 @@ def main() -> int:
         check(bool(torch.isfinite(fr.image).all()), f"5b orbit {i}: finite")
         check(same, f"5b orbit frame {i}: leaf ids differ from PlanetEngine")
     launches_dev = dict(_cuda.launches)
+    # V1 once a geometry replay: each capture's eager warm-up launches it
+    # once more
+    replays = sum(r.geometry_replays for r in renderers)
+    captures = sum(r.geometry_captures for r in renderers)
+    print(f"[5b] V1 launches {launches_dev['tess']}: {replays} geometry "
+          f"replays, {captures} captures (each with one eager warm-up); "
+          f"a replay's graph launches "
+          f"{[r._tally['tess'] for r in renderers]}", flush=True)
+    check(all(r._tally["tess"] == 1 for r in renderers)
+          and launches_dev["tess"] == replays + captures,
+          "5b: V1 not launched once a geometry replay")
 
     # ------------------------------------------------------------ phase 6
     check("jax" not in sys.modules, "jax was imported")
@@ -1914,10 +1980,11 @@ def main() -> int:
           f"{launches_host}", flush=True)
     print(f"[6] launches, fused device path (phase 5b): {launches_dev}",
           flush=True)
-    for k in ("tile", "gather", "span", "huge"):
+    for k in ("tile", "tess", "gather", "span", "huge"):
         check(launches_host[k] > 0, f"kernel {k} was not launched by the "
               "host-orchestrated path")
-    for k in ("tile", "refine", "setup", "gather", "span", "clip", "huge"):
+    for k in ("tile", "refine", "tess", "setup", "gather", "span", "clip",
+              "huge"):
         check(launches_dev[k] > 0, f"kernel {k} was not launched by the "
               "fused device path")
     check(launches_dev["noise"] == 0, "the fused device path launched K4 "
@@ -2114,7 +2181,8 @@ def main() -> int:
     queued, huge_queued = {}, {}
     for key, label, fn, setup in kernel_times.calls(dev, sets=sets,
                                                     fused=fused,
-                                                    setups=setups):
+                                                    setups=setups,
+                                                    tess=tess_sets):
         ms = tool_common.time_ms(fn, setup, reps=REPS)
         if key:
             queued[key] = ms
@@ -2170,7 +2238,7 @@ def main() -> int:
     launches_sharded = dict(_cuda.launches)
     print(f"[10] launches, sharded paths (phase 10, this process): "
           f"{launches_sharded}", flush=True)
-    for k in ("tile", "span", "gather", "noise", "field", "refine"):
+    for k in ("tile", "span", "gather", "noise", "field", "refine", "tess"):
         check(launches_sharded[k] > 0, f"phase 10 launched no {k} kernel")
     shard["huge_launches"] = launches_sharded["huge"]
     print(f"[10] the multi-card slice on one card in "
@@ -2189,7 +2257,7 @@ def main() -> int:
     launches_ladder = dict(_cuda.launches)
     print(f"[11] launches, stage rungs and the dryrun's reference (phase "
           f"11, this process): {launches_ladder}", flush=True)
-    for k in ("tile", "refine", "gather", "span"):
+    for k in ("tile", "refine", "tess", "gather", "span"):
         check(launches_ladder[k] > 0, f"phase 11 launched no {k} kernel")
     print(f"[11] the stage ladder and dryrun_multichip in "
           f"{time.perf_counter() - t11:.1f} s: " + json.dumps(ladder),
@@ -2232,6 +2300,12 @@ def main() -> int:
         "clip": ("planet_tpu_torch/csrc/setup.cu",
                  "planet_tpu/raster/coverage.py:840, "
                  "planet_tpu/raster/nearclip.py:292"),
+        # no Pallas kernel: planet_tpu's vertex program and shade, fused by
+        # XLA in its geometry step
+        "tess": ("planet_tpu_torch/csrc/tess.cu",
+                 "planet_tpu/tess/vertex.py:148, "
+                 "planet_tpu/tess/vertex.py:232, "
+                 "planet_tpu/raster/shade.py:18"),
         "t_noise": ("planet_tpu_torch/csrc/bench_noise.cu",
                     noise_stages.REPLACES["t_noise"]),
         "t_tile": ("planet_tpu_torch/csrc/bench_noise.cu",

@@ -11,7 +11,8 @@ trip.
   4. generate     one K1 launch over gen_cap slots, per-slot octave counts
                   6 + 12*depth // max_lod (dead slots: count 0, zeros)
   5. tessellate   store + touch, crop variants, camera-relative DF corners,
-                  skirt, gather, tess.vertex.tessellate_blend + lambert
+                  skirt, gather, one V1 launch (tess.vertex_cuda: the
+                  vertex program and its shade)
   6. raster       raster.coverage_cuda.raster_frame (C1, K6, K2, K3) on
                   all render_cap rows, padding rows invalid and skipped by
                   C1 through the leaf count on the device, or with
@@ -78,9 +79,9 @@ from planet_tpu_torch.ops.kernels import tile_cuda
 from planet_tpu_torch.ops.kernels.perlin_cuda import MAX_OCTAVES
 from planet_tpu_torch.raster import coverage as cov
 from planet_tpu_torch.raster import coverage_cuda
-from planet_tpu_torch.raster import shade as shade_mod
 from planet_tpu_torch.tess import mesh
 from planet_tpu_torch.tess import vertex
+from planet_tpu_torch.tess import vertex_cuda
 
 _I32 = torch.int32
 _KEY_PAD = 2**63 - 1      # DFS key of a padding row: after every real leaf
@@ -310,9 +311,9 @@ def build_geometry_step(cfg: EngineConfig, *, device, cap: int = 4096,
             return early(slot=slot, corners_rel=corners_rel,
                          normals=normals, vx=vx, vy=vy, skirt=skirt)
         pool_tiles = dp.gather(pool, slot)
-        pv = vertex.tessellate_blend(corners_rel, normals, pool_tiles, vx, vy,
-                                     skirt, view_proj, grid=grid)
-        vshade = shade_mod.lambert(pv.normal)
+        pv, vshade = vertex_cuda.tessellate_shaded(
+            corners_rel, normals, pool_tiles, vx, vy, skirt, view_proj,
+            grid=grid)
         if stop_after == "tess":
             return early(slot=slot, tiles=pool_tiles, vertices=pv,
                          vertex_shade=vshade)
@@ -520,6 +521,10 @@ class DeviceRenderer:
         # raster captures so far; each one's warm-up ran the raster's
         # kernels once, eagerly (counted in _cuda.launches)
         self.raster_captures = 0
+        # geometry graph captures (each with one eager warm-up, counted in
+        # _cuda.launches too) and replays so far
+        self.geometry_captures = 0
+        self.geometry_replays = 0
         self.last_geometry: Optional[Geometry] = None
         self.last_counters = None
 
@@ -559,6 +564,7 @@ class DeviceRenderer:
         self._graph, self._graph_out, self._tally = self._captured(
             lambda: self._run_step(pool), warm_up)
         self._graph_pool = pool
+        self.geometry_captures += 1
 
     def _fetch(self, frame: DeviceFrame) -> DeviceFrame:
         if self.fetch != "u8":
@@ -607,6 +613,7 @@ class DeviceRenderer:
                 self._capture(pool)
             self._graph.replay()
             _cuda.add_launches(self._tally)
+            self.geometry_replays += 1
             geom = self._graph_out
         self.last_geometry = geom
         return geom

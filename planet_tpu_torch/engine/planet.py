@@ -10,7 +10,7 @@ A frame, in planet_tpu's stage order:
               generates, each tile with its own octave count (reference
               octave schedule, main.cpp:827), stored in place in the pool;
   4. tessellate device: the vertex program + per-vertex shade over all
-              leaves;
+              leaves, one V1 launch (tess/vertex_cuda.py);
   5. raster   device (render only): the exact-coverage raster, or with
               raster_mode="splat" the depth-tested splat raster
               (raster/splat.py) on the back-face-culled, k x k upsampled
@@ -44,10 +44,10 @@ from planet_tpu_torch.nums import df as dfm
 from planet_tpu_torch.ops.kernels import tile_cuda
 from planet_tpu_torch.ops.kernels.perlin_cuda import MAX_OCTAVES
 from planet_tpu_torch.raster import coverage, coverage_cuda
-from planet_tpu_torch.raster import shade as shade_mod
 from planet_tpu_torch.raster import splat
 from planet_tpu_torch.tess import mesh
 from planet_tpu_torch.tess import vertex
+from planet_tpu_torch.tess import vertex_cuda
 
 STAGES = ("refine", "resolve", "generate", "tessellate", "raster")
 
@@ -194,13 +194,12 @@ class PlanetEngine:
         skirt = np.array([c.skirt_size_for_depth(d) * skirt_scale
                           for d in res.depths], np.float32)
         slots = self._tensor(resolved.slot.astype(np.int64))
-        pv = vertex.tessellate_blend(
+        pv, vshade = vertex_cuda.tessellate_shaded(
             self._tensor(corners_rel), self._tensor(normals),
             self.pool.tiles.index_select(0, slots),
             self._tensor(resolved.variant_x.astype(np.int64)),
             self._tensor(resolved.variant_y.astype(np.int64)),
             self._tensor(skirt), self._tensor(view_proj))
-        vshade = shade_mod.lambert(pv.normal)
         self._lap(stage_ms, "tessellate", lap)
 
         self.pool.end_frame()

@@ -1,0 +1,119 @@
+"""V1, the vertex program and its shade as one kernel (csrc/tess.cu): the
+port's counterpart of the XLA fusion of planet_tpu's geometry step over
+tess/vertex.tessellate_blend and raster/shade.lambert.
+
+* tessellate_shaded(corners_rel, corner_normals, tiles, variant_x,
+  variant_y, skirt_size, view_proj, grid=mesh.GRID) ->
+  (vertex.PatchVertices, vertex_shade (Q, G, G)): corners_rel and
+  corner_normals (Q, 4, 3) f32, tiles (Q, dim, dim) f32, variant_x/y (Q,)
+  int in {0, 1, 2}, skirt_size (Q,) f32, view_proj (4, 4) f32. A variant
+  is taken as a torch index takes it: -3..-1 count from the end, and any
+  other value outside {0, 1, 2} makes both versions fail (the kernel
+  traps).
+
+The dispatcher launches the kernel for CUDA tensors (or raises) and runs
+the plain version, `tessellate_shaded_plain`, for CPU tensors. The plain
+version is vertex.tessellate_blend, whose op order the kernel copies, and
+`lambert`, raster/shade.lambert with its sums written out in the same
+pinned order (shade.lambert itself is unchanged for its other callers).
+The kernel evaluates every row: the fused frame's padding rows come out
+NaN, as the plain version's do. It reads the two-tap table and the grid's
+u values from lru-cached device tensors and the variants, skirt and
+view-projection from the device, so it copies nothing from the host and
+can be captured in a CUDA graph once it has run eagerly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from planet_tpu_torch import _cuda
+from planet_tpu_torch.raster import shade as shade_mod
+from planet_tpu_torch.tess import mesh
+from planet_tpu_torch.tess import vertex
+
+# the kernel's largest grid and tile side (csrc/tess.cu kMaxGrid, kMaxDim)
+MAX_GRID = 32
+MAX_DIM = 32
+
+
+def lambert(normal: torch.Tensor) -> torch.Tensor:
+    """raster/shade.lambert with its dot products written x x + y y + z z
+    (vertex._dot), the order V1 copies. normal: (..., 3). Returns (...,)."""
+    n = vertex._norm(normal)
+    light = shade_mod._light(str(normal.device))
+    return torch.sqrt(0.001 + torch.clamp_min(vertex._dot(n, light), 0.0))
+
+
+def tessellate_shaded_plain(corners_rel, corner_normals, tiles, variant_x,
+                            variant_y, skirt_size, view_proj,
+                            grid: int = mesh.GRID):
+    pv = vertex.tessellate_blend(corners_rel, corner_normals, tiles,
+                                 variant_x, variant_y, skirt_size, view_proj,
+                                 grid=grid)
+    return pv, lambert(pv.normal)
+
+
+def tessellate_shaded_cuda(corners_rel, corner_normals, tiles, variant_x,
+                           variant_y, skirt_size, view_proj,
+                           grid: int = mesh.GRID):
+    q, dim = tiles.shape[0], tiles.shape[-1]
+    if not (0 < grid <= MAX_GRID and 0 < dim <= MAX_DIM):
+        raise ValueError(f"grid {grid}, tile side {dim}: the kernel takes "
+                         f"at most {MAX_GRID} and {MAX_DIM}")
+    corners_rel, corner_normals, tiles, skirt_size, view_proj = (
+        t.contiguous() for t in (corners_rel, corner_normals, tiles,
+                                 skirt_size, view_proj))
+    vx, vy = (v.to(torch.int32).contiguous() for v in (variant_x, variant_y))
+    _cuda.check_cuda(corners_rel, "corners_rel", torch.float32, (q, 4, 3))
+    _cuda.check_cuda(corner_normals, "corner_normals", torch.float32,
+                     (q, 4, 3))
+    _cuda.check_cuda(tiles, "tiles", torch.float32, (q, dim, dim))
+    _cuda.check_cuda(vx, "variant_x", torch.int32, (q,))
+    _cuda.check_cuda(vy, "variant_y", torch.int32, (q,))
+    _cuda.check_cuda(skirt_size, "skirt_size", torch.float32, (q,))
+    _cuda.check_cuda(view_proj, "view_proj", torch.float32, (4, 4))
+    dev = tiles.device
+    for t, name in ((corners_rel, "corners_rel"),
+                    (corner_normals, "corner_normals"), (vx, "variant_x"),
+                    (vy, "variant_y"), (skirt_size, "skirt_size"),
+                    (view_proj, "view_proj")):
+        if t.device != dev:
+            raise ValueError(f"{name}: expected the tiles' device {dev}, "
+                             f"got {t.device}")
+
+    def out(*tail):
+        return torch.empty((q, grid, grid) + tail, dtype=torch.float32,
+                           device=dev)
+
+    pv = vertex.PatchVertices(clip=out(4), world=out(3), normal=out(3),
+                              height=out(), snormal=out(3))
+    shade = out()
+    if q:
+        idx, w = vertex.tap_table(dim, grid, str(dev))
+        u = vertex._grid_tables(grid, str(dev))[0][0]
+        light = [float(x) for x in shade_mod._LIGHT.astype(np.float32)]
+        _cuda.launch("tess", "planet_tess", corners_rel.data_ptr(),
+                     corner_normals.data_ptr(), tiles.data_ptr(),
+                     vx.data_ptr(), vy.data_ptr(), skirt_size.data_ptr(),
+                     view_proj.data_ptr(), idx.data_ptr(), w.data_ptr(),
+                     u.data_ptr(), q, grid, dim, *light, pv.clip.data_ptr(),
+                     pv.world.data_ptr(), pv.normal.data_ptr(),
+                     pv.height.data_ptr(), pv.snormal.data_ptr(),
+                     shade.data_ptr())
+    return pv, shade
+
+
+def tessellate_shaded(corners_rel, corner_normals, tiles, variant_x,
+                      variant_y, skirt_size, view_proj,
+                      grid: int = mesh.GRID):
+    if tiles.device.type == "cuda":
+        return tessellate_shaded_cuda(corners_rel, corner_normals, tiles,
+                                      variant_x, variant_y, skirt_size,
+                                      view_proj, grid)
+    if tiles.device.type != "cpu":
+        raise ValueError(f"unsupported device {tiles.device}")
+    return tessellate_shaded_plain(corners_rel, corner_normals, tiles,
+                                   variant_x, variant_y, skirt_size,
+                                   view_proj, grid)

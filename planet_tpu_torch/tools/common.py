@@ -93,6 +93,29 @@ OPS_REFINE_SPLIT = 955
 OPS_TRIANGLE = 3 * 21 + 8 + 20 + 3 + 1 + 4 + 3 * 12 + 19 + 3
 OPS_SETUP_LIVE = OPS_TRIANGLE + 48
 OPS_CLIP_SLOT = 52 + 2 * OPS_TRIANGLE
+# V1 (csrc/tess.cu), counted the same way. An interpolation taking the
+# linear fallback: the dot (5), the test (2), two lerps (9 each) and a
+# normalize (the dot, the sqrt, 3 divisions: 9): 34. One taking the slerp:
+# the dot, the test, the clamp (3), 1 - t and the two angles (3), the
+# normal's blend (9) and normalize (9), theta, gamma, x and y (9), half and
+# its length (12), the position (15): 67, and its acosf, three sinf, cosf
+# and two tanf, each counted by the instructions ptxas emits on its path
+# for |x| < 105615 (sm_90a, CUDA 12.9, -fmad=false; `cuobjdump -sass` of a
+# kernel calling it alone, without the load and store): acosf 26, sinf 26,
+# cosf 27, tanf 23. A vertex beyond its interpolation: five y blends (15),
+# the skirt drop (2), the tangent normal (12), the two cross products and
+# normalizes (36), the normal's combination and normalize (24), the world
+# position (6), the clip transform (24), the shade (18). A column of a row:
+# its two endpoint interpolations, row_dir and xyscale (10). A row: its
+# three x-blended (dim, G) arrays (3 a value).
+OPS_INTERP_LINEAR = 34
+LIBM_INSTRUCTIONS = {"acosf": 26, "sinf": 26, "cosf": 27, "tanf": 23}
+OPS_INTERP_SLERP = 67 + (LIBM_INSTRUCTIONS["acosf"]
+                         + 3 * LIBM_INSTRUCTIONS["sinf"]
+                         + LIBM_INSTRUCTIONS["cosf"]
+                         + 2 * LIBM_INSTRUCTIONS["tanf"])
+OPS_TESS_VERTEX = 15 + 2 + 12 + 36 + 24 + 6 + 24 + 18
+OPS_TESS_COLUMN = 10
 # host seconds a queued call may take: the spin ahead of the timed calls
 # lasts this long for each of them (R1's wrapper, ~30 host calls, takes
 # ~0.5 ms)
@@ -188,6 +211,44 @@ def clip_work(slots: int, live_slots: int):
     records written once; OPS_CLIP_SLOT a live slot."""
     nbytes = slots * 4 + live_slots * 3 * (16 + 12) + 2 * slots * 128
     return float(live_slots * OPS_CLIP_SLOT), float(nbytes)
+
+
+def tess_work(rows: int, grid: int, slerps: int = 0, dim: int = TILE_DIM):
+    """(f32 operations, bytes) of V1 on `rows` patch rows of grid x grid
+    vertices and dim x dim tiles, of whose rows (grid^2 + 2 grid)
+    interpolations `slerps` take the slerp (tess_slerps; the others the
+    linear fallback): each row's tile, corners, normals, variants and
+    skirt read once, the view-projection and the tap table once, and the
+    six outputs (15 floats a vertex) written once."""
+    interps = rows * (grid * grid + 2 * grid)
+    ops = ((interps - slerps) * OPS_INTERP_LINEAR
+           + slerps * OPS_INTERP_SLERP
+           + rows * (grid * grid * OPS_TESS_VERTEX + grid * OPS_TESS_COLUMN
+                     + 3 * dim * grid * 3))
+    nbytes = (rows * (grid * grid * 15 * 4 + dim * dim * 4 + 2 * 12 * 4
+                      + 2 * 4 + 4)
+              + 16 * 4 + 3 * 3 * grid * 2 * 8 + grid * 4)
+    return float(ops), float(nbytes)
+
+
+def tess_slerps(corner_normals: torch.Tensor, grid: int) -> int:
+    """The interpolations of V1's rows that take the slerp branch (1 -
+    dot(n0, n1) >= 0.001, or NaN, as torch.where takes it): each row's two
+    column endpoints between corners 0-1 and 2-3 at the grid's u values,
+    and each column's interpolation between them, grid times."""
+    from planet_tpu_torch.tess import vertex
+
+    n = corner_normals.to(torch.float32)
+    u = vertex._grid_tables(grid, str(n.device))[0][0][None, :, None]
+    z = torch.zeros_like(n[:, :1])
+
+    def slerp(a, b):
+        return ~((1.0 - vertex._dot(a, b)) < 0.001)
+
+    _, na = vertex.interpolate(z, n[:, 0:1], z, n[:, 1:2], u)
+    _, nb = vertex.interpolate(z, n[:, 2:3], z, n[:, 3:4], u)
+    ends = slerp(n[:, 0], n[:, 1]).sum() + slerp(n[:, 2], n[:, 3]).sum()
+    return int(ends) * grid + int(slerp(na, nb).sum()) * grid
 
 
 def noise_work(octaves: int, kind: str = "ridged", lacunarity: float = 2.0):

@@ -9,7 +9,7 @@ from that tree's own sources: run it as old, new, new, old and compare
 within the run. Times (tools/common.time_ms: the median of REPS calls
 queued behind a spin kernel) the calls of `calls` — the set that
 chip_smoke.py phase 8 times for the kernels line: K1 at phase 3's shape
-and at the fused frame's occupancy, K4, R1 and C1 (on trees that have
+and at the fused frame's occupancy, K4, R1, C1 and V1 (on trees that have
 them; C1 with C2 and K3's near-clip pass both ways), K5,
 K2 and K3 on the record sets
 of `record_sets` (the 1080p static scene, the three goldens, the orbit
@@ -303,6 +303,59 @@ def setup_inputs(device) -> dict:
     return out
 
 
+def tess_inputs(device) -> dict:
+    """{name: V1's arguments (corners_rel, corner_normals, tiles,
+    variant_x, variant_y, skirt_size, view_proj)} at the main path's
+    shapes: DeviceRenderer's render_cap rows at 1920x1080 (the static
+    camera's second frame, from the "uniforms" rung's outputs and the pool's
+    tiles at its slots; the padding rows' corner normals NaN), and
+    PlanetEngine's leaves on the three 800x600 goldens (frame, nearclip,
+    farclip), recorded at its vertex_cuda.tessellate_shaded call. Copies,
+    on `device`."""
+    import numpy as np
+    import torch
+
+    from planet_tpu_torch.cache import device_pool as dp
+    from planet_tpu_torch.engine import device_step
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.engine.planet import PlanetEngine
+    from planet_tpu_torch.geom import camera as cam_mod
+    from planet_tpu_torch.tess import vertex_cuda
+    from planet_tpu_torch.tools import stage_times
+
+    cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
+    rend = device_step.DeviceRenderer(cfg, SCENE_W, SCENE_H, device=device,
+                                      stop_after="uniforms")
+    pool = rend.init_pool()
+    for _ in range(2):
+        args = stage_times.camera_args(cfg, scene_camera(cfg), SCENE_W,
+                                       SCENE_H)
+        o = rend.geometry(pool, *args).outputs
+    out = {"1080p static, DeviceRenderer rows": tuple(
+        t.clone() for t in (o["corners_rel"], o["normals"],
+                            dp.gather(pool, o["slot"]), o["vx"], o["vy"],
+                            o["skirt"])) + (torch.as_tensor(
+                                args[2], device=device),)}
+    gold = pathlib.Path(__file__).resolve().parents[2] / "tests" / "goldens"
+    shaded = vertex_cuda.tessellate_shaded
+    seen = []
+
+    def record(*a, **kw):
+        seen.append(tuple(t.clone() for t in a))
+        return shaded(*a, **kw)
+
+    vertex_cuda.tessellate_shaded = record
+    try:
+        for name in ("frame", "nearclip", "farclip"):
+            cam = cam_mod.Camera(position=np.load(gold / f"{name}_cam.npy"),
+                                 angles=np.load(gold / f"{name}_angles.npy"))
+            PlanetEngine(EngineConfig(), device=device).frame(cam)
+            out[f"golden {name}, PlanetEngine leaves"] = seen.pop()
+    finally:
+        vertex_cuda.tessellate_shaded = shaded
+    return out
+
+
 def clip_inputs(setups: dict) -> dict:
     """{name: C2's arguments (clip, normal, s_idx, width, height, far_w)}
     on each C1 input set: the first CLIP_CAP straddlers of its mask, as
@@ -420,7 +473,7 @@ def splat_inputs(device) -> dict:
     return out
 
 
-def calls(device, sets=None, fused=None, setups=None) -> list:
+def calls(device, sets=None, fused=None, setups=None, tess=None) -> list:
     """[(key or None, label, call, setup)]: the main path's kernels at its
     shapes, each timed as call(*setup()) — K1 on 256 tiles of octaves 6-18
     (noise_stages.tile_inputs) and at the fused frame's occupancy
@@ -434,7 +487,9 @@ def calls(device, sets=None, fused=None, setups=None) -> list:
     framebuffer a call; K3 on screen_triangle_records at 1080p; S1 at
     splat_inputs' shapes; C1 (where the tree has it) on each set of
     setup_inputs (else `setups`), C2 on their straddlers (clip_inputs),
-    and K3's near-clip pass both ways on those sets (clip_pass_calls); and
+    and K3's near-clip pass both ways on those sets (clip_pass_calls); V1
+    (where the tree has it: tess/vertex_cuda) on each set of tess_inputs
+    (else `tess`); and
     K6 on the 1080p scene: this tree's route_records, or on a tree before it the
     two record gathers its route fed (given the indices: its route
     synchronizes, see host_calls). The key is the kernel's in
@@ -508,9 +563,9 @@ def calls(device, sets=None, fused=None, setups=None) -> list:
     for name, sargs in splat_inputs(device).items():
         out.append((None, f"S1 splat, {name}",
                     lambda a=sargs: splat.splat_keys_cuda(*a), tuple))
+    main = "1080p static, DeviceRenderer rows"
     if hasattr(cc, "setup_cuda"):
         setups = setup_inputs(device) if setups is None else setups
-        main = "1080p static, DeviceRenderer rows"
         for name, args in setups.items():
             out.append(("setup" if name == main else None, f"C1 setup, {name}",
                         lambda a=args: cc.setup_cuda(*a), tuple))
@@ -520,6 +575,16 @@ def calls(device, sets=None, fused=None, setups=None) -> list:
                         lambda a=args: cc.clip_records_cuda(*a), tuple))
         for label, fn, setup in clip_pass_calls(clips):
             out.append((None, label, fn, setup))
+    try:
+        from planet_tpu_torch.tess import vertex_cuda
+    except ImportError:
+        vertex_cuda = None
+    if vertex_cuda is not None:
+        for name, args in (tess_inputs(device) if tess is None
+                           else tess).items():
+            out.append(("tess" if name == main else None, f"V1 tess, {name}",
+                        lambda a=args: vertex_cuda.tessellate_shaded_cuda(*a),
+                        tuple))
     fs = sets["1080p static"]
     if hasattr(cc, "route_records"):
         out.append(("gather", "K6 route + gather, 1080p",

@@ -34,7 +34,8 @@ timed once more in reverse order after every graph exists, one replay's
 device events (its kernels
 and its copies and fills, from one torch.profiler session over all rungs,
 each rung's replay in a window of its own, with the device's busy ms in
-that window), the kernel launches a frame per kernel (the graphs' tally
+that window and the count of matrix-product kernels — cuBLAS's or
+CUTLASS's GEMM and GEMV kernels, by name — among its kernels), the kernel launches a frame per kernel (the graphs' tally
 from _cuda.captured, DeviceRenderer.graph_launches: on the full rung the
 geometry graph's and the raster graph's) and the frame's n_leaves. With --json it also
 writes the rows. Prints the card's nvidia-smi name and power limit first.
@@ -51,6 +52,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import re
 import time
 
 import numpy as np
@@ -75,6 +77,10 @@ SLACK_MS = 5.0
 # the probe of the card's cost a graph node: a chain of one-block adds
 CHAIN_NODES = 2000
 _COPY_PREFIXES = ("Memcpy", "Memset")
+# the names of cuBLAS's and CUTLASS's matrix-product kernels (e.g.
+# "ampere_sgemm_128x64_nn", "sm90_xmma_gemm_f32f32_...", "gemv2T_kernel",
+# "cutlass::Kernel2<cutlass_80_simt_sgemm_...>")
+_GEMM = re.compile(r"gemm|gemv|xmma|cutlass|cublas", re.IGNORECASE)
 
 
 def camera_args(cfg: EngineConfig, cam, width: int, height: int):
@@ -276,7 +282,8 @@ def static_again(ladder: Ladder, args, warm, reps: int, rows: list):
 
 
 def device_events(ladder: Ladder, scenes: dict) -> dict:
-    """{(scene, rung): (kernels, copies and fills, busy ms)} of one call
+    """{(scene, rung): (kernels, copies and fills, busy ms, matrix-product
+    kernels)} of one call
     of each rung, from one torch.profiler session: each call runs from
     its scene's start pool inside a record_function window of its own,
     synchronized on both sides, with GAP_S of idle before and after the
@@ -306,7 +313,7 @@ def device_events(ladder: Ladder, scenes: dict) -> dict:
                                 e.time_range.end + SLACK_MS * 1e3)
                for e in events if e.name in labels
                and e.device_type == torch.autograd.DeviceType.CPU}
-    out = {key: [0, 0, 0.0] for key in windows}
+    out = {key: [0, 0, 0.0, 0] for key in windows}
     unassigned = 0
     for e in events:
         if (e.device_type != torch.autograd.DeviceType.CUDA
@@ -319,6 +326,7 @@ def device_events(ladder: Ladder, scenes: dict) -> dict:
             continue
         out[key][1 if e.name.startswith(_COPY_PREFIXES) else 0] += 1
         out[key][2] += (e.time_range.end - e.time_range.start) / 1e3
+        out[key][3] += bool(_GEMM.search(e.name))
     out["unassigned"] = unassigned
     return out
 
@@ -350,8 +358,8 @@ def ladders(device: str = "cuda", small: bool = False,
         report["unassigned_events"] = ev.pop("unassigned")
         for scene, rows in res.items():
             for row in rows:
-                row["kernels"], row["copies"], row["busy_ms"] = \
-                    ev[(scene, row["rung"])]
+                (row["kernels"], row["copies"], row["busy_ms"],
+                 row["gemm_kernels"]) = ev[(scene, row["rung"])]
     return report
 
 

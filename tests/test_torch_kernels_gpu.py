@@ -29,7 +29,10 @@ four ranks' shares run in turn and folded by torch.minimum, each bitwise
 equal to the single-device frame from the 24 roots; every variant of the
 attribution tools
 (planet_tpu_torch/tools: t_noise, t_tile, t_lut, t_span) bitwise equal to
-its plain version, full noise equal to K4, full tile equal to K1."""
+its plain version, full noise equal to K4, full tile equal to K1; V1,
+the vertex program and its shade, equal to its plain version in all six
+outputs on the vertex batches of torch_scenes and at the main path's
+shapes, launched once a geometry replay."""
 
 import numpy as np
 import pytest
@@ -51,11 +54,13 @@ from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import coverage_cuda as tcc
 from planet_tpu_torch.raster import splat
 from planet_tpu_torch.tess import mesh
+from planet_tpu_torch.tess import vertex_cuda
 from planet_tpu_torch.tools import (kernel_times, lut, noise_stages,
                                     span_parts, stage_times)
 import torch_ranks
-from torch_scenes import (EDGE, SCREEN, VIEW, adversarial_records,
-                          nan_shade_records, screen_scene, view_scene)
+from torch_scenes import (EDGE, SCREEN, TESS_BATCHES, VIEW,
+                          adversarial_records, nan_shade_records,
+                          screen_scene, tess_batch, tess_padded, view_scene)
 
 pytestmark = pytest.mark.gpu
 GOLD = "tests/goldens/"
@@ -868,3 +873,52 @@ def test_render_after_capture_syncs_nothing(dev):
     assert frame.n_leaves.is_cuda and frame.overflowed.dtype == torch.bool
     assert int(frame.n_leaves) > 100 and not bool(frame.overflowed)
     assert frame.preview.shape == (270, 480)
+
+
+# ------------------------------------------------------------------ V1
+
+def _assert_tess_equal(args):
+    """V1's six outputs equal the plain version's bit for bit (NaNs by
+    their bit patterns), one launch."""
+    before = _cuda.launches["tess"]
+    pv, shade = vertex_cuda.tessellate_shaded_cuda(*args)
+    assert _cuda.launches["tess"] == before + 1
+    want, want_shade = vertex_cuda.tessellate_shaded_plain(*args)
+    for f in pv._fields:
+        assert _same_bits(getattr(pv, f), getattr(want, f)), f
+    assert _same_bits(shade, want_shade)
+
+
+@pytest.mark.parametrize("name", ["slerp", "skirt", "linear", "padded"])
+def test_tess_kernel_bitwise(dev, name):
+    """V1 against its plain version on torch_scenes' vertex batches: every
+    (variant_x, variant_y) pair, slerp and linear interpolations, skirts,
+    and padding rows whose corner normals are NaN."""
+    args = (tess_padded() if name == "padded"
+            else tess_batch(*TESS_BATCHES[name]))
+    _assert_tess_equal([torch.as_tensor(a, device=dev) for a in args])
+
+
+def test_tess_kernel_bitwise_on_the_main_path(dev):
+    """V1 against its plain version at the main path's shapes
+    (kernel_times.tess_inputs: DeviceRenderer's 512 rows at 1080p with
+    302 padding rows, PlanetEngine's leaves on the three goldens)."""
+    for args in kernel_times.tess_inputs(dev).values():
+        _assert_tess_equal(args)
+
+
+def test_geometry_replay_launches_v1_once(dev):
+    """The fused frame's geometry graph launches V1 once a replay, and
+    its vertices and shade equal the eager step's (the plain version
+    nowhere on the card)."""
+    cfg = EngineConfig(window_w=1920, window_h=1080)
+    args = stage_times.camera_args(cfg, kernel_times.scene_camera(cfg),
+                                   1920, 1080)
+    r = device_step.DeviceRenderer(cfg, 1920, 1080, device=dev)
+    pool = r.init_pool()
+    r.geometry(pool, *args)     # the warm-up and the capture
+    for _ in range(2):
+        before = _cuda.launches["tess"]
+        geom = r.geometry(pool, *args)
+        assert _cuda.launches["tess"] - before == r._tally["tess"] == 1
+    assert int(geom.meta[0]) > 100

@@ -1,5 +1,5 @@
-"""Seeded raster scenes shared by the port's CPU and GPU tests (numpy only,
-so the GPU tests run where JAX is not installed)."""
+"""Seeded raster and vertex-program scenes shared by the port's CPU and GPU
+tests (numpy only, so the GPU tests run where JAX is not installed)."""
 
 import numpy as np
 
@@ -175,3 +175,73 @@ def counter_values(rc):
                     n_per_class=tuple(int(v) for v in rc.n_per_class),
                     n_huge=int(rc.n_huge), overflowed=bool(rc.overflowed),
                     n_straddle=int(rc.n_straddle))
+
+
+# the vertex program's inputs (tests/test_torch_tess.py, and V1 on the
+# card): one quad for each (variant_x, variant_y) pair
+TESS_PAIRS = [(vx, vy) for vx in range(3) for vy in range(3)]
+# batch -> (seed, quad half-width in radians, skirt range in m, camera
+# altitude in m): quads 0.1 rad wide (the LOD's depth-4 quads, 640 km)
+# seen from 3,000 km up, where the LOD draws quads that wide, whose
+# interpolations all take the slerp, with and without skirts; quads 5e-4
+# rad wide (3 km) from 20 km up, whose interpolations all take the linear
+# fallback (1 - dot(n0, n1) < 0.001)
+TESS_BATCHES = {"slerp": (14, 0.05, 0.0, 3e6),
+                "skirt": (15, 0.05, 500.0, 3e6),
+                "linear": (16, 2.5e-4, 500.0, 2e4)}
+RADIUS = 6.371e6
+
+
+def _unit(v):
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def tess_batch(seed: int, half: float, skirt: float, altitude: float,
+               q: int = len(TESS_PAIRS)):
+    """(corners_rel, corner_normals, tiles, variant_x, variant_y, skirt,
+    view_proj) as numpy arrays: q quads on the sphere whose centres lie
+    within 0.2 rad of the point below a camera `altitude` up, each a square
+    of corners half +- `half` rad along the tangent frame, with 32x32
+    tiles of heights (sigma 3000 m), skirts uniform in [0, skirt), row k
+    the pair TESS_PAIRS[k % 9], and the camera's view-projection."""
+    return _tess_scene(seed, half, skirt, altitude, q)[0]
+
+
+def _tess_scene(seed, half, skirt, altitude, q):
+    """(tess_batch's arrays, the camera's position in m, f64)."""
+    rng = np.random.default_rng(seed)
+    up = _unit(rng.normal(size=3))
+    cam_pos = up * (RADIUS + altitude)
+    e1 = _unit(np.cross(up, [0.0, 0.0, 1.0]))
+    e2 = np.cross(up, e1)
+    centre = _unit(up + rng.uniform(-0.2, 0.2, (q, 2)) @ np.stack([e1, e2]))
+    t1 = _unit(np.cross(centre, e2))
+    t2 = np.cross(centre, t1)
+    signs = np.array([(-1, -1), (1, -1), (-1, 1), (1, 1)], np.float64)
+    nrm = _unit(centre[:, None, :] + half * (
+        signs[None, :, 0:1] * t1[:, None, :]
+        + signs[None, :, 1:2] * t2[:, None, :]))
+    corners_rel = (nrm * RADIUS - cam_pos).astype(F)
+    tiles = (rng.normal(size=(q, 32, 32)) * 3000.0).astype(F)
+    pairs = np.array([TESS_PAIRS[k % len(TESS_PAIRS)] for k in range(q)],
+                     np.int32)
+    skirts = rng.uniform(0.0, skirt, q).astype(F)
+    cam = cam_mod.Camera(position=cam_pos, angles=np.array([0.35, 0.3, 0.0]))
+    vp = (cam_mod.perspective_lh(cam_mod.proj_factor_from_fovy(
+        np.deg2rad(60.0)), 4.0 / 3.0, 1.0, 1e8)
+        @ cam_mod.view_from_rotation(cam_mod.camera_rotation(cam)))
+    return (corners_rel, nrm.astype(F), tiles, pairs[:, 0].copy(),
+            pairs[:, 1].copy(), skirts, vp.astype(F)), cam_pos
+
+
+def tess_padded(q: int = 6, live: int = 3):
+    """The skirt batch's first q quads with rows `live`.. made padding rows
+    as the fused frame has them: zero DF corners, so NaN corner normals
+    (0 / 0) and camera-relative corners at minus the camera position."""
+    args, cam_pos = _tess_scene(*TESS_BATCHES["skirt"], q=q)
+    args = list(args)
+    args[1] = args[1].copy()
+    args[1][live:] = F(np.nan)
+    args[0] = args[0].copy()
+    args[0][live:] = (-cam_pos).astype(F)
+    return tuple(args)
