@@ -36,18 +36,21 @@ result line is printed:
    raster K6 -> K2 -> K3 with the counts on the device against the plain
    composition, and run under torch.cuda.set_sync_debug_mode("error") (no
    host read between setup and K3); C1, the triangle setup, against its
-   plain version (live, span, straddler mask and live record columns
-   bitwise) on DeviceRenderer's render_cap rows with the leaf count on the
-   device (the 1080p static camera, the orbit's first frame) and on
-   PlanetEngine's leaves without one (1080p static, the near-clip
-   golden), each timed beside its bound; C2, the clipped straddlers'
-   records, against its plain version on the first clip_cap straddlers of
-   each of those sets (live records and the dead marks bitwise); V1, the
-   vertex program and its shade, against its plain version (clip, world,
-   normal, height, snormal and shade bitwise, NaN by its bits) on
-   DeviceRenderer's 512 rows at 1080p (the "uniforms" rung's inputs, 302
-   padding rows) and on PlanetEngine's leaves of the three goldens, each
-   timed beside its bound;
+   plain version (live, span, straddler mask, its block counts and live
+   record columns bitwise) on DeviceRenderer's render_cap rows with the
+   leaf count on the device (the 1080p static camera, the orbit's first
+   frame) and on PlanetEngine's leaves without one (1080p static, the
+   near-clip and far-clip goldens), each timed beside its bound; C2, the
+   clip pass (the straddlers compacted from C1's block counts into
+   clip_cap slots, the used slots clipped), against its plain version on
+   each of those sets (the slots' indices, n_straddle, the live records
+   and their count bitwise); V1, the vertex program and its shade,
+   against its plain version (clip, world, normal, height, snormal and
+   shade bitwise, NaN by its bits) on DeviceRenderer's 512 rows at 1080p
+   (the "uniforms" rung's inputs, 302 padding rows, which the kernel
+   finds by their NaN corner normals), the plain version's padding rows
+   holding the NaN word 0x7fffffff, and on PlanetEngine's leaves of the
+   three goldens, each timed beside its bound;
 4. the host-orchestrated path, PlanetEngine(...).render on the card,
    against the oracle's frame / nearclip / farclip golden images at their
    test bars;
@@ -99,9 +102,10 @@ result line is printed:
    spin kernel, so a short kernel's time holds no host launch time):
    tools/kernel_times.calls on phase 3's record sets and fused
    occupancy (with R1 and S1 at phase 9a's shapes, C1 and C2 on phase
-   3's setup inputs, V1 on phase 3's vertex inputs, and K3's near-clip
-   pass on all 2 clip_cap records against the live ones compacted
-   first), and its host_calls
+   3's setup inputs, V1 on phase 3's vertex inputs and on the parts of
+   the 512 rows (kernel_times.tess_probes), and the clip pass on each
+   setup set: C2, K3 on its records' count, and the two together), and
+   its host_calls
    (K6 by the host clock); R1's queued time over the static camera's
    live levels, beside its bound;
 9. the single-card rest (`single_card_rest`), at 1920x1080 with the
@@ -142,7 +146,9 @@ result line is printed:
    K2, R1, V1 and K6 launched in this process, every rung launching R1
    and no K4, the tess, geometry and full rungs V1 once, and no
    matrix-product kernel (cuBLAS's or CUTLASS's, by name) in the tess
-   rung's trace.
+   rung's trace; static-1080p's full rung with fewer device events than
+   the 368 (29 beyond the geometry rung's) it had before the clip pass
+   sat behind its count.
 
 The second-to-last lines are a JSON summary of the kernels (launches from
 phase 5b, from phase 7 for the field and noise kernels (K4 is off the fused
@@ -192,6 +198,10 @@ OPS_FIELD_TEXEL = 101       # field.cu: coordinates 84 (5 error-free
 # of it (2 x 5) — then per pixel inside the interval fragment()'s edge
 # functions and tests, per accepted fragment the depth, normal, shade and
 # packing. Pixels outside the row intervals are no part of the least work.
+# the static-1080p full rung's device events a replay before the clip
+# pass sat behind its count (368: 339 of the geometry rung's and 29 of the
+# raster's); the pass's cumsum and searchsorted are gone since
+FULL_EVENTS_MAX, RASTER_EVENTS_MAX = 368, 29
 OPS_ROW = 3 * (4 + 2 * 5)
 OPS_CANDIDATE = 15
 OPS_ACCEPTED = {"span": 41, "huge": 48}
@@ -1055,6 +1065,14 @@ def stage_ladder(dev, width, height, *, camera_args, static_pool,
                 check(r["gemm_kernels"] == 0, f"11a {scene} tess: "
                       f"{r['gemm_kernels']} matrix-product kernels in its "
                       "trace")
+            if r["rung"] == "full" and scene == "static-1080p":
+                geo = next(x for x in rows if x["rung"] == "geometry")
+                check(r["kernels"] < FULL_EVENTS_MAX
+                      and r["kernels"] - geo["kernels"] < RASTER_EVENTS_MAX,
+                      f"11a {scene} full: {r['kernels']} device events, "
+                      f"{r['kernels'] - geo['kernels']} beyond the geometry "
+                      f"rung's (fewer than {FULL_EVENTS_MAX} and "
+                      f"{RASTER_EVENTS_MAX} expected)")
     res["stage_ms"] = {scene: {r["rung"]: r["ms"] for r in rows}
                        for scene, rows in scenes.items()}
     res["stage_kernels"] = {scene: {r["rung"]: r.get("kernels")
@@ -1616,13 +1634,15 @@ def main() -> int:
     # straddle_mask_t) at the main path's shapes (kernel_times.
     # setup_inputs: DeviceRenderer's render_cap rows with the leaf count
     # on the device, PlanetEngine's leaves without one); bitwise in live,
-    # span and the straddler mask, and in every live record column
+    # span, the straddler mask and its block counts, and in every live
+    # record column
     setups = kernel_times.setup_inputs(dev)
     straddlers = {}
     for name, args in setups.items():
         got, want = cc.setup_cuda(*args), cc.setup_plain(*args)
         cols = torch.nonzero(want[1]).squeeze(1)
-        ok = (all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+        ok = (all(torch.equal(a, b) for a, b in zip(got[1:4], want[1:4]))
+              and torch.equal(got[4], cc.straddle_blocks(want[3]))
               and same_bits(got[0][:, cols], want[0][:, cols]))
         rows = (args[0].shape[0] if args[7] is None else int(args[7][0]))
         g = args[0].shape[1]
@@ -1636,47 +1656,56 @@ def main() -> int:
                 rows, g, want[1].numel(), cols.numel())))
         print(f"[3] C1 setup, {name}: {row['candidates']} candidates on "
               f"{args[0].shape[0]} rows ({rows} live), {row['live']} live, "
-              f"{row['straddlers']} straddlers; live, span, straddlers and "
-              f"live records equal to plain: {ok}; kernel {row['ms']:.4f} "
-              f"ms, plain {row['plain_ms']:.3f} ms, bound "
-              f"{row['bound'][0]:.5f} ms ({row['bound'][1]})", flush=True)
+              f"{row['straddlers']} straddlers; live, span, straddlers, "
+              f"their {got[4].numel()} block counts and live records equal "
+              f"to plain: {ok}; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound'][0]:.5f} ms "
+              f"({row['bound'][1]})", flush=True)
         check(ok, f"C1 != plain on {name}")
         straddlers[name] = row["straddlers"]
         if name == "1080p static, DeviceRenderer rows":
             report["setup"] = row
     check(any(straddlers.values()), "no C1 input set reaches the straddler "
           f"mask: {straddlers}")
-    # C2, the clipped straddlers' records, on the first clip_cap straddlers
-    # of each set: every live record bitwise, every record's dead marks
-    # (row 28 = 0, row 25 = +inf) bitwise
+    # C2, the clip pass, on each set's C1 outputs (kernel_times.
+    # clip_inputs: the straddler mask and its block counts, clip_cap 512):
+    # the slots' candidate indices, n_straddle, the live records (slot, A,
+    # B order) and their count bitwise; the clip_cap straddlers' compaction
+    # and the used slots' clip, each timed beside its bound
+    clip_bounds = {}
     for name, args in kernel_times.clip_inputs(setups).items():
-        got, want = cc.clip_records_cuda(*args), cc.clip_records_plain(*args)
-        live = want[:, 28] != 0.0
-        ok = (same_bits(got[live], want[live])
-              and same_bits(got[:, 25], want[:, 25])
-              and same_bits(got[:, 28], want[:, 28]))
-        slots = args[2].shape[0]
+        plain_args = args[:3] + args[4:]     # the plain pass takes no blocks
+        got, want = cc.clip_pass_cuda(*args), cc.clip_pass_plain(*plain_args)
+        m = int(want[3][0])
+        ok = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and torch.equal(got[3], want[3])
+              and same_bits(got[2][:m], want[2]))
+        slots, blocks = args[7], args[3]
         used = min(straddlers[name], slots)
+        check(int(want[1]) == straddlers[name], f"C2 n_straddle on {name}")
         row = dict(
             max_abs_err=0.0 if ok else float("nan"),
-            ms=time_ms(lambda: cc.clip_records_cuda(*args)),
-            plain_ms=time_ms(lambda: cc.clip_records_plain(*args)),
-            library_ms=None, slots=slots, straddlers=used,
-            live_records=int(live.sum()),
-            bound=bound_ms(*tool_common.clip_work(slots, used)))
-        print(f"[3] C2 clip, {name}: {slots} slots, {used} straddlers, "
-              f"{row['live_records']} live records; equal to plain: {ok}; "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
-              f"bound {row['bound'][0]:.5f} ms ({row['bound'][1]})",
-              flush=True)
+            ms=time_ms(lambda: cc.clip_pass_cuda(*args)),
+            plain_ms=time_ms(lambda: cc.clip_pass_plain(*plain_args)),
+            library_ms=None, slots=slots, straddlers=used, live_records=m,
+            bound=bound_ms(*tool_common.clip_work(
+                blocks.numel(), slots, used, m, int((blocks > 0).sum()))))
+        print(f"[3] C2 clip pass, {name}: {blocks.numel()} block counts, "
+              f"{slots} slots, {used} straddlers, {m} live records; "
+              f"indices, n_straddle, records and count equal to plain: "
+              f"{ok}; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound'][0]:.5f} ms "
+              f"({row['bound'][1]})", flush=True)
         check(ok, f"C2 != plain on {name}")
+        clip_bounds[name] = row["bound"]
         if name == "1080p static, DeviceRenderer rows":
             report["clip"] = row
     # V1, the vertex program and its shade: against its plain version
     # (vertex.tessellate_blend and the pinned lambert) at the main path's
     # shapes (kernel_times.tess_inputs: DeviceRenderer's 512 rows at 1080p
-    # from the "uniforms" rung, PlanetEngine's leaves on the three
-    # goldens), every output bitwise (NaNs by their bits: the padding rows)
+    # from the "uniforms" rung, as the fused step passes them; PlanetEngine's
+    # leaves on the three goldens), every output bitwise (NaNs by their
+    # bits: the padding rows)
     tess_sets = kernel_times.tess_inputs(dev)
     for name, args in tess_sets.items():
         got, got_shade = vertex_cuda.tessellate_shaded_cuda(*args)
@@ -1686,24 +1715,37 @@ def main() -> int:
         if not same_bits(got_shade, want_shade):
             diff.append("vertex_shade")
         rows, grid = args[2].shape[0], got.clip.shape[1]
+        live_rows = tool_common.tess_live(args[1])
+        live = int(live_rows.sum())
         slerps = tool_common.tess_slerps(args[1], grid)
         row = dict(
             max_abs_err=0.0 if not diff else float("nan"),
             ms=time_ms(lambda: vertex_cuda.tessellate_shaded_cuda(*args)),
             plain_ms=time_ms(
                 lambda: vertex_cuda.tessellate_shaded_plain(*args)),
-            library_ms=None, rows=rows, slerps=slerps,
-            bound=bound_ms(*tool_common.tess_work(rows, grid, slerps)))
+            library_ms=None, rows=rows, live_rows=live, slerps=slerps,
+            bound=bound_ms(*tool_common.tess_work(rows, grid, slerps,
+                                                  live=live)))
         equal = "True" if not diff else f"False ({', '.join(diff)} differ)"
         print(f"[3] V1 tess, {name}: {rows} rows x {grid}x{grid} "
-              f"vertices, {slerps} slerp interpolations; clip, world, "
-              f"normal, height, snormal and shade bitwise equal to plain: "
-              f"{equal}; kernel {row['ms']:.4f} ms, plain "
+              f"vertices, {live} evaluated, {slerps} slerp interpolations; "
+              f"clip, world, normal, height, snormal and shade bitwise "
+              f"equal to plain: {equal}; kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.3f} ms, bound {row['bound'][0]:.5f} ms "
               f"({row['bound'][1]})", flush=True)
         check(not diff, f"V1 != plain on {name}: {diff}")
         if name == "1080p static, DeviceRenderer rows":
             report["tess"] = row
+            words = [t[~live_rows].reshape(-1).view(torch.int32) for t in (
+                want.clip, want.world, want.normal, want.snormal,
+                want_shade)]
+            check(live < rows and all(bool((w == 0x7FFFFFFF).all())
+                                      for w in words),
+                  "V1's padding rows: torch's NaN word on the card is not "
+                  "0x7fffffff")
+            print(f"[3] V1: the plain version's padding rows ({rows - live}) "
+                  "hold the NaN word 0x7fffffff that the kernel writes from "
+                  "a constant", flush=True)
 
     # ------------------------------------------------------------ phase 4
     def check_golden(tag, name, n_leaves, image, depth, rc):
@@ -2178,12 +2220,13 @@ def main() -> int:
     # set on any tree of the port; here on the record sets and fused
     # inputs phase 3 compared (K2 and K3 as the main path draws them: K2
     # on K6's buffer with the count on the device).
-    queued, huge_queued = {}, {}
+    queued, huge_queued, by_label = {}, {}, {}
     for key, label, fn, setup in kernel_times.calls(dev, sets=sets,
                                                     fused=fused,
                                                     setups=setups,
                                                     tess=tess_sets):
         ms = tool_common.time_ms(fn, setup, reps=REPS)
+        by_label[label] = ms
         if key:
             queued[key] = ms
         if label.startswith("K3 huge, "):
@@ -2198,6 +2241,28 @@ def main() -> int:
           f"{report['refine']['ms_per_live_level'] * 1e3:.2f} us a live "
           f"level (bound {report['refine']['bound'][0]:.5f} ms for the "
           "whole refine)", flush=True)
+    # the clip pass (C2 with its compaction, then K3 on its count) on each
+    # C1 set, queued, beside C2's bound; at 0 straddlers K3 leaves at once
+    for name in setups:
+        c2, k3, whole = (by_label[f"{part}, {name}"] for part in (
+            "C2 clip", "K3 clip pass", "clip pass"))
+        print(f"[8] clip pass, {name}: {straddlers[name]} straddlers; C2 "
+              f"{c2:.4f} ms + K3 {k3:.4f} ms queued, the pass {whole:.4f} "
+              f"ms queued; C2's bound {clip_bounds[name][0]:.5f} ms "
+              f"({clip_bounds[name][1]})", flush=True)
+    main_set = "1080p static, DeviceRenderer rows"
+    report["clip"].update(
+        queued_k3_ms=by_label[f"K3 clip pass, {main_set}"],
+        queued_pass_ms=by_label[f"clip pass, {main_set}"])
+    n_live = report["tess"]["live_rows"]
+    print(f"[8] V1 tess, {main_set}: {queued['tess']:.4f} ms queued "
+          f"({n_live} of {report['tess']['rows']} rows evaluated, the rest "
+          f"padding: NaN corner normals); every row padding "
+          f"{by_label['V1 probe, every row padding']:.4f} ms, the {n_live} "
+          f"live rows alone "
+          f"{by_label[f'V1 probe, the {n_live} live rows alone']:.4f} ms; "
+          f"bound {report['tess']['bound'][0]:.5f} ms "
+          f"({report['tess']['bound'][1]})", flush=True)
     for label, fn in kernel_times.host_calls(sets):
         print(f"[8] host clock, {label}: "
               f"{kernel_times.host_ms(fn, REPS):.4f} ms", flush=True)
@@ -2335,6 +2400,9 @@ def main() -> int:
             kernels[-1]["queued_fused_ms"] = queued["tile_fused"]
         if k == "refine":
             kernels[-1]["ms_per_live_level"] = report[k]["ms_per_live_level"]
+        if k == "clip":
+            kernels[-1].update(queued_k3_ms=report[k]["queued_k3_ms"],
+                               queued_pass_ms=report[k]["queued_pass_ms"])
         if k == "gather":
             kernels[-1].update(composed_ms=report[k]["composed_ms"],
                                host_ms=report[k]["host_ms"],

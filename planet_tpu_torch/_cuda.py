@@ -66,8 +66,9 @@ _SIGNATURES = {
     "planet_refine_level": (_P,) * 15 + (_I, _I, _I, _I, _F, _F, _F, _F, _I,
                                           _P),
     "planet_setup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P,
-                     _P, _P),
-    "planet_clip_records": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+                     _P, _P, _P),
+    "planet_clip_records": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
+                            _P, _P, _P, _P),
     "planet_tess": (_P,) * 10 + (_I, _I, _I, _F, _F, _F) + (_P,) * 7,
     # the kernel-attribution tools (planet_tpu_torch/tools)
     "planet_t_noise": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,

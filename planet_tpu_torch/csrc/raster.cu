@@ -67,7 +67,10 @@
 // prefix sums in shared memory). So a record's inside pixels spread over
 // as many blocks as it has rows, and a small record costs the blocks of
 // its own rows only a bbox test. The grid depends on H alone and the
-// count is read on the device, so the launch needs no host read either.
+// count is read on the device, so the launch needs no host read either;
+// a block reads the bboxes of the first `count` records alone, and with
+// a count of 0 it leaves at once (the clip pass of a frame with no
+// straddler: planet_tpu skips the pass behind a lax.cond).
 // Measured and dropped (PERF.md): several rows a block (slower on
 // large records, faster on many small ones), a pass counting each
 // record's bbox rows with a fixed grid striding over the flattened rows
@@ -313,6 +316,10 @@ huge_kernel(const float* __restrict__ recs, const int* __restrict__ count,
   __shared__ int s_warp[kHugeThreads / 32];
   const int tid = threadIdx.x;
   const int m = record_count(count, cap);
+  // no record to draw (the clip pass of a frame with no straddler, a
+  // frame with no huge record): leave at once, as planet_tpu's lax.cond
+  // skips the pass
+  if (m == 0) return;
   const int y = blockIdx.x;
   const bool wf = wireframe != 0;
   auto draw = [&](int p, int px) {       // staged record p's inside pixel
@@ -321,9 +328,7 @@ huge_kernel(const float* __restrict__ recs, const int* __restrict__ count,
     fragment<true>(r, (int)r[24] + c, y, c, y - (int)r[25], width, wf, fb);
   };
   // the records among the next 1024 whose bbox rows hold y (one 16-byte
-  // read of px0 py0 px1 py1 each; dead records are dropped when staged);
-  // the first pass reads whatever the count (the buffer holds cap
-  // records), so those reads overlap the count's
+  // read of px0 py0 px1 py1 each; dead records are dropped when staged)
   int base = 0;
   do {
     bool hit[kHugeScan];
@@ -332,9 +337,9 @@ huge_kernel(const float* __restrict__ recs, const int* __restrict__ count,
     for (int j = 0; j < kHugeScan; ++j) {
       const int i = base + j * kHugeThreads + tid;
       hit[j] = false;
-      if (i < cap) {
+      if (i < m) {
         const float4 b = reinterpret_cast<const float4*>(recs)[i * 8LL + 6];
-        hit[j] = i < m && (int)b.y <= y && (int)b.w >= y;
+        hit[j] = (int)b.y <= y && (int)b.w >= y;
       }
       nh += hit[j];
     }

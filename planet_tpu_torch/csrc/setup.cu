@@ -4,8 +4,9 @@
 // coverage.setup_t's parity-major candidate order (N = 2 Q G G): its
 // 32-float record column of the (32, N) matrix (live candidates only),
 // live, span (the aligned 8-row blocks its clamped bbox touches) and the
-// near-plane straddler mask. C2 (clip_kernel, below): the clipped
-// straddlers' records.
+// near-plane straddler mask, and each block's count of straddlers. C2
+// (clip_kernel, below): the clip pass, the straddlers compacted and
+// clipped into their live records.
 //
 // planet_tpu sets the triangles up in XLA (raster/coverage.py:_setup_t and
 // raster/nearclip.py:straddle_mask_t), not in Pallas, so this kernel
@@ -35,27 +36,34 @@
 // the plain version's live and straddle are 0 there too). Without one
 // (PlanetEngine) every row is evaluated. Record columns of dead
 // candidates are not written: every reader of the matrix (the route, K6)
-// reads a column only where live is set.
+// reads a column only where live is set. Each block of 256 candidates
+// also writes its straddlers' count (__syncthreads_count), 4,096 words at
+// 1080p: what C2 scans in place of the 1 M-candidate mask (plain version:
+// coverage_cuda.straddle_blocks, which the plain clip pass does not need).
 //
-// C2, clip_kernel: coverage_cuda.clip_records on the card. The first
-// clip_cap straddlers' candidate indices (coverage_cuda.compact_indices;
-// N marks an empty slot) -> (2 clip_cap, 32) row records: slot k's
-// triangle A at row k, its triangle B at row clip_cap + k. A thread a
-// slot runs nearclip's op order: gather_tri_verts_t (the clamped corner
-// indices, an empty slot reading the last candidate's), clip_expand
+// C2, clip_kernel: coverage_cuda.clip_pass on the card, planet_tpu's
+// clip pass behind its lax.cond (raster/coverage.py:_clipped, nearclip.py;
+// XLA, no Pallas kernel). One block of 512 threads. The compaction:
+// each thread sums the block counts of its run of C1 blocks, a block
+// scan ranks the runs, and each thread writes the candidate indices of
+// its straddlers that fall in the first clip_cap slots (reading the
+// straddle bytes of the C1 blocks that hold one, and no other): planet_tpu's
+// _compact_indices, N in the empty slots, n_straddle counting all. Then a
+// thread a used slot (none when nothing straddles) runs nearclip's op
+// order: gather_tri_verts_t (the clamped corner indices), clip_expand
 // (Sutherland-Hodgman against z + w >= 0: the rotation to the lone
 // vertex, the two edge parameters f0 / (f0 - f1) and f2 / (f2 - f0), the
 // interpolated positions and normals), then for each of A and B
 // setup_tris and records_from_tris (the same projection, cull, bbox and
-// record words as C1). A dead record (an empty slot, a slot whose clip
-// gives one triangle, a part culled) has row 28 = 0 * ilim and its bbox's
-// first row at +inf (so K3 never stages it). The plain version is
-// clip_records_plain's torch ops (nearclip.clipped_tris,
-// records_from_tris, the +inf fill), which it equals bit for bit in
-// every live record and in every record's row 28 and 25. They replace
-// planet_tpu's XLA clip pass (raster/coverage.py:_clipped, nearclip.py),
-// no Pallas kernel; as torch ops they were ~250 launches of a 512-slot
-// frame, straddlers or not (PERF.md).
+// record words as C1). A block scan of each slot's live parts places the
+// live records in (slot, A, B) order, no atomics, and their count is
+// written on the card for K3, which draws that many (none: it leaves at
+// once). The plain version is clip_pass_plain (compact_indices,
+// nearclip.clipped_tris, records_from_tris, the live records in the same
+// order), which it equals bit for bit in the indices, n_straddle, the
+// records and their count. Bound: the block counts read once, the used
+// slots' vertices read and their live records written; at 1080p with no
+// straddler 16 KB, so a launch's latency is all it can cost.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -175,20 +183,19 @@ __device__ __forceinline__ void record(const Projected* v, const Tri& t,
   r[28] = r28;
 }
 
-__global__ void __launch_bounds__(kSetupThreads)
-setup_kernel(const float* __restrict__ clip, const float* __restrict__ normal,
-             const unsigned char* __restrict__ valid,
-             const unsigned char* __restrict__ cell_ok,
-             const int* __restrict__ count, int q, int g, float width,
-             float height, int wmax, int hmax, int has_far, float far_w,
-             float far_ilim, float* __restrict__ tm,
-             unsigned char* __restrict__ live_out, int* __restrict__ span_out,
-             unsigned char* __restrict__ straddle_out) {
+// One candidate of C1: writes its live, span and straddle words and its
+// record column where live; returns its straddle word.
+__device__ __forceinline__ bool setup_one(
+    const float* __restrict__ clip, const float* __restrict__ normal,
+    const unsigned char* __restrict__ valid,
+    const unsigned char* __restrict__ cell_ok, const int* __restrict__ count,
+    long long i, int q, int g, float width, float height, int wmax, int hmax,
+    int has_far, float far_w, float far_ilim, float* __restrict__ tm,
+    unsigned char* __restrict__ live_out, int* __restrict__ span_out,
+    unsigned char* __restrict__ straddle_out) {
   const int gg = g * g;
   const long long ncell = (long long)q * gg;
   const long long n = 2 * ncell;
-  const long long i = (long long)blockIdx.x * kSetupThreads + threadIdx.x;
-  if (i >= n) return;
   const int p = i >= ncell;
   const long long rem = i - p * ncell;
   const int qq = (int)(rem / gg);
@@ -197,7 +204,7 @@ setup_kernel(const float* __restrict__ clip, const float* __restrict__ normal,
     live_out[i] = 0;
     span_out[i] = 0;
     straddle_out[i] = 0;
-    return;
+    return false;
   }
   const int j1 = j + 1 < gg ? j + 1 : j + 1 - gg;
   const int jg = j + g < gg ? j + g : j + g - gg;
@@ -247,112 +254,246 @@ setup_kernel(const float* __restrict__ clip, const float* __restrict__ normal,
   const bool wl = w0 <= kWMin || w1 <= kWMin || w2 <= kWMin;
   const bool fpos = v[0].z + w0 > 0.0f || v[1].z + w1 > 0.0f
                     || v[2].z + w2 > 0.0f;
-  straddle_out[i] = v[0].valid && v[1].valid && v[2].valid && wl && fpos
-                    && det3 < 0.0f && !all_out && cell;
+  const bool st = v[0].valid && v[1].valid && v[2].valid && wl && fpos
+                  && det3 < 0.0f && !all_out && cell;
+  straddle_out[i] = st;
+  return st;
 }
 
-constexpr int kClipThreads = 128;
+// C1: a thread a candidate; each block also writes its straddlers' count
+// (blocks_out, a word a block of kSetupThreads candidates), which C2 scans
+__global__ void __launch_bounds__(kSetupThreads)
+setup_kernel(const float* __restrict__ clip, const float* __restrict__ normal,
+             const unsigned char* __restrict__ valid,
+             const unsigned char* __restrict__ cell_ok,
+             const int* __restrict__ count, int q, int g, float width,
+             float height, int wmax, int hmax, int has_far, float far_w,
+             float far_ilim, float* __restrict__ tm,
+             unsigned char* __restrict__ live_out, int* __restrict__ span_out,
+             unsigned char* __restrict__ straddle_out,
+             int* __restrict__ blocks_out) {
+  const long long n = 2LL * q * g * g;
+  const long long i = (long long)blockIdx.x * kSetupThreads + threadIdx.x;
+  const bool st = i < n && setup_one(clip, normal, valid, cell_ok, count, i,
+                                     q, g, width, height, wmax, hmax,
+                                     has_far, far_w, far_ilim, tm, live_out,
+                                     span_out, straddle_out);
+  const int c = __syncthreads_count(st);
+  if (threadIdx.x == 0) blocks_out[blockIdx.x] = c;
+}
 
-// One clipped triangle (nearclip.setup_tris then records_from_tris) into
-// its row record.
-__device__ __forceinline__ void clipped_record(const float (*c)[4],
-                                               const float (*nv)[3],
-                                               bool live, float width,
-                                               float height, int wmax,
-                                               int hmax, int has_far,
-                                               float far_w, float far_ilim,
-                                               float* __restrict__ out) {
+constexpr int kClipThreads = 512;
+
+// Exclusive prefix sum of v over the clip block (all its threads must
+// call it); total: the block's sum
+__device__ __forceinline__ int clip_scan(int v, int* s_warp, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kClipThreads / 32; ++w) {
+    const int t = s_warp[w];
+    before += w < warp ? t : 0;
+    all += t;
+  }
+  __syncthreads();
+  total = all;
+  return x - v + before;
+}
+
+// One clipped triangle (nearclip.setup_tris): its projected vertices, its
+// cull and bbox, its row-28 word
+struct ClipTri {
   Projected pv[3];
+  Tri t;
+  float ilim;
+};
+
+__device__ __forceinline__ ClipTri clip_tri(const float (*c)[4],
+                                            const float (*nv)[3], bool live,
+                                            float width, float height,
+                                            int wmax, int hmax, int has_far,
+                                            float far_w, float far_ilim) {
+  ClipTri o;
 #pragma unroll
   for (int k = 0; k < 3; ++k)
-    pv[k] = project(c[k][0], c[k][1], c[k][2], c[k][3], nv[k][0], nv[k][1],
-                    nv[k][2], live, width, height);
-  const Tri t = cull(pv, live && pv[0].okw && pv[1].okw && pv[2].okw, wmax,
-                     hmax);
+    o.pv[k] = project(c[k][0], c[k][1], c[k][2], c[k][3], nv[k][0],
+                      nv[k][1], nv[k][2], live, width, height);
+  o.t = cull(o.pv, live && o.pv[0].okw && o.pv[1].okw && o.pv[2].okw, wmax,
+             hmax);
   const bool far = has_far && (c[0][3] > far_w || c[1][3] > far_w
                                || c[2][3] > far_w);
-  const float ilim = far ? far_ilim : -1.0f;
+  o.ilim = far ? far_ilim : -1.0f;
+  return o;
+}
+
+// A live clipped triangle's row record (nearclip.records_from_tris)
+__device__ __forceinline__ void clip_record(const ClipTri& c,
+                                            float* __restrict__ out) {
   float r[32];
-  record(pv, t, t.live ? 1.0f / t.area2 : 0.0f,
-         t.live ? ilim : 0.0f * ilim, r);
-  if (!t.live) r[25] = __int_as_float(0x7f800000);      // +inf
+  record(c.pv, c.t, 1.0f / c.t.area2, c.ilim, r);
   float4* o = reinterpret_cast<float4*>(out);
 #pragma unroll
   for (int k = 0; k < 8; ++k)
     o[k] = make_float4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
 }
 
+// One block. (1) The straddlers' compaction: thread t sums the C1 block
+// counts of its run of blocks, a block scan gives its first slot, and it
+// writes the candidate indices of the straddlers of its blocks that fall
+// in the first `cap` slots, in candidate order, reading the straddle
+// bytes of those blocks alone (64 at a time, each 0 or 1); the empty
+// slots get n. (2) A thread a used slot clips its straddler into triangles A
+// and B; a block scan of their live counts places the live records in
+// (slot, A, B) order. Nothing is atomic, so the order is the plain
+// version's.
 __global__ void __launch_bounds__(kClipThreads)
 clip_kernel(const float* __restrict__ clip, const float* __restrict__ normal,
-            const int* __restrict__ s_idx, int slots, int q, int g,
-            float width, float height, int wmax, int hmax, int has_far,
-            float far_w, float far_ilim, float* __restrict__ recs) {
-  const int k = blockIdx.x * kClipThreads + threadIdx.x;
-  if (k >= slots) return;
-  // nearclip.gather_tri_verts_t
+            const unsigned char* __restrict__ straddle,
+            const int* __restrict__ blocks, int nblocks, int cap, int q,
+            int g, float width, float height, int wmax, int hmax,
+            int has_far, float far_w, float far_ilim,
+            int* __restrict__ s_idx, int* __restrict__ n_straddle,
+            float* __restrict__ recs, int* __restrict__ rec_count) {
+  __shared__ int s_warp[kClipThreads / 32];
+  const int tid = threadIdx.x;
   const long long gg = (long long)g * g, ncell = q * gg, n = 2 * ncell;
-  const long long idx = s_idx[k];
-  const bool ok = idx < n;
-  const long long i = idx < n - 1 ? idx : n - 1;
-  const long long p = i / ncell, rem = i % ncell;
-  const long long qq = rem / gg, j = rem % gg, lim = gg - 1;
-  const long long a01 = min(j + 1, lim), a10 = min(j + g, lim);
-  const long long a11 = min(j + g + 1, lim);
-  const long long vi[3] = {p == 0 ? j : a01, a10, p == 0 ? a01 : a11};
-  float vc[3][4], vn[3][3], f[3];
-  bool in[3];
+
+  // ------------------------------------------------- the compaction
+  const int per = (nblocks + kClipThreads - 1) / kClipThreads;
+  const int b0 = min(tid * per, nblocks), b1 = min(b0 + per, nblocks);
+  int mine = 0;
+#pragma unroll 8
+  for (int b = b0; b < b1; ++b) mine += blocks[b];
+  int total;
+  int rank = clip_scan(mine, s_warp, total);
+  const int used = min(total, cap);
+  for (int b = b0; b < b1 && mine > 0 && rank < cap; ++b) {
+    int left = blocks[b];
+    if (left == 0) continue;
+    mine -= left;
+    const long long lo = (long long)b * kSetupThreads;
+    const int len = (int)min((long long)kSetupThreads, n - lo);
+    // the block's straddle bytes 64 at a time: four independent 16-byte
+    // loads (bytes one by one past the mask's end), then their set bytes
+    for (int at = 0; at < len && left > 0 && rank < cap; at += 64) {
+      unsigned words[16];
 #pragma unroll
-  for (int t = 0; t < 3; ++t) {
-    const long long at = qq * gg + vi[t];
-    const float4 c = reinterpret_cast<const float4*>(clip)[at];
-    vc[t][0] = c.x, vc[t][1] = c.y, vc[t][2] = c.z, vc[t][3] = c.w;
-    vn[t][0] = normal[at * 3], vn[t][1] = normal[at * 3 + 1];
-    vn[t][2] = normal[at * 3 + 2];
-    f[t] = vc[t][2] + vc[t][3];
-    in[t] = f[t] > 0.0f;
-  }
-  // nearclip.clip_expand: rotate the lone vertex (the one inside when one
-  // is, else the one outside) to position 0
-  const int cnt = in[0] + in[1] + in[2];
-  const int first_in = in[0] ? 0 : (in[1] ? 1 : 2);
-  const int first_out = !in[0] ? 0 : (!in[1] ? 1 : 2);
-  const int r0 = cnt == 1 ? first_in : first_out;
-  const int r1 = r0 == 2 ? 0 : r0 + 1, r2 = r0 == 0 ? 2 : r0 - 1;
-  const bool usable = ok && (cnt == 1 || cnt == 2);
-  const float f0 = f[r0], f1 = f[r1], f2 = f[r2];
-  const float t01 = usable ? f0 / (f0 - f1) : 0.0f;
-  const float t20 = usable ? f2 / (f2 - f0) : 0.0f;
-  float i01c[4], i20c[4], i01n[3], i20n[3];
+      for (int v = 0; v < 4; ++v) {
+        const int off = at + 16 * v;
+        if (off + 16 <= len) {
+          const uint4 x = *reinterpret_cast<const uint4*>(straddle + lo + off);
+          words[4 * v] = x.x, words[4 * v + 1] = x.y;
+          words[4 * v + 2] = x.z, words[4 * v + 3] = x.w;
+        } else {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    i01c[a] = vc[r0][a] + (vc[r1][a] - vc[r0][a]) * t01;
-    i20c[a] = vc[r2][a] + (vc[r0][a] - vc[r2][a]) * t20;
-  }
+          for (int w = 0; w < 4; ++w) {
+            unsigned word = 0;
+            for (int k = 0; k < 4 && off + 4 * w + k < len; ++k)
+              word |= (unsigned)straddle[lo + off + 4 * w + k] << (8 * k);
+            words[4 * v + w] = word;
+          }
+        }
+      }
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    i01n[a] = vn[r0][a] + (vn[r1][a] - vn[r0][a]) * t01;
-    i20n[a] = vn[r2][a] + (vn[r0][a] - vn[r2][a]) * t20;
+      for (int w = 0; w < 16; ++w) {
+        for (unsigned word = words[w]; word != 0 && left > 0 && rank < cap;
+             word &= word - 1) {
+          s_idx[rank++] = (int)(lo + at + 4 * w + ((__ffs(word) - 1) >> 3));
+          --left;
+        }
+      }
+    }
   }
-  const bool one = cnt == 1;
-  float ac[3][4], an[3][3], bc[3][4], bn[3][3];
+  for (int k = used + tid; k < cap; k += kClipThreads) s_idx[k] = (int)n;
+  if (tid == 0) *n_straddle = total;
+  __syncthreads();                     // the slots, written by the block
+
+  // ------------------------------------------------------- the clip
+  int written = 0;
+  for (int k0 = 0; k0 < used; k0 += kClipThreads) {
+    const int k = k0 + tid;
+    ClipTri ta, tb;
+    bool live_a = false, live_b = false;
+    if (k < used) {
+      // nearclip.gather_tri_verts_t (a used slot's index is below n)
+      const long long i = s_idx[k];
+      const long long p = i / ncell, rem = i % ncell;
+      const long long qq = rem / gg, j = rem % gg, lim = gg - 1;
+      const long long a01 = min(j + 1, lim), a10 = min(j + g, lim);
+      const long long a11 = min(j + g + 1, lim);
+      const long long vi[3] = {p == 0 ? j : a01, a10, p == 0 ? a01 : a11};
+      float vc[3][4], vn[3][3], f[3];
+      bool in[3];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    ac[0][a] = one ? vc[r0][a] : i01c[a];
-    ac[1][a] = one ? i01c[a] : vc[r1][a];
-    ac[2][a] = one ? i20c[a] : vc[r2][a];
-    bc[0][a] = i01c[a], bc[1][a] = vc[r2][a], bc[2][a] = i20c[a];
-  }
+      for (int t = 0; t < 3; ++t) {
+        const long long at = qq * gg + vi[t];
+        const float4 c = reinterpret_cast<const float4*>(clip)[at];
+        vc[t][0] = c.x, vc[t][1] = c.y, vc[t][2] = c.z, vc[t][3] = c.w;
+        vn[t][0] = normal[at * 3], vn[t][1] = normal[at * 3 + 1];
+        vn[t][2] = normal[at * 3 + 2];
+        f[t] = vc[t][2] + vc[t][3];
+        in[t] = f[t] > 0.0f;
+      }
+      // nearclip.clip_expand: rotate the lone vertex (the one inside when
+      // one is, else the one outside) to position 0
+      const int cnt = in[0] + in[1] + in[2];
+      const int first_in = in[0] ? 0 : (in[1] ? 1 : 2);
+      const int first_out = !in[0] ? 0 : (!in[1] ? 1 : 2);
+      const int r0 = cnt == 1 ? first_in : first_out;
+      const int r1 = r0 == 2 ? 0 : r0 + 1, r2 = r0 == 0 ? 2 : r0 - 1;
+      const bool usable = cnt == 1 || cnt == 2;
+      const float f0 = f[r0], f1 = f[r1], f2 = f[r2];
+      const float t01 = usable ? f0 / (f0 - f1) : 0.0f;
+      const float t20 = usable ? f2 / (f2 - f0) : 0.0f;
+      float i01c[4], i20c[4], i01n[3], i20n[3];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    an[0][a] = one ? vn[r0][a] : i01n[a];
-    an[1][a] = one ? i01n[a] : vn[r1][a];
-    an[2][a] = one ? i20n[a] : vn[r2][a];
-    bn[0][a] = i01n[a], bn[1][a] = vn[r2][a], bn[2][a] = i20n[a];
+      for (int a = 0; a < 4; ++a) {
+        i01c[a] = vc[r0][a] + (vc[r1][a] - vc[r0][a]) * t01;
+        i20c[a] = vc[r2][a] + (vc[r0][a] - vc[r2][a]) * t20;
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        i01n[a] = vn[r0][a] + (vn[r1][a] - vn[r0][a]) * t01;
+        i20n[a] = vn[r2][a] + (vn[r0][a] - vn[r2][a]) * t20;
+      }
+      const bool one = cnt == 1;
+      float ac[3][4], an[3][3], bc[3][4], bn[3][3];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        ac[0][a] = one ? vc[r0][a] : i01c[a];
+        ac[1][a] = one ? i01c[a] : vc[r1][a];
+        ac[2][a] = one ? i20c[a] : vc[r2][a];
+        bc[0][a] = i01c[a], bc[1][a] = vc[r2][a], bc[2][a] = i20c[a];
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        an[0][a] = one ? vn[r0][a] : i01n[a];
+        an[1][a] = one ? i01n[a] : vn[r1][a];
+        an[2][a] = one ? i20n[a] : vn[r2][a];
+        bn[0][a] = i01n[a], bn[1][a] = vn[r2][a], bn[2][a] = i20n[a];
+      }
+      ta = clip_tri(ac, an, usable, width, height, wmax, hmax, has_far,
+                    far_w, far_ilim);
+      tb = clip_tri(bc, bn, cnt == 2, width, height, wmax, hmax, has_far,
+                    far_w, far_ilim);
+      live_a = ta.t.live;
+      live_b = tb.t.live;
+    }
+    int chunk;
+    int at = written + clip_scan(live_a + live_b, s_warp, chunk);
+    if (live_a) clip_record(ta, recs + (long long)at++ * 32);
+    if (live_b) clip_record(tb, recs + (long long)at * 32);
+    written += chunk;
   }
-  clipped_record(ac, an, usable, width, height, wmax, hmax, has_far, far_w,
-                 far_ilim, recs + (long long)k * 32);
-  clipped_record(bc, bn, ok && cnt == 2, width, height, wmax, hmax, has_far,
-                 far_w, far_ilim, recs + (long long)(slots + k) * 32);
+  if (tid == 0) *rec_count = written;
 }
 
 }  // namespace
@@ -360,43 +501,52 @@ clip_kernel(const float* __restrict__ clip, const float* __restrict__ normal,
 // clip (Q, G, G, 4) f32, normal (Q, G, G, 3) f32, valid (Q, G, G) bool,
 // cell_ok (2, G, G) bool, count: one int32 on the card or null; tm
 // (32, 2 Q G G) f32, live and straddle (2 Q G G) bool, span (2 Q G G)
-// int32. far_w <= 0: no far clip.
+// int32, blocks (ceil(2 Q G G / 256),) int32: each 256 candidates'
+// straddlers. far_w <= 0: no far clip.
 extern "C" int planet_setup(const void* clip, const void* normal,
                             const void* valid, const void* cell_ok,
                             const void* count, int q, int g, int width,
                             int height, float far_w, float far_ilim, void* tm,
                             void* live, void* span, void* straddle,
-                            void* stream) {
+                            void* blocks, void* stream) {
   if (q < 0 || g <= 0 || width <= 0 || height <= 0
       || ((size_t)clip & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const long long n = 2LL * q * g * g;
   if (n == 0) return (int)cudaSuccess;
-  const long long blocks = (n + kSetupThreads - 1) / kSetupThreads;
-  setup_kernel<<<(unsigned)blocks, kSetupThreads, 0, (cudaStream_t)stream>>>(
+  const long long nb = (n + kSetupThreads - 1) / kSetupThreads;
+  setup_kernel<<<(unsigned)nb, kSetupThreads, 0, (cudaStream_t)stream>>>(
       (const float*)clip, (const float*)normal, (const unsigned char*)valid,
       (const unsigned char*)cell_ok, (const int*)count, q, g, (float)width,
       (float)height, width - 1, height - 1, far_w > 0.0f, far_w, far_ilim,
       (float*)tm, (unsigned char*)live, (int*)span,
-      (unsigned char*)straddle);
+      (unsigned char*)straddle, (int*)blocks);
   return (int)cudaGetLastError();
 }
 
-// clip (Q, G, G, 4) f32, normal (Q, G, G, 3) f32 (Q > 0), s_idx (slots,)
-// int32 candidate indices (2 Q G G or more: an empty slot); recs
-// (2 slots, 32) f32, 16-byte aligned. far_w <= 0: no far clip.
+// clip (Q, G, G, 4) f32, normal (Q, G, G, 3) f32 (Q > 0), straddle
+// (2 Q G G) bool, 16-byte aligned, and blocks (C1's outputs) -> s_idx
+// (cap,) int32 (the first cap straddlers' candidate indices, 2 Q G G in
+// the empty slots), n_straddle (1,) int32 (all the straddlers), recs
+// (2 cap, 32) f32, 16-byte aligned, whose first rec_count[0] rows are the
+// live clipped records in (slot, A, B) order. far_w <= 0: no far clip.
 extern "C" int planet_clip_records(const void* clip, const void* normal,
-                                   const void* s_idx, int slots, int q,
-                                   int g, int width, int height, float far_w,
-                                   float far_ilim, void* recs, void* stream) {
-  if (slots < 0 || q <= 0 || g <= 0 || width <= 0 || height <= 0
-      || ((size_t)clip & 15) != 0 || ((size_t)recs & 15) != 0)
+                                   const void* straddle, const void* blocks,
+                                   int cap, int q, int g, int width,
+                                   int height, float far_w, float far_ilim,
+                                   void* s_idx, void* n_straddle, void* recs,
+                                   void* rec_count, void* stream) {
+  const long long n = 2LL * q * g * g;
+  if (cap < 0 || q <= 0 || g <= 0 || width <= 0 || height <= 0
+      || n > 0x7fffffffLL || ((size_t)clip & 15) != 0
+      || ((size_t)straddle & 15) != 0 || ((size_t)recs & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  if (slots == 0) return (int)cudaSuccess;
-  clip_kernel<<<(slots + kClipThreads - 1) / kClipThreads, kClipThreads, 0,
-                (cudaStream_t)stream>>>(
-      (const float*)clip, (const float*)normal, (const int*)s_idx, slots, q,
-      g, (float)width, (float)height, width - 1, height - 1, far_w > 0.0f,
-      far_w, far_ilim, (float*)recs);
+  const int nb = (int)((n + kSetupThreads - 1) / kSetupThreads);
+  clip_kernel<<<1, kClipThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)clip, (const float*)normal,
+      (const unsigned char*)straddle, (const int*)blocks, nb, cap, q, g,
+      (float)width, (float)height, width - 1, height - 1, far_w > 0.0f,
+      far_w, far_ilim, (int*)s_idx, (int*)n_straddle, (float*)recs,
+      (int*)rec_count);
   return (int)cudaGetLastError();
 }

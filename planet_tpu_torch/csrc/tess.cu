@@ -21,20 +21,43 @@
 // interpolation, the blends, the normals, the clip transform and the
 // shade) is ~180 operations where the interpolation takes the linear
 // fallback and ~400 where it takes the slerp, with its acos, three sin, a
-// cos and two tan (tools/common.tess_work): on the fused frame's 512 rows
-// half the time of its 33.6 MB at the card's rates.
+// cos and two tan (tools/common.tess_work); a padding row's is its
+// height's blends. On the fused frame's 512 rows (210 live at 1080p) the
+// bytes, 33.6 MB, take 0.0100 ms at the card's rate.
 //
-// Design: a block a patch row, 256 threads. The block stages the row's
-// tile, its two variants' taps from the table, its corners, the skirt, the
-// view-projection and the grid's u values in shared memory. Then its
-// threads form the three x-blended (dim, G) arrays (taps 0, 1, 2 of the x
-// variant) and, on the first 2 G threads, interpolate's row endpoints
-// (pa, na) and (pb, nb) of each column, which depend only on (q, u): one
-// evaluation a column instead of one a vertex, the same bits. Then a thread
-// a vertex (four a thread) runs the rest and writes the six outputs. The
-// padding rows of the fused frame (NaN corner normals) are evaluated like
-// any other and come out NaN, as the plain version's do.
+// Design: two blocks a patch row (kParts), 256 threads, each block half
+// of the row's grid rows. The block stages the row's tile, its two
+// variants' taps, its corners, the skirt, the view-projection and the
+// grid's u values in shared memory. Then warps 0-1 evaluate interpolate's
+// row endpoints (pa, na) and (pb, nb) of each column, which depend only on
+// (q, u), while warps 2-7 form the three x-blended (dim, G) arrays (taps
+// 0, 1, 2 of the x variant); then lane c of warp 0 hoists the terms of
+// column c's interpolations that do not depend on the row (the branch,
+// the differences, acos, tan and 1 / sin of the half angle, the half chord
+// and its length, the row direction and the tangent scale): the same ops
+// on the same values, once a column. Then lane c of warp w takes column c
+// of grid rows w, w + 8, ...: its vertices share one branch, so they run
+// side by side, and no index is divided. The clip store is 16 bytes a
+// lane, height and shade 4, each coalesced across the warp; world, normal
+// and snormal 4-byte stores at a 12-byte stride. Measured and dropped
+// (PERF.md): staging world, normal and snormal in shared memory for
+// 16-byte stores (within 5 % either way), 1 or 4 blocks a row in place of
+// 2, the live and padding rows interleaved in the grid (the long live
+// blocks then start late), a 100 % shared-memory carveout (no change).
 //
+// Padding rows: a row whose corner normals hold a NaN (the fused frame's
+// rows past its leaf count: zero DF corners, so 0 / 0) has NaN column
+// endpoints on at least one side, so every interpolation in it takes the
+// slerp on a NaN dot and every output but the height is NaN; the card's
+// f32 arithmetic gives one NaN word whatever its operands, 0x7fffffff.
+// The block tests its staged corner normals (one __syncthreads_or) and on
+// such a row computes the height alone (the tap-1 blends of the tile,
+// minus the skirt) and fills the five other outputs with that word in
+// 16-byte stores, with no interpolation. On the fused frame at 1080p 302
+// of the 512 rows are padding, and their NaN slerps (acos, three sin, a
+// cos, two tan a vertex, with sin's and tan's long argument reduction on
+// NaN) were most of the kernel's time (PERF.md).
+
 // Bits: every rounding is the plain version's op, in its order: dots as
 // x x + y y + z z, cross products as separate products and differences,
 // the clip transform as ((m0 x + m1 y) + m2 z) + m3, the two-tap blends as
@@ -52,6 +75,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kParts = 2;         // blocks a patch row
 constexpr int kMaxGrid = 32;
 constexpr int kMaxDim = 32;
 constexpr float kClampHi = (float)(1.0 - 1e-6);
@@ -118,6 +142,90 @@ struct Taps {
   float wa[3][kMaxGrid], wb[3][kMaxGrid];
 };
 
+// The NaN word of the card's f32 arithmetic, whatever the operands' words
+constexpr unsigned kNaNWord = 0x7fffffffu;
+
+// out[0, n) = the NaN word, by the block's threads: 16-byte stores where
+// out is 16-byte aligned (every row of a 32 x 32 grid), else 4-byte stores
+__device__ __forceinline__ void fill_nan(float* __restrict__ out, int n) {
+  const float nan = __uint_as_float(kNaNWord);
+  int done = 0;
+  if (((size_t)out & 15) == 0) {
+    const int n4 = n >> 2;
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (int i = threadIdx.x; i < n4; i += kThreads)
+      o4[i] = make_float4(nan, nan, nan, nan);
+    done = n4 << 2;
+  }
+  for (int i = done + threadIdx.x; i < n; i += kThreads) out[i] = nan;
+}
+
+// The terms of interpolate(pa, na, pb, nb, t) that do not depend on t, for
+// one column of a row: its endpoints, the branch, the differences, and on
+// the slerp branch the angle terms and the half chord
+struct Column {
+  float pa[3], na[3], nb[3], dn[3], row_dir[3], half[3];
+  float theta2, theta, tan_theta, inv_sin, hlen, xyscale;
+  int lin;
+};
+
+__device__ __forceinline__ void column_terms(const float* pa, const float* na,
+                                             const float* pb, const float* nb,
+                                             Column& o) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o.pa[k] = pa[k];
+    o.na[k] = na[k];
+    o.nb[k] = nb[k];
+    o.dn[k] = nb[k] - na[k];
+    o.row_dir[k] = pb[k] - pa[k];
+    o.half[k] = o.row_dir[k] * 0.5f;
+  }
+  o.xyscale = sqrtf(dot3(o.row_dir, o.row_dir)) / 29.0f;
+  const float d = dot3(na, nb);
+  o.lin = (1.0f - d) < kLinEps;
+  if (!o.lin) {
+    // torch.clamp: a NaN stays itself
+    const float d_safe = d != d ? d : fminf(fmaxf(d, -1.0f), kClampHi);
+    o.theta2 = acosf(d_safe);
+    o.theta = o.theta2 * 0.5f;
+    o.tan_theta = tanf(o.theta);
+    o.inv_sin = 1.0f / sinf(o.theta);
+    o.hlen = sqrtf(dot3(o.half, o.half));
+  }
+}
+
+// interpolate at t from a column's terms: the ops of interpolate() past
+// those terms, in its order
+__device__ __forceinline__ void interpolate_at(const Column& o, float t,
+                                               float* p, float* n) {
+  if (o.lin) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      n[k] = o.na[k] + o.dn[k] * t;
+      p[k] = o.pa[k] + o.row_dir[k] * t;
+    }
+    norm3(n);
+    return;
+  }
+  const float k1 = 1.0f - t;
+  const float sa = sinf(k1 * o.theta2), sb = sinf(t * o.theta2);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) n[j] = sa * o.na[j] + sb * o.nb[j];
+  norm3(n);
+  const float gamma = o.theta - o.theta2 * t;
+  const float x = 1.0f - tanf(gamma) / o.tan_theta;
+  const float y = o.inv_sin - 1.0f / (cosf(gamma) * o.tan_theta);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    p[j] = (o.pa[j] + x * o.half[j]) + (y * n[j]) * o.hlen;
+}
+
+// Block b takes grid rows [r0, r1) of patch row b / kParts, its half
+// b % kParts of them; lane c of warp w takes column c of rows r0 + w,
+// r0 + w + 8, ..., at most kRows of them (kRows 8-row groups). The fused
+// frame's live rows come first, so its longest blocks start first.
+template <int kRows>
 __global__ void __launch_bounds__(kThreads)
 tess_kernel(const float* __restrict__ corners,
             const float* __restrict__ corner_normals,
@@ -126,71 +234,123 @@ tess_kernel(const float* __restrict__ corners,
             const float* __restrict__ view_proj,
             const int* __restrict__ tap_idx, const float* __restrict__ tap_w,
             const float* __restrict__ u_table, int g, int dim, float lx,
-            float ly, float lz, float* __restrict__ clip_out,
-            float* __restrict__ world_out, float* __restrict__ normal_out,
-            float* __restrict__ height_out, float* __restrict__ snormal_out,
-            float* __restrict__ shade_out) {
+            float ly, float lz,
+            float* __restrict__ clip_out, float* __restrict__ world_out,
+            float* __restrict__ normal_out, float* __restrict__ height_out,
+            float* __restrict__ snormal_out, float* __restrict__ shade_out) {
+  constexpr int kWarps = kThreads / 32;
   __shared__ float tile[kMaxDim * kMaxDim];
   __shared__ float xbl[3][kMaxDim][kMaxGrid];     // x-blended, taps 0-2
   __shared__ float colp[2][kMaxGrid][3], coln[2][kMaxGrid][3];
+  __shared__ Column col[kMaxGrid];
   __shared__ Taps tx, ty;
   __shared__ float cp[4][3], cn[4][3], m[16], u[kMaxGrid];
   __shared__ float skirt_q;
 
-  const int q = blockIdx.x, tid = threadIdx.x;
-  const int gg = g * g;
+  const int q = blockIdx.x / kParts, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int rows = (g + kParts - 1) / kParts;
+  const int r0 = (blockIdx.x - q * kParts) * rows, r1 = min(g, r0 + rows);
+  if (r0 >= r1) return;                            // g = 1: one row
+  const long long v0 = (long long)q * g * g;       // the row's first vertex
   for (int i = tid; i < dim * dim; i += kThreads)
     tile[i] = tiles[(long long)q * dim * dim + i];
-  // the row's variants, taken as the plain version's idx[variant] takes
-  // them: -3..-1 count from the end of the table; any other value outside
-  // {0, 1, 2} stops the kernel, as the plain version's index raises on the
-  // CPU and asserts on the card
-  int var_x = vx[q], var_y = vy[q];
-  if (var_x < -3 || var_x > 2 || var_y < -3 || var_y > 2) __trap();
-  var_x += var_x < 0 ? 3 : 0;
-  var_y += var_y < 0 ? 3 : 0;
+  // the row's variants' taps, taken as the plain version's idx[variant]
+  // takes them: -3..-1 count from the end of the table; any other value
+  // outside {0, 1, 2} stops the kernel, as the plain version's index
+  // raises on the CPU and asserts on the card. Each entry is read for all
+  // three variants, so these reads need not wait for the variant's.
+  const int var_x = vx[q], var_y = vy[q];
   for (int i = tid; i < 2 * 3 * g; i += kThreads) {
     const int axis = i / (3 * g), rem = i - axis * 3 * g;
     const int tap = rem / g, o = rem - tap * g;
-    const int at = (((axis ? var_y : var_x) * 3 + tap) * g + o) * 2;
+    int ia[3], ib[3];
+    float wa[3], wb[3];
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      const int at = ((v * 3 + tap) * g + o) * 2;
+      ia[v] = tap_idx[at], ib[v] = tap_idx[at + 1];
+      wa[v] = tap_w[at], wb[v] = tap_w[at + 1];
+    }
+    const int var = axis ? var_y : var_x;
+    const int sel = var == 0 || var == -3 ? 0 : var == 1 || var == -2 ? 1 : 2;
     Taps& t = axis ? ty : tx;
-    t.a[tap][o] = tap_idx[at];
-    t.b[tap][o] = tap_idx[at + 1];
-    t.wa[tap][o] = tap_w[at];
-    t.wb[tap][o] = tap_w[at + 1];
+    t.a[tap][o] = sel == 0 ? ia[0] : sel == 1 ? ia[1] : ia[2];
+    t.b[tap][o] = sel == 0 ? ib[0] : sel == 1 ? ib[1] : ib[2];
+    t.wa[tap][o] = sel == 0 ? wa[0] : sel == 1 ? wa[1] : wa[2];
+    t.wb[tap][o] = sel == 0 ? wb[0] : sel == 1 ? wb[1] : wb[2];
   }
+  if (var_x < -3 || var_x > 2 || var_y < -3 || var_y > 2) __trap();
+  float cn_word = 0.0f;
   if (tid < 12) {
+    cn_word = corner_normals[q * 12 + tid];
     cp[tid / 3][tid % 3] = corners[q * 12 + tid];
-    cn[tid / 3][tid % 3] = corner_normals[q * 12 + tid];
+    cn[tid / 3][tid % 3] = cn_word;
   }
   if (tid < 16) m[tid] = view_proj[tid];
   if (tid < g) u[tid] = u_table[tid];
   if (tid == 0) skirt_q = skirt[q];
-  __syncthreads();
+  // a padding row: a NaN among its corner normals
+  const bool pad = __syncthreads_or(cn_word != cn_word);
 
-  // the x blends: xbl[tap][y][o] = T[y][a] w_a + T[y][b] w_b
-  for (int i = tid; i < 3 * dim * g; i += kThreads) {
-    const int tap = i / (dim * g), rem = i - tap * dim * g;
-    const int yy = rem / g, o = rem - yy * g;
-    xbl[tap][yy][o] = tile[yy * dim + tx.a[tap][o]] * tx.wa[tap][o]
-                      + tile[yy * dim + tx.b[tap][o]] * tx.wb[tap][o];
-  }
-  // interpolate's row endpoints at u: side 0 between corners 0 and 1,
-  // side 1 between corners 2 and 3
-  if (tid < 2 * g) {
+  // warps 0-1: interpolate's row endpoints at u (side 0 between corners 0
+  // and 1, side 1 between corners 2 and 3); the other warps (all of them
+  // on a padding row): the x blends, xbl[tap][y][o] = T[y][a] w_a +
+  // T[y][b] w_b (a padding row's height needs tap 1 alone)
+  const int blend_warp = pad ? 0 : 2;
+  if (!pad && tid < 2 * g) {
     const int side = tid / g, c = tid - side * g;
     interpolate(cp[2 * side], cn[2 * side], cp[2 * side + 1],
                 cn[2 * side + 1], u[c], colp[side][c], coln[side][c]);
   }
+  if (warp >= blend_warp && lane < g) {
+    for (int tap = pad ? 1 : 0; tap < (pad ? 2 : 3); ++tap) {
+      const int a = tx.a[tap][lane], b = tx.b[tap][lane];
+      const float wa = tx.wa[tap][lane], wb = tx.wb[tap][lane];
+      for (int yy = warp - blend_warp; yy < dim; yy += kWarps - blend_warp)
+        xbl[tap][yy][lane] = tile[yy * dim + a] * wa + tile[yy * dim + b] * wb;
+    }
+  }
   __syncthreads();
 
-  for (int i = tid; i < gg; i += kThreads) {
-    const int r = i / g, c = i - r * g;
-    const float* pa = colp[0][c];
-    const float* pb = colp[1][c];
-    float pv[3], nv[3];
-    interpolate(pa, coln[0][c], pb, coln[1][c], u[r], pv, nv);
+  if (pad) {
+    if (lane < g) {
+      for (int r = r0 + warp; r < r1; r += kWarps) {
+        const int a1 = ty.a[1][r], b1 = ty.b[1][r];
+        const float hgt = xbl[1][a1][lane] * ty.wa[1][r]
+                          + xbl[1][b1][lane] * ty.wb[1][r];
+        const float sk = (r == 0 || r == g - 1 || lane == 0 || lane == g - 1)
+                             ? 1.0f : 0.0f;
+        height_out[v0 + r * g + lane] = hgt - skirt_q * sk;
+      }
+    }
+    const long long at = v0 + (long long)r0 * g;
+    const int n = (r1 - r0) * g;
+    fill_nan(clip_out + at * 4, n * 4);
+    fill_nan(world_out + at * 3, n * 3);
+    fill_nan(normal_out + at * 3, n * 3);
+    fill_nan(snormal_out + at * 3, n * 3);
+    fill_nan(shade_out + at, n);
+    return;
+  }
+  if (warp == 0 && lane < g)
+    column_terms(colp[0][lane], coln[0][lane], colp[1][lane], coln[1][lane],
+                 col[lane]);
+  __syncthreads();
+  if (lane >= g) return;
 
+  const int c = lane;
+  const Column& o = col[c];
+  float pv[kRows][3], nv[kRows][3];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int r = min(r0 + warp + k * kWarps, g - 1);
+    interpolate_at(o, u[r], pv[k], nv[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int r = r0 + warp + k * kWarps;
+    if (r >= r1) break;
     // the y blends of the x-blended arrays
     const int a0 = ty.a[0][r], b0 = ty.b[0][r];
     const int a1 = ty.a[1][r], b1 = ty.b[1][r];
@@ -208,30 +368,26 @@ tess_kernel(const float* __restrict__ corners,
                                                                      : 0.0f;
     const float height = hgt - skirt_q * sk;
 
-    float row_dir[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) row_dir[k] = pb[k] - pa[k];
-    const float xyscale = sqrtf(dot3(row_dir, row_dir)) / 29.0f;
-    float nt[3] = {x0 - x1, 2.0f * xyscale, y0 - y1};
+    float nt[3] = {x0 - x1, 2.0f * o.xyscale, y0 - y1};
     norm3(nt);
     float tv[3], bi[3], nrm[3];
-    cross3(nv, row_dir, tv);
+    cross3(nv[k], o.row_dir, tv);
     norm3(tv);
-    cross3(tv, nv, bi);
+    cross3(tv, nv[k], bi);
     norm3(bi);
 #pragma unroll
-    for (int k = 0; k < 3; ++k)
-      nrm[k] = (tv[k] * nt[0] + nv[k] * nt[1]) + bi[k] * nt[2];
+    for (int j = 0; j < 3; ++j)
+      nrm[j] = (tv[j] * nt[0] + nv[k][j] * nt[1]) + bi[j] * nt[2];
     norm3(nrm);
 
     float w[3];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) w[k] = pv[k] + nv[k] * height;
+    for (int j = 0; j < 3; ++j) w[j] = pv[k][j] + nv[k][j] * height;
     float cl[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      cl[k] = ((m[4 * k] * w[0] + m[4 * k + 1] * w[1]) + m[4 * k + 2] * w[2])
-              + m[4 * k + 3];
+    for (int j = 0; j < 4; ++j)
+      cl[j] = ((m[4 * j] * w[0] + m[4 * j + 1] * w[1]) + m[4 * j + 2] * w[2])
+              + m[4 * j + 3];
 
     // the pinned lambert
     float sn[3] = {nrm[0], nrm[1], nrm[2]};
@@ -239,17 +395,17 @@ tess_kernel(const float* __restrict__ corners,
     const float s = (sn[0] * lx + sn[1] * ly) + sn[2] * lz;
     const float shade = sqrtf(kShadeFloor + (s != s ? s : fmaxf(s, 0.0f)));
 
-    const long long v = (long long)q * gg + i;
+    const long long v = v0 + r * g + c;
     reinterpret_cast<float4*>(clip_out)[v] =
         make_float4(cl[0], cl[1], cl[2], cl[3]);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      world_out[v * 3 + k] = w[k];
-      normal_out[v * 3 + k] = nrm[k];
-      snormal_out[v * 3 + k] = nv[k];
-    }
     height_out[v] = height;
     shade_out[v] = shade;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      world_out[v * 3 + j] = w[j];
+      normal_out[v * 3 + j] = nrm[j];
+      snormal_out[v * 3 + j] = nv[k][j];
+    }
   }
 }
 
@@ -258,9 +414,9 @@ tess_kernel(const float* __restrict__ corners,
 // corners and corner_normals (Q, 4, 3) f32, tiles (Q, dim, dim) f32,
 // vx and vy (Q,) int32 in {0, 1, 2}, skirt (Q,) f32, view_proj (4, 4) f32,
 // tap_idx (3, 3, G, 2) int32 and tap_w (3, 3, G, 2) f32 (vertex.blend_taps),
-// u (G,) f32 (the grid's u values), light (lx, ly, lz); outputs clip
-// (Q, G, G, 4), 16-byte aligned, world, normal and snormal (Q, G, G, 3),
-// height and shade (Q, G, G), all f32. G and dim at most 32.
+// u (G,) f32 (the grid's u values); light (lx, ly, lz); outputs clip (Q, G,
+// G, 4), 16-byte aligned, world, normal and snormal (Q, G, G, 3), height
+// and shade (Q, G, G), all f32. G and dim at most 32.
 extern "C" int planet_tess(const void* corners, const void* corner_normals,
                            const void* tiles, const void* vx, const void* vy,
                            const void* skirt, const void* view_proj,
@@ -273,7 +429,10 @@ extern "C" int planet_tess(const void* corners, const void* corner_normals,
       || ((size_t)clip & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (q == 0) return (int)cudaSuccess;
-  tess_kernel<<<q, kThreads, 0, (cudaStream_t)stream>>>(
+  // the 8-row groups a warp takes: 1 or 2
+  const auto kernel = (g + kParts - 1) / kParts > 8 ? tess_kernel<2>
+                                                     : tess_kernel<1>;
+  kernel<<<q * kParts, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)corners, (const float*)corner_normals,
       (const float*)tiles, (const int*)vx, (const int*)vy,
       (const float*)skirt, (const float*)view_proj, (const int*)tap_idx,

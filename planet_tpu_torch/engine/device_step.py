@@ -12,10 +12,12 @@ trip.
                   6 + 12*depth // max_lod (dead slots: count 0, zeros)
   5. tessellate   store + touch, crop variants, camera-relative DF corners,
                   skirt, gather, one V1 launch (tess.vertex_cuda: the
-                  vertex program and its shade)
-  6. raster       raster.coverage_cuda.raster_frame (C1, K6, K2, K3) on
-                  all render_cap rows, padding rows invalid and skipped by
-                  C1 through the leaf count on the device, or with
+                  vertex program and its shade; the padding rows' NaN
+                  outputs written, not computed: their corner normals
+                  are NaN)
+  6. raster       raster.coverage_cuda.raster_frame (C1, K6, K2, C2, K3)
+                  on all render_cap rows, padding rows invalid and skipped
+                  by C1 through the leaf count on the device, or with
                   raster_mode="splat" engine.planet.splat_raster (the
                   splat raster, raster/splat.py)
 
@@ -311,6 +313,9 @@ def build_geometry_step(cfg: EngineConfig, *, device, cap: int = 4096,
             return early(slot=slot, corners_rel=corners_rel,
                          normals=normals, vx=vx, vy=vy, skirt=skirt)
         pool_tiles = dp.gather(pool, slot)
+        # the rows past n are padding (zero DF corners, NaN normals): V1
+        # finds their NaN normals on the card and skips their
+        # interpolations
         pv, vshade = vertex_cuda.tessellate_shaded(
             corners_rel, normals, pool_tiles, vx, vy, skirt, view_proj,
             grid=grid)

@@ -5,19 +5,29 @@ raster_frame_pallas, without its TPU-only machinery).
 
 Each kernel wrapper takes a CUDA tensor and launches its kernel
 (csrc/setup.cu, csrc/raster.cu) or raises; given a CPU tensor it runs the
-plain PyTorch version beside it, which has the same signature:
+plain PyTorch version beside it, which has the same signature but for
+the clip pass's `blocks`:
 
-* clip_records(clip, normal, s_idx, width, height, far_w) -> (2K, 32)
-  f32 records of the clipped straddlers at candidate indices s_idx (K,)
-  int32 (N marks an empty slot): each slot's A triangle, then each one's
-  B (C2; plain: nearclip.clipped_tris and records_from_tris), dead records
-  with row 28 = 0 and their bbox's first row at +inf;
 * setup(clip, normal, valid, width, height, cell_mask, far_w, count) ->
-  (tm (32, N) f32, live (N,) bool, span (N,) int32, straddle (N,) bool):
-  coverage.setup_t's outputs and nearclip.straddle_mask_t's mask in one
-  pass (C1); with `count` (a (1,) int32 tensor: the leaf count, read on
-  the device) the patch rows at or past it come out dead (live, span and
-  straddle 0); the kernel writes tm's columns for live candidates only;
+  (tm (32, N) f32, live (N,) bool, span (N,) int32, straddle (N,) bool,
+  blocks): coverage.setup_t's outputs and nearclip.straddle_mask_t's
+  mask in one pass (C1); with `count` (a (1,) int32 tensor: the leaf
+  count, read on the device) the patch rows at or past it come out dead
+  (live, span and straddle 0); the kernel writes tm's columns for live
+  candidates only, and `blocks`, each SETUP_BLOCK candidates' straddler
+  count ((ceil(N / SETUP_BLOCK),) int32) for its clip pass; the plain
+  version returns None there (straddle_blocks is its counterpart);
+* clip_pass(clip, normal, straddle, blocks, width, height, far_w,
+  clip_cap) -> (s_idx (clip_cap,) int32, n_straddle () int32, records,
+  count (1,) int32): the near-plane clip pass (C2) — the first clip_cap
+  straddlers' candidate indices (N in the empty slots; planet_tpu's
+  _compact_indices), all the straddlers' count, and their live clipped
+  triangles' row records in (slot, A, B) order, the first count[0] rows
+  of `records` (the kernel's buffer holds 2 clip_cap rows, the plain
+  version's exactly count[0]). The kernel reads C1's `blocks`; the plain
+  version, clip_pass_plain (compact_indices, nearclip.clipped_tris and
+  records_from_tris: clip_records_plain), takes no `blocks` and
+  compacts the mask itself;
 * route_records(tm (32, N) f32, live (N,) bool, span (N,) int32) ->
   (span-class records, huge-class records, counts (2,) int32): each
   class's live records as rows in candidate order, the first counts[c]
@@ -48,17 +58,18 @@ goes to the span kernel, with no bound on width; every other live record
 goes to the huge kernel; near-plane straddlers are clipped
 (raster/nearclip.py) and their live parts go to the huge kernel too.
 Records are compacted to exactly the live ones, so there are no class
-caps. The straddlers are compacted on the device into clip_cap slots in
-candidate order (planet_tpu's _compact_indices: index N marks an empty
-slot), clipped and set up at that fixed size, and all 2 clip_cap records
-go to K3 (C2 builds them), which skips the dead ones; more straddlers
-than clip_cap set `overflowed`, as in planet_tpu. planet_tpu's
-clip_run_cap (a second compaction of the clipped triangles, a TPU cost
-cap like its class caps) has no counterpart. So raster_frame's shapes
-follow from its inputs' and it reads nothing back to the host: C1, K6,
-K2, C2 and K3 and the few torch ops between them are queued with no host
-read, and a CUDA graph can capture the whole raster
-(engine/device_step.DeviceRenderer).
+caps. The clip pass (C2) compacts the straddlers on the device into
+clip_cap slots in candidate order from C1's per-block counts (planet_tpu's
+_compact_indices: index N marks an empty slot), clips the used slots
+alone and writes their live records with the records' count, which K3
+reads: a frame with no straddler clips nothing and K3 leaves at once, as
+planet_tpu's lax.cond skips its pass. More straddlers than clip_cap set
+`overflowed`, as in planet_tpu. planet_tpu's clip_run_cap (a second
+compaction of the clipped triangles, a TPU cost cap like its class caps)
+has no counterpart. So raster_frame's shapes follow from its inputs' and
+it reads nothing back to the host: C1, K6, K2, C2 and K3 and the few
+torch ops between them are queued with no host read, and a CUDA graph
+can capture the whole raster (engine/device_step.DeviceRenderer).
 """
 
 from __future__ import annotations
@@ -89,12 +100,24 @@ ROUTE_TILE = 256
 EDGE_LIMIT = 2.0**100
 # near-plane straddler slots (planet_tpu coverage.raster_frame's clip_cap)
 CLIP_CAP = 512
+# candidates a C1 block takes, and so each straddler count's span
+# (csrc/setup.cu kSetupThreads)
+SETUP_BLOCK = 256
 
 
 def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type
+
+
+def _far(far_w):
+    """The C entry points' (far_w, 1 / far_w) as f32, (0, 0) for none."""
+    if far_w is None:
+        return 0.0, 0.0
+    if not far_w > 0:
+        raise ValueError(f"far_w {far_w}: expected a positive far plane")
+    return float(np.float32(far_w)), float(np.float32(1.0 / far_w))
 
 
 # ------------------------------------------------------------------- C1
@@ -106,6 +129,16 @@ def _count_rows(x, q: int, g: int, count):
     return rows[None, :, None].expand(2, q, g * g).reshape(-1)
 
 
+def straddle_blocks(straddle):
+    """(ceil(N / SETUP_BLOCK),) int32: the straddlers among each
+    SETUP_BLOCK candidates of the (N,) mask, as C1 counts them: the plain
+    version of C1's `blocks`, which only the kernel's clip pass reads."""
+    n = straddle.shape[0]
+    pad = -n % SETUP_BLOCK
+    full = torch.cat([straddle, straddle.new_zeros(pad)]) if pad else straddle
+    return full.view(-1, SETUP_BLOCK).sum(1, dtype=torch.int32)
+
+
 def setup_plain(clip, normal, valid, width: int, height: int,
                 cell_mask=None, far_w=None, count=None):
     tm, live, span = cov.setup_t(clip, normal, valid, width, height,
@@ -115,7 +148,7 @@ def setup_plain(clip, normal, valid, width: int, height: int,
         ok = _count_rows(live, clip.shape[0], clip.shape[1], count)
         live, straddle = live & ok, straddle & ok
         span = torch.where(ok, span, torch.zeros_like(span))
-    return tm, live, span, straddle
+    return tm, live, span, straddle, None
 
 
 def setup_cuda(clip, normal, valid, width: int, height: int,
@@ -132,24 +165,23 @@ def setup_cuda(clip, normal, valid, width: int, height: int,
         _cuda.check_cuda(count, "count", torch.int32, (1,))
         if count.device != clip.device:
             raise ValueError("count: expected the vertices' device")
-    if far_w is not None and not far_w > 0:
-        raise ValueError(f"far_w {far_w}: expected a positive far plane")
+    far = _far(far_w)
     n = 2 * q * g * g
     dev = clip.device
     tm = torch.empty((32, n), dtype=torch.float32, device=dev)
     live = torch.empty(n, dtype=torch.bool, device=dev)
     span = torch.empty(n, dtype=torch.int32, device=dev)
     straddle = torch.empty(n, dtype=torch.bool, device=dev)
+    blocks = torch.empty(-(-n // SETUP_BLOCK), dtype=torch.int32, device=dev)
     if n:
         table = cov.cell_table(g, cell_mask, dev)
-        far = (0.0, 0.0) if far_w is None else (
-            float(np.float32(far_w)), float(np.float32(1.0 / far_w)))
         _cuda.launch("setup", "planet_setup", clip.data_ptr(),
                      normal.data_ptr(), valid.data_ptr(), table.data_ptr(),
                      None if count is None else count.data_ptr(), q, g,
                      int(width), int(height), *far, tm.data_ptr(),
-                     live.data_ptr(), span.data_ptr(), straddle.data_ptr())
-    return tm, live, span, straddle
+                     live.data_ptr(), span.data_ptr(), straddle.data_ptr(),
+                     blocks.data_ptr())
+    return tm, live, span, straddle, blocks
 
 
 def setup(clip, normal, valid, width: int, height: int, cell_mask=None,
@@ -403,50 +435,75 @@ def raster_routed(tm, live, span, fb, wireframe: bool = False):
 
 def clip_records_plain(clip, normal, s_idx, width: int, height: int,
                        far_w=None):
+    """The live clipped triangles of the slots' candidates s_idx (K,) (N
+    for an empty slot) as (M, 32) row records in (slot, A, B) order, and M
+    as a (1,) int32 tensor."""
     tclip = nearclip.clipped_tris(clip, normal, s_idx.long(), width, height,
                                   far_w=far_w)
-    recs = nearclip.records_from_tris(tclip)
-    recs[:, 25].masked_fill_(~tclip.live, float("inf"))
-    return recs
+    k = s_idx.shape[0]
+    order = torch.arange(2 * k, device=clip.device).view(2, k).T.reshape(-1)
+    live = tclip.live[order]
+    recs = nearclip.records_from_tris(tclip)[order][live]
+    return recs, live.sum(dtype=torch.int32).reshape(1)
 
 
-def clip_records_cuda(clip, normal, s_idx, width: int, height: int,
-                      far_w=None):
+def clip_pass_plain(clip, normal, straddle, width: int, height: int,
+                    far_w=None, clip_cap: int = CLIP_CAP):
+    """C2's plain version: compact_indices on the mask (no block counts),
+    then clip_records_plain."""
+    s_idx, n_straddle = compact_indices(straddle, clip_cap)
+    recs, count = clip_records_plain(clip, normal, s_idx, width, height,
+                                     far_w)
+    return s_idx, n_straddle, recs, count
+
+
+def clip_pass_cuda(clip, normal, straddle, blocks, width: int, height: int,
+                   far_w=None, clip_cap: int = CLIP_CAP):
     q, g = clip.shape[0], clip.shape[1]
+    n = 2 * q * g * g
     clip, normal = clip.contiguous(), normal.contiguous()
     _cuda.check_cuda(clip, "clip", torch.float32, (q, g, g, 4))
     _cuda.check_cuda(normal, "normal", torch.float32, (q, g, g, 3))
-    _cuda.check_cuda(s_idx, "s_idx", torch.int32)
-    if s_idx.dim() != 1 or s_idx.device != clip.device or not q:
-        raise ValueError("s_idx: one (K,) int32 tensor on the vertices' "
-                         "device, and at least one patch")
-    if clip.data_ptr() % 16:
-        raise ValueError("clip: the clip kernel reads 16-byte aligned "
-                         "vertices")
-    if far_w is not None and not far_w > 0:
-        raise ValueError(f"far_w {far_w}: expected a positive far plane")
-    k = s_idx.shape[0]
-    recs = torch.empty((2 * k, 32), dtype=torch.float32, device=clip.device)
-    if k:
-        far = (0.0, 0.0) if far_w is None else (
-            float(np.float32(far_w)), float(np.float32(1.0 / far_w)))
-        _cuda.launch("clip", "planet_clip_records", clip.data_ptr(),
-                     normal.data_ptr(), s_idx.data_ptr(), k, q, g,
-                     int(width), int(height), *far, recs.data_ptr())
-    return recs
+    _cuda.check_cuda(straddle, "straddle", torch.bool, (n,))
+    _cuda.check_cuda(blocks, "blocks", torch.int32, (-(-n // SETUP_BLOCK),))
+    if not q or straddle.device != clip.device or \
+            blocks.device != clip.device:
+        raise ValueError("clip pass: at least one patch, and the straddler "
+                         "mask and counts on the vertices' device")
+    if clip.data_ptr() % 16 or straddle.data_ptr() % 16:
+        raise ValueError("clip pass: the kernel reads 16-byte aligned "
+                         "vertices and straddler mask")
+    if not 0 <= clip_cap or n >= 2**31:
+        raise ValueError(f"clip_cap {clip_cap}, {n} candidates: expected a "
+                         f"cap >= 0 and fewer than 2^31 candidates")
+    far = _far(far_w)
+    dev = clip.device
+    s_idx = torch.empty(clip_cap, dtype=torch.int32, device=dev)
+    n_straddle = torch.empty(1, dtype=torch.int32, device=dev)
+    recs = torch.empty((2 * clip_cap, 32), dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    _cuda.launch("clip", "planet_clip_records", clip.data_ptr(),
+                 normal.data_ptr(), straddle.data_ptr(), blocks.data_ptr(),
+                 clip_cap, q, g, int(width), int(height), *far,
+                 s_idx.data_ptr(), n_straddle.data_ptr(), recs.data_ptr(),
+                 count.data_ptr())
+    return s_idx, n_straddle[0], recs, count
 
 
-def clip_records(clip, normal, s_idx, width: int, height: int, far_w=None):
-    """The straddler slots' records at a fixed size: each slot's candidate
-    (s_idx, N for an empty slot) clipped into two triangles -> (2K, 32) f32,
-    the slots' A triangles, then their B triangles. A dead record (an empty
-    slot, or a clipped part that is culled) has row 28 = 0, which K3 and
-    its plain version skip, and its bbox's first row at +inf, so K3's
-    per-row bbox test never stages it (an empty slot's vertices are the
-    last candidate's: on the fused frame a padding row's NaN)."""
+def clip_pass(clip, normal, straddle, blocks, width: int, height: int,
+              far_w=None, clip_cap: int = CLIP_CAP):
+    """The near-plane clip pass at a fixed size: the first clip_cap
+    straddlers of the mask in candidate order (N in the empty slots), the
+    number of all the straddlers, and the live parts of the used slots'
+    clipped triangles as row records in (slot, A, B) order, the first
+    count[0] rows of the records (an empty slot clips nothing). `blocks`
+    is C1's output: the kernel's block counts on the card, None on the
+    CPU."""
     if _device_kind(clip) == "cuda":
-        return clip_records_cuda(clip, normal, s_idx, width, height, far_w)
-    return clip_records_plain(clip, normal, s_idx, width, height, far_w)
+        return clip_pass_cuda(clip, normal, straddle, blocks, width, height,
+                              far_w, clip_cap)
+    return clip_pass_plain(clip, normal, straddle, width, height, far_w,
+                           clip_cap)
 
 
 def raster_frame(clip, normal, valid, width: int, height: int, *,
@@ -462,16 +519,16 @@ def raster_frame(clip, normal, valid, width: int, height: int, *,
     (H, W) f32 NDC z with +inf empties, RasterCounters), or (packed (H, W)
     int32, counters) with decode=False. Reads nothing back to the host;
     the counters stay on the device."""
-    tm, live, span, straddle = setup(clip, normal, valid, width, height,
-                                     cell_mask, far_w, count)
+    tm, live, span, straddle, blocks = setup(clip, normal, valid, width,
+                                             height, cell_mask, far_w, count)
     fb = torch.full((height, width), cov._EMPTY, dtype=torch.int32,
                     device=clip.device)
     counts = raster_routed(tm, live, span, fb, wireframe)
 
     if straddle.numel():
-        s_idx, n_straddle = compact_indices(straddle, clip_cap)
-        raster_huge(clip_records(clip, normal, s_idx, width, height, far_w),
-                    fb, wireframe)
+        _, n_straddle, recs, n_recs = clip_pass(
+            clip, normal, straddle, blocks, width, height, far_w, clip_cap)
+        raster_huge(recs, fb, wireframe, count=n_recs)
     else:
         n_straddle = torch.zeros((), dtype=torch.int32, device=fb.device)
 

@@ -16,8 +16,11 @@ the plain version, `tessellate_shaded_plain`, for CPU tensors. The plain
 version is vertex.tessellate_blend, whose op order the kernel copies, and
 `lambert`, raster/shade.lambert with its sums written out in the same
 pinned order (shade.lambert itself is unchanged for its other callers).
-The kernel evaluates every row: the fused frame's padding rows come out
-NaN, as the plain version's do. It reads the two-tap table and the grid's
+A row whose corner normals hold a NaN (the fused frame's padding rows
+past its leaf count, engine/device_step.py) comes out NaN in every
+output but the height: the kernel computes its height alone and writes
+the card's NaN word to the rest, and the plain version evaluates it,
+NaN by itself. The kernel reads the two-tap table and the grid's
 u values from lru-cached device tensors and the variants, skirt and
 view-projection from the device, so it copies nothing from the host and
 can be captured in a CUDA graph once it has run eagerly.
@@ -49,6 +52,7 @@ def lambert(normal: torch.Tensor) -> torch.Tensor:
 def tessellate_shaded_plain(corners_rel, corner_normals, tiles, variant_x,
                             variant_y, skirt_size, view_proj,
                             grid: int = mesh.GRID):
+    """V1's plain version."""
     pv = vertex.tessellate_blend(corners_rel, corner_normals, tiles,
                                  variant_x, variant_y, skirt_size, view_proj,
                                  grid=grid)

@@ -107,7 +107,9 @@ OPS_CLIP_SLOT = 52 + 2 * OPS_TRIANGLE
 # normalizes (36), the normal's combination and normalize (24), the world
 # position (6), the clip transform (24), the shade (18). A column of a row:
 # its two endpoint interpolations, row_dir and xyscale (10). A row: its
-# three x-blended (dim, G) arrays (3 a value).
+# three x-blended (dim, G) arrays (3 a value). A padding row past the leaf
+# count: its tap-1 x blend (3 a value) and a vertex's height (the y blend
+# 3, the skirt drop 2).
 OPS_INTERP_LINEAR = 34
 LIBM_INSTRUCTIONS = {"acosf": 26, "sinf": 26, "cosf": 27, "tanf": 23}
 OPS_INTERP_SLERP = 67 + (LIBM_INSTRUCTIONS["acosf"]
@@ -116,6 +118,7 @@ OPS_INTERP_SLERP = 67 + (LIBM_INSTRUCTIONS["acosf"]
                          + 2 * LIBM_INSTRUCTIONS["tanf"])
 OPS_TESS_VERTEX = 15 + 2 + 12 + 36 + 24 + 6 + 24 + 18
 OPS_TESS_COLUMN = 10
+OPS_TESS_PAD_VERTEX = 5
 # host seconds a queued call may take: the spin ahead of the timed calls
 # lasts this long for each of them (R1's wrapper, ~30 host calls, takes
 # ~0.5 ms)
@@ -204,41 +207,59 @@ def setup_work(rows: int, grid: int, candidates: int, live: int):
     return float(live * OPS_SETUP_LIVE), float(nbytes)
 
 
-def clip_work(slots: int, live_slots: int):
-    """(f32 operations, bytes) of C2 on `slots` straddler slots of which
-    `live_slots` hold a straddler: the indices read once, each live slot's
-    three vertices (clip 16 B, normal 12 B) once, every one of the 2 slots
-    records written once; OPS_CLIP_SLOT a live slot."""
-    nbytes = slots * 4 + live_slots * 3 * (16 + 12) + 2 * slots * 128
-    return float(live_slots * OPS_CLIP_SLOT), float(nbytes)
+def clip_work(blocks: int, slots: int, used: int, live_records: int,
+              straddle_blocks: int = 0):
+    """(f32 operations, bytes) of C2 on `blocks` C1 block counts and
+    `slots` straddler slots of which `used` hold a straddler, clipped into
+    `live_records` live records: the counts read once, the straddle bytes
+    of the `straddle_blocks` C1 blocks that hold a straddler, each used
+    slot's three vertices (clip 16 B, normal 12 B), the slots' indices
+    and each live record (128 B) written once; OPS_CLIP_SLOT a used
+    slot."""
+    nbytes = (blocks * 4 + straddle_blocks * 256 + used * 3 * (16 + 12)
+              + slots * 4 + live_records * 128)
+    return float(used * OPS_CLIP_SLOT), float(nbytes)
 
 
-def tess_work(rows: int, grid: int, slerps: int = 0, dim: int = TILE_DIM):
+def tess_work(rows: int, grid: int, slerps: int = 0, dim: int = TILE_DIM,
+              live: int | None = None):
     """(f32 operations, bytes) of V1 on `rows` patch rows of grid x grid
-    vertices and dim x dim tiles, of whose rows (grid^2 + 2 grid)
-    interpolations `slerps` take the slerp (tess_slerps; the others the
-    linear fallback): each row's tile, corners, normals, variants and
-    skirt read once, the view-projection and the tap table once, and the
-    six outputs (15 floats a vertex) written once."""
-    interps = rows * (grid * grid + 2 * grid)
+    vertices and dim x dim tiles, `live` of them (default all) evaluated
+    and the rest padding rows (tess_live; their height alone computed);
+    `slerps` of the live rows' interpolations (grid^2 +
+    2 grid a row) take the slerp (tess_slerps; the others the linear
+    fallback): each row's tile, corners, normals, variants and skirt read
+    once, the view-projection and the tap table once, and the six outputs
+    (15 floats a vertex) written once, a padding row's too."""
+    live = rows if live is None else live
+    interps = live * (grid * grid + 2 * grid)
     ops = ((interps - slerps) * OPS_INTERP_LINEAR
            + slerps * OPS_INTERP_SLERP
-           + rows * (grid * grid * OPS_TESS_VERTEX + grid * OPS_TESS_COLUMN
-                     + 3 * dim * grid * 3))
+           + live * (grid * grid * OPS_TESS_VERTEX + grid * OPS_TESS_COLUMN
+                     + 3 * dim * grid * 3)
+           + (rows - live) * (grid * grid * OPS_TESS_PAD_VERTEX
+                              + dim * grid * 3))
     nbytes = (rows * (grid * grid * 15 * 4 + dim * dim * 4 + 2 * 12 * 4
                       + 2 * 4 + 4)
               + 16 * 4 + 3 * 3 * grid * 2 * 8 + grid * 4)
     return float(ops), float(nbytes)
 
 
+def tess_live(corner_normals: torch.Tensor) -> torch.Tensor:
+    """(Q,) bool: the rows V1 evaluates, those whose (Q, 4, 3) corner
+    normals hold no NaN (the others are padding rows)."""
+    return ~torch.isnan(corner_normals).flatten(1).any(1)
+
+
 def tess_slerps(corner_normals: torch.Tensor, grid: int) -> int:
-    """The interpolations of V1's rows that take the slerp branch (1 -
-    dot(n0, n1) >= 0.001, or NaN, as torch.where takes it): each row's two
-    column endpoints between corners 0-1 and 2-3 at the grid's u values,
-    and each column's interpolation between them, grid times."""
+    """The interpolations of the rows V1 evaluates (tess_live) that take
+    the slerp branch (1 - dot(n0, n1) >= 0.001, as torch.where takes it):
+    each row's two column endpoints between corners 0-1 and 2-3 at the
+    grid's u values, and each column's interpolation between them, grid
+    times."""
     from planet_tpu_torch.tess import vertex
 
-    n = corner_normals.to(torch.float32)
+    n = corner_normals[tess_live(corner_normals)].to(torch.float32)
     u = vertex._grid_tables(grid, str(n.device))[0][0][None, :, None]
     z = torch.zeros_like(n[:, :1])
 

@@ -10,7 +10,7 @@ within the run. Times (tools/common.time_ms: the median of REPS calls
 queued behind a spin kernel) the calls of `calls` — the set that
 chip_smoke.py phase 8 times for the kernels line: K1 at phase 3's shape
 and at the fused frame's occupancy, K4, R1, C1 and V1 (on trees that have
-them; C1 with C2 and K3's near-clip pass both ways), K5,
+them; C1 with C2, K3's clip pass and the whole clip pass), K5,
 K2 and K3 on the record sets
 of `record_sets` (the 1080p static scene, the three goldens, the orbit
 frames with huge records) and on a screen-filling triangle, S1 at phase
@@ -261,8 +261,8 @@ def setup_inputs(device) -> dict:
     static camera's second frame, the orbit's first frame from an empty
     pool), and PlanetEngine's leaves with no count (the 1080p static
     scene; the near-clip golden at 800x600, whose straddlers reach the
-    mask). The tensors are copies: the renderer's next frame writes its
-    own."""
+    mask, and the far-clip golden). The tensors are copies: the renderer's
+    next frame writes its own."""
     import numpy as np
     import torch
 
@@ -290,11 +290,13 @@ def setup_inputs(device) -> dict:
     gm = torch.as_tensor(mesh.grid_uv_skirt(cfg.patch_verts)[3],
                          device=device)
     gold = pathlib.Path(__file__).resolve().parents[2] / "tests" / "goldens"
-    near = cam_mod.Camera(position=np.load(gold / "nearclip_cam.npy"),
-                          angles=np.load(gold / "nearclip_angles.npy"))
     cfg800 = EngineConfig()
-    for name, c, cam in (("1080p static", cfg, scene_camera(cfg)),
-                         ("golden nearclip", cfg800, near)):
+    scenes = [("1080p static", cfg, scene_camera(cfg))]
+    for name in ("nearclip", "farclip"):
+        scenes.append((f"golden {name}", cfg800, cam_mod.Camera(
+            position=np.load(gold / f"{name}_cam.npy"),
+            angles=np.load(gold / f"{name}_angles.npy"))))
+    for name, c, cam in scenes:
         fr = PlanetEngine(c, device=device).frame(cam)
         out[f"{name}, PlanetEngine leaves"] = (
             fr.vertices.clip, fr.vertices.normal,
@@ -305,13 +307,13 @@ def setup_inputs(device) -> dict:
 
 def tess_inputs(device) -> dict:
     """{name: V1's arguments (corners_rel, corner_normals, tiles,
-    variant_x, variant_y, skirt_size, view_proj)} at the main path's
-    shapes: DeviceRenderer's render_cap rows at 1920x1080 (the static
-    camera's second frame, from the "uniforms" rung's outputs and the pool's
-    tiles at its slots; the padding rows' corner normals NaN), and
-    PlanetEngine's leaves on the three 800x600 goldens (frame, nearclip,
-    farclip), recorded at its vertex_cuda.tessellate_shaded call. Copies,
-    on `device`."""
+    variant_x, variant_y, skirt_size, view_proj, grid)} at the main
+    path's shapes: DeviceRenderer's render_cap rows at 1920x1080 (the
+    static camera's second frame, from the "uniforms" rung's outputs and
+    the pool's tiles at its slots; the padding rows' corner normals NaN),
+    and PlanetEngine's leaves on the three 800x600 goldens (frame,
+    nearclip, farclip), recorded at its vertex_cuda.tessellate_shaded
+    call. Copies, on `device`."""
     import numpy as np
     import torch
 
@@ -320,7 +322,7 @@ def tess_inputs(device) -> dict:
     from planet_tpu_torch.engine.config import EngineConfig
     from planet_tpu_torch.engine.planet import PlanetEngine
     from planet_tpu_torch.geom import camera as cam_mod
-    from planet_tpu_torch.tess import vertex_cuda
+    from planet_tpu_torch.tess import mesh, vertex_cuda
     from planet_tpu_torch.tools import stage_times
 
     cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
@@ -330,18 +332,20 @@ def tess_inputs(device) -> dict:
     for _ in range(2):
         args = stage_times.camera_args(cfg, scene_camera(cfg), SCENE_W,
                                        SCENE_H)
-        o = rend.geometry(pool, *args).outputs
-    out = {"1080p static, DeviceRenderer rows": tuple(
-        t.clone() for t in (o["corners_rel"], o["normals"],
-                            dp.gather(pool, o["slot"]), o["vx"], o["vy"],
-                            o["skirt"])) + (torch.as_tensor(
-                                args[2], device=device),)}
+        step = rend.geometry(pool, *args)
+    o = step.outputs
+    rows = tuple(t.clone() for t in (
+        o["corners_rel"], o["normals"], dp.gather(pool, o["slot"]), o["vx"],
+        o["vy"], o["skirt"])) + (torch.as_tensor(args[2], device=device),
+                                 cfg.patch_verts + 2)
+    out = {"1080p static, DeviceRenderer rows": rows}
     gold = pathlib.Path(__file__).resolve().parents[2] / "tests" / "goldens"
     shaded = vertex_cuda.tessellate_shaded
     seen = []
 
     def record(*a, **kw):
-        seen.append(tuple(t.clone() for t in a))
+        seen.append(tuple(t.clone() for t in a)
+                    + (kw.get("grid", mesh.GRID),))
         return shaded(*a, **kw)
 
     vertex_cuda.tessellate_shaded = record
@@ -356,52 +360,104 @@ def tess_inputs(device) -> dict:
     return out
 
 
+def tess_probes(args) -> dict:
+    """{label: V1's arguments}: the parts of V1's time on the fused
+    frame's rows (`args`, tess_inputs' 512 rows, the first n live and the
+    rest padding): every row a padding row (every corner normal NaN), the
+    n live rows alone, and those rows with each row's four corner normals
+    set to its first (every interpolation the linear fallback)."""
+    import torch
+
+    # tools/common.tess_live, which a tree before it lacks
+    n = int((~torch.isnan(args[1]).flatten(1).any(1)).sum())
+    live = tuple(t[:n].clone() if torch.is_tensor(t) and t.dim()
+                 and t.shape[0] == args[2].shape[0] else t for t in args)
+    flat = list(live)
+    flat[1] = live[1][:, :1].expand(-1, 4, -1).contiguous()
+    pad = list(args)
+    pad[1] = torch.full_like(args[1], float("nan"))
+    return {"every row padding": tuple(pad),
+            f"the {n} live rows alone": live,
+            f"the {n} live rows alone, every interpolation linear":
+                tuple(flat)}
+
+
 def clip_inputs(setups: dict) -> dict:
-    """{name: C2's arguments (clip, normal, s_idx, width, height, far_w)}
-    on each C1 input set: the first CLIP_CAP straddlers of its mask, as
-    raster_frame compacts them."""
+    """{name: C2's arguments} on each C1 input set, as the tree's
+    raster_frame hands them over: on a tree with the clip pass
+    (coverage_cuda.clip_pass) (clip, normal, straddle, blocks, width,
+    height, far_w, CLIP_CAP), C1's straddler mask and block counts; on a
+    tree before it (clip, normal, s_idx, width, height, far_w), the first
+    CLIP_CAP straddlers compacted by compact_indices."""
     from planet_tpu_torch.raster import coverage_cuda as cc
 
     out = {}
     for name, (clip, normal, valid, w, h, cm, far, count) in setups.items():
-        straddle = cc.setup(clip, normal, valid, w, h, cm, far, count)[3]
-        s_idx, _ = cc.compact_indices(straddle, cc.CLIP_CAP)
-        out[name] = (clip, normal, s_idx, w, h, far)
+        c1 = cc.setup(clip, normal, valid, w, h, cm, far, count)
+        if hasattr(cc, "clip_pass"):
+            out[name] = (clip, normal, c1[3], c1[4], w, h, far, cc.CLIP_CAP)
+        else:
+            s_idx, _ = cc.compact_indices(c1[3], cc.CLIP_CAP)
+            out[name] = (clip, normal, s_idx, w, h, far)
     return out
 
 
-def clip_pass_calls(clips: dict) -> list:
-    """[(label, call, setup)]: K3's share of raster_frame's near-clip pass
-    two ways on the records C2 makes of each set of `clips` (clip_inputs)
-    — all 2 clip_cap records (the dead ones skipped by K3, the shipped
-    form), and the live ones compacted on the device first (a cumsum, a
-    searchsorted, a gather) and drawn with count= — each into a fresh
-    framebuffer."""
+def clip_pass_calls(setups: dict, clips: dict) -> list:
+    """[(key or None, label, call, setup)]: on each set of `setups` and its
+    C2 arguments in `clips` (clip_inputs), as the tree's raster_frame runs
+    them: "C2 clip" (on a tree with the clip pass its kernel, the
+    compaction included; before it the record kernel alone on the
+    compacted slots), "K3 clip pass" (K3 on C2's records: with their
+    count; before, all 2 CLIP_CAP records) and "clip pass" (compaction,
+    C2 and K3: the clip pass's whole cost; before, a cumsum and a
+    searchsorted over the mask, C2 and K3), each K3 call into a fresh
+    framebuffer. The key of the 1080p static DeviceRenderer set's C2 call
+    is "clip", chip_smoke.py's kernels line entry."""
     import torch
 
     from planet_tpu_torch.raster import coverage as cov
     from planet_tpu_torch.raster import coverage_cuda as cc
 
+    new = hasattr(cc, "clip_pass_cuda")
     out = []
     for name, args in clips.items():
-        recs = cc.clip_records_cuda(*args)
-        w, h = args[3], args[4]
+        w, h = args[4] if new else args[3], args[5] if new else args[4]
+        if new:
+            def c2(args=args):
+                return cc.clip_pass_cuda(*args)
 
-        def compacted(fb, recs=recs):
-            live = recs[:, 28] != 0.0
-            idx, n = cc.compact_indices(live, live.shape[0])
-            rows = torch.clamp_max(idx, live.shape[0] - 1).long()
-            return cc.raster_huge_cuda(recs.index_select(0, rows), fb,
-                                       count=n.reshape(1))
+            _, _, recs, count = c2()
+
+            def k3(fb, recs=recs, count=count):
+                return cc.raster_huge_cuda(recs, fb, count=count)
+
+            def whole(fb, c2=c2):
+                recs, count = c2()[2:]
+                return cc.raster_huge_cuda(recs, fb, count=count)
+        else:
+            straddle = cc.setup(*setups[name])[3]
+
+            def c2(args=args):
+                return cc.clip_records_cuda(*args)
+
+            recs = c2()
+
+            def k3(fb, recs=recs):
+                return cc.raster_huge_cuda(recs, fb)
+
+            def whole(fb, args=args, straddle=straddle):
+                s_idx, _ = cc.compact_indices(straddle, cc.CLIP_CAP)
+                recs = cc.clip_records_cuda(*args[:2], s_idx, *args[3:])
+                return cc.raster_huge_cuda(recs, fb)
 
         def fb(w=w, h=h):
             return (torch.full((h, w), cov._EMPTY, dtype=torch.int32,
                                device=recs.device),)
 
-        out.append((f"K3 clip pass, {name}, all {recs.shape[0]} records",
-                    lambda fb, recs=recs: cc.raster_huge_cuda(recs, fb), fb))
-        out.append((f"K3 clip pass, {name}, live records compacted first",
-                    compacted, fb))
+        main = name == "1080p static, DeviceRenderer rows"
+        out += [("clip" if main else None, f"C2 clip, {name}", c2, tuple),
+                (None, f"K3 clip pass, {name}", k3, fb),
+                (None, f"clip pass, {name}", whole, fb)]
     return out
 
 
@@ -486,10 +542,10 @@ def calls(device, sets=None, fused=None, setups=None, tess=None) -> list:
     records (the huge class and the clipped straddlers), each into a fresh
     framebuffer a call; K3 on screen_triangle_records at 1080p; S1 at
     splat_inputs' shapes; C1 (where the tree has it) on each set of
-    setup_inputs (else `setups`), C2 on their straddlers (clip_inputs),
-    and K3's near-clip pass both ways on those sets (clip_pass_calls); V1
-    (where the tree has it: tess/vertex_cuda) on each set of tess_inputs
-    (else `tess`); and
+    setup_inputs (else `setups`), C2, K3's clip pass and the whole clip
+    pass on their straddlers (clip_pass_calls); V1 (where the tree has
+    it: tess/vertex_cuda) on each set of tess_inputs (else `tess`) and
+    on tess_probes' parts of its 512 rows; and
     K6 on the 1080p scene: this tree's route_records, or on a tree before it the
     two record gathers its route fed (given the indices: its route
     synchronizes, see host_calls). The key is the kernel's in
@@ -569,22 +625,21 @@ def calls(device, sets=None, fused=None, setups=None, tess=None) -> list:
         for name, args in setups.items():
             out.append(("setup" if name == main else None, f"C1 setup, {name}",
                         lambda a=args: cc.setup_cuda(*a), tuple))
-        clips = clip_inputs(setups)
-        for name, args in clips.items():
-            out.append(("clip" if name == main else None, f"C2 clip, {name}",
-                        lambda a=args: cc.clip_records_cuda(*a), tuple))
-        for label, fn, setup in clip_pass_calls(clips):
-            out.append((None, label, fn, setup))
+        out += clip_pass_calls(setups, clip_inputs(setups))
     try:
         from planet_tpu_torch.tess import vertex_cuda
     except ImportError:
         vertex_cuda = None
     if vertex_cuda is not None:
-        for name, args in (tess_inputs(device) if tess is None
-                           else tess).items():
+        tess = tess_inputs(device) if tess is None else tess
+        for name, args in tess.items():
             out.append(("tess" if name == main else None, f"V1 tess, {name}",
                         lambda a=args: vertex_cuda.tessellate_shaded_cuda(*a),
                         tuple))
+        for label, args in tess_probes(tess[main]).items():
+            out.append((None, f"V1 probe, {label}",
+                        lambda a=args: vertex_cuda.tessellate_shaded_cuda(
+                            *a), tuple))
     fs = sets["1080p static"]
     if hasattr(cc, "route_records"):
         out.append(("gather", "K6 route + gather, 1080p",

@@ -31,8 +31,13 @@ attribution tools
 (planet_tpu_torch/tools: t_noise, t_tile, t_lut, t_span) bitwise equal to
 its plain version, full noise equal to K4, full tile equal to K1; V1,
 the vertex program and its shade, equal to its plain version in all six
-outputs on the vertex batches of torch_scenes and at the main path's
-shapes, launched once a geometry replay."""
+outputs on the vertex batches of torch_scenes (rows with a NaN among
+their corner normals, which it takes as padding rows, among them), at
+grids of one and two 8-row groups a warp and at the main path's shapes,
+launched once a geometry replay; C1's straddler block counts and C2, the clip pass, equal to
+their plain versions (indices, n_straddle, records and their count), and
+the raster's framebuffer and counters equal to the plain path's at no
+straddler, a few and past clip_cap."""
 
 import numpy as np
 import pytest
@@ -58,9 +63,10 @@ from planet_tpu_torch.tess import vertex_cuda
 from planet_tpu_torch.tools import (kernel_times, lut, noise_stages,
                                     span_parts, stage_times)
 import torch_ranks
-from torch_scenes import (EDGE, SCREEN, TESS_BATCHES, VIEW,
+from torch_scenes import (EDGE, SCREEN, STRADDLE, TESS_BATCHES, VIEW,
                           adversarial_records, nan_shade_records,
-                          screen_scene, tess_batch, tess_padded, view_scene)
+                          screen_scene, straddle_scene, tess_batch,
+                          tess_padded, view_scene)
 
 pytestmark = pytest.mark.gpu
 GOLD = "tests/goldens/"
@@ -694,14 +700,16 @@ def test_t_span_kernel_bitwise(dev, name, winh):
 # ------------------------------------------------------------------ C1
 
 def _assert_setup_equal(got, want):
-    """C1's (tm, live, span, straddle) equal the plain version's bit for
-    bit: live, span and the straddler mask everywhere, tm on every live
-    column (the kernel writes no other)."""
-    tm_k, live_k, span_k, st_k = got
-    tm_p, live_p, span_p, st_p = want
+    """C1's (tm, live, span, straddle, blocks) equal the plain version's
+    bit for bit: live, span, the straddler mask and its block counts
+    everywhere, tm on every live column (the kernel writes no other)."""
+    tm_k, live_k, span_k, st_k, blocks_k = got
+    tm_p, live_p, span_p, st_p, blocks_p = want
     assert torch.equal(live_k, live_p)
     assert torch.equal(span_k, span_p)
     assert torch.equal(st_k, st_p)
+    assert blocks_p is None
+    assert torch.equal(blocks_k, tcc.straddle_blocks(st_p))
     cols = torch.nonzero(live_p).squeeze(1)
     assert _same_bits(tm_k[:, cols], tm_p[:, cols])
     return int(cols.numel()), int(st_p.sum())
@@ -765,23 +773,24 @@ def test_setup_kernel_bitwise_without_a_count(dev):
         _assert_setup_equal(got, tcc.setup_plain(*args, w, h, far_w=far))
 
 
-def _assert_clip_records_equal(got, want):
-    """C2's records equal the plain version's bit for bit: every live
-    record's 32 words, and every record's row 28 (dead: 0) and row 25
-    (dead: +inf)."""
-    live = want[:, 28] != 0.0
-    assert _same_bits(got[live], want[live])
-    for row in (25, 28):
-        assert _same_bits(got[:, row], want[:, row])
-    return int(live.sum())
+def _assert_clip_pass_equal(got, want):
+    """C2's (s_idx, n_straddle, records, count) equal the plain version's
+    bit for bit: the slots' indices, n_straddle and the count, and the
+    first count records (the live ones, in slot, A, B order)."""
+    for k in (0, 1, 3):
+        assert torch.equal(got[k], want[k]), k
+    m = int(want[3][0])
+    assert want[2].shape[0] == m and got[2].shape[0] >= m
+    assert _same_bits(got[2][:m], want[2])
+    return m
 
 
-@pytest.mark.parametrize("clip_cap", [512, 3])
-def test_clip_kernel_bitwise(dev, clip_cap):
-    """C2 on the straddlers of the view scene (near- and far-clipped),
-    of the near-clip golden's PlanetEngine leaves and of DeviceRenderer's
-    padded rows at 1080p (every slot empty: its vertices are a padding
-    row's NaN), at the main path's 512 slots and at 3."""
+def _clip_cases(dev):
+    """(clip, normal, valid, width, height, cell_mask, far_w, count): the
+    view scene (one straddler, near- and far-clipped), the near-clip
+    golden's PlanetEngine leaves (2 straddlers), DeviceRenderer's
+    render_cap rows at 1080p with its leaf count (no straddler; padding
+    rows NaN) and the straddle scene (888 straddlers in 20 blocks)."""
     cfg800 = EngineConfig()
     near = cam_mod.Camera(position=np.load(GOLD + "nearclip_cam.npy"),
                           angles=np.load(GOLD + "nearclip_angles.npy"))
@@ -792,26 +801,84 @@ def test_clip_kernel_bitwise(dev, clip_cap):
                                      VIEW["height"], VIEW["far"])
     cases = [(*(torch.as_tensor(a, device=dev) for a in (clip, normal,
                                                         valid)),
-              VIEW["width"], VIEW["height"], None, VIEW["far"]),
+              VIEW["width"], VIEW["height"], None, VIEW["far"], None),
              (out.vertices.clip, out.vertices.normal,
               gm[None].expand(out.n_leaves, -1, -1), 800, 600,
               mesh.cell_triangle_mask(cfg800.patch_verts),
-              cfg800.far_plane)]
+              cfg800.far_plane, None)]
     cfg = EngineConfig(window_w=1920, window_h=1080)
     r = device_step.DeviceRenderer(cfg, 1920, 1080, device=dev)
     geom = r.geometry(r.init_pool(), *stage_times.camera_args(
         cfg, kernel_times.scene_camera(cfg), 1920, 1080))
     cases.append((geom.vertices.clip, geom.vertices.normal, geom.valid,
                   1920, 1080, mesh.cell_triangle_mask(cfg.patch_verts),
-                  cfg.far_plane))
-    lives = []
-    for clip, normal, valid, w, h, cm, far in cases:
-        straddle = tcc.setup_plain(clip, normal, valid, w, h, cm, far)[3]
-        s_idx, _ = tcc.compact_indices(straddle, clip_cap)
-        lives.append(_assert_clip_records_equal(
-            tcc.clip_records_cuda(clip, normal, s_idx, w, h, far),
-            tcc.clip_records_plain(clip, normal, s_idx, w, h, far)))
+                  cfg.far_plane, geom.meta[0:1]))
+    cases.append((*(torch.as_tensor(a, device=dev)
+                    for a in straddle_scene(**STRADDLE)),
+                  STRADDLE["width"], STRADDLE["height"], None,
+                  STRADDLE["far"], None))
+    return cases
+
+
+@pytest.mark.parametrize("clip_cap", [512, 3])
+def test_clip_kernel_bitwise(dev, clip_cap):
+    """C2, the clip pass, on C1's straddler mask and block counts of the
+    view scene (near- and far-clipped), of the near-clip golden's
+    PlanetEngine leaves, of DeviceRenderer's padded rows at 1080p (no
+    straddler: no slot used, no record) and of the straddle scene (past
+    the cap), at the main path's 512 slots and at 3."""
+    lives, counts = [], []
+    for clip, normal, valid, w, h, cm, far, count in _clip_cases(dev):
+        c1 = tcc.setup_cuda(clip, normal, valid, w, h, cm, far, count)
+        before = _cuda.launches["clip"]
+        got = tcc.clip_pass_cuda(clip, normal, c1[3], c1[4], w, h, far,
+                                 clip_cap)
+        assert _cuda.launches["clip"] == before + 1
+        lives.append(_assert_clip_pass_equal(got, tcc.clip_pass_plain(
+            clip, normal, c1[3], w, h, far, clip_cap)))
+        counts.append(int(got[1]))
+    # the straddle scene's first three straddlers clip to culled parts
     assert lives[0] > 0 and lives[1] > 0 and lives[2] == 0
+    assert (lives[3] > 0) == (clip_cap == 512)
+    assert counts == [1, 2, 0, 888]
+
+
+def _raster_plain_on_card(clip, normal, valid, w, h, cm, far, count,
+                          clip_cap):
+    """raster_frame's steps through the plain versions, on the card's
+    tensors: setup, route, span and huge rasters, the clip pass."""
+    tm, live, span, straddle, _ = tcc.setup_plain(
+        clip, normal, valid, w, h, cm, far, count)
+    fb = torch.full((h, w), tcov._EMPTY, dtype=torch.int32,
+                    device=clip.device)
+    span_recs, huge_recs, counts = tcc.route_records_plain(tm, live, span)
+    tcc.raster_span_plain(span_recs, fb)
+    tcc.raster_huge_plain(huge_recs, fb)
+    _, n_straddle, recs, n_recs = tcc.clip_pass_plain(
+        clip, normal, straddle, w, h, far, clip_cap)
+    tcc.raster_huge_plain(recs, fb, count=n_recs)
+    return fb, counts, n_straddle
+
+
+@pytest.mark.parametrize("clip_cap", [512, 1])
+def test_clip_pass_frame_and_counters_equal_plain(dev, clip_cap):
+    """raster_frame on the card (C1, K6, K2, K3, the clip pass C2 and K3
+    on its count) against the same steps through the plain versions on
+    the same tensors: the framebuffer, n_straddle, overflowed and the
+    class counts bit for bit, at no straddler (1080p), 1 (the view
+    scene), 2 (the near-clip golden; past clip_cap at 1 slot) and 888
+    (the straddle scene, past clip_cap)."""
+    for case in _clip_cases(dev):
+        clip, normal, valid, w, h, cm, far, count = case
+        fb, rc = tcc.raster_frame(clip, normal, valid, w, h, cell_mask=cm,
+                                  far_w=far, count=count, decode=False,
+                                  clip_cap=clip_cap)
+        want_fb, want_counts, want_n = _raster_plain_on_card(
+            *case, clip_cap)
+        assert torch.equal(fb, want_fb)
+        assert torch.equal(rc.n_per_class, want_counts)
+        assert torch.equal(rc.n_straddle, want_n)
+        assert bool(rc.overflowed) == (int(want_n) > clip_cap)
 
 
 def _frame_bits(frame):
@@ -899,11 +966,43 @@ def test_tess_kernel_bitwise(dev, name):
     _assert_tess_equal([torch.as_tensor(a, device=dev) for a in args])
 
 
+@pytest.mark.parametrize("row,corner,axis", [(0, None, None),
+                                              (1, 0, None), (1, 3, None),
+                                              (2, 2, 1)])
+def test_tess_kernel_nan_normal_rows_bitwise(dev, row, corner, axis):
+    """V1 takes a row whose corner normals hold a NaN as a padding row
+    (its height computed, the NaN word written to the rest) wherever the
+    row lies and whichever of its twelve words is NaN, word for word the
+    plain version's, which evaluates it: tess_padded's 6 rows (3-5
+    padding) with row `row`'s corner `corner`, component `axis` also NaN
+    (None: all of them)."""
+    args = list(tess_padded())
+    cn = args[1].copy()
+    cn[row, slice(None) if corner is None else corner,
+       slice(None) if axis is None else axis] = np.nan
+    args[1] = cn
+    _assert_tess_equal([torch.as_tensor(a, device=dev) for a in args])
+
+
+@pytest.mark.parametrize("grid", [4, 9, 17, 32])
+def test_tess_kernel_layouts_bitwise(dev, grid):
+    """V1's two blocks a patch row at grids whose halves take one 8-row
+    group a warp (4, 9: the second half a row shorter) or two (17, 32;
+    at 17 some warps' second group empty), on tess_padded (rows 3-5
+    padding) and on a skirt batch."""
+    for arrays in (tess_padded(), tess_batch(*TESS_BATCHES["skirt"])):
+        _assert_tess_equal([torch.as_tensor(a, device=dev) for a in arrays]
+                           + [grid])
+
+
 def test_tess_kernel_bitwise_on_the_main_path(dev):
     """V1 against its plain version at the main path's shapes
-    (kernel_times.tess_inputs: DeviceRenderer's 512 rows at 1080p with
-    302 padding rows, PlanetEngine's leaves on the three goldens)."""
-    for args in kernel_times.tess_inputs(dev).values():
+    (kernel_times.tess_inputs: DeviceRenderer's 512 rows at 1080p, 302 of
+    them padding rows, as the fused step passes them; PlanetEngine's
+    leaves on the three goldens)."""
+    sets = kernel_times.tess_inputs(dev)
+    assert len(sets["1080p static, DeviceRenderer rows"]) == 8
+    for args in sets.values():
         _assert_tess_equal(args)
 
 

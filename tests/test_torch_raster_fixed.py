@@ -13,7 +13,10 @@ versions:
   near-clip scene, whose two straddlers fit the first and not the second,
   the packed frames at the golden tests' raster bars;
 * C1's plain version with the count equals setup_t and straddle_mask_t on
-  the sliced rows, and zero past the count;
+  the sliced rows, and zero past the count, its straddler block counts
+  the mask's;
+* C2's plain version, the clip pass, leaves the dead records out and
+  orders the live ones (slot, A, B);
 * DeviceRenderer.render gives the frame of the live rows alone, its counts
   and counters 0-dim tensors, with wireframe toggled between frames;
 * after a warm-up frame the render builds no tensor from host data
@@ -133,34 +136,39 @@ def test_setup_plain_with_a_count_equals_setup_t_on_the_sliced_rows(goldens):
         if k.dtype == torch.float32:
             k = k.view(torch.int32)
         assert torch.equal(rows(k, RENDER_CAP)[..., :n, :], rows(want, n))
-    for k in got[1:]:
+    for k in got[1:4]:
         assert not rows(k, RENDER_CAP)[:, n:].any()
-    assert int(st.sum()) == 2 and int(lv.sum()) > 1000
+    assert got[4] is None      # the block counts are the kernel's
+    assert int(cc.straddle_blocks(got[3]).sum()) == int(st.sum()) == 2
+    assert int(lv.sum()) > 1000
     with pytest.raises(ValueError):
         cc.setup_cuda(*padded, w, h, CELL_MASK, CFG.far_plane, count)
 
 
 def test_clip_records_plain_marks_the_dead_records(goldens):
     """C2's plain version on the near-clip scene's padded rows with 4 slots:
-    the two straddlers' live records are the clipped triangles'
-    (nearclip.clipped_tris on their indices), and every dead record has
-    row 28 = 0 and row 25 = +inf."""
+    the dead records (the empty slots', and the parts a clip culls) are
+    left out, and the records are the two straddlers' live clipped
+    triangles (nearclip.clipped_tris on their indices) in (slot, A, B)
+    order, their count on the records' device."""
     live_v, padded, n = goldens["nearclip"]
     w, h = CFG.window_w, CFG.window_h
-    straddle = cc.setup(*padded, w, h, CELL_MASK, CFG.far_plane)[3]
-    s_idx, count = cc.compact_indices(straddle, 4)
-    recs = cc.clip_records(*padded[:2], s_idx, w, h, CFG.far_plane)
-    assert recs.shape == (8, 32) and int(count) == 2
-    dead = recs[:, 28] == 0.0
-    assert bool(torch.isinf(recs[dead, 25]).all())
+    c1 = cc.setup(*padded, w, h, CELL_MASK, CFG.far_plane)
+    s_idx, n_straddle, recs, count = cc.clip_pass(
+        *padded[:2], c1[3], c1[4], w, h, CFG.far_plane, 4)
+    assert int(n_straddle) == 2 and s_idx.tolist()[2:] == [c1[3].numel()] * 2
+    assert recs.shape == (int(count[0]), 32) and count.dtype == torch.int32
+    assert bool((recs[:, 28] != 0.0).all()) and count.shape == (1,)
     t = nearclip.clipped_tris(*padded[:2], s_idx[:2].long(), w, h,
                               far_w=CFG.far_plane)
-    want = nearclip.records_from_tris(t)[t.live]
-    got = torch.cat([recs[:2], recs[4:6]])[t.live]
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert int((~dead).sum()) == int(t.live.sum()) > 0
+    full = nearclip.records_from_tris(t)
+    want = [full[k + 2 * part] for k in range(2) for part in range(2)
+            if t.live[k + 2 * part]]
+    assert torch.equal(recs.view(torch.int32),
+                       torch.stack(want).view(torch.int32))
+    assert int(count[0]) == int(t.live.sum()) > 0
     with pytest.raises(ValueError):
-        cc.clip_records_cuda(*padded[:2], s_idx, w, h, CFG.far_plane)
+        cc.clip_pass_cuda(*padded[:2], c1[3], c1[4], w, h, CFG.far_plane, 4)
 
 
 def test_compact_indices_is_planet_tpus():

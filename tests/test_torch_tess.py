@@ -16,7 +16,13 @@ rtol 1e-5 atol 1e-2, world relative 1e-5, normal atol 5e-4, clip relative
 bit (the port's and planet_tpu's), and the fused frame's padding rows (NaN
 corner normals) come out NaN at the same places as planet_tpu's dense form
 and the port's einsum form before the table. A variant is taken as a
-torch index takes it, the rule V1 copies.
+torch index takes it, the rule V1 copies. V1's padding rows: a row with
+any NaN among its twelve corner-normal words comes out NaN in every
+output but the height (the fact V1's skip of such a row rests on); on
+the fused step's own inputs (a small render_cap on the CPU) the rows at
+or past n_leaves, and only those, have zero DF corners and NaN corner
+normals; and the dispatcher on the CPU is the plain version bit for bit
+on those rows.
 """
 
 import functools
@@ -189,3 +195,81 @@ def test_variants_taken_as_a_torch_index():
         wrong[3] = np.full_like(args[3], bad)
         with pytest.raises(IndexError):
             run_port(wrong)
+
+
+def _fused_uniforms():
+    """The fused step's leaf count, DF corners (the refine rung's) and V1's
+    arguments (the uniforms rung's outputs, the pool's tiles at their
+    slots) on the CPU at a small render_cap, from one pool state."""
+    from planet_tpu_torch.cache import device_pool as dp
+    from planet_tpu_torch.engine import device_step
+    from planet_tpu_torch.engine.config import EngineConfig
+    from torch_ranks import lod_camera_args
+
+    cfg = EngineConfig(cache_capacity=256, generations_per_frame=6)
+    caps = dict(cap=512, render_cap=96, gen_cap=16, max_lod=4)
+    roots = device_step.face_roots(cfg.radius, "cpu")
+    args = [torch.as_tensor(a) for a in lod_camera_args(cfg, 96, 72, 1.6)]
+    out = {}
+    for rung in ("refine", "uniforms"):
+        pool = dp.init(cfg.cache_capacity, cfg.tile_dim, "cpu")
+        step = device_step.build_geometry_step(cfg, device="cpu",
+                                               stop_after=rung, **caps)
+        out[rung] = step(pool, *args, *roots)
+    o = out["uniforms"].outputs
+    n = int(out["uniforms"].meta[0])
+    v1 = (o["corners_rel"], o["normals"], dp.gather(pool, o["slot"]),
+          o["vx"], o["vy"], o["skirt"], args[2], cfg.patch_verts + 2)
+    return n, out["refine"].outputs, v1
+
+
+@pytest.mark.parametrize("corner", range(4))
+def test_one_nan_normal_word_makes_a_padding_row(corner):
+    """V1 takes a row with a NaN among its corner normals as a padding
+    row and computes its height alone: in the plain version one NaN word
+    at any corner makes every output of that row but the height NaN, and
+    leaves the height and the other rows as they were."""
+    args = tess_batch(*BATCHES["skirt"], q=3)
+    want = run_port(args)
+    nan = list(args)
+    nan[1] = args[1].copy()
+    nan[1][1, corner, corner % 3] = np.nan
+    got = run_port(nan)
+    for f in got:
+        assert np.isnan(got[f][1]).all() == (f != "height"), f
+        np.testing.assert_array_equal(got[f][0::2], want[f][0::2],
+                                      err_msg=f)
+    np.testing.assert_array_equal(got["height"], want["height"])
+
+
+def test_fused_step_padding_rows_meet_the_counts_contract():
+    """The leaf count's contract on the fused step's own inputs: every
+    row at or past n_leaves has zero DF corners and NaN corner normals
+    (0 / 0), so V1 takes it as a padding row, and no row before it has a
+    NaN normal."""
+    n, ref, v1 = _fused_uniforms()
+    rows = v1[0].shape[0]
+    assert 0 < n < rows
+    for part in ("corners_hi", "corners_lo"):
+        assert not bool(ref[part][n:].any()), part
+    assert bool(torch.isnan(v1[1][n:]).all())
+    assert bool(torch.isfinite(v1[1][:n]).all())
+
+
+def test_dispatcher_is_the_plain_version_on_the_fused_rows_on_the_cpu():
+    """On CPU tensors the dispatcher runs the plain version: it evaluates
+    every row, the padding rows coming out NaN by themselves (every
+    output but the height), bit for bit; the kernel's wrapper refuses
+    CPU tensors."""
+    n, _, v1 = _fused_uniforms()
+    pv, shade = vertex_cuda.tessellate_shaded(*v1)
+    want, want_shade = vertex_cuda.tessellate_shaded_plain(*v1)
+    for f in FIELDS:
+        got_f, want_f = getattr(pv, f), getattr(want, f)
+        assert torch.equal(got_f.view(torch.int32),
+                           want_f.view(torch.int32)), f
+        assert bool(torch.isnan(got_f[n:]).all()) == (f != "height"), f
+        assert bool(torch.isfinite(got_f[:n]).all()), f
+    assert torch.equal(shade.view(torch.int32), want_shade.view(torch.int32))
+    with pytest.raises(ValueError):
+        vertex_cuda.tessellate_shaded_cuda(*v1)

@@ -13,6 +13,9 @@ SCREEN = dict(width=200, height=160,
               sizes=((80, 1.5), (30, 8.0), (8, 40.0), (4, 200.0)))
 # a view scene with near-plane straddlers and far-straddlers (seed 14)
 VIEW = dict(seed=14, width=160, height=120, far=40.0)
+# straddle_scene's: 888 near-plane straddlers over 20 blocks of 256
+# candidates, past the clip pass's 512 slots
+STRADDLE = dict(seed=3, q=40, g=8, width=64, height=48, far=50.0)
 
 
 def screen_scene(seed, width, height, sizes):
@@ -44,6 +47,18 @@ def screen_scene(seed, width, height, sizes):
             clip[i, r, c] = [ndc_x * w, ndc_y * w, z * w, w]
             normal[i, r, c] = nrm
     return clip, normal, np.ones((q, 2, 2), bool)
+
+
+def straddle_scene(seed, q, g, **_):
+    """(clip (Q, G, G, 4) f32, normal (Q, G, G, 3) f32, valid (Q, G, G)
+    bool): clip positions uniform in [-1, 1] with w in [-0.5, 2], so about
+    a fifth of the cell triangles straddle the near plane, every vertex
+    valid, random normals."""
+    rng = np.random.default_rng(seed)
+    clip = rng.uniform(-1.0, 1.0, (q, g, g, 4)).astype(np.float32)
+    clip[..., 3] = rng.uniform(-0.5, 2.0, (q, g, g))
+    normal = rng.normal(size=(q, g, g, 3)).astype(np.float32)
+    return clip, normal, np.ones((q, g, g), bool)
 
 
 def view_scene(seed, width, height, far):
