@@ -11,7 +11,8 @@ result line is printed:
 2. build the CUDA kernels from planet_tpu_torch/csrc (nvcc, ctypes); print
    ptxas' registers and spills per kernel and a census of the noise,
    field and tile kernels' conversions, f64, f32 and shared-memory
-   instructions (cuobjdump -sass);
+   instructions (cuobjdump -sass); torch.sqrt on the card equal to the
+   float64 root rounded to float32 (and nums.fp.sqrt_rn) on 2^20 inputs;
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, with CUDA-event times (median of 7):
    K1 tiles (bitwise, lacunarity 2.0 and 1.7, and at the fused frame's
@@ -50,7 +51,15 @@ result line is printed:
    (the "uniforms" rung's inputs, 302 padding rows, which the kernel
    finds by their NaN corner normals), the plain version's padding rows
    holding the NaN word 0x7fffffff, and on PlanetEngine's leaves of the
-   three goldens, each timed beside its bound;
+   three goldens, each timed beside its bound; A1, the cache stage and
+   generate's prologue, against its plain version (slot, target,
+   generate, crop, the failure flag, the generations' corners, octaves,
+   slots and count, and the pool's keys and ticks bitwise, with and
+   without its touch) and U1, the uniforms, against its (variants,
+   camera-relative corners, normals, skirt bitwise; the padding rows'
+   normals 0x7fffffff), on the calls of DeviceRenderer's step at 1080p
+   (kernel_times.stage_inputs: the static camera's first two frames, the
+   orbit's first four), each timed beside its bound;
 4. the host-orchestrated path, PlanetEngine(...).render on the card,
    against the oracle's frame / nearclip / farclip golden images at their
    test bars;
@@ -68,11 +77,11 @@ result line is printed:
    more whole render under torch.cuda.set_sync_debug_mode("error"),
    bitwise the last frame; then the geometry and raster replays timed
    apart) and the 8-frame orbit, each orbit frame's leaf ids equal to
-   phase 5's PlanetEngine on the same camera; V1 launched once a geometry
-   replay (and once by each capture's eager warm-up);
+   phase 5's PlanetEngine on the same camera; V1, A1 and U1 launched once
+   a geometry replay (and once by each capture's eager warm-up);
 6. launch counts: each kernel of each path launched during that path's
-   phases (4-5: tile, tess, gather, span, huge; 5b: those, refine, setup
-   and clip) > 0, and K4 not launched by 5b;
+   phases (4-5: tile, tess, gather, span, huge; 5b: those, refine, cache,
+   uniforms, setup and clip) > 0, and K4 not launched by 5b;
 7. the cube-sphere field path (models/heightfield), counts reset before
    and read after: config 1 (flat 256x256 patch, fBm 4, through K4)
    bitwise equal to K4's plain version on the same noise coordinates and
@@ -103,9 +112,10 @@ result line is printed:
    tools/kernel_times.calls on phase 3's record sets and fused
    occupancy (with R1 and S1 at phase 9a's shapes, C1 and C2 on phase
    3's setup inputs, V1 on phase 3's vertex inputs and on the parts of
-   the 512 rows (kernel_times.tess_probes), and the clip pass on each
-   setup set: C2, K3 on its records' count, and the two together), and
-   its host_calls
+   the 512 rows (kernel_times.tess_probes), A1 and U1 on phase 3's calls,
+   and the clip pass on each setup set: C2, K3 on its records' count, and
+   the two together), A1's and U1's plain versions (the composed torch
+   ops they replace) queued the same way, and its host_calls
    (K6 by the host clock); R1's queued time over the static camera's
    live levels, beside its bound;
 9. the single-card rest (`single_card_rest`), at 1920x1080 with the
@@ -144,11 +154,13 @@ result line is printed:
    "full" rung's frame bitwise equal to phase 5b's; (c)
    entry.dryrun_multichip(4), four gloo processes sharing the card; K1,
    K2, R1, V1 and K6 launched in this process, every rung launching R1
-   and no K4, the tess, geometry and full rungs V1 once, and no
+   and no K4, every rung from "cache" on A1 once, from "uniforms" on U1
+   once, the tess, geometry and full rungs V1 once, and no
    matrix-product kernel (cuBLAS's or CUTLASS's, by name) in the tess
-   rung's trace; static-1080p's full rung with fewer device events than
-   the 368 (29 beyond the geometry rung's) it had before the clip pass
-   sat behind its count.
+   rung's trace; the cache, generate and uniforms rungs together at most
+   STAGE_EVENTS_MAX device events; static-1080p's full rung with fewer
+   device events than FULL_EVENTS_MAX (RASTER_EVENTS_MAX beyond the
+   geometry rung's).
 
 The second-to-last lines are a JSON summary of the kernels (launches from
 phase 5b, from phase 7 for the field and noise kernels (K4 is off the fused
@@ -156,7 +168,8 @@ frame since R1), from phase 9a's frames for
 S1 and from phase 8 for the t_* kernels, which also carry each variant's ms; each kernel's time, single
 launch and queued, its plain version's, a library call's where one
 computes the same function — none routes and gathers, so K6 gives the
-composed torch sequence's time as composed_ms instead — and its bound,
+composed torch sequence's time as composed_ms instead, as A1 and U1 give
+their plain versions' queued time — and its bound,
 tools/common.bound_ms: the
 larger of its bytes over the card's memory rate and its f32 and f64
 operations over the card's instruction rates at its SM clock) and the card's
@@ -198,10 +211,13 @@ OPS_FIELD_TEXEL = 101       # field.cu: coordinates 84 (5 error-free
 # of it (2 x 5) — then per pixel inside the interval fragment()'s edge
 # functions and tests, per accepted fragment the depth, normal, shade and
 # packing. Pixels outside the row intervals are no part of the least work.
-# the static-1080p full rung's device events a replay before the clip
-# pass sat behind its count (368: 339 of the geometry rung's and 29 of the
-# raster's); the pass's cumsum and searchsorted are gone since
-FULL_EVENTS_MAX, RASTER_EVENTS_MAX = 368, 29
+# the static-1080p full rung's device events a replay: 368 before the
+# clip pass sat behind its count (29 of them the raster's, 25 since), 364
+# before A1 and U1 took the cache, generate and uniforms rungs' 230 to 9
+# (140 since); and those three rungs' events together, a replay: A1, K1,
+# the store's few ops and U1
+FULL_EVENTS_MAX, RASTER_EVENTS_MAX = 145, 29
+STAGE_EVENTS_MAX = 20
 OPS_ROW = 3 * (4 + 2 * 5)
 OPS_CANDIDATE = 15
 OPS_ACCEPTED = {"span": 41, "huge": 48}
@@ -1057,6 +1073,20 @@ def stage_ladder(dev, width, height, *, camera_args, static_pool,
                 check(r["launches"].get("gather", 0) > 0
                       and r["launches"].get("span", 0) > 0,
                       f"11a {scene} full: raster launches {r['launches']}")
+            if r["rung"] != "refine":
+                check(r["launches"].get("cache", 0) == 1,
+                      f"11a {scene} {r['rung']}: A1 launches "
+                      f"{r['launches']} (one expected)")
+            if r["rung"] not in ("refine", "cache", "generate"):
+                check(r["launches"].get("uniforms", 0) == 1,
+                      f"11a {scene} {r['rung']}: U1 launches "
+                      f"{r['launches']} (one expected)")
+            if r["rung"] == "uniforms":
+                first = next(x for x in rows if x["rung"] == "refine")
+                check(r["kernels"] - first["kernels"] <= STAGE_EVENTS_MAX,
+                      f"11a {scene}: the cache, generate and uniforms "
+                      f"rungs hold {r['kernels'] - first['kernels']} device "
+                      f"events (at most {STAGE_EVENTS_MAX} expected)")
             if r["rung"] in ("tess", "geometry", "full"):
                 check(r["launches"].get("tess", 0) == 1,
                       f"11a {scene} {r['rung']}: V1 launches "
@@ -1171,11 +1201,13 @@ def main() -> int:
     from planet_tpu_torch.lod import refine as lod_refine
     from planet_tpu_torch.models import heightfield
     from planet_tpu_torch.nums import df as dfm
+    from planet_tpu_torch.nums.fp import sqrt_rn
     from planet_tpu_torch.ops import perlin_np
     from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
     from planet_tpu_torch.raster import coverage as cov
     from planet_tpu_torch.raster import coverage_cuda as cc
-    from planet_tpu_torch.tess import vertex_cuda
+    from planet_tpu_torch.cache import device_pool, device_pool_cuda
+    from planet_tpu_torch.tess import uniforms_cuda, vertex_cuda
     from planet_tpu_torch.tools import kernel_times, r1_s1_parts
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_scenes import EDGE, counter_values, nan_shade_records
@@ -1193,6 +1225,19 @@ def main() -> int:
             _cuda.build_info["path"]).items():
         print(f"[2] sass {name[:70]}: " + " ".join(
             f"{op} {k}" for op, k in counts.items()), flush=True)
+
+    # the card's root is correctly rounded (the f64 root rounded to f32),
+    # as the kernels' sqrtf is: nums.fp.sqrt_rn takes it there
+    rng = np.random.default_rng(20)
+    x = torch.as_tensor((rng.uniform(0.0, 1.0, 1 << 20) * 10.0 ** rng.integers(
+        -6, 14, 1 << 20)).astype(np.float32), device=dev)
+    root = torch.sqrt(x)
+    check(same_bits(root, torch.sqrt(x.double()).float())
+          and same_bits(sqrt_rn(x), root),
+          "torch.sqrt on the card is not the correctly rounded root")
+    print(f"[2] torch.sqrt on the card equals the float64 root rounded to "
+          f"float32 (and sqrt_rn) on {x.numel()} inputs", flush=True)
+    del x, root
 
     # ------------------------------------------------------------ phase 3
     def time_ms(fn, setup=lambda: ()):
@@ -1747,6 +1792,79 @@ def main() -> int:
                   "hold the NaN word 0x7fffffff that the kernel writes from "
                   "a constant", flush=True)
 
+    # A1, the cache stage and generate's prologue, and U1, the uniforms:
+    # against their plain versions at the main path's shapes
+    # (kernel_times.stage_inputs: DeviceRenderer's step at 1080p run
+    # eagerly, each call recorded with its pool: the static camera's first
+    # two frames, the orbit's first four), every output and the pool's
+    # keys and ticks bitwise, A1 with and without its touch; a padding
+    # row's normals hold the NaN word 0x7fffffff in both
+    stage_sets = kernel_times.stage_inputs(dev)
+
+    def fresh(pool):
+        return (device_pool.PoolState(*(t.clone() for t in pool)),)
+
+    for name, (pool, args, kw) in stage_sets[0].items():
+        diff = []
+        for touch in (False, True):
+            k_pool, p_pool = fresh(pool)[0], fresh(pool)[0]
+            got = device_pool_cuda.cache_stage_cuda(
+                k_pool, *args, **dict(kw, touch=touch))
+            want = device_pool_cuda.cache_stage_plain(
+                p_pool, *args, **dict(kw, touch=touch))
+            diff += [f"{f} (touch {touch})" for f in got._fields
+                     if not same_bits(getattr(got, f), getattr(want, f))]
+            diff += [f"pool {f} (touch {touch})"
+                     for f in ("keys_lo", "keys_hi", "tick")
+                     if not same_bits(getattr(k_pool, f)[:pool.capacity],
+                                      getattr(p_pool, f)[:pool.capacity])]
+        rows, live = args[0].shape[0], int(args[5])
+        generated = int(want.n_generated)
+        row = dict(
+            max_abs_err=0.0 if not diff else float("nan"),
+            ms=time_ms(lambda p: device_pool_cuda.cache_stage_cuda(
+                p, *args, **kw), lambda: fresh(pool)),
+            plain_ms=time_ms(lambda p: device_pool_cuda.cache_stage_plain(
+                p, *args, **kw), lambda: fresh(pool)),
+            library_ms=None, rows=rows, live=live, generated=generated,
+            bound=bound_ms(*tool_common.cache_work(
+                rows, pool.capacity, live, generated, kw["gen_cap"])))
+        print(f"[3] A1 cache, {name}: {rows} rows ({live} live), capacity "
+              f"{pool.capacity}, {generated} generated, crops "
+              f"{int(want.crop.sum())}; every output and the pool's keys "
+              f"and ticks bitwise equal to plain (with and without the "
+              f"touch): {not diff}; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound'][0]:.6f} ms "
+              f"({row['bound'][1]})", flush=True)
+        check(not diff, f"A1 != plain on {name}: {diff}")
+        if name == kernel_times.STAGE_MAIN:
+            report["cache"] = row
+    for name, args in stage_sets[1].items():
+        got = uniforms_cuda.uniforms_cuda(*args)
+        want = uniforms_cuda.uniforms_plain(*args)
+        diff = [f for f in got._fields
+                if not same_bits(getattr(got, f), getattr(want, f))]
+        rows = args[0].shape[0]
+        live = int(torch.isfinite(want.normals).all(dim=(1, 2)).sum())
+        pad = got.normals[live:].reshape(-1).view(torch.int32)
+        row = dict(
+            max_abs_err=0.0 if not diff else float("nan"),
+            ms=time_ms(lambda: uniforms_cuda.uniforms_cuda(*args)),
+            plain_ms=time_ms(lambda: uniforms_cuda.uniforms_plain(*args)),
+            library_ms=None, rows=rows,
+            bound=bound_ms(*tool_common.uniforms_work(rows)))
+        print(f"[3] U1 uniforms, {name}: {rows} rows ({live} live); vx, vy, "
+              f"corners_rel, normals and skirt bitwise equal to plain: "
+              f"{not diff}, the padding rows' normals 0x7fffffff: "
+              f"{bool((pad == 0x7FFFFFFF).all())}; kernel {row['ms']:.4f} "
+              f"ms, plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound'][0]:.6f} ms ({row['bound'][1]})", flush=True)
+        check(not diff, f"U1 != plain on {name}: {diff}")
+        check(bool((pad == 0x7FFFFFFF).all()),
+              f"U1 on {name}: a padding row's normal is not 0x7fffffff")
+        if name == kernel_times.STAGE_MAIN:
+            report["uniforms"] = row
+
     # ------------------------------------------------------------ phase 4
     def check_golden(tag, name, n_leaves, image, depth, rc):
         """The golden-scene bars (tests/test_golden_*.py)."""
@@ -2015,6 +2133,13 @@ def main() -> int:
     check(all(r._tally["tess"] == 1 for r in renderers)
           and launches_dev["tess"] == replays + captures,
           "5b: V1 not launched once a geometry replay")
+    for k, tag in (("cache", "A1"), ("uniforms", "U1")):
+        check(all(r._tally[k] == 1 for r in renderers)
+              and launches_dev[k] == replays + captures,
+              f"5b: {tag} not launched once a geometry replay")
+    print(f"[5b] A1 and U1 launches {launches_dev['cache']}, "
+          f"{launches_dev['uniforms']}: once a geometry replay and capture",
+          flush=True)
 
     # ------------------------------------------------------------ phase 6
     check("jax" not in sys.modules, "jax was imported")
@@ -2025,8 +2150,8 @@ def main() -> int:
     for k in ("tile", "tess", "gather", "span", "huge"):
         check(launches_host[k] > 0, f"kernel {k} was not launched by the "
               "host-orchestrated path")
-    for k in ("tile", "refine", "tess", "setup", "gather", "span", "clip",
-              "huge"):
+    for k in ("tile", "refine", "cache", "uniforms", "tess", "setup",
+              "gather", "span", "clip", "huge"):
         check(launches_dev[k] > 0, f"kernel {k} was not launched by the "
               "fused device path")
     check(launches_dev["noise"] == 0, "the fused device path launched K4 "
@@ -2224,7 +2349,8 @@ def main() -> int:
     for key, label, fn, setup in kernel_times.calls(dev, sets=sets,
                                                     fused=fused,
                                                     setups=setups,
-                                                    tess=tess_sets):
+                                                    tess=tess_sets,
+                                                    stages=stage_sets):
         ms = tool_common.time_ms(fn, setup, reps=REPS)
         by_label[label] = ms
         if key:
@@ -2263,6 +2389,21 @@ def main() -> int:
           f"{by_label[f'V1 probe, the {n_live} live rows alone']:.4f} ms; "
           f"bound {report['tess']['bound'][0]:.5f} ms "
           f"({report['tess']['bound'][1]})", flush=True)
+    # A1's and U1's plain versions (the composed torch ops the stages were
+    # before them) queued the same way: their "library" yardstick, as no
+    # single PyTorch call computes either
+    pool, args, kw = stage_sets[0][kernel_times.STAGE_MAIN]
+    uargs = stage_sets[1][kernel_times.STAGE_MAIN]
+    report["cache"]["composed_ms"] = tool_common.time_ms(
+        lambda p: device_pool_cuda.cache_stage_plain(p, *args, **kw),
+        lambda: fresh(pool), reps=REPS)
+    report["uniforms"]["composed_ms"] = tool_common.time_ms(
+        lambda: uniforms_cuda.uniforms_plain(*uargs), reps=REPS)
+    for k, tag in (("cache", "A1"), ("uniforms", "U1")):
+        print(f"[8] {tag} {k}, {kernel_times.STAGE_MAIN}: {queued[k]:.4f} ms "
+              f"queued, its composed torch ops {report[k]['composed_ms']:.4f}"
+              f" ms queued; bound {report[k]['bound'][0]:.6f} ms "
+              f"({report[k]['bound'][1]})", flush=True)
     for label, fn in kernel_times.host_calls(sets):
         print(f"[8] host clock, {label}: "
               f"{kernel_times.host_ms(fn, REPS):.4f} ms", flush=True)
@@ -2371,6 +2512,15 @@ def main() -> int:
                  "planet_tpu/tess/vertex.py:148, "
                  "planet_tpu/tess/vertex.py:232, "
                  "planet_tpu/raster/shade.py:18"),
+        # no Pallas kernel: planet_tpu's cache stage and the prologue of
+        # its generation, XLA fusions of its geometry step
+        "cache": ("planet_tpu_torch/csrc/cache.cu",
+                  "planet_tpu/engine/device_step.py:164, "
+                  "planet_tpu/cache/device_pool.py:52"),
+        # no Pallas kernel: planet_tpu's uniforms, an XLA fusion of its
+        # geometry step
+        "uniforms": ("planet_tpu_torch/csrc/uniforms.cu",
+                     "planet_tpu/engine/device_step.py:242"),
         "t_noise": ("planet_tpu_torch/csrc/bench_noise.cu",
                     noise_stages.REPLACES["t_noise"]),
         "t_tile": ("planet_tpu_torch/csrc/bench_noise.cu",
@@ -2403,6 +2553,8 @@ def main() -> int:
         if k == "clip":
             kernels[-1].update(queued_k3_ms=report[k]["queued_k3_ms"],
                                queued_pass_ms=report[k]["queued_pass_ms"])
+        if k in ("cache", "uniforms"):
+            kernels[-1]["composed_ms"] = report[k]["composed_ms"]
         if k == "gather":
             kernels[-1].update(composed_ms=report[k]["composed_ms"],
                                host_ms=report[k]["host_ms"],

@@ -43,8 +43,8 @@ _SRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
 SOURCES = ("tile.cu", "raster.cu", "perlin.cu", "field.cu", "splat.cu",
-           "refine.cu", "setup.cu", "tess.cu", "bench_noise.cu",
-           "bench_lut.cu", "bench_span.cu")
+           "refine.cu", "setup.cu", "tess.cu", "cache.cu", "uniforms.cu",
+           "bench_noise.cu", "bench_lut.cu", "bench_span.cu")
 HEADERS = ("noise.cuh", "tile_blend.cuh", "fragment.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
@@ -70,6 +70,8 @@ _SIGNATURES = {
     "planet_clip_records": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
                             _P, _P, _P, _P),
     "planet_tess": (_P,) * 10 + (_I, _I, _I, _F, _F, _F) + (_P,) * 7,
+    "planet_cache": (_P,) * 10 + (_I,) * 5 + (_F, _F, _I) + (_P,) * 11,
+    "planet_uniforms": (_P,) * 8 + (_I, _F) + (_P,) * 6,
     # the kernel-attribution tools (planet_tpu_torch/tools)
     "planet_t_noise": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                        _P),
@@ -85,8 +87,8 @@ _SIGNATURES = {
 # kernel name -> launches so far (reset with reset_launches)
 launches = {"tile": 0, "noise": 0, "gather": 0, "span": 0, "huge": 0,
             "field": 0, "splat": 0, "refine": 0, "setup": 0, "clip": 0,
-            "tess": 0, "t_noise": 0, "t_tile": 0, "t_lut": 0, "t_span": 0,
-            "t_refine": 0, "t_splat": 0}
+            "tess": 0, "cache": 0, "uniforms": 0, "t_noise": 0, "t_tile": 0,
+            "t_lut": 0, "t_span": 0, "t_refine": 0, "t_splat": 0}
 
 _lib = None
 build_info: dict = {}

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from planet_tpu_torch.nums import df as dfm
+from planet_tpu_torch.nums.fp import sqrt_rn
 from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda
 from planet_tpu_torch.parallel import facemesh
 from planet_tpu_torch.raster import shade as shade_mod
@@ -67,7 +68,7 @@ def normals_from_heights(h_pad: torch.Tensor, xyscale) -> torch.Tensor:
     y1 = h_pad[..., 2:, 1:-1]
     n = torch.stack([x0 - x1, torch.full_like(x0, float(np.float32(
         2.0 * xyscale))), y0 - y1], dim=-1)
-    return n / torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True))
+    return n / sqrt_rn(torch.sum(n * n, dim=-1, keepdim=True))
 
 
 def frame_cube(n: int, radius: float, *, kind="ridged", octaves=6,

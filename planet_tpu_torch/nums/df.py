@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from planet_tpu_torch.nums.fp import sqrt_rn
+
 _M24 = 2**24 - 1
 _P24 = float(np.float32(2.0**-24))
 _SPLIT = float(np.float32(4097.0))   # Dekker split constant, 2^12 + 1
@@ -105,11 +107,11 @@ def sqrt(a):
     """Double-float square root (Karp's method, one Newton step).
 
     planet_tpu seeds the step with lax.rsqrt. The port seeds it with the
-    correctly rounded 1 / sqrt(hi) (two IEEE operations), because CUDA's
-    rsqrt is approximate: this way the CPU and the card give identical
-    bits. The Newton step makes both seeds accurate to DF precision; the
-    last bit may differ from planet_tpu's."""
-    x = torch.reciprocal(torch.sqrt(a[0]))
+    correctly rounded 1 / sqrt(hi) (two IEEE operations, the root by
+    nums.fp.sqrt_rn), because CUDA's rsqrt is approximate: this way the
+    CPU and the card give identical bits. The Newton step makes both seeds
+    accurate to DF precision; the last bit may differ from planet_tpu's."""
+    x = torch.reciprocal(sqrt_rn(a[0]))
     ax = a[0] * x  # approx sqrt
     p, e = two_prod(ax, ax)
     d_hi, d_e = two_sum(a[0], -p)

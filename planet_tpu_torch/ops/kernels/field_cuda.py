@@ -29,6 +29,7 @@ import torch
 from planet_tpu_torch import _cuda
 from planet_tpu_torch.geom import cubesphere
 from planet_tpu_torch.nums import df as dfm
+from planet_tpu_torch.nums.fp import sqrt_rn
 from planet_tpu_torch.ops import perlin
 from planet_tpu_torch.ops.kernels import perlin_cuda
 from planet_tpu_torch.raster import shade as shade_mod
@@ -154,12 +155,12 @@ def field_plain(n, radius, row0=0, rows=None, *, device="cuda", **kw):
             right = torch.cat([hc[:, 1:], hc[:, -1:]], dim=1)
             dx = left - right
             dy = ext[:-2] - ext[2:]
-            inv_len = torch.reciprocal(torch.sqrt(
+            inv_len = torch.reciprocal(sqrt_rn(
                 (dx * dx + float(p["ny2"])) + dy * dy))
             dot = ((dx * float(p["lx"]) + float(p["nyly"]))
                    + dy * float(p["lz"])) * inv_len
             h_out[face, lo:hi] = hc
-            s_out[face, lo:hi] = torch.sqrt(
+            s_out[face, lo:hi] = sqrt_rn(
                 float(np.float32(0.001)) + torch.clamp_min(dot, 0.0))
     return h_out, s_out
 

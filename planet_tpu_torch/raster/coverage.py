@@ -37,6 +37,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from planet_tpu_torch.nums.fp import sqrt_rn
+
 _DEPTH_BITS = 21
 _SHADE_BITS = 10
 _EMPTY = 2**31 - 1              # background / no fragment
@@ -327,11 +329,11 @@ def _merge(flat, r, px, py, rx, ry, width, iw_test, wireframe):
         return (e0 * r[:, c] + e1 * r[:, c + 3]) + e2 * r[:, c + 6]
 
     nx, ny, nz = interp_n(15), interp_n(16), interp_n(17)
-    nlen = torch.sqrt((nx * nx + ny * ny) + nz * nz)
+    nlen = sqrt_rn((nx * nx + ny * ny) + nz * nz)
     ndl = (ny * LIGHT_Y + nz * LIGHT_Z) / torch.where(
         nlen > 0.0, nlen, torch.ones_like(nlen))
-    shade = torch.sqrt(0.001 + torch.where(ndl < 0.0, torch.zeros_like(ndl),
-                                           ndl))
+    shade = sqrt_rn(0.001 + torch.where(ndl < 0.0, torch.zeros_like(ndl),
+                                      ndl))
     # a NaN shade (an infinite edge word) packs as 0, as XLA converts it
     zq = to_i32(torch.clamp_max((z * 0.5 + 0.5) * float(2**_DEPTH_BITS - 1),
                                 float(2**_DEPTH_BITS - 2)))

@@ -12,6 +12,8 @@ import functools
 import numpy as np
 import torch
 
+from planet_tpu_torch.nums.fp import sqrt_rn
+
 _LIGHT = np.array([0.0, 1.0, -1.0], np.float32)
 _LIGHT = _LIGHT / np.sqrt((_LIGHT * _LIGHT).sum())
 
@@ -25,7 +27,7 @@ def _light(device: str) -> torch.Tensor:
 
 def lambert(normal: torch.Tensor) -> torch.Tensor:
     """normal: (..., 3). Returns (...,) grayscale."""
-    n = normal / torch.sqrt(torch.sum(normal * normal, dim=-1, keepdim=True))
+    n = normal / sqrt_rn(torch.sum(normal * normal, dim=-1, keepdim=True))
     light = _light(str(normal.device))
-    return torch.sqrt(0.001 + torch.clamp_min(torch.sum(n * light, dim=-1),
-                                              0.0))
+    return sqrt_rn(0.001 + torch.clamp_min(torch.sum(n * light, dim=-1),
+                                         0.0))

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from planet_tpu_torch.nums.fp import sqrt_rn
 from planet_tpu_torch.tess import mesh
 
 
@@ -64,7 +65,7 @@ def _dot(a, b):
 
 
 def _norm(v):
-    return v / torch.sqrt(_dot(v, v))[..., None]
+    return v / sqrt_rn(_dot(v, v))[..., None]
 
 
 def _cross(a, b):
@@ -102,7 +103,7 @@ def interpolate(p0, n0, p1, n1, t):
     x = 1.0 - torch.tan(gamma) / tan_theta
     y = 1.0 / torch.sin(theta) - 1.0 / (torch.cos(gamma) * tan_theta)
     half = (p1 - p0) * 0.5
-    hlen = torch.sqrt(_dot(half, half))[..., None]
+    hlen = sqrt_rn(_dot(half, half))[..., None]
     p_slerp = p0 + x * half + y * n_slerp * hlen
 
     use_lin = (1.0 - d) < 0.001
@@ -301,7 +302,7 @@ def _assemble(corners_rel, corner_normals, hgt, x0, x1, y0, y1, skirt_size,
     row_dir = pb - pa
     quads = torch.full((), float(mesh.PATCH_QUADS), dtype=torch.float32,
                        device=dev)
-    xyscale = torch.sqrt(_dot(row_dir, row_dir)) / quads
+    xyscale = sqrt_rn(_dot(row_dir, row_dir)) / quads
     n_tan = _norm(torch.stack([x0 - x1, 2.0 * xyscale, y0 - y1], dim=-1))
 
     # TBN (main.cpp:361-365)

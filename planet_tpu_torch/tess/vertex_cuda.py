@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from planet_tpu_torch import _cuda
+from planet_tpu_torch.nums.fp import sqrt_rn
 from planet_tpu_torch.raster import shade as shade_mod
 from planet_tpu_torch.tess import mesh
 from planet_tpu_torch.tess import vertex
@@ -46,7 +47,7 @@ def lambert(normal: torch.Tensor) -> torch.Tensor:
     (vertex._dot), the order V1 copies. normal: (..., 3). Returns (...,)."""
     n = vertex._norm(normal)
     light = shade_mod._light(str(normal.device))
-    return torch.sqrt(0.001 + torch.clamp_min(vertex._dot(n, light), 0.0))
+    return sqrt_rn(0.001 + torch.clamp_min(vertex._dot(n, light), 0.0))
 
 
 def tessellate_shaded_plain(corners_rel, corner_normals, tiles, variant_x,

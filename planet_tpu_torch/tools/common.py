@@ -119,6 +119,13 @@ OPS_INTERP_SLERP = 67 + (LIBM_INSTRUCTIONS["acosf"]
 OPS_TESS_VERTEX = 15 + 2 + 12 + 36 + 24 + 6 + 24 + 18
 OPS_TESS_COLUMN = 10
 OPS_TESS_PAD_VERTEX = 5
+# A1 (csrc/cache.cu): a generation's 12 noise-space corner words, a DF
+# product each; its probes, scans and sort are integer work and not
+# counted. U1 (csrc/uniforms.cu): a corner's three DF subtracts, its
+# normal (the DF words' sums 3, the dot 5, the root 1, three divisions:
+# 12); a row's skirt (3).
+OPS_CACHE_GENERATION = 12 * OPS_DF_MUL
+OPS_UNIFORMS_ROW = 4 * (3 * OPS_DF_ADD + 12) + 3
 # host seconds a queued call may take: the spin ahead of the timed calls
 # lasts this long for each of them (R1's wrapper, ~30 host calls, takes
 # ~0.5 ms)
@@ -243,6 +250,30 @@ def tess_work(rows: int, grid: int, slerps: int = 0, dim: int = TILE_DIM,
                       + 2 * 4 + 4)
               + 16 * 4 + 3 * 3 * grid * 2 * 8 + grid * 4)
     return float(ops), float(nbytes)
+
+
+def cache_work(rows: int, capacity: int, live: int, generated: int,
+               gen_cap: int):
+    """(f32 operations, bytes) of A1 on `rows` rows (`live` of them live)
+    over a pool of `capacity` slots, `generated` generations into gen_cap
+    rows: the pool's keys and ticks read once (12 B a slot), each row's
+    id words and depth (12 B) and each generation's DF corners (96 B)
+    read once, the leaf count and render tick; each row's slot, target,
+    generate and crop (10 B), each of the gen_cap rows' corners, octaves
+    and slot (104 B), the generations' keys and ticks (12 B) and the live
+    rows' touched ticks (4 B) written once, and the flag and count."""
+    nbytes = (capacity * 12 + rows * 12 + generated * 96 + 8 + rows * 10
+              + gen_cap * 104 + generated * 12 + live * 4 + 5)
+    return float(generated * OPS_CACHE_GENERATION), float(nbytes)
+
+
+def uniforms_work(rows: int):
+    """(f32 operations, bytes) of U1 on `rows` rows: each row's id words,
+    depth and crop (13 B) and DF corners (96 B) and the camera (24 B) read
+    once; its variants (8 B), camera-relative corners and normals (96 B)
+    and skirt (4 B) written once."""
+    return float(rows * OPS_UNIFORMS_ROW), float(rows * (13 + 96 + 108)
+                                                 + 24)
 
 
 def tess_live(corner_normals: torch.Tensor) -> torch.Tensor:

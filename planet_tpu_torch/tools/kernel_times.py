@@ -9,8 +9,8 @@ from that tree's own sources: run it as old, new, new, old and compare
 within the run. Times (tools/common.time_ms: the median of REPS calls
 queued behind a spin kernel) the calls of `calls` — the set that
 chip_smoke.py phase 8 times for the kernels line: K1 at phase 3's shape
-and at the fused frame's occupancy, K4, R1, C1 and V1 (on trees that have
-them; C1 with C2, K3's clip pass and the whole clip pass), K5,
+and at the fused frame's occupancy, K4, R1, C1, V1, A1 and U1 (on trees
+that have them; C1 with C2, K3's clip pass and the whole clip pass), K5,
 K2 and K3 on the record sets
 of `record_sets` (the 1080p static scene, the three goldens, the orbit
 frames with huge records) and on a screen-filling triangle, S1 at phase
@@ -46,6 +46,10 @@ FUSED_SLOTS, FUSED_LIVE = 256, 24
 # the first frames of tools/bench_moving.py's descending orbit (48 frames
 # from 20 km to 3 km)
 ORBIT_FRAMES = 8
+# the frame of stage_inputs whose A1 and U1 times the kernels line keeps:
+# one that generates a few tiles, as a moving frame does
+STAGE_MAIN = "1080p orbit frame 1"
+STAGE_ORBIT_FRAMES = 4
 # host seconds each queued call may take (tools/common.QUEUE_S, set for
 # both trees of a comparison)
 QUEUE_S = 2e-3
@@ -360,6 +364,62 @@ def tess_inputs(device) -> dict:
     return out
 
 
+def stage_inputs(device):
+    """({name: A1's call (pool, args, keywords)}, {name: U1's arguments})
+    at the main path's shapes: DeviceRenderer's step at 1920x1080 (cap
+    4096, render_cap 512, gen_cap 256) run eagerly on `device`, each
+    recorded at its cache_stage and uniforms call (the pool cloned before
+    the call): the static camera's first two frames from an empty pool
+    (the first generating every leaf's tile, the second none) and the
+    orbit's first STAGE_ORBIT_FRAMES frames from an empty pool (frames 1
+    on generating a few tiles each). Copies."""
+    import torch
+
+    from planet_tpu_torch.cache import device_pool as dp
+    from planet_tpu_torch.cache import device_pool_cuda
+    from planet_tpu_torch.engine import device_step
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.tess import uniforms_cuda
+    from planet_tpu_torch.tools import stage_times
+
+    cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
+    cache_fn, uniforms_fn = device_pool_cuda.cache_stage, uniforms_cuda.uniforms
+    seen_c, seen_u = [], []
+
+    def clone(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def cache_stage(pool, *a, **kw):
+        seen_c.append((dp.PoolState(*(t.clone() for t in pool)),
+                       tuple(map(clone, a)), dict(kw)))
+        return cache_fn(pool, *a, **kw)
+
+    def uniforms(*a):
+        seen_u.append(tuple(map(clone, a)))
+        return uniforms_fn(*a)
+
+    render = device_step.build_device_render(cfg, SCENE_W, SCENE_H,
+                                             device=device)
+    frames = [(f"1080p static frame {i}", scene_camera(cfg), i == 0)
+              for i in range(2)]
+    frames += [(f"1080p orbit frame {i}", cam, i == 0) for i, (_, cam)
+               in enumerate(orbit_cameras(cfg)[:STAGE_ORBIT_FRAMES])]
+    caches, unis = {}, {}
+    device_pool_cuda.cache_stage = cache_stage
+    uniforms_cuda.uniforms = uniforms
+    try:
+        for name, cam, fresh in frames:
+            if fresh:
+                pool = dp.init(cfg.cache_capacity, cfg.tile_dim, device)
+            render(pool, *stage_times.camera_args(cfg, cam, SCENE_W,
+                                                  SCENE_H))
+            caches[name], unis[name] = seen_c.pop(), seen_u.pop()
+    finally:
+        device_pool_cuda.cache_stage = cache_fn
+        uniforms_cuda.uniforms = uniforms_fn
+    return caches, unis
+
+
 def tess_probes(args) -> dict:
     """{label: V1's arguments}: the parts of V1's time on the fused
     frame's rows (`args`, tess_inputs' 512 rows, the first n live and the
@@ -529,7 +589,8 @@ def splat_inputs(device) -> dict:
     return out
 
 
-def calls(device, sets=None, fused=None, setups=None, tess=None) -> list:
+def calls(device, sets=None, fused=None, setups=None, tess=None,
+          stages=None) -> list:
     """[(key or None, label, call, setup)]: the main path's kernels at its
     shapes, each timed as call(*setup()) — K1 on 256 tiles of octaves 6-18
     (noise_stages.tile_inputs) and at the fused frame's occupancy
@@ -545,8 +606,10 @@ def calls(device, sets=None, fused=None, setups=None, tess=None) -> list:
     setup_inputs (else `setups`), C2, K3's clip pass and the whole clip
     pass on their straddlers (clip_pass_calls); V1 (where the tree has
     it: tess/vertex_cuda) on each set of tess_inputs (else `tess`) and
-    on tess_probes' parts of its 512 rows; and
-    K6 on the 1080p scene: this tree's route_records, or on a tree before it the
+    on tess_probes' parts of its 512 rows; A1 and U1 (where the tree has
+    them: cache/device_pool_cuda, tess/uniforms_cuda) on each frame of
+    stage_inputs (else `stages`), A1 into a fresh copy of the frame's pool
+    a call; and K6 on the 1080p scene: this tree's route_records, or on a tree before it the
     two record gathers its route fed (given the indices: its route
     synchronizes, see host_calls). The key is the kernel's in
     chip_smoke.py's kernels line ("tile_fused": its tile entry's
@@ -640,6 +703,24 @@ def calls(device, sets=None, fused=None, setups=None, tess=None) -> list:
             out.append((None, f"V1 probe, {label}",
                         lambda a=args: vertex_cuda.tessellate_shaded_cuda(
                             *a), tuple))
+    try:
+        from planet_tpu_torch.cache import device_pool_cuda
+        from planet_tpu_torch.tess import uniforms_cuda
+    except ImportError:
+        device_pool_cuda = None
+    if device_pool_cuda is not None:
+        caches, unis = stage_inputs(device) if stages is None else stages
+        for name, (pool, args, kw) in caches.items():
+            out.append(("cache" if name == STAGE_MAIN else None,
+                        f"A1 cache, {name}",
+                        lambda p, a=args, k=kw: device_pool_cuda
+                        .cache_stage_cuda(p, *a, **k),
+                        lambda p=pool: (type(p)(*(t.clone() for t in p)),)))
+        for name, args in unis.items():
+            out.append(("uniforms" if name == STAGE_MAIN else None,
+                        f"U1 uniforms, {name}",
+                        lambda a=args: uniforms_cuda.uniforms_cuda(*a),
+                        tuple))
     fs = sets["1080p static"]
     if hasattr(cc, "route_records"):
         out.append(("gather", "K6 route + gather, 1080p",

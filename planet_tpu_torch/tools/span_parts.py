@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from planet_tpu_torch import _cuda
+from planet_tpu_torch.nums.fp import sqrt_rn
 from planet_tpu_torch.raster import coverage as cov
 from planet_tpu_torch.raster import coverage_cuda, nearclip
 from planet_tpu_torch.tools import common
@@ -218,11 +219,11 @@ def _merge_few(flat, r, px, py, rx, ry, width):
     keep = torch.nonzero((e > r[:, 29]) & (z >= -1.0)).squeeze(1)
     e, r, z = e[keep], r[keep], z[keep]
     nv = (e * r[:, 15] + e * r[:, 15]) + e * r[:, 15]
-    nlen = torch.sqrt((nv * nv + nv * nv) + nv * nv)
+    nlen = sqrt_rn((nv * nv + nv * nv) + nv * nv)
     ndl = (nv * cov.LIGHT_Y + nv * cov.LIGHT_Z) / torch.where(
         nlen > 0.0, nlen, torch.ones_like(nlen))
-    shade = torch.sqrt(0.001 + torch.where(ndl < 0.0, torch.zeros_like(ndl),
-                                           ndl))
+    shade = sqrt_rn(0.001 + torch.where(ndl < 0.0, torch.zeros_like(ndl),
+                                      ndl))
     _pack_min(flat, z, shade, py[keep] * width + px[keep])
 
 

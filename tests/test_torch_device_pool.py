@@ -11,7 +11,16 @@ ported).
   real-terrain orbit, with and without capacity pressure;
 * safety under capacity pressure: a slot this frame resolved (hit or crop
   parent) is never evicted before its gather, and every dropped
-  generation is counted.
+  generation is counted;
+* the fused frame's cache stage (A1's plain version,
+  device_pool_cuda.cache_stage_plain) against planet_tpu's, composed from
+  its device_pool functions in engine/device_step.py's order, from one
+  common state (from_state) on torch_scenes.CACHE_CASES: no pressure with
+  the budget binding, capacity pressure, evictions among equal ticks, a
+  spill past gen_cap with and without a cached parent, all-padding rows;
+  with and without the touch. Bitwise: slot, target, generate, crop, the
+  failure flag, the generations' payload (noise-space DF corners),
+  octaves and slots, their count, and the pool's keys and ticks.
 """
 
 import numpy as np
@@ -20,9 +29,12 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_scenes
 from planet_tpu.cache import device_pool as jdp
 from planet_tpu.geom import quadid as jq
+from planet_tpu.ops.kernels import tile_pallas
 from planet_tpu_torch.cache import device_pool as tdp
+from planet_tpu_torch.cache import device_pool_cuda as dpc
 from planet_tpu_torch.cache.tile_pool import TilePool
 from planet_tpu_torch.engine.config import EngineConfig
 from planet_tpu_torch.geom import quadid as tq
@@ -276,3 +288,117 @@ def test_state_equals_planet_tpu_from_common_state(orbit, capacity, budget,
         assert n_over == int((gen & ~gen_ok).sum())
         saw_drop |= n_over > 0
     assert saw_drop == (budget == 10**6)
+
+
+# ------------------------------------------ the cache stage (A1's plain)
+
+def _tp_cache_stage(jpool, c, touch):
+    """planet_tpu's cache stage and generate's prologue
+    (engine/device_step.py:164-237) from its device_pool functions, in
+    its order, on a torch_scenes.cache_case: (pool', outputs)."""
+    q_lo, q_hi, depth = (jnp.asarray(c[k]) for k in ("q_lo", "q_hi",
+                                                       "depth"))
+    rows, gen_cap = q_lo.shape[0], c["gen_cap"]
+    active = jnp.arange(rows) < c["n"]
+    slot, found = jdp.probe(jpool, q_lo, q_hi)
+    found = found & active
+    p_lo, p_hi = jq.words_parent(q_lo, q_hi)
+    has_parent = depth > 0
+    p_slot, p_found = jdp.probe(jpool, jnp.where(has_parent, p_lo, 0),
+                                jnp.where(has_parent, p_hi, 0))
+    p_found = p_found & has_parent
+    generate, use_crop = jdp.plan(found | ~active, p_found, depth,
+                                  c["budget"])
+    pcap = jpool.keys_lo.shape[0]
+    protect = jnp.zeros((pcap + 1,), bool)
+    protect = protect.at[jnp.where(found, slot, pcap)].set(True)
+    protect = protect.at[jnp.where((use_crop | generate) & p_found,
+                                   p_slot, pcap)].set(True)
+    jpool, tgt, _ = jdp.allocate(jpool, generate, q_lo, q_hi,
+                                 max_gen=gen_cap, protect=protect[:pcap])
+    gen_ok = generate & (tgt >= 0)
+    gen_fail = generate & active & (tgt < 0)
+    use_crop = use_crop | (gen_fail & p_found)
+    n_over = jnp.sum((gen_fail & ~p_found).astype(jnp.int32))
+    gtgt = jnp.where(gen_ok, jnp.cumsum(gen_ok.astype(jnp.int32)) - 1,
+                     gen_cap)
+    c_hi, c_lo = (jnp.transpose(jnp.asarray(c[k]).reshape(4, 3, rows),
+                                (2, 0, 1))
+                  for k in ("corners_hi", "corners_lo"))
+    sh, sl = c["coord_scale"]
+    sc_h, sc_l = zip(*(tile_pallas._df_mul(
+        c_hi[..., a], c_lo[..., a], jnp.full_like(c_hi[..., a], sh),
+        jnp.full_like(c_hi[..., a], sl)) for a in range(3)))
+    sc_h, sc_l = jnp.stack(sc_h, -1), jnp.stack(sc_l, -1)
+    per_tile = jnp.concatenate(
+        [jnp.stack([sc_h.transpose(0, 2, 1), sc_l.transpose(0, 2, 1)],
+                   axis=-1).reshape(rows, 24),
+         jnp.zeros((rows, 8), jnp.float32)], axis=1)
+    payload = jnp.zeros((gen_cap + 1, 32), jnp.float32).at[gtgt].set(
+        per_tile)[:gen_cap]
+    octs = (6 + (12 * depth) // c["max_lod"]).astype(jnp.float32)
+    oct_slots = jnp.zeros((gen_cap + 1,), jnp.float32).at[gtgt].set(
+        octs)[:gen_cap]
+    slot_of_gen = jnp.full((gen_cap + 1,), pcap, jnp.int32).at[gtgt].set(
+        tgt)[:gen_cap]
+    slot = jnp.where(gen_ok, tgt, jnp.where(use_crop, p_slot, slot))
+    if touch:
+        jpool = jdp.touch(jpool, slot, active)
+    return jpool, dict(slot=slot, target=tgt, generate=gen_ok,
+                       crop=use_crop, failed=n_over > 0, payload=payload,
+                       oct=oct_slots, gen_slot=slot_of_gen,
+                       n_generated=jnp.sum(gen_ok.astype(jnp.int32)))
+
+
+def _cache_args(c):
+    t = [torch.from_numpy(np.ascontiguousarray(c[k]))
+         for k in ("q_lo", "q_hi", "depth", "corners_hi", "corners_lo")]
+    kw = {k: c[k] for k in ("budget", "gen_cap", "max_lod", "coord_scale")}
+    return t + [torch.tensor(c["n"], dtype=torch.int32)], kw
+
+
+@pytest.mark.parametrize("touch", [False, True])
+@pytest.mark.parametrize("case", list(torch_scenes.CACHE_CASES))
+def test_cache_stage_equals_planet_tpu(case, touch):
+    c = torch_scenes.cache_case(case)
+    jpool = jdp.PoolState(**{k: jnp.asarray(v)
+                             for k, v in c["state"].items()})
+    tpool = tdp.PoolState.from_state(c["state"], "cpu")
+    jpool, want = _tp_cache_stage(jpool, c, touch)
+    args, kw = _cache_args(c)
+    got = dpc.cache_stage_plain(tpool, *args, touch=touch, **kw)
+    for k in ("slot", "target", "generate", "crop", "gen_slot",
+              "n_generated"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      np.asarray(want[k]), err_msg=k)
+    assert bool(got.failed) == bool(want["failed"])
+    payload = np.concatenate([np.stack(
+        [got.gen_hi.numpy().transpose(0, 2, 1),
+         got.gen_lo.numpy().transpose(0, 2, 1)], -1).reshape(-1, 24),
+        np.zeros((c["gen_cap"], 8), np.float32)], axis=1)
+    np.testing.assert_array_equal(payload.view(np.int32),
+                                  np.asarray(want["payload"]).view(np.int32))
+    np.testing.assert_array_equal(got.gen_oct.numpy().astype(np.float32),
+                                  np.asarray(want["oct"]))
+    state = tpool.to_state()
+    for k in ("keys_lo", "keys_hi", "tick"):
+        np.testing.assert_array_equal(state[k], np.asarray(getattr(jpool, k)),
+                                      err_msg=k)
+    # what each case is there for
+    n, gen = c["n"], got.generate.numpy()
+    crop, tgt = got.crop.numpy(), got.target.numpy()
+    expect = {
+        "budget": crop.any() and gen.any() and not bool(got.failed),
+        "pressure": crop.any() and int(got.n_generated) < int(
+            (gen | crop)[:n].sum()),
+        # free slots first, then the equal ticks by slot, past the
+        # protected parents (0-9) and hits (20, 21)
+        "tie": list(tgt[gen]) == list(range(48, 64)) + list(range(10, 20))
+        + list(range(22, 36)),
+        "spill_parent": int(got.n_generated) == c["gen_cap"]
+        and crop.any() and not bool(got.failed),
+        "spill_orphan": int(got.n_generated) == c["gen_cap"]
+        and crop.any() and bool(got.failed),
+        "padding": n == 0 and not gen.any() and not crop.any(),
+    }
+    assert expect[case], case

@@ -14,17 +14,35 @@ tier.
 * budget audit over a 5-camera orbit: per-frame generated counts equal
   the host TilePool's;
 * pipelined output equals sequential output; fetch="u8" equals
-  io/png.write_png's quantization bit for bit.
+  io/png.write_png's quantization bit for bit;
+* the uniforms (U1's plain version, uniforms_cuda.uniforms_plain) against
+  planet_tpu's (engine/device_step.py:245-263) on the rows of
+  torch_scenes.CACHE_CASES, with the crops of their cache stage, and on
+  one with every depth 0-29: the variants and the camera-relative corners
+  bitwise; the skirt bitwise max_skirt / 2^depth below depth 2 (an exact
+  division), and so planet_tpu's where its exp2 is exact (XLA:CPU's exp2
+  of the integers 13, 15, 17, ... is off by up to 15 ulps on one host:
+  within 2^-19 there); the normals NaN in the same places (the padding
+  rows' 0 / 0) and elsewhere within 2^-22 of planet_tpu's. The sum under
+  the root is planet_tpu's, (x x + y y) + z z; the root is not: the port
+  rounds it correctly (nums.fp.sqrt_rn), and XLA:CPU's root inside
+  jnp.linalg.norm's fusion is off by an ulp or more on some hosts (3 ulps
+  of the normal at worst on 2.4 M seeded components on one).
 """
 
 import dataclasses
 import pathlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import torch_scenes
+from planet_tpu.geom import quadid as jq
+from planet_tpu.nums import df as jdfm
 from planet_tpu_torch.cache import device_pool as tdp
+from planet_tpu_torch.cache import device_pool_cuda as dpc
 from planet_tpu_torch.cache.tile_pool import TilePool
 from planet_tpu_torch.engine import device_step
 from planet_tpu_torch.engine.config import EngineConfig
@@ -33,6 +51,7 @@ from planet_tpu_torch.geom import camera as cam_mod
 from planet_tpu_torch.geom import quadid as tq
 from planet_tpu_torch.lod import refine as lod_refine
 from planet_tpu_torch.nums import df as tdf
+from planet_tpu_torch.tess import uniforms_cuda
 from tests.test_golden_frame import _ssim
 
 torch.set_num_threads(1)
@@ -188,3 +207,69 @@ def test_u8_fetch_matches_png_quantization():
     assert frame.image.dtype == torch.uint8
     np.testing.assert_array_equal(frame.image.numpy(), want)
     np.testing.assert_array_equal(frame.preview.numpy(), want[::2, ::2])
+
+
+def _tp_uniforms(c, crop):
+    """planet_tpu's uniforms (engine/device_step.py:245-263)."""
+    q_lo, q_hi, depth = (jnp.asarray(c[k]) for k in ("q_lo", "q_hi",
+                                                       "depth"))
+    rows = q_lo.shape[0]
+    c_hi, c_lo = (jnp.transpose(jnp.asarray(c[k]).reshape(4, 3, rows),
+                                (2, 0, 1))
+                  for k in ("corners_hi", "corners_lo"))
+    child = jq.words_child_index(q_lo, q_hi)
+    vx = jnp.where(crop, 1 + (child & 1), 0).astype(jnp.int32)
+    vy = jnp.where(crop, 1 + ((child >> 1) & 1), 0).astype(jnp.int32)
+    rel = jdfm.sub(jdfm.DF(c_hi, c_lo),
+                   jdfm.DF(jnp.broadcast_to(c["cam_hi"], c_hi.shape),
+                           jnp.broadcast_to(c["cam_lo"], c_lo.shape)))
+    nrm = c_hi + c_lo
+    normals = nrm / jnp.linalg.norm(nrm, axis=-1, keepdims=True)
+    d1 = depth - 1
+    skirt = jnp.where(d1 > 0, np.float32(c["max_skirt"])
+                      / jnp.exp2(d1.astype(jnp.float32) + 1.0),
+                      np.float32(c["max_skirt"]))
+    return dict(corners_rel=rel.hi, normals=normals, vx=vx, vy=vy,
+                skirt=skirt)
+
+
+@pytest.mark.parametrize("case", list(torch_scenes.CACHE_CASES)
+                         + ["depths"])
+def test_uniforms_equal_planet_tpu(case):
+    c = torch_scenes.cache_case("budget" if case == "depths" else case)
+    if case == "depths":
+        c["depth"] = (np.arange(len(c["depth"])) % 30).astype(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(c[k]))
+            for k in ("q_lo", "q_hi", "depth", "corners_hi", "corners_lo")]
+    crop = dpc.cache_stage_plain(
+        tdp.PoolState.from_state(c["state"], "cpu"), *args,
+        torch.tensor(c["n"], dtype=torch.int32),
+        **{k: c[k] for k in ("budget", "gen_cap", "max_lod",
+                             "coord_scale")}).crop
+    q_lo, q_hi, depth, c_hi, c_lo = args
+    got = uniforms_cuda.uniforms_plain(
+        q_lo, q_hi, crop, depth, c_hi, c_lo, torch.from_numpy(c["cam_hi"]),
+        torch.from_numpy(c["cam_lo"]), c["max_skirt"])
+    want = _tp_uniforms(c, jnp.asarray(crop.numpy()))
+    for k in ("vx", "vy", "corners_rel"):
+        np.testing.assert_array_equal(
+            getattr(got, k).numpy().view(np.int32),
+            np.asarray(want[k]).view(np.int32), err_msg=k)
+    d1 = c["depth"].astype(np.float64) - 1
+    top = np.float32(c["max_skirt"])
+    exact = np.where(d1 > 0, top / 2.0 ** (d1 + 1), top).astype(np.float32)
+    np.testing.assert_array_equal(got.skirt.numpy().view(np.int32),
+                                  exact.view(np.int32))
+    w = np.asarray(want["skirt"])
+    xla_exact = np.asarray(jnp.exp2(jnp.asarray(d1 + 1, jnp.float32))) \
+        == 2.0 ** (d1 + 1)
+    np.testing.assert_array_equal(w[xla_exact], exact[xla_exact])
+    assert np.all(np.abs(w - exact) <= exact * 2.0**-19)
+    g, w = got.normals.numpy(), np.asarray(want["normals"])
+    padding = np.arange(len(g)) >= c["n"]
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    assert np.isnan(g[padding]).all() and np.isfinite(g[~padding]).all()
+    assert np.abs(g[~padding] - w[~padding]).max(initial=0.0) <= 2.0**-22
+    assert bool(crop.any()) == (case in ("budget", "pressure",
+                                         "spill_parent", "spill_orphan",
+                                         "depths"))

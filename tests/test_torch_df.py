@@ -119,24 +119,73 @@ def test_two_prod_mul_pow2_from_f32_bitwise():
     _eq(jdf.from_f32(ja.hi), tdf.from_f32(ta[0]))
 
 
+def _karp_sqrt_np(hi, lo):
+    """nums.df.sqrt's formula in numpy float32, op by op (no FMA), with
+    the correctly rounded seed 1 / np.sqrt(hi)."""
+    f32 = np.float32
+
+    def two_sum(a, b):
+        s = a + b
+        bb = s - a
+        return s, (a - (s - bb)) + (b - bb)
+
+    def two_prod(a, b):
+        p = a * b
+        ca, cb = f32(4097.0) * a, f32(4097.0) * b
+        ahi, bhi = ca - (ca - a), cb - (cb - b)
+        alo, blo = a - ahi, b - bhi
+        return p, ((ahi * bhi - p) + ahi * blo + alo * bhi) + alo * blo
+
+    x = f32(1.0) / np.sqrt(hi)
+    ax = hi * x
+    p, e = two_prod(ax, ax)
+    d_hi, d_e = two_sum(hi, -p)
+    corr = (d_hi + (d_e + lo - e)) * (x * f32(0.5))
+    s = ax + corr
+    return s, corr - (s - ax)
+
+
+def _karp_bound(delta):
+    """A bound on the relative error of one Karp step (nums.df.sqrt) from
+    a seed x = (1 + d) / sqrt(hi), |d| <= delta, for a DF input with
+    |lo| <= ulp(hi) / 2. With u = 2^-24, ax = a * x is sqrt(hi + lo)
+    (1 + e) with |e| <= eps = delta + u + r + its products, where r =
+    2^-25 bounds sqrt((hi + lo) / hi) - 1; the step leaves
+    -e (d + r + d r) - (1 + d)(1 + r) e^2 / 2 relative, and its roundings
+    add at most 2 u eps (the correction's: the residual's last sum and the
+    product by x / 2) and 2^-47 (the residual's absolute terms over the
+    root)."""
+    u, r = 2.0**-24, 2.0**-25
+    eps = (1 + delta) * (1 + u) * (1 + r) - 1
+    return (eps * (delta + r + delta * r)
+            + (1 + delta) * (1 + r) * eps * eps / 2 + 2 * u * eps
+            + 2.0**-47)
+
+
 def test_sqrt_matches_to_df_precision():
-    """Not bitwise: planet_tpu seeds the Newton step with lax.rsqrt, the
-    port with the correctly rounded 1/sqrt (identical on the CPU and the
-    card); XLA:CPU's rsqrt differs from it in ~29 % of these inputs. One
-    Newton step (Karp) is accurate to ~2e-14 relative from either seed —
-    planet_tpu's own result is 1.6e-14 from the f64 root here — so the
-    seeds move only the lo word: hi words are equal, lo words within 8 DF
-    ulps (ulp(hi) * 2^-24; measured 5), and the port is within 2^-45
-    relative of the exact root, as planet_tpu is."""
+    """The port's DF root is nums.df.sqrt's Karp formula with the
+    correctly rounded seed 1 / sqrt(hi) (nums.fp.sqrt_rn): bitwise equal
+    to the same formula in numpy float32, where np.sqrt is correctly
+    rounded and nothing contracts to FMA, and within 2^-45 relative of the
+    exact root (0.69 x 2^-45 at worst here). planet_tpu seeds the step with
+    lax.rsqrt, whose XLA:CPU lowering depends on the host (1.4 ulps off at
+    worst on one host, where planet_tpu's result came to 1.26 x 2^-45
+    of the exact root): its hi words equal the port's, and its error is
+    held to the analytic bound of one Karp step from a seed within 2 ulps
+    (2^-22 relative; XLA states no accuracy for rsqrt, 2 ulps is what CUDA
+    states for rsqrtf), 6.6 x 2^-45."""
     ja, ta = _df_inputs(10, positive=True)
     want = jdf.sqrt(ja)
     got = tdf.sqrt(ta)
+    hi, lo = (t.numpy() for t in ta)
+    for a, b in zip(_karp_sqrt_np(hi, lo), got):
+        np.testing.assert_array_equal(a.view(np.int32), b.numpy().view(
+            np.int32))
     np.testing.assert_array_equal(np.asarray(want.hi), got[0].numpy())
-    w = np.asarray(want.hi, np.float64) + np.asarray(want.lo, np.float64)
+    exact = np.sqrt(hi.astype(np.float64) + lo.astype(np.float64))
     g = got[0].numpy().astype(np.float64) + got[1].numpy().astype(np.float64)
-    df_ulp = np.spacing(np.asarray(want.hi)).astype(np.float64) * 2.0**-24
-    assert np.max(np.abs(g - w) / df_ulp) <= 8
-    exact = np.sqrt(np.asarray(ja.hi, np.float64)
-                    + np.asarray(ja.lo, np.float64))
-    for v in (g, w):
-        assert np.max(np.abs(v - exact) / exact) <= 2.0**-45
+    w = np.asarray(want.hi, np.float64) + np.asarray(want.lo, np.float64)
+    assert np.max(np.abs(g - exact) / exact) <= 2.0**-45
+    bound = _karp_bound(2.0**-22)
+    assert 6 * 2.0**-45 < bound < 7 * 2.0**-45
+    assert np.max(np.abs(w - exact) / exact) <= bound

@@ -37,7 +37,14 @@ grids of one and two 8-row groups a warp and at the main path's shapes,
 launched once a geometry replay; C1's straddler block counts and C2, the clip pass, equal to
 their plain versions (indices, n_straddle, records and their count), and
 the raster's framebuffer and counters equal to the plain path's at no
-straddler, a few and past clip_cap."""
+straddler, a few and past clip_cap; A1, the cache stage, equal to its
+plain version in every output and in the pool's keys and ticks, on
+torch_scenes' cache cases (capacity up to 4096, with and without the
+touch) and on the 1080p static and orbit frames' calls, and refusing a
+size it does not take from the sizes alone; U1, the uniforms, equal to
+its plain version on the same rows and on every depth 0-29; torch's
+square root on the card correctly rounded (the f64 root rounded to f32)
+on 2^20 inputs; A1 and U1 launched once a geometry replay."""
 
 import numpy as np
 import pytest
@@ -46,6 +53,7 @@ import torch.distributed as dist
 
 from planet_tpu_torch import _cuda
 from planet_tpu_torch.cache import device_pool
+from planet_tpu_torch.cache import device_pool_cuda
 from planet_tpu_torch.engine import device_step
 from planet_tpu_torch.engine.config import EngineConfig
 from planet_tpu_torch.engine.planet import PlanetEngine
@@ -59,12 +67,14 @@ from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import coverage_cuda as tcc
 from planet_tpu_torch.raster import splat
 from planet_tpu_torch.tess import mesh
+from planet_tpu_torch.tess import uniforms_cuda
 from planet_tpu_torch.tess import vertex_cuda
 from planet_tpu_torch.tools import (kernel_times, lut, noise_stages,
                                     span_parts, stage_times)
 import torch_ranks
-from torch_scenes import (EDGE, SCREEN, STRADDLE, TESS_BATCHES, VIEW,
-                          adversarial_records, nan_shade_records,
+from torch_scenes import (CACHE_CASES, EDGE, SCREEN, STRADDLE,
+                          TESS_BATCHES, VIEW, adversarial_records,
+                          cache_case, nan_shade_records,
                           screen_scene, straddle_scene, tess_batch,
                           tess_padded, view_scene)
 
@@ -514,6 +524,9 @@ def test_stop_after_rungs_captured_equal_eager(dev, rung):
     tally = r.graph_launches
     assert tally["refine"] == 19 and tally["noise"] == 0, tally
     assert tally["tile"] == (0 if rung in ("refine", "cache") else 1), tally
+    assert tally["cache"] == (0 if rung == "refine" else 1), tally
+    assert tally["uniforms"] == (
+        1 if rung in ("uniforms", "tess", "geometry") else 0), tally
 
 
 def test_dryrun_multichip_on_the_card(dev):
@@ -1017,7 +1030,120 @@ def test_geometry_replay_launches_v1_once(dev):
     pool = r.init_pool()
     r.geometry(pool, *args)     # the warm-up and the capture
     for _ in range(2):
-        before = _cuda.launches["tess"]
+        before = dict(_cuda.launches)
         geom = r.geometry(pool, *args)
-        assert _cuda.launches["tess"] - before == r._tally["tess"] == 1
+        for k in ("tess", "cache", "uniforms"):
+            assert _cuda.launches[k] - before[k] == r._tally[k] == 1, k
     assert int(geom.meta[0]) > 100
+
+
+def test_cuda_sqrt_is_correctly_rounded(dev):
+    """torch.sqrt on the card is the correctly rounded root, as the
+    kernels' sqrtf is (nums.fp.sqrt_rn takes it there)."""
+    rng = np.random.default_rng(20)
+    x = (rng.uniform(0.0, 1.0, 1 << 20)
+         * 10.0 ** rng.integers(-6, 14, 1 << 20)).astype(np.float32)
+    t = torch.as_tensor(x, device=dev)
+    want = torch.sqrt(t.double()).float()
+    assert _same_bits(torch.sqrt(t), want)
+    assert _same_bits(torch.sqrt(t).cpu(), torch.from_numpy(np.sqrt(x)))
+
+
+def _clone_pool(pool):
+    return device_pool.PoolState(*(t.clone() for t in pool))
+
+
+def _assert_cache_equal(pool, args, kw):
+    """A1's outputs and the pool's keys and ticks equal the plain
+    version's bit for bit, one launch."""
+    got_pool, want_pool = _clone_pool(pool), _clone_pool(pool)
+    before = _cuda.launches["cache"]
+    got = device_pool_cuda.cache_stage(got_pool, *args, **kw)
+    assert _cuda.launches["cache"] == before + 1
+    want = device_pool_cuda.cache_stage_plain(want_pool, *args, **kw)
+    for f in got._fields:
+        assert _same_bits(getattr(got, f), getattr(want, f)), f
+    cap = pool.capacity
+    for f in ("keys_lo", "keys_hi", "tick"):
+        assert torch.equal(getattr(got_pool, f)[:cap],
+                           getattr(want_pool, f)[:cap]), f
+    assert torch.equal(got_pool.tiles, pool.tiles)
+    assert torch.equal(got_pool.now, pool.now)
+    return got
+
+
+def _case_args(c, dev):
+    args = [torch.as_tensor(np.ascontiguousarray(c[k]), device=dev)
+            for k in ("q_lo", "q_hi", "depth", "corners_hi", "corners_lo")]
+    n = torch.tensor(c["n"], dtype=torch.int32, device=dev)
+    kw = {k: c[k] for k in ("budget", "gen_cap", "max_lod", "coord_scale")}
+    return args, n, kw
+
+
+@pytest.mark.parametrize("touch", [False, True])
+@pytest.mark.parametrize("case", list(CACHE_CASES))
+def test_cache_kernel_bitwise(dev, case, touch):
+    c = cache_case(case)
+    pool = device_pool.PoolState.from_state(c["state"], dev)
+    args, n, kw = _case_args(c, dev)
+    got = _assert_cache_equal(pool, (*args, n), dict(kw, touch=touch))
+    assert int(got.n_generated) == int(got.generate.sum())
+    assert (int(got.n_generated) == 0) == (case == "padding")
+
+
+def test_cache_kernel_refuses_sizes(dev):
+    c = cache_case("tie")
+    args, n, kw = _case_args(c, dev)
+    for cap, rows in ((4097, 8), (64, 4097)):
+        pool = device_pool.init(cap, 1, dev)
+        a = [t[:1].expand(rows).contiguous() if t.dim() == 1
+             else t[:, :1].expand(12, rows).contiguous() for t in args]
+        with pytest.raises(ValueError, match="at most 4096"):
+            device_pool_cuda.cache_stage(pool, *a, n, **kw)
+
+
+def _assert_uniforms_equal(args):
+    before = _cuda.launches["uniforms"]
+    got = uniforms_cuda.uniforms(*args)
+    assert _cuda.launches["uniforms"] == before + 1
+    want = uniforms_cuda.uniforms_plain(*args)
+    for f in got._fields:
+        assert _same_bits(getattr(got, f), getattr(want, f)), f
+    return got
+
+
+@pytest.mark.parametrize("case", list(CACHE_CASES) + ["depths"])
+def test_uniforms_kernel_bitwise(dev, case):
+    """U1 on the cache cases' rows with their crops; "depths" sets every
+    depth 0-29 (the skirt's exp2f and division against torch's). A
+    padding row's normals hold the NaN word 0x7fffffff in both."""
+    c = cache_case("budget" if case == "depths" else case)
+    if case == "depths":
+        c["depth"] = (np.arange(len(c["depth"])) % 30).astype(np.int32)
+    args, n, kw = _case_args(c, dev)
+    crop = device_pool_cuda.cache_stage_plain(
+        device_pool.PoolState.from_state(c["state"], dev), *args, n,
+        **kw).crop
+    q_lo, q_hi, depth, c_hi, c_lo = args
+    got = _assert_uniforms_equal((
+        q_lo, q_hi, crop, depth, c_hi, c_lo,
+        torch.as_tensor(c["cam_hi"], device=dev),
+        torch.as_tensor(c["cam_lo"], device=dev), c["max_skirt"]))
+    pad = got.normals[c["n"]:].reshape(-1).view(torch.int32)
+    assert bool((pad == 0x7FFFFFFF).all())
+
+
+def test_cache_and_uniforms_kernels_bitwise_on_the_main_path(dev):
+    """A1 (with and without the touch) and U1 against their plain
+    versions on the calls of DeviceRenderer's step at 1080p
+    (kernel_times.stage_inputs: the static camera's first two frames and
+    the orbit's first four)."""
+    caches, unis = kernel_times.stage_inputs(dev)
+    generated = []
+    for name, (pool, args, kw) in caches.items():
+        for touch in (False, True):
+            got = _assert_cache_equal(pool, args, dict(kw, touch=touch))
+        generated.append(int(got.n_generated))
+    assert generated[0] > 100 and max(generated[3:]) > 0, generated
+    for args in unis.values():
+        _assert_uniforms_equal(args)

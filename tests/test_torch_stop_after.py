@@ -9,14 +9,17 @@ build_device_render(stop_after=...).
   (more generations than gen_cap: the leaves without a cached parent fail,
   which the whole step flags and a truncated step does not, as
   planet_tpu's early() does not).
-* At the refine, tess and geometry rungs the port's truncated step agrees
-  with planet_tpu's (use_pallas=False, interpret=True) at
-  dryrun_multichip's sizes, from planet_tpu's dry-run camera and from one
-  at 1.15 radii that overflows render_cap: n_leaves, the overflow flag,
-  the zero image, and the pool's keys, ticks and render tick. planet_tpu's
-  tess rung adds `jnp.sum(vshade) * 0.0` to its zero image to keep the
-  tessellation in the program; a padding row's shade is NaN, so when the
-  frame has padding rows its image is NaN where the port's is 0.
+* At the refine, cache, uniforms, tess and geometry rungs the port's
+  truncated step agrees with planet_tpu's (use_pallas=False,
+  interpret=True) at dryrun_multichip's sizes, from planet_tpu's dry-run
+  camera and from one at 1.15 radii that overflows render_cap: n_leaves,
+  the overflow flag, the zero image, and the pool's keys, ticks and
+  render tick (after "cache" the ticks of the allocation alone: A1 skips
+  its touch there, as planet_tpu's cache rung stops before it).
+  planet_tpu's uniforms and tess rungs add their outputs' sums times 0.0
+  to the zero image to keep those stages in the program; a padding row's
+  normals and shade are NaN, so when the frame has padding rows its image
+  is NaN where the port's is 0.
 * The renderers: each rung's frame has a zero image and depth and the
   truncated counts; "full" is the default frame; a bad name raises.
 * stage_times' ladder at its CPU size: every rung of both scenes, the same
@@ -157,7 +160,7 @@ def test_rung_equals_the_whole_steps_intermediates(scenes, scene, rung):
 
 # ------------------------------------------------------ against planet_tpu
 
-TP_RUNGS = ("refine", "tess", "geometry")
+TP_RUNGS = ("refine", "cache", "uniforms", "tess", "geometry")
 TP_CAMERAS = {"dryrun": None, "near": 1.15}
 
 
@@ -191,8 +194,10 @@ def test_rung_agrees_with_planet_tpu(rung):
                     int(jout.overflowed)]
             image = np.asarray(jout.image)
             assert image.shape == (entry.LOD_H, entry.LOD_W)
-            if rung == "tess" and want[0] < kw["render_cap"]:
-                # the keep-alive term sums the padding rows' NaN shades
+            if (rung in ("uniforms", "tess")
+                    and want[0] < kw["render_cap"]):
+                # the keep-alive term sums the padding rows' NaN normals
+                # and shades
                 assert np.isnan(image).all()
             else:
                 assert not image.any()

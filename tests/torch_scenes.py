@@ -260,3 +260,110 @@ def tess_padded(q: int = 6, live: int = 3):
     args[0] = args[0].copy()
     args[0][live:] = (-cam_pos).astype(F)
     return tuple(args)
+
+
+# ------------------------------------------------- the cache stage's cases
+# (A1, cache/device_pool_cuda.cache_stage, and U1, tess/uniforms_cuda):
+# name -> (capacity, budget, gen_cap). Every case has padding rows past
+# its live count (stale ids, zero words, zero corners).
+CACHE_CASES = {
+    "budget": (4096, 6, 1024),      # no pressure, the budget binds: crops
+    "pressure": (64, 10**6, 64),    # more generations than free slots
+    "tie": (64, 10**6, 64),         # the evictions among equal ticks
+    "spill_parent": (256, 10**6, 8),   # past gen_cap, parents cached
+    "spill_orphan": (256, 10**6, 8),   # past gen_cap, some without one
+    "padding": (64, 10**6, 64),     # no live row
+}
+CACHE_MAX_LOD = 18
+CACHE_DIM = 2           # the pool's tiles play no part in the stage
+
+
+def _quads(face: int, depth: int):
+    """Every quad of `face` at `depth`, in DFS order."""
+    from planet_tpu_torch.geom import quadid
+    ids = [quadid.make_root(face)]
+    for _ in range(depth):
+        ids = [quadid.make_child(q, c) for q in ids for c in range(4)]
+    return ids
+
+
+def _children(ids):
+    from planet_tpu_torch.geom import quadid
+    return [quadid.make_child(q, c) for q in ids for c in range(4)]
+
+
+def cache_case(name: str, seed: int = 7) -> dict:
+    """One case of CACHE_CASES as numpy arrays: the pool's state
+    (device_pool.PoolState.from_state's dict), the rows (q_lo, q_hi,
+    depth (R,) int32; corners_hi, corners_lo (12, R) f32 corner-major DF
+    corners at planet scale, zero in padding rows), n the live rows, the
+    stage's parameters (capacity, budget, gen_cap, max_lod, coord_scale)
+    and U1's (cam_hi, cam_lo (3,) f32, max_skirt)."""
+    from planet_tpu_torch.geom import quadid
+    capacity, budget, gen_cap = CACHE_CASES[name]
+    rng = np.random.default_rng(seed)
+    lo = np.zeros(capacity, np.int64)
+    hi = np.zeros(capacity, np.int64)
+    tick = np.zeros(capacity, np.int32)
+    cached = []
+
+    def put(slots, ids, ticks):
+        words = quadid.to_words(np.asarray(ids, np.uint64))
+        lo[slots], hi[slots] = words
+        tick[slots] = ticks
+        cached.extend(ids)
+
+    if name == "budget":
+        d1 = [q for f in range(3) for q in _quads(f, 1)]
+        put(np.arange(12) * 37, d1, rng.integers(0, 4, 12))
+        now = 4
+        live = _children(d1[:8]) + d1[8:12] + [quadid.make_root(f)
+                                               for f in (3, 4, 5)]
+    elif name == "pressure":
+        d2 = [q for f in range(1, 5) for q in _quads(f, 2)]
+        put(np.arange(64), d2, rng.integers(0, 10, 64))
+        now = 10
+        hits = [d2[k] for k in rng.choice(64, 20, replace=False)]
+        live = hits + _children([d2[k] for k in range(40, 55)])
+    elif name in ("tie", "padding"):
+        d2 = [q for f in (0, 3, 4) for q in _quads(f, 2)]
+        put(np.arange(48), d2[:48], 5)
+        now = 6
+        live = _children(d2[:10]) + [d2[20], d2[21]]
+    else:
+        d1 = [q for f in range(4) for q in _quads(f, 1)]
+        put(rng.choice(capacity, 16, replace=False), d1,
+            rng.integers(0, 3, 16))
+        now = 3
+        live = _children(d1[:8]) if name == "spill_parent" else (
+            _children(d1[:3])[:10] + _children(_children(_quads(5, 1))[:5]))
+    live = sorted(set(live), key=quadid.dfs_key)
+    if name == "padding":
+        live = []
+    # padding rows: stale ids (cached or not) and zero words
+    stale = [cached[0], cached[-1], live[0] if live else cached[1]]
+    pad = stale + [np.uint64(0)] * 4
+    ids = np.array(list(live) + pad, np.uint64)
+    q_lo, q_hi = quadid.to_words(ids)
+    depth = np.array([int(quadid.depth_of(q)) for q in ids], np.int32)
+    depth[len(live):] = rng.integers(0, 6, len(pad))
+    rows = len(ids)
+    corners = (rng.uniform(-1.0, 1.0, (12, rows))
+               * 6.4e6 + rng.uniform(-1.0, 1.0, (12, rows)))
+    corners[:, len(live):] = 0.0
+    c_hi = corners.astype(F)
+    c_lo = (corners - c_hi.astype(np.float64)).astype(F)
+    scale = 1e-5
+    cam = rng.uniform(-1.0, 1.0, 3) * 7e6
+    cam_hi = cam.astype(F)
+    return dict(
+        state=dict(keys_lo=lo.astype(np.uint32).view(np.int32),
+                   keys_hi=hi.astype(np.uint32).view(np.int32), tick=tick,
+                   tiles=np.zeros((capacity, CACHE_DIM, CACHE_DIM), F),
+                   now=np.int32(now)),
+        q_lo=q_lo, q_hi=q_hi, depth=depth, corners_hi=c_hi, corners_lo=c_lo,
+        n=len(live), budget=budget, gen_cap=gen_cap,
+        max_lod=CACHE_MAX_LOD,
+        coord_scale=(F(scale), F(scale - np.float64(F(scale)))),
+        cam_hi=cam_hi, cam_lo=(cam - cam_hi.astype(np.float64)).astype(F),
+        max_skirt=1500.0)
