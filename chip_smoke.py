@@ -59,7 +59,12 @@ result line is printed:
    camera-relative corners, normals, skirt bitwise; the padding rows'
    normals 0x7fffffff), on the calls of DeviceRenderer's step at 1080p
    (kernel_times.stage_inputs: the static camera's first two frames, the
-   orbit's first four), each timed beside its bound;
+   orbit's first four), each timed beside its bound; V1 in its rows mode
+   (the fused step's form: the uniforms computed in V1's own staging from
+   the rows' words and DF corners, no U1) on the same frames' rows,
+   bitwise equal to its plain version and to V1 on U1's outputs ("U1 +
+   V1", the stage before it), its padding rows' five NaN outputs the word
+   0x7fffffff, timed beside U1 + V1 and its bound;
 4. the host-orchestrated path, PlanetEngine(...).render on the card,
    against the oracle's frame / nearclip / farclip golden images at their
    test bars;
@@ -77,11 +82,12 @@ result line is printed:
    more whole render under torch.cuda.set_sync_debug_mode("error"),
    bitwise the last frame; then the geometry and raster replays timed
    apart) and the 8-frame orbit, each orbit frame's leaf ids equal to
-   phase 5's PlanetEngine on the same camera; V1, A1 and U1 launched once
-   a geometry replay (and once by each capture's eager warm-up);
+   phase 5's PlanetEngine on the same camera; V1 (in its rows mode) and
+   A1 launched once a geometry replay (and once by each capture's eager
+   warm-up), U1 never;
 6. launch counts: each kernel of each path launched during that path's
    phases (4-5: tile, tess, gather, span, huge; 5b: those, refine, cache,
-   uniforms, setup and clip) > 0, and K4 not launched by 5b;
+   setup and clip) > 0, and K4 and U1 not launched by 5b;
 7. the cube-sphere field path (models/heightfield), counts reset before
    and read after: config 1 (flat 256x256 patch, fBm 4, through K4)
    bitwise equal to K4's plain version on the same noise coordinates and
@@ -112,7 +118,8 @@ result line is printed:
    tools/kernel_times.calls on phase 3's record sets and fused
    occupancy (with R1 and S1 at phase 9a's shapes, C1 and C2 on phase
    3's setup inputs, V1 on phase 3's vertex inputs and on the parts of
-   the 512 rows (kernel_times.tess_probes), A1 and U1 on phase 3's calls,
+   the 512 rows (kernel_times.tess_probes), A1, U1, V1's rows mode and U1
+   + V1 on phase 3's calls,
    and the clip pass on each setup set: C2, K3 on its records' count, and
    the two together), A1's and U1's plain versions (the composed torch
    ops they replace) queued the same way, and its host_calls
@@ -150,12 +157,15 @@ result line is printed:
    each rung's device events in one torch.profiler session, launches a
    frame) for static-1080p and moving-1080p, each rung's leaves phase
    5b's; (b) from phase 5b's pool before its last static frame, the
-   "geometry" rung bitwise equal to DeviceRenderer.geometry and the
-   "full" rung's frame bitwise equal to phase 5b's; (c)
+   "geometry" rung bitwise equal to DeviceRenderer.geometry, V1 on the
+   "uniforms" rung's U1 outputs (a captured graph, U1 its one launch)
+   bitwise equal to the geometry rung's V1 rows, and the "full" rung's
+   frame bitwise equal to phase 5b's; (c)
    entry.dryrun_multichip(4), four gloo processes sharing the card; K1,
-   K2, R1, V1 and K6 launched in this process, every rung launching R1
-   and no K4, every rung from "cache" on A1 once, from "uniforms" on U1
-   once, the tess, geometry and full rungs V1 once, and no
+   K2, R1, V1, U1 and K6 launched in this process, every rung launching R1
+   and no K4, every rung from "cache" on A1 once, the uniforms rung U1
+   once and the others never, the tess, geometry and full rungs V1 once,
+   and no
    matrix-product kernel (cuBLAS's or CUTLASS's, by name) in the tess
    rung's trace; the cache, generate and uniforms rungs together at most
    STAGE_EVENTS_MAX device events; static-1080p's full rung with fewer
@@ -164,12 +174,14 @@ result line is printed:
 
 The second-to-last lines are a JSON summary of the kernels (launches from
 phase 5b, from phase 7 for the field and noise kernels (K4 is off the fused
-frame since R1), from phase 9a's frames for
+frame since R1), from phase 11 for U1 (off the fused frame since V1's rows
+mode: the uniforms rung's), from phase 9a's frames for
 S1 and from phase 8 for the t_* kernels, which also carry each variant's ms; each kernel's time, single
 launch and queued, its plain version's, a library call's where one
 computes the same function — none routes and gathers, so K6 gives the
 composed torch sequence's time as composed_ms instead, as A1 and U1 give
-their plain versions' queued time — and its bound,
+their plain versions' queued time; V1's entry holds its rows mode's times
+and bound under "rows_mode", beside U1 + V1's — and its bound,
 tools/common.bound_ms: the
 larger of its bytes over the card's memory rate and its f32 and f64
 operations over the card's instruction rates at its SM clock) and the card's
@@ -214,8 +226,9 @@ OPS_FIELD_TEXEL = 101       # field.cu: coordinates 84 (5 error-free
 # the static-1080p full rung's device events a replay: 368 before the
 # clip pass sat behind its count (29 of them the raster's, 25 since), 364
 # before A1 and U1 took the cache, generate and uniforms rungs' 230 to 9
-# (140 since); and those three rungs' events together, a replay: A1, K1,
-# the store's few ops and U1
+# (140 since; U1 left the later rungs with V1's rows mode); and those
+# three rungs' events together, a replay: A1, K1, the store's few ops and
+# U1
 FULL_EVENTS_MAX, RASTER_EVENTS_MAX = 145, 29
 STAGE_EVENTS_MAX = 20
 OPS_ROW = 3 * (4 + 2 * 5)
@@ -1018,17 +1031,22 @@ def stage_ladder(dev, width, height, *, camera_args, static_pool,
     (b) from phase 5b's pool state before its last static frame
         (`static_pool`) and its camera, in this process: the "geometry"
         rung's Geometry and pool bit for bit those of phase 5b's renderer's
-        geometry(), and the "full" rung's frame bit for bit phase 5b's last
-        static frame (`static_frame`);
+        geometry(), V1 (its uniforms mode) on the "uniforms" rung's U1
+        outputs the geometry rung's vertices and shade (V1's rows mode)
+        bit for bit, and the "full" rung's frame bit for bit phase 5b's
+        last static frame (`static_frame`);
     (c) entry.dryrun_multichip(ranks) with the ranks' tensors on `dev`.
 
     Returns {name: number} for the [11] line."""
     import tempfile
 
+    import torch
+
     from planet_tpu_torch import entry
     from planet_tpu_torch.cache import device_pool
     from planet_tpu_torch.engine import device_step
     from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.tess import vertex_cuda
 
     cuda = dev.type == "cuda"
     res = {}
@@ -1077,10 +1095,10 @@ def stage_ladder(dev, width, height, *, camera_args, static_pool,
                 check(r["launches"].get("cache", 0) == 1,
                       f"11a {scene} {r['rung']}: A1 launches "
                       f"{r['launches']} (one expected)")
-            if r["rung"] not in ("refine", "cache", "generate"):
-                check(r["launches"].get("uniforms", 0) == 1,
-                      f"11a {scene} {r['rung']}: U1 launches "
-                      f"{r['launches']} (one expected)")
+            check(r["launches"].get("uniforms", 0)
+                  == (r["rung"] == "uniforms"),
+                  f"11a {scene} {r['rung']}: U1 launches {r['launches']} "
+                  "(one on the uniforms rung, none on the others)")
             if r["rung"] == "uniforms":
                 first = next(x for x in rows if x["rung"] == "refine")
                 check(r["kernels"] - first["kernels"] <= STAGE_EVENTS_MAX,
@@ -1142,6 +1160,26 @@ def stage_ladder(dev, width, height, *, camera_args, static_pool,
     for a, b in zip(pool_rung, pool_base):
         check(same_bits(a[:cap] if a.dim() else a, b[:cap] if b.dim() else b),
               "11b: the geometry rung's pool != DeviceRenderer.geometry's")
+    # the uniforms rung, the one graph that launches U1: its outputs, fed
+    # to V1 with the pool's tiles at its slots, give the geometry rung's
+    # vertices and shade (V1's rows mode) bit for bit
+    uni = device_step.DeviceRenderer(cfg, width, height, device=dev,
+                                     stop_after="uniforms")
+    pool_uni = pool_at(static_pool)
+    o = uni.geometry(pool_uni, *camera_args).outputs
+    tiles = device_pool.gather(pool_uni, o["slot"])
+    pv, shade = vertex_cuda.tessellate_shaded(
+        o["corners_rel"], o["normals"], tiles, o["vx"], o["vy"], o["skirt"],
+        torch.as_tensor(np.asarray(camera_args[2], np.float32), device=dev),
+        grid=cfg.patch_verts + 2)
+    check(same_bits(tiles, want.tiles)
+          and all(same_bits(a, b) for a, b in zip(pv, want.vertices))
+          and same_bits(shade, want.vertex_shade),
+          "11b: V1 on the uniforms rung's U1 outputs != the geometry rung's "
+          "V1 rows")
+    check(not cuda or (uni.graph_launches.get("uniforms") == 1
+                       and uni.graph_launches.get("tess", 0) == 0),
+          f"11b: the uniforms rung's graph launches {uni.graph_launches}")
     full = device_step.DeviceRenderer(cfg, width, height, device=dev,
                                       stop_after="full")
     frame = full.render(pool_at(static_pool), *camera_args)
@@ -1151,10 +1189,11 @@ def stage_ladder(dev, width, height, *, camera_args, static_pool,
           "11b: the full rung's frame != phase 5b's static frame")
     log(f"[11b] from phase 5b's pool before its last static frame: the "
         f"geometry rung bitwise equal to DeviceRenderer.geometry (leaves, "
-        f"slots, tiles, vertices, shade, counters, pool), the full rung's "
-        f"frame bitwise equal to phase 5b's ({int(frame.n_leaves)} leaves); "
-        f"(b) in {time.perf_counter() - t_b:.1f} s")
-    del base, rung, full, pool_base, pool_rung
+        f"slots, tiles, vertices, shade, counters, pool), V1 on the "
+        f"uniforms rung's U1 outputs bitwise equal to its V1 rows, the full "
+        f"rung's frame bitwise equal to phase 5b's ({int(frame.n_leaves)} "
+        f"leaves); (b) in {time.perf_counter() - t_b:.1f} s")
+    del base, rung, uni, full, pool_base, pool_rung, pool_uni
 
     # -------------------------------------------- (c) dryrun_multichip
     t_c = time.perf_counter()
@@ -1839,7 +1878,8 @@ def main() -> int:
         check(not diff, f"A1 != plain on {name}: {diff}")
         if name == kernel_times.STAGE_MAIN:
             report["cache"] = row
-    for name, args in stage_sets[1].items():
+    for name, rargs in stage_sets[1].items():
+        args = rargs[:9]
         got = uniforms_cuda.uniforms_cuda(*args)
         want = uniforms_cuda.uniforms_plain(*args)
         diff = [f for f in got._fields
@@ -1864,6 +1904,52 @@ def main() -> int:
               f"U1 on {name}: a padding row's normal is not 0x7fffffff")
         if name == kernel_times.STAGE_MAIN:
             report["uniforms"] = row
+    # V1 in its rows mode, the fused step's tessellate stage: the uniforms
+    # computed in V1's own staging from the rows' words and DF corners, on
+    # the same frames' rows (the step's tessellate_rows calls), every
+    # output bitwise equal to its plain version (U1's, then V1's) and to
+    # V1 on U1's outputs on the card ("U1 + V1", the stage before the
+    # rows mode); the padding rows' five NaN outputs the word 0x7fffffff
+    for name, args in stage_sets[1].items():
+        got, got_shade = vertex_cuda.tessellate_rows_cuda(*args)
+        diff = []
+        for tag, (want, want_shade) in (
+                ("plain", vertex_cuda.tessellate_rows_plain(*args)),
+                ("U1 + V1", kernel_times.u1_then_v1(args))):
+            diff += [f"{f} ({tag})" for f in got._fields
+                     if not same_bits(getattr(got, f), getattr(want, f))]
+            if not same_bits(got_shade, want_shade):
+                diff.append(f"vertex_shade ({tag})")
+        rows, grid = args[0].shape[0], args[11]
+        normals = uniforms_cuda.uniforms_cuda(*args[:9]).normals
+        live_rows = tool_common.tess_live(normals)
+        live = int(live_rows.sum())
+        slerps = tool_common.tess_slerps(normals, grid)
+        pad_nan = all(bool((t[~live_rows].reshape(-1).view(torch.int32)
+                            == 0x7FFFFFFF).all()) for t in (
+            got.clip, got.world, got.normal, got.snormal, got_shade))
+        row = dict(
+            max_abs_err=0.0 if not diff else float("nan"),
+            ms=time_ms(lambda: vertex_cuda.tessellate_rows_cuda(*args)),
+            pair_ms=time_ms(lambda: kernel_times.u1_then_v1(args)),
+            plain_ms=time_ms(lambda: vertex_cuda.tessellate_rows_plain(
+                *args)),
+            rows=rows, live_rows=live, slerps=slerps,
+            bound=bound_ms(*tool_common.tess_rows_work(rows, grid, slerps,
+                                                       live=live)))
+        print(f"[3] V1 rows, {name}: {rows} rows x {grid}x{grid} vertices, "
+              f"{live} evaluated, {slerps} slerp interpolations; every "
+              f"output bitwise equal to plain and to V1 on U1's outputs: "
+              f"{not diff}, the padding rows' NaN words 0x7fffffff: "
+              f"{pad_nan}; kernel {row['ms']:.4f} ms, U1 + V1 "
+              f"{row['pair_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound'][0]:.5f} ms ({row['bound'][1]})",
+              flush=True)
+        check(not diff, f"V1 rows on {name}: {diff} differ")
+        check(live < rows and pad_nan, f"V1 rows on {name}: a padding "
+              "row's output is not the NaN word 0x7fffffff")
+        if name == kernel_times.ROWS_MAIN:
+            report["tess"]["rows_mode"] = dict(row, frame=name)
 
     # ------------------------------------------------------------ phase 4
     def check_golden(tag, name, n_leaves, image, depth, rc):
@@ -2122,23 +2208,25 @@ def main() -> int:
         check(bool(torch.isfinite(fr.image).all()), f"5b orbit {i}: finite")
         check(same, f"5b orbit frame {i}: leaf ids differ from PlanetEngine")
     launches_dev = dict(_cuda.launches)
-    # V1 once a geometry replay: each capture's eager warm-up launches it
-    # once more
+    # V1 (in its rows mode) and A1 once a geometry replay, U1 never (V1
+    # computes the uniforms in its own staging): each capture's eager
+    # warm-up launches V1 and A1 once more
     replays = sum(r.geometry_replays for r in renderers)
     captures = sum(r.geometry_captures for r in renderers)
     print(f"[5b] V1 launches {launches_dev['tess']}: {replays} geometry "
           f"replays, {captures} captures (each with one eager warm-up); "
           f"a replay's graph launches "
           f"{[r._tally['tess'] for r in renderers]}", flush=True)
-    check(all(r._tally["tess"] == 1 for r in renderers)
-          and launches_dev["tess"] == replays + captures,
-          "5b: V1 not launched once a geometry replay")
-    for k, tag in (("cache", "A1"), ("uniforms", "U1")):
+    for k, tag in (("tess", "V1"), ("cache", "A1")):
         check(all(r._tally[k] == 1 for r in renderers)
               and launches_dev[k] == replays + captures,
               f"5b: {tag} not launched once a geometry replay")
-    print(f"[5b] A1 and U1 launches {launches_dev['cache']}, "
-          f"{launches_dev['uniforms']}: once a geometry replay and capture",
+    check(all(r._tally["uniforms"] == 0 for r in renderers)
+          and launches_dev["uniforms"] == 0,
+          f"5b: U1 launched {launches_dev['uniforms']} times by the fused "
+          "frame (none expected: V1's rows mode computes the uniforms)")
+    print(f"[5b] A1 launches {launches_dev['cache']}: once a geometry "
+          f"replay and capture; U1 launches {launches_dev['uniforms']}",
           flush=True)
 
     # ------------------------------------------------------------ phase 6
@@ -2150,8 +2238,8 @@ def main() -> int:
     for k in ("tile", "tess", "gather", "span", "huge"):
         check(launches_host[k] > 0, f"kernel {k} was not launched by the "
               "host-orchestrated path")
-    for k in ("tile", "refine", "cache", "uniforms", "tess", "setup",
-              "gather", "span", "clip", "huge"):
+    for k in ("tile", "refine", "cache", "tess", "setup", "gather", "span",
+              "clip", "huge"):
         check(launches_dev[k] > 0, f"kernel {k} was not launched by the "
               "fused device path")
     check(launches_dev["noise"] == 0, "the fused device path launched K4 "
@@ -2393,7 +2481,7 @@ def main() -> int:
     # before them) queued the same way: their "library" yardstick, as no
     # single PyTorch call computes either
     pool, args, kw = stage_sets[0][kernel_times.STAGE_MAIN]
-    uargs = stage_sets[1][kernel_times.STAGE_MAIN]
+    uargs = stage_sets[1][kernel_times.STAGE_MAIN][:9]
     report["cache"]["composed_ms"] = tool_common.time_ms(
         lambda p: device_pool_cuda.cache_stage_plain(p, *args, **kw),
         lambda: fresh(pool), reps=REPS)
@@ -2404,6 +2492,15 @@ def main() -> int:
               f"queued, its composed torch ops {report[k]['composed_ms']:.4f}"
               f" ms queued; bound {report[k]['bound'][0]:.6f} ms "
               f"({report[k]['bound'][1]})", flush=True)
+    # the tessellate stage on each stage frame: V1's rows mode against U1
+    # then V1 on its outputs, queued
+    rows_main = report["tess"]["rows_mode"]
+    rows_main.update(queued_ms=queued["tess_rows"],
+                     pair_queued_ms=queued["tess_pair"])
+    for name in stage_sets[1]:
+        print(f"[8] tessellate stage, {name}: V1 rows "
+              f"{by_label[f'V1 rows, {name}']:.4f} ms queued, U1 + V1 "
+              f"{by_label[f'U1 + V1, {name}']:.4f} ms queued", flush=True)
     for label, fn in kernel_times.host_calls(sets):
         print(f"[8] host clock, {label}: "
               f"{kernel_times.host_ms(fn, REPS):.4f} ms", flush=True)
@@ -2463,7 +2560,7 @@ def main() -> int:
     launches_ladder = dict(_cuda.launches)
     print(f"[11] launches, stage rungs and the dryrun's reference (phase "
           f"11, this process): {launches_ladder}", flush=True)
-    for k in ("tile", "refine", "tess", "gather", "span"):
+    for k in ("tile", "refine", "tess", "uniforms", "gather", "span"):
         check(launches_ladder[k] > 0, f"phase 11 launched no {k} kernel")
     print(f"[11] the stage ladder and dryrun_multichip in "
           f"{time.perf_counter() - t11:.1f} s: " + json.dumps(ladder),
@@ -2474,6 +2571,7 @@ def main() -> int:
           "jax or planet_tpu was imported")
     launches = dict(launches_dev, field=launches_field["field"],
                     noise=launches_field["noise"],
+                    uniforms=launches_ladder["uniforms"],
                     splat=rest["splat_launches"],
                     **{k: launches_tools[k] for k in tool_rows})
     replaces = {
@@ -2555,6 +2653,15 @@ def main() -> int:
                                queued_pass_ms=report[k]["queued_pass_ms"])
         if k in ("cache", "uniforms"):
             kernels[-1]["composed_ms"] = report[k]["composed_ms"]
+        if k == "tess":
+            r = report[k]["rows_mode"]
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             r["max_abs_err"])
+            kernels[-1]["rows_mode"] = dict(
+                frame=r["frame"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                queued_ms=r["queued_ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                pair_ms=r["pair_ms"], pair_queued_ms=r["pair_queued_ms"])
         if k == "gather":
             kernels[-1].update(composed_ms=report[k]["composed_ms"],
                                host_ms=report[k]["host_ms"],

@@ -45,7 +45,7 @@ _BUILD = _PKG / "_build"
 SOURCES = ("tile.cu", "raster.cu", "perlin.cu", "field.cu", "splat.cu",
            "refine.cu", "setup.cu", "tess.cu", "cache.cu", "uniforms.cu",
            "bench_noise.cu", "bench_lut.cu", "bench_span.cu")
-HEADERS = ("noise.cuh", "tile_blend.cuh", "fragment.cuh")
+HEADERS = ("noise.cuh", "tile_blend.cuh", "fragment.cuh", "uniforms.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -70,6 +70,8 @@ _SIGNATURES = {
     "planet_clip_records": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
                             _P, _P, _P, _P),
     "planet_tess": (_P,) * 10 + (_I, _I, _I, _F, _F, _F) + (_P,) * 7,
+    "planet_tess_rows": (_P,) * 8 + (_F,) + (_P,) * 5
+                        + (_I, _I, _I, _F, _F, _F) + (_P,) * 7,
     "planet_cache": (_P,) * 10 + (_I,) * 5 + (_F, _F, _I) + (_P,) * 11,
     "planet_uniforms": (_P,) * 8 + (_I, _F) + (_P,) * 6,
     # the kernel-attribution tools (planet_tpu_torch/tools)

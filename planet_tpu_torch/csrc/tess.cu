@@ -58,6 +58,21 @@
 // cos, two tan a vertex, with sin's and tan's long argument reduction on
 // NaN) were most of the kernel's time (PERF.md).
 
+// Rows mode (kFromRows, entry planet_tess_rows): the fused step's form. In
+// place of the uniforms (corners, corner normals, variants and skirt, which
+// U1 would write to memory for V1 to read back) the block reads the row's
+// id words, crop flag and depth, its lane-major DF corners and the camera,
+// first thing and by read-only loads (their latency then overlaps the
+// tile's; plain loads were measured 2-6 % slower, PERF.md), and computes
+// those values into the same shared arrays with U1's arithmetic
+// (uniforms.cuh): every thread the variants, thread c 3 + a corner c's
+// camera-relative position and normal on axis a (its corner's root
+// computed by three threads side by side), thread 0 the skirt. Both
+// blocks of a row compute them for themselves. Everything past the
+// staging is the same code: a padding row's zero DF corners give NaN
+// normals (0 / 0), which the padding test finds as before. So the fused
+// step launches no U1, and its values never leave the SM (PERF.md).
+
 // Bits: every rounding is the plain version's op, in its order: dots as
 // x x + y y + z z, cross products as separate products and differences,
 // the clip transform as ((m0 x + m1 y) + m2 z) + m3, the two-tap blends as
@@ -71,6 +86,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "uniforms.cuh"
 
 namespace {
 
@@ -221,13 +238,29 @@ __device__ __forceinline__ void interpolate_at(const Column& o, float t,
     p[j] = (o.pa[j] + x * o.half[j]) + (y * n[j]) * o.hlen;
 }
 
+// Rows mode's inputs: U1's, for the batch's q rows (null in the uniforms
+// mode)
+struct Words {
+  const int* q_lo;
+  const int* q_hi;
+  const unsigned char* crop;
+  const int* depth;
+  const float* c_hi;       // (12, q): row 3 c + a is corner c's axis a
+  const float* c_lo;
+  const float* cam_hi;     // (3,)
+  const float* cam_lo;
+  float max_skirt;
+};
+
 // Block b takes grid rows [r0, r1) of patch row b / kParts, its half
 // b % kParts of them; lane c of warp w takes column c of rows r0 + w,
 // r0 + w + 8, ..., at most kRows of them (kRows 8-row groups). The fused
 // frame's live rows come first, so its longest blocks start first.
-template <int kRows>
+// kFromRows: the row's uniforms from `words`, else from corners,
+// corner_normals, vx, vy and skirt.
+template <int kRows, bool kFromRows>
 __global__ void __launch_bounds__(kThreads)
-tess_kernel(const float* __restrict__ corners,
+tess_kernel(const Words words, const float* __restrict__ corners,
             const float* __restrict__ corner_normals,
             const float* __restrict__ tiles, const int* __restrict__ vx,
             const int* __restrict__ vy, const float* __restrict__ skirt,
@@ -253,6 +286,32 @@ tess_kernel(const float* __restrict__ corners,
   const int r0 = (blockIdx.x - q * kParts) * rows, r1 = min(g, r0 + rows);
   if (r0 >= r1) return;                            // g = 1: one row
   const long long v0 = (long long)q * g * g;       // the row's first vertex
+  // rows mode: the row's words, and thread 3 c + a's corner c and camera
+  // axis a, read before anything is staged, by read-only loads (words'
+  // pointers carry no __restrict__, so plain loads through them would
+  // wait behind the staging's shared-memory stores)
+  int w_lo = 0, w_hi = 0, w_depth = 0;
+  unsigned char w_crop = 0;
+  float cnrm[3] = {0.0f, 0.0f, 0.0f}, own_h = 0.0f, own_l = 0.0f;
+  float cam_h = 0.0f, cam_l = 0.0f;
+  if (kFromRows) {
+    w_lo = __ldg(words.q_lo + q);
+    w_hi = __ldg(words.q_hi + q);
+    w_crop = __ldg(words.crop + q);
+    if (tid == 0) w_depth = __ldg(words.depth + q);
+    if (tid < 12) {
+      const int nq = gridDim.x / kParts, c = tid / 3, a = tid - 3 * c;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int at = (3 * c + k) * nq + q;
+        const float h = __ldg(words.c_hi + at), l = __ldg(words.c_lo + at);
+        cnrm[k] = h + l;
+        if (k == a) own_h = h, own_l = l;     // word 3 c + a, tid's own
+      }
+      cam_h = __ldg(words.cam_hi + a);
+      cam_l = __ldg(words.cam_lo + a);
+    }
+  }
   for (int i = tid; i < dim * dim; i += kThreads)
     tile[i] = tiles[(long long)q * dim * dim + i];
   // the row's variants' taps, taken as the plain version's idx[variant]
@@ -260,7 +319,11 @@ tess_kernel(const float* __restrict__ corners,
   // outside {0, 1, 2} stops the kernel, as the plain version's index
   // raises on the CPU and asserts on the card. Each entry is read for all
   // three variants, so these reads need not wait for the variant's.
-  const int var_x = vx[q], var_y = vy[q];
+  int var_x, var_y;
+  if (kFromRows)
+    uniforms_core::crop_variants(w_lo, w_hi, w_crop != 0, &var_x, &var_y);
+  else
+    var_x = vx[q], var_y = vy[q];
   for (int i = tid; i < 2 * 3 * g; i += kThreads) {
     const int axis = i / (3 * g), rem = i - axis * 3 * g;
     const int tap = rem / g, o = rem - tap * g;
@@ -280,16 +343,30 @@ tess_kernel(const float* __restrict__ corners,
     t.wa[tap][o] = sel == 0 ? wa[0] : sel == 1 ? wa[1] : wa[2];
     t.wb[tap][o] = sel == 0 ? wb[0] : sel == 1 ? wb[1] : wb[2];
   }
-  if (var_x < -3 || var_x > 2 || var_y < -3 || var_y > 2) __trap();
+  // rows mode's variants are 0-2 by construction
+  if (!kFromRows && (var_x < -3 || var_x > 2 || var_y < -3 || var_y > 2))
+    __trap();
   float cn_word = 0.0f;
   if (tid < 12) {
-    cn_word = corner_normals[q * 12 + tid];
-    cp[tid / 3][tid % 3] = corners[q * 12 + tid];
-    cn[tid / 3][tid % 3] = cn_word;
+    const int c = tid / 3, a = tid - 3 * c;
+    float p;
+    if (kFromRows) {
+      // U1's (row, corner) work for one axis
+      const float len = uniforms_core::normal_len(cnrm);
+      cn_word = (a == 0 ? cnrm[0] : a == 1 ? cnrm[1] : cnrm[2]) / len;
+      p = uniforms_core::df_sub_hi(own_h, own_l, cam_h, cam_l);
+    } else {
+      cn_word = corner_normals[q * 12 + tid];
+      p = corners[q * 12 + tid];
+    }
+    cp[c][a] = p;
+    cn[c][a] = cn_word;
   }
   if (tid < 16) m[tid] = view_proj[tid];
   if (tid < g) u[tid] = u_table[tid];
-  if (tid == 0) skirt_q = skirt[q];
+  if (tid == 0)
+    skirt_q = kFromRows ? uniforms_core::skirt_of(w_depth, words.max_skirt)
+                        : skirt[q];
   // a padding row: a NaN among its corner normals
   const bool pad = __syncthreads_or(cn_word != cn_word);
 
@@ -409,6 +486,32 @@ tess_kernel(const float* __restrict__ corners,
   }
 }
 
+template <bool kFromRows>
+int launch_tess(const Words& words, const void* corners,
+                const void* corner_normals, const void* tiles, const void* vx,
+                const void* vy, const void* skirt, const void* view_proj,
+                const void* tap_idx, const void* tap_w, const void* u, int q,
+                int g, int dim, float lx, float ly, float lz, void* clip,
+                void* world, void* normal, void* height, void* snormal,
+                void* shade, void* stream) {
+  if (q < 0 || g <= 0 || g > kMaxGrid || dim <= 0 || dim > kMaxDim
+      || ((size_t)clip & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (q == 0) return (int)cudaSuccess;
+  // the 8-row groups a warp takes: 1 or 2
+  const auto kernel = (g + kParts - 1) / kParts > 8
+                          ? tess_kernel<2, kFromRows>
+                          : tess_kernel<1, kFromRows>;
+  kernel<<<q * kParts, kThreads, 0, (cudaStream_t)stream>>>(
+      words, (const float*)corners, (const float*)corner_normals,
+      (const float*)tiles, (const int*)vx, (const int*)vy,
+      (const float*)skirt, (const float*)view_proj, (const int*)tap_idx,
+      (const float*)tap_w, (const float*)u, g, dim, lx, ly, lz,
+      (float*)clip, (float*)world, (float*)normal, (float*)height,
+      (float*)snormal, (float*)shade);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // corners and corner_normals (Q, 4, 3) f32, tiles (Q, dim, dim) f32,
@@ -425,19 +528,33 @@ extern "C" int planet_tess(const void* corners, const void* corner_normals,
                            float ly, float lz, void* clip, void* world,
                            void* normal, void* height, void* snormal,
                            void* shade, void* stream) {
-  if (q < 0 || g <= 0 || g > kMaxGrid || dim <= 0 || dim > kMaxDim
-      || ((size_t)clip & 15) != 0)
-    return (int)cudaErrorInvalidValue;
-  if (q == 0) return (int)cudaSuccess;
-  // the 8-row groups a warp takes: 1 or 2
-  const auto kernel = (g + kParts - 1) / kParts > 8 ? tess_kernel<2>
-                                                     : tess_kernel<1>;
-  kernel<<<q * kParts, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)corners, (const float*)corner_normals,
-      (const float*)tiles, (const int*)vx, (const int*)vy,
-      (const float*)skirt, (const float*)view_proj, (const int*)tap_idx,
-      (const float*)tap_w, (const float*)u, g, dim, lx, ly, lz,
-      (float*)clip, (float*)world, (float*)normal, (float*)height,
-      (float*)snormal, (float*)shade);
-  return (int)cudaGetLastError();
+  return launch_tess<false>(Words{}, corners, corner_normals, tiles, vx, vy,
+                            skirt, view_proj, tap_idx, tap_w, u, q, g, dim,
+                            lx, ly, lz, clip, world, normal, height, snormal,
+                            shade, stream);
+}
+
+// Rows mode: U1's inputs in place of the uniforms — q_lo, q_hi, depth (Q,)
+// int32, crop (Q,) bool, c_hi, c_lo (12, Q) f32 lane-major DF corners (row
+// 3 c + a: corner c's axis a), cam_hi, cam_lo (3,) f32, max_skirt — and the
+// rest as planet_tess.
+extern "C" int planet_tess_rows(const void* q_lo, const void* q_hi,
+                                const void* crop, const void* depth,
+                                const void* c_hi, const void* c_lo,
+                                const void* cam_hi, const void* cam_lo,
+                                float max_skirt, const void* tiles,
+                                const void* view_proj, const void* tap_idx,
+                                const void* tap_w, const void* u, int q,
+                                int g, int dim, float lx, float ly, float lz,
+                                void* clip, void* world, void* normal,
+                                void* height, void* snormal, void* shade,
+                                void* stream) {
+  const Words words{(const int*)q_lo, (const int*)q_hi,
+                    (const unsigned char*)crop, (const int*)depth,
+                    (const float*)c_hi, (const float*)c_lo,
+                    (const float*)cam_hi, (const float*)cam_lo, max_skirt};
+  return launch_tess<true>(words, nullptr, nullptr, tiles, nullptr, nullptr,
+                           nullptr, view_proj, tap_idx, tap_w, u, q, g, dim,
+                           lx, ly, lz, clip, world, normal, height, snormal,
+                           shade, stream);
 }

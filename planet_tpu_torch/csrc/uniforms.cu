@@ -12,25 +12,23 @@
 // (c_hi + c_lo over the correctly rounded root of (x x + y y) + z z; a
 // padding row's zero corners give 0 / 0, the NaN word 0x7fffffff), and,
 // in the row's first thread, the crop variants from the id's child index
-// and the skirt max_skirt / 2^(depth - 1 + 1) (exp2f and an IEEE
-// division, as torch's exp2 and division on the card). Bound by nothing
-// of size: it reads 112 bytes a row and writes 108; one launch in place
-// of the ops'. Built with -fmad=false, so every sum and product rounds as
-// torch's do.
+// and the skirt max_skirt / 2^(depth - 1 + 1). The arithmetic is
+// uniforms.cuh's, which V1's rows mode (tess.cu) computes into its own
+// staging: the fused step launches that and not this kernel, which stays
+// for the "uniforms" rung of the stage bisection, whose outputs are these.
+// Bound by nothing of size: it reads 112 bytes a row and writes 108; one
+// launch in place of the ops'. Built with -fmad=false, so every sum and
+// product rounds as torch's do.
 
 #include <cuda_runtime.h>
 
+#include "uniforms.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using namespace uniforms_core;
 
-// nums/df.two_sum
-__device__ __forceinline__ void two_sum(float a, float b, float* s,
-                                        float* err) {
-  *s = a + b;
-  const float bb = *s - a;
-  *err = (a - (*s - bb)) + (b - bb);
-}
+constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads) uniforms_kernel(
     const int* __restrict__ q_lo, const int* __restrict__ q_hi,
@@ -47,35 +45,14 @@ __global__ void __launch_bounds__(kThreads) uniforms_kernel(
   for (int a = 0; a < 3; ++a) {
     const float h = c_hi[(3 * c + a) * rows + r];
     const float l = c_lo[(3 * c + a) * rows + r];
-    // df.sub = df.add(x, (-cam_hi, -cam_lo)): its hi word
-    float s, e, u, f;
-    two_sum(h, -cam_hi[a], &s, &e);
-    two_sum(l, -cam_lo[a], &u, &f);
-    e = e + u;
-    const float s1 = s + e;
-    e = e - (s1 - s);
-    e = e + f;
-    corners_rel[(r * 4 + c) * 3 + a] = s1 + e;
+    corners_rel[(r * 4 + c) * 3 + a] = df_sub_hi(h, l, cam_hi[a], cam_lo[a]);
     nrm[a] = h + l;
   }
-  const float len = sqrtf((nrm[0] * nrm[0] + nrm[1] * nrm[1])
-                          + nrm[2] * nrm[2]);
+  const float len = normal_len(nrm);
   for (int a = 0; a < 3; ++a) normals[(r * 4 + c) * 3 + a] = nrm[a] / len;
   if (c == 0) {
-    const int lo = q_lo[r], hi = q_hi[r];
-    int x = 0, y = 0;
-    if (crop[r]) {
-      // geom/quadid.words_child_index: the digit at 2 (depth - 1)
-      const int pos = 2 * (((hi >> 23) & 31) - 1);
-      const int child = pos < 32 ? (lo >> (pos < 0 ? 0 : pos)) & 3
-                                 : (hi >> (pos - 32)) & 3;
-      x = 1 + (child & 1);
-      y = 1 + ((child >> 1) & 1);
-    }
-    vx[r] = x;
-    vy[r] = y;
-    const float d1 = (float)(depth[r] - 1);
-    skirt[r] = d1 > 0.0f ? max_skirt / exp2f(d1 + 1.0f) : max_skirt;
+    crop_variants(q_lo[r], q_hi[r], crop[r] != 0, &vx[r], &vy[r]);
+    skirt[r] = skirt_of(depth[r], max_skirt);
   }
 }
 

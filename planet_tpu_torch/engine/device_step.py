@@ -13,11 +13,15 @@ trip.
                   6 + 12*depth // max_lod and slots in gen_cap rows; dead
                   rows: count 0, zeros)
   4. generate     one K1 launch over gen_cap slots, then store
-  5. tessellate   one U1 launch (tess.uniforms_cuda: crop variants,
-                  camera-relative DF corners, corner normals, skirt),
-                  gather, one V1 launch (tess.vertex_cuda: the vertex
-                  program and its shade; the padding rows' NaN outputs
-                  written, not computed: their corner normals are NaN)
+  5. tessellate   gather, one V1 launch in its rows mode
+                  (tess.vertex_cuda.tessellate_rows: from the rows' id
+                  words and DF corners it computes the uniforms -- crop
+                  variants, camera-relative corners, corner normals,
+                  skirt -- in its own staging, then the vertex program
+                  and its shade; the padding rows' NaN outputs written,
+                  not computed: their corner normals are NaN). The
+                  "uniforms" rung alone launches U1 (tess.uniforms_cuda),
+                  as planet_tpu's rung returns the uniforms
   6. raster       raster.coverage_cuda.raster_frame (C1, K6, K2, C2, K3)
                   on all render_cap rows, padding rows invalid and skipped
                   by C1 through the leaf count on the device, or with
@@ -221,8 +225,9 @@ def build_geometry_step(cfg: EngineConfig, *, device, cap: int = 4096,
         q_lo = ref.leaf_lo.index_select(0, perm)
         q_hi = ref.leaf_hi.index_select(0, perm)
         depth = ref.leaf_depth.index_select(0, perm)
-        # the corners stay lane-major, (12, render_cap), as A1 and U1 take
-        # them; the refine rung returns (render_cap, 4, 3) views
+        # the corners stay lane-major, (12, render_cap), as A1, U1 and
+        # V1's rows mode take them; the refine rung returns (render_cap,
+        # 4, 3) views
         c_hi_t, c_lo_t = (c.index_select(1, perm) for c in (
             ref.leaf_corners_hi, ref.leaf_corners_lo))
         overflow = ref.overflowed | (n > render_cap)
@@ -266,21 +271,22 @@ def build_geometry_step(cfg: EngineConfig, *, device, cap: int = 4096,
             return early(slot=slot, tiles=tiles, gen_slot=cs.gen_slot)
 
         # ------------------------------------------------ 5. tessellate
-        # the vertex program's per-row inputs (U1): crop variants,
-        # camera-relative corners, corner normals, skirt
-        u = uniforms_cuda.uniforms(q_lo, q_hi, cs.crop, depth, c_hi_t,
-                                   c_lo_t, cam_hi, cam_lo,
-                                   cfg.max_skirt_size)
+        # the vertex program's per-row inputs: crop variants,
+        # camera-relative corners, corner normals, skirt. The "uniforms"
+        # rung returns them (U1); past it V1 computes them itself
         if stop_after == "uniforms":
+            u = uniforms_cuda.uniforms(q_lo, q_hi, cs.crop, depth, c_hi_t,
+                                       c_lo_t, cam_hi, cam_lo,
+                                       cfg.max_skirt_size)
             return early(slot=slot, corners_rel=u.corners_rel,
                          normals=u.normals, vx=u.vx, vy=u.vy, skirt=u.skirt)
         pool_tiles = dp.gather(pool, slot)
-        # the rows past n are padding (zero DF corners, NaN normals): V1
-        # finds their NaN normals on the card and skips their
+        # the rows past n are padding (zero DF corners, so NaN normals):
+        # V1 finds their NaN normals on the card and skips their
         # interpolations
-        pv, vshade = vertex_cuda.tessellate_shaded(
-            u.corners_rel, u.normals, pool_tiles, u.vx, u.vy, u.skirt,
-            view_proj, grid=grid)
+        pv, vshade = vertex_cuda.tessellate_rows(
+            q_lo, q_hi, cs.crop, depth, c_hi_t, c_lo_t, cam_hi, cam_lo,
+            cfg.max_skirt_size, pool_tiles, view_proj, grid=grid)
         if stop_after == "tess":
             return early(slot=slot, tiles=pool_tiles, vertices=pv,
                          vertex_shade=vshade)

@@ -10,6 +10,16 @@ tess/vertex.tessellate_blend and raster/shade.lambert.
   is taken as a torch index takes it: -3..-1 count from the end, and any
   other value outside {0, 1, 2} makes both versions fail (the kernel
   traps).
+* tessellate_rows(q_lo, q_hi, crop, depth, corners_hi, corners_lo,
+  cam_hi, cam_lo, max_skirt, tiles, view_proj, grid=mesh.GRID) -> the
+  same: the fused step's form, from U1's inputs (tess/uniforms_cuda:
+  the rows' id words, crop flags and depths, their lane-major (12, Q) DF
+  corners, the camera's DF position and the largest skirt) in place of
+  the uniforms. On the card it is V1 in its rows mode, which computes the
+  uniforms in its own staging with U1's arithmetic (csrc/uniforms.cuh),
+  so no U1 runs and nothing is written between them; its plain version
+  is uniforms_plain, then tessellate_shaded_plain, which it equals bit for
+  bit.
 
 The dispatcher launches the kernel for CUDA tensors (or raises) and runs
 the plain version, `tessellate_shaded_plain`, for CPU tensors. The plain
@@ -35,6 +45,7 @@ from planet_tpu_torch import _cuda
 from planet_tpu_torch.nums.fp import sqrt_rn
 from planet_tpu_torch.raster import shade as shade_mod
 from planet_tpu_torch.tess import mesh
+from planet_tpu_torch.tess import uniforms_cuda
 from planet_tpu_torch.tess import vertex
 
 # the kernel's largest grid and tile side (csrc/tess.cu kMaxGrid, kMaxDim)
@@ -60,13 +71,35 @@ def tessellate_shaded_plain(corners_rel, corner_normals, tiles, variant_x,
     return pv, lambert(pv.normal)
 
 
+def _check_grid(grid: int, dim: int):
+    if not (0 < grid <= MAX_GRID and 0 < dim <= MAX_DIM):
+        raise ValueError(f"grid {grid}, tile side {dim}: the kernel takes "
+                         f"at most {MAX_GRID} and {MAX_DIM}")
+
+
+def _outputs(q: int, grid: int, dev):
+    """V1's output buffers: (PatchVertices, shade)."""
+    def out(*tail):
+        return torch.empty((q, grid, grid) + tail, dtype=torch.float32,
+                           device=dev)
+
+    return vertex.PatchVertices(clip=out(4), world=out(3), normal=out(3),
+                                height=out(), snormal=out(3)), out()
+
+
+def _tables(grid: int, dim: int, dev):
+    """The kernel's two-tap table, the grid's u values and the light."""
+    idx, w = vertex.tap_table(dim, grid, str(dev))
+    u = vertex._grid_tables(grid, str(dev))[0][0]
+    light = [float(x) for x in shade_mod._LIGHT.astype(np.float32)]
+    return (idx.data_ptr(), w.data_ptr(), u.data_ptr()), light
+
+
 def tessellate_shaded_cuda(corners_rel, corner_normals, tiles, variant_x,
                            variant_y, skirt_size, view_proj,
                            grid: int = mesh.GRID):
     q, dim = tiles.shape[0], tiles.shape[-1]
-    if not (0 < grid <= MAX_GRID and 0 < dim <= MAX_DIM):
-        raise ValueError(f"grid {grid}, tile side {dim}: the kernel takes "
-                         f"at most {MAX_GRID} and {MAX_DIM}")
+    _check_grid(grid, dim)
     corners_rel, corner_normals, tiles, skirt_size, view_proj = (
         t.contiguous() for t in (corners_rel, corner_normals, tiles,
                                  skirt_size, view_proj))
@@ -88,25 +121,14 @@ def tessellate_shaded_cuda(corners_rel, corner_normals, tiles, variant_x,
             raise ValueError(f"{name}: expected the tiles' device {dev}, "
                              f"got {t.device}")
 
-    def out(*tail):
-        return torch.empty((q, grid, grid) + tail, dtype=torch.float32,
-                           device=dev)
-
-    pv = vertex.PatchVertices(clip=out(4), world=out(3), normal=out(3),
-                              height=out(), snormal=out(3))
-    shade = out()
+    pv, shade = _outputs(q, grid, dev)
     if q:
-        idx, w = vertex.tap_table(dim, grid, str(dev))
-        u = vertex._grid_tables(grid, str(dev))[0][0]
-        light = [float(x) for x in shade_mod._LIGHT.astype(np.float32)]
+        tables, light = _tables(grid, dim, dev)
         _cuda.launch("tess", "planet_tess", corners_rel.data_ptr(),
                      corner_normals.data_ptr(), tiles.data_ptr(),
                      vx.data_ptr(), vy.data_ptr(), skirt_size.data_ptr(),
-                     view_proj.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                     u.data_ptr(), q, grid, dim, *light, pv.clip.data_ptr(),
-                     pv.world.data_ptr(), pv.normal.data_ptr(),
-                     pv.height.data_ptr(), pv.snormal.data_ptr(),
-                     shade.data_ptr())
+                     view_proj.data_ptr(), *tables, q, grid, dim, *light,
+                     *(t.data_ptr() for t in pv), shade.data_ptr())
     return pv, shade
 
 
@@ -122,3 +144,62 @@ def tessellate_shaded(corners_rel, corner_normals, tiles, variant_x,
     return tessellate_shaded_plain(corners_rel, corner_normals, tiles,
                                    variant_x, variant_y, skirt_size,
                                    view_proj, grid)
+
+
+def tessellate_rows_plain(q_lo, q_hi, crop, depth, corners_hi, corners_lo,
+                          cam_hi, cam_lo, max_skirt: float, tiles,
+                          view_proj, grid: int = mesh.GRID):
+    """V1's rows mode's plain version: U1's, then V1's."""
+    u = uniforms_cuda.uniforms_plain(q_lo, q_hi, crop, depth, corners_hi,
+                                     corners_lo, cam_hi, cam_lo, max_skirt)
+    return tessellate_shaded_plain(u.corners_rel, u.normals, tiles, u.vx,
+                                   u.vy, u.skirt, view_proj, grid)
+
+
+def tessellate_rows_cuda(q_lo, q_hi, crop, depth, corners_hi, corners_lo,
+                         cam_hi, cam_lo, max_skirt: float, tiles, view_proj,
+                         grid: int = mesh.GRID):
+    """V1 in its rows mode. Checks its operands' metadata alone (no copy,
+    no host read), so a CUDA graph can capture it."""
+    q, dim = tiles.shape[0], tiles.shape[-1]
+    _check_grid(grid, dim)
+    for t, name in ((q_lo, "q_lo"), (q_hi, "q_hi"), (depth, "depth")):
+        _cuda.check_cuda(t, name, torch.int32, (q,))
+    _cuda.check_cuda(crop, "crop", torch.bool, (q,))
+    _cuda.check_cuda(corners_hi, "corners_hi", torch.float32, (12, q))
+    _cuda.check_cuda(corners_lo, "corners_lo", torch.float32, (12, q))
+    _cuda.check_cuda(cam_hi, "cam_hi", torch.float32, (3,))
+    _cuda.check_cuda(cam_lo, "cam_lo", torch.float32, (3,))
+    _cuda.check_cuda(tiles, "tiles", torch.float32, (q, dim, dim))
+    _cuda.check_cuda(view_proj, "view_proj", torch.float32, (4, 4))
+    dev = tiles.device
+    for t, name in ((q_lo, "q_lo"), (q_hi, "q_hi"), (crop, "crop"),
+                    (depth, "depth"), (corners_hi, "corners_hi"),
+                    (corners_lo, "corners_lo"), (cam_hi, "cam_hi"),
+                    (cam_lo, "cam_lo"), (view_proj, "view_proj")):
+        if t.device != dev:
+            raise ValueError(f"{name}: expected the tiles' device {dev}, "
+                             f"got {t.device}")
+    pv, shade = _outputs(q, grid, dev)
+    if q:
+        tables, light = _tables(grid, dim, dev)
+        _cuda.launch("tess", "planet_tess_rows", q_lo.data_ptr(),
+                     q_hi.data_ptr(), crop.data_ptr(), depth.data_ptr(),
+                     corners_hi.data_ptr(), corners_lo.data_ptr(),
+                     cam_hi.data_ptr(), cam_lo.data_ptr(),
+                     float(np.float32(max_skirt)), tiles.data_ptr(),
+                     view_proj.data_ptr(), *tables, q, grid, dim, *light,
+                     *(t.data_ptr() for t in pv), shade.data_ptr())
+    return pv, shade
+
+
+def tessellate_rows(q_lo, q_hi, crop, depth, corners_hi, corners_lo, cam_hi,
+                    cam_lo, max_skirt: float, tiles, view_proj,
+                    grid: int = mesh.GRID):
+    args = (q_lo, q_hi, crop, depth, corners_hi, corners_lo, cam_hi, cam_lo,
+            max_skirt, tiles, view_proj, grid)
+    if tiles.device.type == "cuda":
+        return tessellate_rows_cuda(*args)
+    if tiles.device.type != "cpu":
+        raise ValueError(f"unsupported device {tiles.device}")
+    return tessellate_rows_plain(*args)

@@ -276,6 +276,18 @@ def uniforms_work(rows: int):
                                                  + 24)
 
 
+def tess_rows_work(rows: int, grid: int, slerps: int = 0,
+                   dim: int = TILE_DIM, live: int | None = None):
+    """(f32 operations, bytes) of V1's rows mode: V1's work (tess_work)
+    and U1's (uniforms_work) on the same rows, U1's outputs neither
+    written nor read (each row's variants, corners, normals and skirt,
+    108 B); the uniforms counted once a row, though both of its blocks
+    compute them."""
+    ops, nbytes = tess_work(rows, grid, slerps, dim, live)
+    u_ops, u_bytes = uniforms_work(rows)
+    return ops + u_ops, nbytes + u_bytes - 2 * rows * 108
+
+
 def tess_live(corner_normals: torch.Tensor) -> torch.Tensor:
     """(Q,) bool: the rows V1 evaluates, those whose (Q, 4, 3) corner
     normals hold no NaN (the others are padding rows)."""

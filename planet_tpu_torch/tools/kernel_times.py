@@ -10,7 +10,8 @@ within the run. Times (tools/common.time_ms: the median of REPS calls
 queued behind a spin kernel) the calls of `calls` — the set that
 chip_smoke.py phase 8 times for the kernels line: K1 at phase 3's shape
 and at the fused frame's occupancy, K4, R1, C1, V1, A1 and U1 (on trees
-that have them; C1 with C2, K3's clip pass and the whole clip pass), K5,
+that have them; C1 with C2, K3's clip pass and the whole clip pass; U1
+then V1 against V1's rows mode on A1's and U1's frames), K5,
 K2 and K3 on the record sets
 of `record_sets` (the 1080p static scene, the three goldens, the orbit
 frames with huge records) and on a screen-filling triangle, S1 at phase
@@ -49,6 +50,9 @@ ORBIT_FRAMES = 8
 # the frame of stage_inputs whose A1 and U1 times the kernels line keeps:
 # one that generates a few tiles, as a moving frame does
 STAGE_MAIN = "1080p orbit frame 1"
+# and the one whose V1 rows-mode times it keeps: the static camera's
+# second frame, the rows of tess_inputs' main set
+ROWS_MAIN = "1080p static frame 1"
 STAGE_ORBIT_FRAMES = 4
 # host seconds each queued call may take (tools/common.QUEUE_S, set for
 # both trees of a comparison)
@@ -365,59 +369,78 @@ def tess_inputs(device) -> dict:
 
 
 def stage_inputs(device):
-    """({name: A1's call (pool, args, keywords)}, {name: U1's arguments})
-    at the main path's shapes: DeviceRenderer's step at 1920x1080 (cap
-    4096, render_cap 512, gen_cap 256) run eagerly on `device`, each
-    recorded at its cache_stage and uniforms call (the pool cloned before
-    the call): the static camera's first two frames from an empty pool
-    (the first generating every leaf's tile, the second none) and the
-    orbit's first STAGE_ORBIT_FRAMES frames from an empty pool (frames 1
-    on generating a few tiles each). Copies."""
+    """({name: A1's call (pool, args, keywords)}, {name: V1's rows-mode
+    arguments, whose first nine are U1's}) at the main path's shapes:
+    DeviceRenderer's step at 1920x1080 (cap 4096, render_cap 512, gen_cap
+    256) run eagerly on `device`, each recorded at its cache_stage and
+    vertex_cuda.tessellate_rows call (the pool cloned before the call):
+    the static camera's first two frames from an
+    empty pool (the first generating every leaf's tile, the second none)
+    and the orbit's first STAGE_ORBIT_FRAMES frames from an empty pool
+    (frames 1 on generating a few tiles each). On a tree whose step
+    launches U1 and then V1 on its outputs, the U1 call and V1's tiles,
+    view-projection and grid are recorded instead. Copies."""
     import torch
 
     from planet_tpu_torch.cache import device_pool as dp
     from planet_tpu_torch.cache import device_pool_cuda
     from planet_tpu_torch.engine import device_step
     from planet_tpu_torch.engine.config import EngineConfig
-    from planet_tpu_torch.tess import uniforms_cuda
+    from planet_tpu_torch.tess import mesh, uniforms_cuda, vertex_cuda
     from planet_tpu_torch.tools import stage_times
 
     cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
-    cache_fn, uniforms_fn = device_pool_cuda.cache_stage, uniforms_cuda.uniforms
-    seen_c, seen_u = [], []
+    seen_c, seen_u, seen_v = [], [], []
 
     def clone(a):
         return a.clone() if isinstance(a, torch.Tensor) else a
 
-    def cache_stage(pool, *a, **kw):
-        seen_c.append((dp.PoolState(*(t.clone() for t in pool)),
-                       tuple(map(clone, a)), dict(kw)))
-        return cache_fn(pool, *a, **kw)
+    def recording(module, name, record):
+        fn = getattr(module, name)
 
-    def uniforms(*a):
-        seen_u.append(tuple(map(clone, a)))
-        return uniforms_fn(*a)
+        def wrapped(*a, **kw):
+            record(a, kw)
+            return fn(*a, **kw)
+        return module, name, fn, wrapped
 
+    def grid(kw):
+        return (kw.get("grid", mesh.GRID),)
+
+    patches = [recording(device_pool_cuda, "cache_stage", lambda a, kw: (
+        seen_c.append((dp.PoolState(*(t.clone() for t in a[0])),
+                       tuple(map(clone, a[1:])), dict(kw)))))]
+    if hasattr(vertex_cuda, "tessellate_rows"):
+        patches.append(recording(vertex_cuda, "tessellate_rows",
+                                 lambda a, kw: seen_v.append(
+                                     tuple(map(clone, a)) + grid(kw))))
+    else:
+        patches += [
+            recording(uniforms_cuda, "uniforms", lambda a, kw: seen_u.append(
+                tuple(map(clone, a)))),
+            recording(vertex_cuda, "tessellate_shaded",
+                      lambda a, kw: seen_v.append(
+                          (a[2].clone(), a[6].clone()) + grid(kw)))]
     render = device_step.build_device_render(cfg, SCENE_W, SCENE_H,
                                              device=device)
     frames = [(f"1080p static frame {i}", scene_camera(cfg), i == 0)
               for i in range(2)]
     frames += [(f"1080p orbit frame {i}", cam, i == 0) for i, (_, cam)
                in enumerate(orbit_cameras(cfg)[:STAGE_ORBIT_FRAMES])]
-    caches, unis = {}, {}
-    device_pool_cuda.cache_stage = cache_stage
-    uniforms_cuda.uniforms = uniforms
+    caches, rows = {}, {}
+    for module, name, _, wrapped in patches:
+        setattr(module, name, wrapped)
     try:
         for name, cam, fresh in frames:
             if fresh:
                 pool = dp.init(cfg.cache_capacity, cfg.tile_dim, device)
             render(pool, *stage_times.camera_args(cfg, cam, SCENE_W,
                                                   SCENE_H))
-            caches[name], unis[name] = seen_c.pop(), seen_u.pop()
+            caches[name], v = seen_c.pop(), seen_v.pop()
+            rows[name] = v if len(v) == 12 else seen_u.pop() + v
     finally:
-        device_pool_cuda.cache_stage = cache_fn
-        uniforms_cuda.uniforms = uniforms_fn
-    return caches, unis
+        for module, name, fn, _ in patches:
+            setattr(module, name, fn)
+    return caches, rows
 
 
 def tess_probes(args) -> dict:
@@ -609,7 +632,9 @@ def calls(device, sets=None, fused=None, setups=None, tess=None,
     on tess_probes' parts of its 512 rows; A1 and U1 (where the tree has
     them: cache/device_pool_cuda, tess/uniforms_cuda) on each frame of
     stage_inputs (else `stages`), A1 into a fresh copy of the frame's pool
-    a call; and K6 on the 1080p scene: this tree's route_records, or on a tree before it the
+    a call, and on the same frames the tessellate stage as U1 then V1 on
+    its outputs ("U1 + V1", every tree) and as V1's rows mode ("V1 rows",
+    where the tree has it: vertex_cuda.tessellate_rows_cuda); and K6 on the 1080p scene: this tree's route_records, or on a tree before it the
     two record gathers its route fed (given the indices: its route
     synchronizes, see host_calls). The key is the kernel's in
     chip_smoke.py's kernels line ("tile_fused": its tile entry's
@@ -709,18 +734,37 @@ def calls(device, sets=None, fused=None, setups=None, tess=None,
     except ImportError:
         device_pool_cuda = None
     if device_pool_cuda is not None:
-        caches, unis = stage_inputs(device) if stages is None else stages
+        caches, rows = stage_inputs(device) if stages is None else stages
         for name, (pool, args, kw) in caches.items():
             out.append(("cache" if name == STAGE_MAIN else None,
                         f"A1 cache, {name}",
                         lambda p, a=args, k=kw: device_pool_cuda
                         .cache_stage_cuda(p, *a, **k),
                         lambda p=pool: (type(p)(*(t.clone() for t in p)),)))
-        for name, args in unis.items():
+        for name, args in rows.items():
             out.append(("uniforms" if name == STAGE_MAIN else None,
                         f"U1 uniforms, {name}",
-                        lambda a=args: uniforms_cuda.uniforms_cuda(*a),
+                        lambda a=args[:9]: uniforms_cuda.uniforms_cuda(*a),
                         tuple))
+        # the fused step's tessellate stage: U1, then V1 on its outputs
+        # (every tree before V1's rows mode), against V1's rows mode
+        for name, args in rows.items():
+            out.append(("tess_pair" if name == ROWS_MAIN else None,
+                        f"U1 + V1, {name}",
+                        lambda a=args: u1_then_v1(a), tuple))
+            if hasattr(vertex_cuda, "tessellate_rows_cuda"):
+                out.append(("tess_rows" if name == ROWS_MAIN else None,
+                            f"V1 rows, {name}",
+                            lambda a=args: vertex_cuda.tessellate_rows_cuda(
+                                *a), tuple))
+        if hasattr(vertex_cuda, "tessellate_rows_cuda"):
+            # the staging's share: every row a padding row (zero DF
+            # corners), beside V1's "every row padding" probe
+            pad = list(rows[ROWS_MAIN])
+            pad[4], pad[5] = (torch.zeros_like(t) for t in pad[4:6])
+            out.append((None, "V1 rows probe, every row padding",
+                        lambda a=tuple(pad): vertex_cuda
+                        .tessellate_rows_cuda(*a), tuple))
     fs = sets["1080p static"]
     if hasattr(cc, "route_records"):
         out.append(("gather", "K6 route + gather, 1080p",
@@ -733,6 +777,18 @@ def calls(device, sets=None, fused=None, setups=None, tess=None,
                                                     fs["huge_idx"])),
                     tuple))
     return out
+
+
+def u1_then_v1(args):
+    """The tessellate stage as two kernels: U1 on the first nine of V1's
+    rows-mode arguments, then V1 on its outputs, the tiles, the
+    view-projection and the grid."""
+    from planet_tpu_torch.tess import uniforms_cuda, vertex_cuda
+
+    u = uniforms_cuda.uniforms_cuda(*args[:9])
+    return vertex_cuda.tessellate_shaded_cuda(
+        u.corners_rel, u.normals, args[9], u.vx, u.vy, u.skirt, args[10],
+        args[11])
 
 
 def host_calls(sets: dict) -> list:

@@ -24,7 +24,9 @@ The scenes:
 
 Each replay is timed with CUDA events and follows one untimed call that
 captures the rung's graph. For each rung the tool prints the ms, the
-marginal ms over the rung before, the SM clock nvidia-smi reads while
+marginal ms over its base rung (the rung before it, but "generate" for
+"tess": the "uniforms" rung's U1 is in no later rung, see BASE), the SM
+clock nvidia-smi reads while
 the rung's calls run and, right after them, the card's µs a graph node
 (a replay of a CHAIN_NODES-node graph of one-block adds: the card runs
 back-to-back nodes at one of two speeds, a state that holds for seconds,
@@ -66,6 +68,13 @@ from planet_tpu_torch.nums import df as dfm
 from planet_tpu_torch.tools import common, kernel_times
 
 RUNGS = device_step.RUNGS
+# a rung's marginal is taken over the rung before it, but the tess rung's
+# over "generate": the "uniforms" rung returns U1's outputs, which the
+# later rungs do not make (V1 computes them in its own staging), so it is
+# a side rung whose marginal is U1 alone, and the other rungs' marginals
+# add up to the full rung's ms
+BASE = {"tess": "generate"}
+SIDE_RUNGS = ("uniforms",)
 SIZES = dict(width=1920, height=1080, caps={}, orbit_frames=8)
 SMALL = dict(width=96, height=54, orbit_frames=3,
              caps=dict(cap=256, render_cap=128, gen_cap=128, max_lod=4))
@@ -211,10 +220,14 @@ def start_moving_pool(ladder: Ladder, args0):
 
 
 def _marginals(rows):
-    prev = 0.0
-    for row in rows:
-        row["marginal_ms"] = row["ms"] - prev
-        prev = row["ms"]
+    """Each row's marginal ms over its base rung (BASE; else the rung
+    before it) and that rung's name."""
+    ms = {}
+    for i, row in enumerate(rows):
+        base = BASE.get(row["rung"], rows[i - 1]["rung"] if i else None)
+        row["base"] = base
+        row["marginal_ms"] = row["ms"] - ms.get(base, 0.0)
+        ms[row["rung"]] = row["ms"]
     return rows
 
 
@@ -397,7 +410,8 @@ def table(report: dict) -> list:
                          f"{r['again_node_us']:.3f} us/node"))
             lines.append(f"[{scene}] {r['rung']:9s} {r['ms']:9.3f} ms"
                          f"{mhz}  "
-                         f"marginal {r['marginal_ms']:+9.3f}  host "
+                         f"marginal {r['marginal_ms']:+9.3f} over "
+                         f"{r['base'] or '-':8s}  host "
                          f"{r['host_ms']:8.3f}{again}  {ev}  "
                          f"launches {_launch_text(r['launches'])}  "
                          f"(graph {_launch_text(r['graph_launches'])})  "

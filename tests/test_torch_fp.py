@@ -8,15 +8,21 @@
   torch or a tensor outside nums/fp.py (the DF root, nums.df.sqrt, takes
   its seed from sqrt_rn). numpy's roots (float64 host
   constants and cameras) are not the port's plain paths and stay.
+* The kernels' sources (every file of _cuda.SOURCES and _cuda.HEADERS,
+  csrc/uniforms.cuh among them) take their roots by sqrtf alone, the
+  correctly rounded root under -prec-sqrt=true: no rsqrtf, hypotf,
+  norm3df or the like, and no root intrinsic with another rounding.
 """
 
 import ast
 import pathlib
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from planet_tpu_torch import _cuda
 from planet_tpu_torch.nums.fp import sqrt_rn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -107,3 +113,29 @@ def test_the_scan_finds_roots(tmp_path):
     assert [c for _, c in _root_calls(src)] == [
         "torch.sqrt", "x.rsqrt", "torch.linalg.vector_norm",
         "torch.nn.functional.normalize"]
+
+
+# CUDA's root functions and intrinsics other than sqrtf: approximate
+# (rsqrtf, __frsqrt_rn's reciprocal), or rounded otherwise than torch's
+# root (__fsqrt_rz and the like), or roots of sums in their own order
+CUDA_ROOTS = re.compile(r"\b(sqrtf|rsqrtf|hypotf|rhypotf|norm3df|rnorm3df|"
+                        r"norm4df|rnorm4df|normf|rnormf|cbrtf|rcbrtf|"
+                        r"__fsqrt_r[nzud]|__frsqrt_rn|sqrt|rsqrt)\s*\(")
+
+
+def _cuda_roots(text: str) -> list:
+    """The root calls of a CUDA source, comments left out."""
+    text = re.sub(r"//[^\n]*", "", text)
+    return CUDA_ROOTS.findall(text)
+
+
+def test_the_kernels_take_their_roots_by_sqrtf():
+    names = _cuda.SOURCES + _cuda.HEADERS
+    assert "uniforms.cuh" in names
+    found = {n: _cuda_roots((_cuda._SRC / n).read_text()) for n in names}
+    assert {r for roots in found.values() for r in roots} == {"sqrtf"}
+    # the header's one root, the corner normal's (U1 and V1's rows mode)
+    assert found["uniforms.cuh"] == ["sqrtf"]
+    assert _cuda_roots("a = rsqrtf(x); b = sqrtf(y); // hypotf(z)\n"
+                       "c = __fsqrt_rd(w);") == ["rsqrtf", "sqrtf",
+                                                 "__fsqrt_rd"]

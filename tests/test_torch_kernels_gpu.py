@@ -44,7 +44,12 @@ touch) and on the 1080p static and orbit frames' calls, and refusing a
 size it does not take from the sizes alone; U1, the uniforms, equal to
 its plain version on the same rows and on every depth 0-29; torch's
 square root on the card correctly rounded (the f64 root rounded to f32)
-on 2^20 inputs; A1 and U1 launched once a geometry replay."""
+on 2^20 inputs; A1 launched once a geometry replay; V1's rows mode
+(the uniforms computed in its own staging from the rows' words) equal to
+its plain version and to V1 on U1's outputs in all six outputs, on
+torch_scenes' rows cases and the 1080p static and orbit frames' rows, its
+padding rows' five NaN outputs the word 0x7fffffff; a geometry replay
+launching V1 once and U1 never, and U1 on the "uniforms" rung alone."""
 
 import numpy as np
 import pytest
@@ -71,12 +76,13 @@ from planet_tpu_torch.tess import uniforms_cuda
 from planet_tpu_torch.tess import vertex_cuda
 from planet_tpu_torch.tools import (kernel_times, lut, noise_stages,
                                     span_parts, stage_times)
+from planet_tpu_torch.tools import common as tools_common
 import torch_ranks
 from torch_scenes import (CACHE_CASES, EDGE, SCREEN, STRADDLE,
-                          TESS_BATCHES, VIEW, adversarial_records,
-                          cache_case, nan_shade_records,
-                          screen_scene, straddle_scene, tess_batch,
-                          tess_padded, view_scene)
+                          TESS_BATCHES, TESS_ROWS_CASES, VIEW,
+                          adversarial_records, cache_case,
+                          nan_shade_records, screen_scene, straddle_scene,
+                          tess_batch, tess_padded, tess_rows, view_scene)
 
 pytestmark = pytest.mark.gpu
 GOLD = "tests/goldens/"
@@ -490,8 +496,10 @@ def test_stop_after_rungs_captured_equal_eager(dev, rung):
     """Each stop_after rung captured as a graph of its own: replays from
     two cameras (the golden one, then one 10 % nearer) equal the cut step
     run eagerly on the card, outputs and pool bit for bit; a replay
-    launches R1 19 times (a launch a level), K4 never, and K1 once from
-    "generate" on."""
+    launches R1 19 times (a launch a level), K4 never, K1 once from
+    "generate" on, A1 once from "cache" on, U1 on the "uniforms" rung
+    alone (V1 computes the uniforms itself past it) and V1 once from
+    "tess" on."""
     cfg = EngineConfig()
     pos = np.load(GOLD + "frame_cam.npy")
     angles = np.load(GOLD + "frame_angles.npy")
@@ -525,8 +533,8 @@ def test_stop_after_rungs_captured_equal_eager(dev, rung):
     assert tally["refine"] == 19 and tally["noise"] == 0, tally
     assert tally["tile"] == (0 if rung in ("refine", "cache") else 1), tally
     assert tally["cache"] == (0 if rung == "refine" else 1), tally
-    assert tally["uniforms"] == (
-        1 if rung in ("uniforms", "tess", "geometry") else 0), tally
+    assert tally["uniforms"] == (1 if rung == "uniforms" else 0), tally
+    assert tally["tess"] == (1 if rung in ("tess", "geometry") else 0), tally
 
 
 def test_dryrun_multichip_on_the_card(dev):
@@ -1020,9 +1028,9 @@ def test_tess_kernel_bitwise_on_the_main_path(dev):
 
 
 def test_geometry_replay_launches_v1_once(dev):
-    """The fused frame's geometry graph launches V1 once a replay, and
-    its vertices and shade equal the eager step's (the plain version
-    nowhere on the card)."""
+    """The fused frame's geometry graph launches V1 (in its rows mode) and
+    A1 once a replay and U1 never: V1 computes the uniforms in its own
+    staging."""
     cfg = EngineConfig(window_w=1920, window_h=1080)
     args = stage_times.camera_args(cfg, kernel_times.scene_camera(cfg),
                                    1920, 1080)
@@ -1032,8 +1040,8 @@ def test_geometry_replay_launches_v1_once(dev):
     for _ in range(2):
         before = dict(_cuda.launches)
         geom = r.geometry(pool, *args)
-        for k in ("tess", "cache", "uniforms"):
-            assert _cuda.launches[k] - before[k] == r._tally[k] == 1, k
+        for k, n in (("tess", 1), ("cache", 1), ("uniforms", 0)):
+            assert _cuda.launches[k] - before[k] == r._tally[k] == n, k
     assert int(geom.meta[0]) > 100
 
 
@@ -1138,12 +1146,88 @@ def test_cache_and_uniforms_kernels_bitwise_on_the_main_path(dev):
     versions on the calls of DeviceRenderer's step at 1080p
     (kernel_times.stage_inputs: the static camera's first two frames and
     the orbit's first four)."""
-    caches, unis = kernel_times.stage_inputs(dev)
+    caches, rows = kernel_times.stage_inputs(dev)
     generated = []
     for name, (pool, args, kw) in caches.items():
         for touch in (False, True):
             got = _assert_cache_equal(pool, args, dict(kw, touch=touch))
         generated.append(int(got.n_generated))
     assert generated[0] > 100 and max(generated[3:]) > 0, generated
-    for args in unis.values():
-        _assert_uniforms_equal(args)
+    for args in rows.values():
+        _assert_uniforms_equal(args[:9])
+
+
+# ------------------------------------------------------ V1's rows mode
+
+def _assert_tess_rows_equal(args):
+    """V1's rows mode equals its plain version and V1 on U1's outputs in
+    all six outputs bit for bit, one V1 launch and no U1 launch; returns
+    the outputs."""
+    before = dict(_cuda.launches)
+    pv, shade = vertex_cuda.tessellate_rows_cuda(*args)
+    assert _cuda.launches["tess"] == before["tess"] + 1
+    assert _cuda.launches["uniforms"] == before["uniforms"]
+    want = vertex_cuda.tessellate_rows_plain(*args)
+    pair = kernel_times.u1_then_v1(args)
+    for other in (want, pair):
+        for f in pv._fields:
+            assert _same_bits(getattr(pv, f), getattr(other[0], f)), f
+        assert _same_bits(shade, other[1])
+    return pv, shade
+
+
+def _assert_padding_words(pv, shade, live):
+    """Rows past `live` hold the NaN word in every output but the
+    height."""
+    for t in (pv.clip, pv.world, pv.normal, pv.snormal, shade):
+        words = t[live:].reshape(-1).view(torch.int32)
+        assert bool((words == 0x7FFFFFFF).all())
+    assert bool(torch.isfinite(pv.height).all())
+
+
+@pytest.mark.parametrize("case", TESS_ROWS_CASES)
+def test_tess_rows_kernel_bitwise(dev, case):
+    """V1's rows mode on the cache cases' rows (their crops, every child
+    index among them, padding rows of stale and zero words; "depths":
+    depths 0-29; "crops": every row cropped)."""
+    args, live = tess_rows(case, dev)
+    pv, shade = _assert_tess_rows_equal(args)
+    _assert_padding_words(pv, shade, live)
+
+
+@pytest.mark.parametrize("grid", [4, 9, 17])
+def test_tess_rows_kernel_layouts_bitwise(dev, grid):
+    """V1's rows mode at grids of one and two 8-row groups a warp."""
+    args, live = tess_rows("pressure", dev)
+    pv, shade = _assert_tess_rows_equal(args[:-1] + (grid,))
+    _assert_padding_words(pv, shade, live)
+
+
+def test_tess_rows_kernel_bitwise_on_the_main_path(dev):
+    """V1's rows mode on the calls of DeviceRenderer's step at 1080p
+    (kernel_times.stage_inputs: the static camera's first two frames and
+    the orbit's first four, 512 rows each)."""
+    _, rows = kernel_times.stage_inputs(dev)
+    assert len(rows) == 6
+    for args in rows.values():
+        live = int(tools_common.tess_live(
+            uniforms_cuda.uniforms_cuda(*args[:9]).normals).sum())
+        assert 100 < live < args[0].shape[0]
+        pv, shade = _assert_tess_rows_equal(args)
+        _assert_padding_words(pv, shade, live)
+
+
+def test_tess_rows_kernel_refuses_bad_metadata(dev):
+    args, _ = tess_rows("budget", dev)
+    bad = list(args)
+    bad[4] = args[4].t().contiguous()       # (Q, 12), not (12, Q)
+    with pytest.raises(ValueError, match="corners_hi"):
+        vertex_cuda.tessellate_rows_cuda(*bad)
+    bad = list(args)
+    bad[2] = args[2].to(torch.uint8)
+    with pytest.raises(ValueError, match="crop"):
+        vertex_cuda.tessellate_rows_cuda(*bad)
+    bad = list(args)
+    bad[9] = args[9].cpu()
+    with pytest.raises(ValueError):
+        vertex_cuda.tessellate_rows_cuda(*bad)

@@ -23,7 +23,9 @@ build_device_render(stop_after=...).
 * The renderers: each rung's frame has a zero image and depth and the
   truncated counts; "full" is the default frame; a bad name raises.
 * stage_times' ladder at its CPU size: every rung of both scenes, the same
-  leaves on every rung, marginals that add up to the full rung.
+  leaves on every rung, marginals that add up to the full rung (the
+  "uniforms" rung's aside: its U1 is in no later rung, so the tess rung's
+  marginal is taken over "generate").
 
 The captured rungs against the eager step are a GPU test
 (tests/test_torch_kernels_gpu.py::test_stop_after_rungs_captured_equal_eager).
@@ -264,8 +266,18 @@ def test_stage_ladder_at_its_cpu_size():
         assert [r["rung"] for r in rows] == list(device_step.RUNGS)
         leaves = [r["n_leaves"] for r in rows]
         assert all(x == leaves[0] for x in leaves), (scene, leaves)
-        assert sum(r["marginal_ms"] for r in rows) == pytest.approx(
-            rows[-1]["ms"])
+        # the side rung ("uniforms": U1, in no later rung) apart, the
+        # marginals add up to the full rung; the tess rung's is over
+        # "generate"
+        by = {r["rung"]: r for r in rows}
+        assert sum(r["marginal_ms"] for r in rows
+                   if r["rung"] not in stage_times.SIDE_RUNGS
+                   ) == pytest.approx(rows[-1]["ms"])
+        assert by["tess"]["base"] == "generate"
+        assert by["tess"]["marginal_ms"] == pytest.approx(
+            by["tess"]["ms"] - by["generate"]["ms"])
+        assert by["uniforms"]["marginal_ms"] == pytest.approx(
+            by["uniforms"]["ms"] - by["generate"]["ms"])
         assert all("kernels" not in r for r in rows)
     moving = {r["rung"]: r for r in report["scenes"]["moving-1080p"]}
     assert len(moving["full"]["n_leaves"]) == stage_times.SMALL[

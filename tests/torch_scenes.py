@@ -367,3 +367,50 @@ def cache_case(name: str, seed: int = 7) -> dict:
         coord_scale=(F(scale), F(scale - np.float64(F(scale)))),
         cam_hi=cam_hi, cam_lo=(cam - cam_hi.astype(np.float64)).astype(F),
         max_skirt=1500.0)
+
+
+# V1's rows mode (tess/vertex_cuda.tessellate_rows) on the cache cases'
+# rows: every case, "depths" (budget's rows at depths 0-29, where the
+# skirt's exp2 runs) and "crops" (budget's rows all cropped, the padding
+# rows' zero words and the roots among them: child index 0 by the
+# words' guard)
+TESS_ROWS_CASES = list(CACHE_CASES) + ["depths", "crops"]
+
+
+def tess_rows(name: str, device="cpu", seed: int = 17):
+    """tessellate_rows' arguments (q_lo, q_hi, crop, depth, corners_hi,
+    corners_lo, cam_hi, cam_lo, max_skirt, tiles, view_proj, grid) for
+    TESS_ROWS_CASES[name] on `device`, and the live rows' count: the
+    case's rows and camera (cache_case), its crops as the cache stage's
+    plain version plans them, 32x32 tiles of heights (sigma 3000 m) and a
+    view-projection from the camera's position."""
+    import torch
+
+    from planet_tpu_torch.cache import device_pool, device_pool_cuda
+
+    c = cache_case(name if name in CACHE_CASES else "budget")
+    rows = len(c["q_lo"])
+    if name == "depths":
+        c["depth"] = (np.arange(rows) % 30).astype(np.int32)
+    args = [torch.as_tensor(np.ascontiguousarray(c[k])) for k in (
+        "q_lo", "q_hi", "depth", "corners_hi", "corners_lo")]
+    crop = device_pool_cuda.cache_stage_plain(
+        device_pool.PoolState.from_state(c["state"], "cpu"), *args,
+        torch.tensor(c["n"], dtype=torch.int32),
+        **{k: c[k] for k in ("budget", "gen_cap", "max_lod",
+                             "coord_scale")}).crop
+    if name == "crops":
+        crop = torch.ones_like(crop)
+    rng = np.random.default_rng(seed)
+    tiles = (rng.normal(size=(rows, 32, 32)) * 3000.0).astype(F)
+    pos = c["cam_hi"].astype(np.float64) + c["cam_lo"]
+    cam = cam_mod.Camera(position=pos, angles=np.array([0.35, 0.3, 0.0]))
+    vp = (cam_mod.perspective_lh(cam_mod.proj_factor_from_fovy(
+        np.deg2rad(60.0)), 16.0 / 9.0, 1.0, 1e8)
+        @ cam_mod.view_from_rotation(cam_mod.camera_rotation(cam)))
+    q_lo, q_hi, depth, c_hi, c_lo = (t.to(device) for t in args)
+    return (q_lo, q_hi, crop.to(device), depth, c_hi, c_lo,
+            torch.as_tensor(c["cam_hi"], device=device),
+            torch.as_tensor(c["cam_lo"], device=device), c["max_skirt"],
+            torch.as_tensor(tiles, device=device),
+            torch.as_tensor(vp.astype(F), device=device), 32), c["n"]
