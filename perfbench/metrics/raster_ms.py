@@ -1,0 +1,8 @@
+"""Device ms a frame of the `raster` layer (perfbench/layers/<config>.json
+maps the trace's event names to it), over the traced stretch."""
+
+LAYER = "raster"
+
+
+def read(t):
+    return t.layer_ms_per_step(LAYER) if t.has_layer(LAYER) else None
