@@ -49,7 +49,9 @@ refuses, or silently bakes in, anything else):
     (nums.df.const) or uploaded once by an eager warm-up (lru caches);
   * fixed shapes: every tensor's shape follows from the build arguments;
   * kernels launch through planet_tpu_torch._cuda.launch, whose counts
-    DeviceRenderer carries over to every replay.
+    DeviceRenderer carries over to every replay;
+  * no utils/timing.span: a host span inside a capture would record the
+    capture and no replay (DeviceRenderer's spans wrap the replays).
 
 The step takes its refinement roots as inputs: the six cube faces
 (`face_roots`) by default, or, in the sharded engine
@@ -93,6 +95,7 @@ from planet_tpu_torch.tess import mesh
 from planet_tpu_torch.tess import vertex
 from planet_tpu_torch.tess import uniforms_cuda
 from planet_tpu_torch.tess import vertex_cuda
+from planet_tpu_torch.utils import timing
 
 _I32 = torch.int32
 _KEY_PAD = 2**63 - 1      # DFS key of a padding row: after every real leaf
@@ -535,8 +538,9 @@ class DeviceRenderer:
 
         self._graph = self._graph_out = None
         self._rasters = {}
-        self._graph, self._graph_out, self._tally = self._captured(
-            lambda: self._run_step(pool), warm_up)
+        with timing.span("capture"):
+            self._graph, self._graph_out, self._tally = self._captured(
+                lambda: self._run_step(pool), warm_up)
         self._graph_pool = pool
         self.geometry_captures += 1
 
@@ -559,7 +563,8 @@ class DeviceRenderer:
         def run():
             return self._raster(self._graph_out, wireframe)
 
-        self._rasters[wireframe] = self._captured(run, run)
+        with timing.span("capture"):
+            self._rasters[wireframe] = self._captured(run, run)
         self.raster_captures += 1
 
     @property
@@ -577,19 +582,23 @@ class DeviceRenderer:
         """Stages 1-5 for one camera ((3,) f32 DF camera, (4, 4) f32
         view-projection; numpy or tensors), updating the pool in place: a
         Geometry, or a Truncated when stop_after names an earlier stage."""
-        for dst, src in ((self._cam_hi, cam_hi), (self._cam_lo, cam_lo),
-                         (self._vp, view_proj)):
-            _upload(dst, src)
-        if self.device.type != "cuda":
-            geom = self._run_step(pool)
-        else:
-            if self._graph_pool is not pool:
-                self._capture(pool)
-            self._graph.replay()
-            _cuda.add_launches(self._tally)
-            self.geometry_replays += 1
-            geom = self._graph_out
-        self.last_geometry = geom
+        with timing.span("geometry"):
+            with timing.span("upload"):
+                for dst, src in ((self._cam_hi, cam_hi),
+                                 (self._cam_lo, cam_lo),
+                                 (self._vp, view_proj)):
+                    _upload(dst, src)
+            if self.device.type != "cuda":
+                geom = self._run_step(pool)
+            else:
+                if self._graph_pool is not pool:
+                    self._capture(pool)
+                with timing.span("replay"):
+                    self._graph.replay()
+                    _cuda.add_launches(self._tally)
+                self.geometry_replays += 1
+                geom = self._graph_out
+            self.last_geometry = geom
         return geom
 
     def render(self, pool: dp.PoolState, cam_hi, cam_lo,
@@ -605,20 +614,22 @@ class DeviceRenderer:
         graph for the current `wireframe` (captured on first use), else the
         raster run eagerly; a rung before "full" gives its unrastered
         frame. The counters go to `self.last_counters`."""
-        geom = self.last_geometry
-        if self.stop_after != "full":
-            self.last_counters = None
-            return self._fetch(unrastered(geom, self.width, self.height))
-        wireframe = bool(self.wireframe)
-        if self.device.type != "cuda":
-            frame, self.last_counters = self._raster(geom, wireframe)
-            return frame
-        if wireframe not in self._rasters:
-            self._capture_raster(wireframe)
-        graph, (frame, counters), tally = self._rasters[wireframe]
-        graph.replay()
-        _cuda.add_launches(tally)
-        self.last_counters = counters
+        with timing.span("raster"):
+            geom = self.last_geometry
+            if self.stop_after != "full":
+                self.last_counters = None
+                return self._fetch(unrastered(geom, self.width, self.height))
+            wireframe = bool(self.wireframe)
+            if self.device.type != "cuda":
+                frame, self.last_counters = self._raster(geom, wireframe)
+                return frame
+            if wireframe not in self._rasters:
+                self._capture_raster(wireframe)
+            graph, (frame, counters), tally = self._rasters[wireframe]
+            with timing.span("replay"):
+                graph.replay()
+                _cuda.add_launches(tally)
+            self.last_counters = counters
         return frame
 
 

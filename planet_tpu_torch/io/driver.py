@@ -22,7 +22,16 @@ the raster) and each frame fetches only a k x k-subsampled u8 preview;
 --backend cuda (the default) runs every kernel on the GPU and fails when
 there is none; --backend cpu runs their plain PyTorch versions.
 --profile DIR writes a torch.profiler trace (Chrome JSON, CUDA activity
-on the cuda backend) of the whole run to DIR/trace.json.
+on the cuda backend) of the whole run to DIR/trace.json. Besides torch's
+ops and the CUDA calls and device events, it holds the port's own host
+spans (utils/timing.span), once a frame on the device path:
+planet/render (the whole frame) holding planet/camera, planet/geometry
+(planet/upload, then planet/replay), planet/raster (planet/replay) and
+planet/readback (the preview's fetch and the two count reads), with
+planet/capture inside geometry or raster where a graph is captured; and
+planet/field around each models/heightfield.frame_cube.
+`python -m planet_tpu_torch.tools.span_split DIR/trace.json` puts the
+host's and the device's idle time down to them.
 
 e.g. `python -m planet_tpu_torch.io.driver --frames 4 --orbit
 --altitude 80000 --out frames`, or `python -m planet_tpu_torch.io.driver
@@ -118,25 +127,29 @@ class DeviceInteractiveEngine:
     def render(self, cam, width=None, height=None):
         """One frame: (an object with .stats, the full u8 image and the
         depth, both left on the device)."""
-        from planet_tpu_torch.nums import df as dfm
-        from planet_tpu_torch.tess import mesh as mesh_mod
-        t0 = time.perf_counter()
-        c = self.cfg
-        rot = cam_mod.camera_rotation(cam)
-        vp = (self._proj @ cam_mod.view_from_rotation(rot)).astype(
-            np.float32)
-        ch, cl = dfm.from_f64_np(cam.position)
-        frame = self._r.render(self.pool, ch, cl, vp)
-        # the per-frame display fetch: the preview only
-        shown = frame.preview if frame.preview is not None else frame.image
-        shown.cpu()
-        n, gens = int(frame.n_leaves), int(frame.n_generated)
-        dt = time.perf_counter() - t0
-        stats = FrameStats(
-            frametime_ms=dt * 1e3, fps=1.0 / max(dt, 1e-9),
-            tris=n * mesh_mod.interior_triangle_count(c.patch_verts),
-            quads=n, tiles_generated=gens,
-            texels_generated=gens * c.tile_dim * c.tile_dim)
+        with timing.span("render"):
+            from planet_tpu_torch.nums import df as dfm
+            from planet_tpu_torch.tess import mesh as mesh_mod
+            t0 = time.perf_counter()
+            c = self.cfg
+            with timing.span("camera"):
+                rot = cam_mod.camera_rotation(cam)
+                vp = (self._proj @ cam_mod.view_from_rotation(rot)).astype(
+                    np.float32)
+                ch, cl = dfm.from_f64_np(cam.position)
+            frame = self._r.render(self.pool, ch, cl, vp)
+            # the per-frame display fetch: the preview only
+            shown = (frame.preview if frame.preview is not None
+                     else frame.image)
+            with timing.span("readback"):
+                shown.cpu()
+                n, gens = int(frame.n_leaves), int(frame.n_generated)
+            dt = time.perf_counter() - t0
+            stats = FrameStats(
+                frametime_ms=dt * 1e3, fps=1.0 / max(dt, 1e-9),
+                tris=n * mesh_mod.interior_triangle_count(c.patch_verts),
+                quads=n, tiles_generated=gens,
+                texels_generated=gens * c.tile_dim * c.tile_dim)
         return _Out(stats), frame.image, frame.depth
 
 
@@ -254,7 +267,9 @@ def main(argv=None):
                     help="splat fragments per cell edge (default: by width)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the run to "
-                         "DIR/trace.json")
+                         "DIR/trace.json, with the port's planet/ spans "
+                         "(render, camera, geometry, upload, replay, "
+                         "raster, readback, capture; field)")
     ap.add_argument("--check-finite", action="store_true",
                     help="per-frame NaN/inf tile guard")
     ap.add_argument("--backend", choices=("cuda", "cpu"), default="cuda",

@@ -28,6 +28,7 @@ from planet_tpu_torch.nums.fp import sqrt_rn
 from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda
 from planet_tpu_torch.parallel import facemesh
 from planet_tpu_torch.raster import shade as shade_mod
+from planet_tpu_torch.utils import timing
 
 
 class FieldOutput(NamedTuple):
@@ -83,20 +84,22 @@ def frame_cube(n: int, radius: float, *, kind="ridged", octaves=6,
     memory). fused=False composes the same frame from the general pieces
     (face_grid_points_df -> heights_df -> edge-padded central-difference
     normals -> lambert), the spec the fused kernel is held to."""
-    if fused:
-        return field_cuda.field_cube(
-            n, radius, kind=kind, octaves=octaves, lacunarity=lacunarity,
-            gain=gain, coord_scale=coord_scale, amplitude=amplitude,
-            device=device)
-    px, py, pz = facemesh.face_grid_points_df(n, radius, device=device)
-    h = heights_df(px, py, pz, kind=kind, octaves=octaves,
-                   lacunarity=lacunarity, gain=gain,
-                   coord_scale=coord_scale, amplitude=amplitude)
-    h_rows = torch.cat([h[:, :1], h, h[:, -1:]], dim=1)
-    h_pad = torch.cat([h_rows[:, :, :1], h_rows, h_rows[:, :, -1:]], dim=2)
-    normal = normals_from_heights(h_pad,
-                                  field_cuda.default_xyscale(n, radius))
-    return h, shade_mod.lambert(normal)
+    with timing.span("field"):
+        if fused:
+            return field_cuda.field_cube(
+                n, radius, kind=kind, octaves=octaves,
+                lacunarity=lacunarity, gain=gain, coord_scale=coord_scale,
+                amplitude=amplitude, device=device)
+        px, py, pz = facemesh.face_grid_points_df(n, radius, device=device)
+        h = heights_df(px, py, pz, kind=kind, octaves=octaves,
+                       lacunarity=lacunarity, gain=gain,
+                       coord_scale=coord_scale, amplitude=amplitude)
+        h_rows = torch.cat([h[:, :1], h, h[:, -1:]], dim=1)
+        h_pad = torch.cat([h_rows[:, :, :1], h_rows, h_rows[:, :, -1:]],
+                          dim=2)
+        normal = normals_from_heights(h_pad,
+                                      field_cuda.default_xyscale(n, radius))
+        return h, shade_mod.lambert(normal)
 
 
 def field_from_padded_points(px, py, pz, xyscale, **noise_kw) -> FieldOutput:

@@ -4,19 +4,25 @@ utils/timing.py, ported).
 ScopeTimer / TIMED_FUNCTION (reference timing.h:13-30) become a
 context-manager timer and a global toggle (key T). Device work is included
 by synchronizing the CUDA device at the end of a block; deep profiling
-goes through torch.profiler traces (the driver's --profile).
+goes through torch.profiler traces (the driver's --profile), in which
+`span` names the port's own host ranges.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from collections import defaultdict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 _print_timings = False
-_accum = defaultdict(lambda: [0.0, 0])  # name -> [total_s, count]
+
+SPAN_PREFIX = "planet/"
+_NO_SPAN = contextlib.nullcontext()
+# a range recorded without record_function's Python layers (exported with
+# the category cpu_op); absent from older torch builds
+_FAST_SPAN = getattr(torch._C._profiler, "_RecordFunctionFast", None)
 
 
 def toggle_timing():
@@ -47,37 +53,29 @@ def synchronize(sync) -> None:
 
 @contextlib.contextmanager
 def timed(name: str, sync=None):
-    """Time a block. If `sync` is given (see `synchronize`), the block's
-    device work on it is waited for, so the time includes it."""
+    """Time a block and print its time while timing prints are on. If
+    `sync` is given (see `synchronize`), the block's device work on it is
+    waited for, so the time includes it."""
     t0 = time.perf_counter()
     yield
     if sync is not None:
         synchronize(sync)
-    dt = time.perf_counter() - t0
-    _accum[name][0] += dt
-    _accum[name][1] += 1
     if _print_timings:
-        print(f"[timing] {name}: {dt * 1e6:.1f} us")
+        print(f"[timing] {name}: {(time.perf_counter() - t0) * 1e6:.1f} us")
 
 
-def bench(fn, *args, warmup=2, iters=10):
-    """Median wall time of fn(*args) in seconds, each call's device work
-    waited for: fn's result, a tensor or a list or tuple holding tensors."""
-    def run():
-        out = fn(*args)
-        outs = out if isinstance(out, (list, tuple)) else [out]
-        synchronize([t for t in outs if isinstance(t, torch.Tensor)])
-
-    for _ in range(warmup):
-        run()
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        run()
-        times.append(time.perf_counter() - t0)
-    times.sort()
-    return times[len(times) // 2]
-
-
-def report():
-    return {k: {"total_s": v[0], "count": v[1]} for k, v in _accum.items()}
+def span(name: str):
+    """A context manager that records the block as the host range
+    `planet/<name>` in a running torch.profiler trace, on the profiler's
+    own clock, which the trace puts its CUDA events on too (up to a drift
+    that tools/span_split takes out). With no
+    profiler running it is one shared no-op context, and the call costs a
+    flag read. It neither waits for the device nor launches anything, so
+    a span may wrap a graph's replay; none belongs in code that a CUDA
+    graph captures, where it would record the capture once and no
+    replay."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    if _FAST_SPAN is not None:
+        return _FAST_SPAN(SPAN_PREFIX + name)
+    return torch.profiler.record_function(SPAN_PREFIX + name)

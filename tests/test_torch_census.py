@@ -45,6 +45,9 @@ _FRACTION = ("the f32 24-bit fraction chain; the port takes each octave's "
              "(ROADMAP section 3; nums.df.shift_frac48)")
 _PAYLOAD = ("the TPU's 128-lane row payload; K1 takes the DF corners and "
             "per-tile octave counts (tile_cuda.generate_tiles)")
+_UNREAD = ("a median-time helper and the timed blocks' tally, which no "
+           "caller in the port read; the port's frames are traced with "
+           "utils/timing.span")
 LEFT_OUT = {
     ("nums/df.py", "DF"): _TUPLES,
     ("nums/df.py", "to_f32"): _TUPLES + " (a DF's f32 value is its hi)",
@@ -62,6 +65,8 @@ LEFT_OUT = {
     ("raster/coverage_pallas.py", "raster_frame_pallas"):
         "the Pallas raster's driver with its TPU class caps; "
         "coverage_cuda.raster_frame drives K6, K2 and K3",
+    ("utils/timing.py", "bench"): _UNREAD,
+    ("utils/timing.py", "report"): _UNREAD,
 }
 
 

@@ -5,7 +5,9 @@ speed digits, toggles, unknown keys, --save-slot, `main --frames 1`) on a
 `slow` for its XLA compiles; the port's needs none), the fused device path
 behind --interactive --device (DeviceInteractiveEngine, preview 2: a `png`
 dump holds the full frame), --profile and --check-finite,
-utils/timing, and the camera checkpoint across the two packages' drivers
+utils/timing and its spans (one shared no-op with no profiler running;
+under one, planet/ ranges nested as the fused frame and frame_cube make
+them), and the camera checkpoint across the two packages' drivers
 (planet_tpu's driver saves, the port's loads, and the other way round)."""
 
 import io
@@ -219,6 +221,8 @@ def test_check_finite_counts_nonfinite_tiles(caplog):
 
 
 def test_timing_toggle_timed_bench_report(capsys):
+    """The key-T toggle, `timed`'s print while it is on (and silence while
+    it is off), and `synchronize` on CPU tensors and devices."""
     was = timing.timing_enabled()
     assert timing.toggle_timing() != was
     assert timing.timing_enabled() != was
@@ -227,18 +231,95 @@ def test_timing_toggle_timed_bench_report(capsys):
         x = x * 2
     with timing.timed("port-test-block", sync=torch.device("cpu")):
         pass
-    rep = timing.report()["port-test-block"]
-    assert rep["count"] == 2 and rep["total_s"] >= 0.0
-    if timing.timing_enabled():
-        assert "[timing] port-test-block" in capsys.readouterr().out
+    printed = capsys.readouterr().out.count("[timing] port-test-block")
+    assert printed == (2 if timing.timing_enabled() else 0)
     if timing.toggle_timing() != was:
         timing.toggle_timing()
     assert timing.timing_enabled() == was
-    calls = []
-    t = timing.bench(lambda a: calls.append(a) or (a + 1, "meta"), x,
-                     warmup=2, iters=5)
-    assert len(calls) == 7 and t >= 0.0
     timing.synchronize([x, "cpu", torch.device("cpu")])
+    assert torch.equal(x, torch.arange(10.0) * 2)
+
+
+def _planet_spans(tmp_path, fn):
+    """fn() under a CPU torch.profiler trace: the trace's planet/ spans as
+    [name, start us, end us], by start, and fn's result."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    spans = [[e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"])]
+             for e in json.load(open(path))["traceEvents"]
+             if e.get("ph") == "X"
+             and str(e.get("name", "")).startswith(timing.SPAN_PREFIX)]
+    return sorted(spans, key=lambda s: s[1]), out
+
+
+def _inside(inner, outer):
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+def test_span_off_is_one_shared_noop():
+    a, b = timing.span("render"), timing.span("field")
+    assert a is b
+    with a:
+        pass
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_span_records_a_planet_range(tmp_path, monkeypatch, fast):
+    """Under a profiler a span records planet/<name> around its block (by
+    _RecordFunctionFast, or record_function where torch lacks it), nested
+    spans inside it; after the profiler, the no-op again."""
+    if not fast:
+        monkeypatch.setattr(timing, "_FAST_SPAN", None)
+
+    def run():
+        with timing.span("outer"):
+            with timing.span("inner"):
+                torch.ones(4).sum()
+
+    spans, _ = _planet_spans(tmp_path, run)
+    assert [s[0] for s in spans] == ["planet/outer", "planet/inner"]
+    assert _inside(spans[1], spans[0])
+    assert timing.span("outer") is timing.span("inner")
+
+
+def test_device_interactive_frame_spans(tmp_path):
+    """Two frames of the fused path on the CPU under a profiler: once a
+    frame planet/render, holding planet/camera, planet/geometry (holding
+    planet/upload), planet/raster and planet/readback, in that order; no
+    planet/capture, since the CPU runs the step eagerly."""
+    cfg = EngineConfig(window_w=W, window_h=H)
+    ieng = driver.DeviceInteractiveEngine(cfg, W, H, preview=2,
+                                          device="cpu", cap=1024,
+                                          render_cap=256, gen_cap=128)
+    cam = _cam(2e7)
+    spans, _ = _planet_spans(
+        tmp_path, lambda: [ieng.render(cam) for _ in range(2)])
+    renders = [s for s in spans if s[0] == "planet/render"]
+    assert len(renders) == 2 and renders[0][2] <= renders[1][1]
+    for r in renders:
+        inner = [s for s in spans if s is not r and _inside(s, r)]
+        assert [s[0] for s in inner] == [
+            "planet/camera", "planet/geometry", "planet/upload",
+            "planet/raster", "planet/readback"]
+        camera, geometry, upload, raster, readback = inner
+        assert _inside(upload, geometry)
+        assert (camera[2] <= geometry[1] and geometry[2] <= raster[1]
+                and raster[2] <= readback[1])
+    assert len(spans) == 12
+
+
+@pytest.mark.parametrize("n,fused", [(16, False), (128, True)])
+def test_frame_cube_span(tmp_path, n, fused):
+    """One planet/field around a whole frame_cube call, fused (K5's plain
+    version on the CPU) or composed."""
+    from planet_tpu_torch.models import heightfield
+    spans, (h, _) = _planet_spans(tmp_path, lambda: heightfield.frame_cube(
+        n, RADIUS, fused=fused, device="cpu"))
+    assert [s[0] for s in spans] == ["planet/field"]
+    assert h.shape == (6, n, n)
 
 
 # ------------------------------------------- the checkpoint across drivers

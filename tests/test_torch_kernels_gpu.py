@@ -49,7 +49,10 @@ on 2^20 inputs; A1 launched once a geometry replay; V1's rows mode
 its plain version and to V1 on U1's outputs in all six outputs, on
 torch_scenes' rows cases and the 1080p static and orbit frames' rows, its
 padding rows' five NaN outputs the word 0x7fffffff; a geometry replay
-launching V1 once and U1 never, and U1 on the "uniforms" rung alone."""
+launching V1 once and U1 never, and U1 on the "uniforms" rung alone;
+five profiled interactive frames: the graphs' captures in the first
+alone, each later frame's kernels starting after its geometry replay's
+span has started, the readback's copies ending inside its span."""
 
 import numpy as np
 import pytest
@@ -961,6 +964,70 @@ def test_render_after_capture_syncs_nothing(dev):
     assert frame.n_leaves.is_cuda and frame.overflowed.dtype == torch.bool
     assert int(frame.n_leaves) > 100 and not bool(frame.overflowed)
     assert frame.preview.shape == (270, 480)
+
+
+def test_interactive_frame_spans_share_the_device_clock(dev, tmp_path):
+    """Five profiled frames of io/driver.DeviceInteractiveEngine at 1080p
+    from a new engine: the graphs' captures (planet/capture, the geometry
+    step's and the raster's) in the first frame alone. Over the four later
+    frames, with the device's events put on the host's clock by their own
+    direct launches (tools/span_split: the profiler's two clocks can drift
+    apart by hundreds of us), every kernel and fill a frame launches
+    starts on the card after the start of that frame's geometry
+    planet/replay, and its three device-to-host copies (the preview, the
+    two counts), launched in its planet/readback, end before it ends."""
+    from planet_tpu_torch.io.driver import DeviceInteractiveEngine
+    from planet_tpu_torch.tools import span_split
+    cfg = EngineConfig(window_w=1920, window_h=1080)
+    eng = DeviceInteractiveEngine(cfg, 1920, 1080, preview=2, device=dev)
+    cam = kernel_times.scene_camera(cfg)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            eng.render(cam)
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    ev = span_split.load(path)
+    spans = span_split.spans(ev)
+    renders = [s for s in spans if s[2] == "planet/render"]
+    assert len(renders) == 5
+
+    def within(name, outer):
+        return [s for s in spans if s[2] == name
+                and outer[0] <= s[0] and s[1] <= outer[1]]
+
+    assert [len(within("planet/capture", r)) for r in renders] == [
+        2, 0, 0, 0, 0]
+    fit = span_split.clock_fit(ev, renders[1:])
+    move = span_split.shift(fit, renders[1][0], renders[-1][1])
+    calls = {e["args"]["correlation"]: float(e["ts"]) for e in ev
+             if e.get("ph") == "X"
+             and e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+
+    def launched_in(e, span):
+        call = calls.get(e.get("args", {}).get("correlation"))
+        return call is not None and span[0] <= call <= span[1]
+
+    def on_host(e):
+        a = float(e["ts"])
+        return a - move(a), a + float(e["dur"]) - move(a)
+
+    device = [e for e in ev if e.get("ph") == "X"]
+    for render in renders[1:]:
+        (geometry,) = within("planet/geometry", render)
+        (replay,) = within("planet/replay", geometry)
+        work = [on_host(e)[0] for e in device
+                if e.get("cat") in ("kernel", "gpu_memset")
+                and launched_in(e, render)]
+        assert len(work) > 50 and min(work) >= replay[0]
+        (readback,) = within("planet/readback", render)
+        fetched = [on_host(e)[1] for e in device
+                   if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]
+                   and launched_in(e, readback)]
+        assert len(fetched) == 3 and max(fetched) <= readback[1]
 
 
 # ------------------------------------------------------------------ V1
