@@ -24,7 +24,9 @@ result line is printed:
    on the 1080p static camera, the 8 orbit cameras, cap 64, which
    overflows, the 24 subtree roots and the dense camera of
    tools/r1_s1_parts, 300 m above the ridged surface at LOD quality 16;
-   one launch, one kernel, a level); on
+   one launch, one kernel, a level), the DFS order kernel on R1's leaves
+   of each of those cases at render cap 512 (bitwise in all seven
+   outputs); on
    the record sets of tools/kernel_times.record_sets (the 1080p static
    scene, the three goldens, the orbit frames with huge records): K6
    route + gather (records and counts bitwise, also with every candidate
@@ -1445,6 +1447,15 @@ def main() -> int:
                   f"err {err_r1})")
         check(bool(got[3]) == ("overflows" in label),
               f"R1 {label}: overflowed {bool(got[3])}")
+        # the DFS order kernel on R1's leaves, at the fused frame's render
+        # cap (the dense camera's leaves overflow it)
+        o_args = (*got[0], got[1][:12], got[1][12:], got[2], got[3])
+        rc = min(512, kw["cap"])
+        for name, a, b in zip(lod_refine_device.Ordered._fields,
+                              refine_cuda.dfs_order_cuda(*o_args, rc),
+                              lod_refine_device.dfs_order_plain(*o_args,
+                                                                rc)):
+            check(same_bits(a, b), f"DFS order {label}: {name} != plain")
         r1_leaves.append(int(got[2]))
         if len(r1_leaves) == 1:        # the static camera: its live levels
             r1_live = sum(1 for n in r1_s1_parts.frontier_sizes(

@@ -43,8 +43,8 @@ _SRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
 SOURCES = ("tile.cu", "raster.cu", "perlin.cu", "field.cu", "splat.cu",
-           "refine.cu", "setup.cu", "tess.cu", "cache.cu", "uniforms.cu",
-           "bench_noise.cu", "bench_lut.cu", "bench_span.cu")
+           "refine.cu", "order.cu", "setup.cu", "tess.cu", "cache.cu",
+           "uniforms.cu", "bench_noise.cu", "bench_lut.cu", "bench_span.cu")
 HEADERS = ("noise.cuh", "tile_blend.cuh", "fragment.cuh", "uniforms.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
@@ -63,8 +63,9 @@ _SIGNATURES = {
     "planet_field": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                      _F, _F, _F, _F, _F, _F, _P),
     "planet_splat": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
-    "planet_refine_level": (_P,) * 15 + (_I, _I, _I, _I, _F, _F, _F, _F, _I,
-                                          _P),
+    "planet_refine_level": (_P,) * 5 + (_I,) + (_P,) * 15
+                           + (_I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    "planet_dfs_order": (_P,) * 7 + (_I, _I) + (_P,) * 8,
     "planet_setup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P,
                      _P, _P, _P),
     "planet_clip_records": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
@@ -81,16 +82,17 @@ _SIGNATURES = {
     "planet_t_lut": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "planet_t_span": (_I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     # bench-only variants of R1 and S1 (tools/r1_s1_parts)
-    "planet_t_refine": (_I,) + (_P,) * 15 + (_I, _I, _I, _I, _F, _F, _F, _F,
-                                              _I, _I, _P),
+    "planet_t_refine": (_I,) + (_P,) * 5 + (_I,) + (_P,) * 15
+                       + (_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P),
     "planet_t_splat": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 # kernel name -> launches so far (reset with reset_launches)
 launches = {"tile": 0, "noise": 0, "gather": 0, "span": 0, "huge": 0,
-            "field": 0, "splat": 0, "refine": 0, "setup": 0, "clip": 0,
-            "tess": 0, "cache": 0, "uniforms": 0, "t_noise": 0, "t_tile": 0,
-            "t_lut": 0, "t_span": 0, "t_refine": 0, "t_splat": 0}
+            "field": 0, "splat": 0, "refine": 0, "order": 0, "setup": 0,
+            "clip": 0, "tess": 0, "cache": 0, "uniforms": 0, "t_noise": 0,
+            "t_tile": 0, "t_lut": 0, "t_span": 0, "t_refine": 0,
+            "t_splat": 0}
 
 _lib = None
 build_info: dict = {}

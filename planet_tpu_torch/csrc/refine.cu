@@ -46,6 +46,10 @@
 //   alternate between two parities of `state` (level L reads parity L % 2
 //   and writes the other), so a block that starts late still reads this
 //   level's f_n; with an empty frontier block 0 carries the counts over.
+// - the set-up in the launches: level 0 takes its f_n, the roots' count,
+//   from its arguments and each of its warps stages its root into the
+//   frontier before evaluating it (stage_root), so the wrapper's one fill
+//   is the zeros of the leaf buffers and the counts.
 // Values move between lanes; none is recomputed in another order, so
 // every operation of refine_plain's _level keeps its operands and order.
 // The DF arithmetic is nums/df.py's op for op (add, sub, mul, div, sqrt;
@@ -158,7 +162,7 @@ __device__ __forceinline__ void make_child(int lo, int hi, int c, int& c_lo,
 }
 
 struct Params {
-  int cap, max_lod, use_quality;
+  int cap, max_lod, use_quality, n_roots;
   DF radius, quality;
 };
 
@@ -346,9 +350,10 @@ __device__ __forceinline__ void copy_slot(const int* src_int,
     ((int*)dst_cor)[r * cap] = v[kIntRows + r];
 }
 
-// Compact one level with one block of kThreads threads: leaves appended at
-// l_n, children to slots 4r + c of the next frontier; the counts (f_n,
-// l_n, overflowed) read from st and written to st_next. The flags and
+// Compact one level of f_n slots with one block of kThreads threads:
+// leaves appended at l_n, children to slots 4r + c of the next frontier;
+// the counts l_n and overflowed read from st, and (f_n, l_n, overflowed)
+// written to st_next. The flags and
 // children come from other blocks of the same launch (and in the one-block
 // refine the frontier from the level before), so every operand is read
 // from L2 (__ldcg). A chunk of kThreads slots is scanned (leaf and split
@@ -359,11 +364,11 @@ template <int kThreads>
 __device__ __forceinline__ void compact_block(
     Frontier f, const int* __restrict__ kid_int,
     const float* __restrict__ kid_cor, const int* __restrict__ flags,
-    const int* st, int* st_next, int* __restrict__ n_int,
+    int f_n, const int* st, int* st_next, int* __restrict__ n_int,
     float* __restrict__ n_cor, int* __restrict__ l_int,
     float* __restrict__ l_cor, int cap, CompactShared<kThreads>& sh) {
   constexpr int kWarpsC = kThreads / 32;
-  const int f_n = __ldcg(st), l_n = __ldcg(st + 1), over_in = __ldcg(st + 2);
+  const int l_n = __ldcg(st + 1), over_in = __ldcg(st + 2);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int leaf_base = 0, split_base = 0;
   for (int base = 0; base < f_n; base += kThreads) {
@@ -430,17 +435,21 @@ constexpr int kBlockThreads = 1024;             // the one-block refine
 constexpr int kBlockWarps = kBlockThreads / 32;
 // state: the counts (f_n, l_n, overflowed) of even levels at 0-2, of odd
 // levels at 3-5 (a level reads its own and writes the other), and the live
-// blocks' ticket at 6 (0 between launches)
+// blocks' ticket at 6 (0 between launches). It starts as zeros: level 0
+// takes its f_n, the roots' count, from Params, and l_n and overflowed 0
 constexpr int kTicket = 6;
 
 struct Buffers {
-  const int* f_int;
-  const float* f_cor;
+  int* f_int;
+  float* f_cor;
   int *n_int, *kid_int, *flags, *state, *l_int;
   float *n_cor, *kid_cor, *l_cor;
   const float *cam_hi, *cam_lo;
   const int *perm, *sign;
   const float* freq;
+  // the roots: (R,) id lo, id hi, depth (null: 0) and (R, 4, 3) DF corners
+  const int *r_lo, *r_hi, *r_depth;
+  const float *r_ch, *r_cl;
 };
 
 // the camera as DF, from the (hi, lo) f32 vectors
@@ -448,23 +457,49 @@ __device__ __forceinline__ void load_camera(const Buffers& b, DF (&cam)[3]) {
   for (int a = 0; a < 3; ++a) cam[a] = DF{b.cam_hi[a], b.cam_lo[a]};
 }
 
-// One level (the shipped kernel), its counts at state + 3 * parity: the
-// live blocks' warps stride over [0, f_n), a warp a slot; with kCompact
-// the live block that takes the last ticket compacts the level into the
-// other parity's counts (without it, bench-only: compact_kernel does). A
-// block past the live ones exits at once (block 0 carries the counts over
-// when the frontier is empty); every block reads only this level's counts,
-// which nothing writes in this launch.
+// the frontier's f_n at `level`: level 0's is the roots' count
+__device__ __forceinline__ int level_slots(const Params& prm, const int* st,
+                                           int level) {
+  return level == 0 ? prm.n_roots : __ldcg(st);
+}
+
+// Level 0's slot i from root i (every lane of the warp that evaluates it
+// calls it): lane w < 27 copies word w (id lo, id hi, depth, then corner
+// row w - 3: hi rows, then lo rows) into the frontier, where evaluate_slot
+// and the compaction read it
+__device__ __forceinline__ void stage_root(int i, const Buffers& b, int cap) {
+  const int lane = threadIdx.x & 31;
+  if (lane < kIntRows) {
+    const int v = lane == 0 ? b.r_lo[i] : lane == 1 ? b.r_hi[i]
+                : b.r_depth ? b.r_depth[i] : 0;
+    b.f_int[lane * cap + i] = v;
+  } else if (lane < kIntRows + kCornerRows) {
+    const int r = lane - kIntRows, lo = r >= 12;
+    b.f_cor[r * cap + i] = (lo ? b.r_cl : b.r_ch)[i * 12 + r - 12 * lo];
+  }
+  __threadfence_block();
+  __syncwarp();
+}
+
+// One level (the shipped kernel), its counts at state + 3 * (level % 2):
+// the live blocks' warps stride over [0, f_n), a warp a slot (at level 0
+// staging its root first); with kCompact the live block that takes the
+// last ticket compacts the level into the other parity's counts (without
+// it, bench-only: compact_kernel does). A block past the live ones exits
+// at once (block 0 carries the counts over when the frontier is empty);
+// every block reads only this level's counts, which nothing writes in this
+// launch.
 template <bool kRidged, bool kCompact>
 __global__ void __launch_bounds__(kLevelThreads)
-level_kernel(Buffers b, Params prm, int parity) {
+level_kernel(Buffers b, Params prm, int level) {
   __shared__ Tables<kFast> tab;
   __shared__ float es[kLevelWarps][kWarpScratch];
   __shared__ CompactShared<kLevelThreads> sh;
   __shared__ bool last;
+  const int parity = level & 1;
   const int* st = b.state + 3 * parity;
   int* st_next = b.state + 3 * (1 - parity);
-  const int f_n = __ldcg(st);
+  const int f_n = level_slots(prm, st, level);
   const int live = min((int)gridDim.x, (f_n + kLevelWarps - 1) / kLevelWarps);
   if ((int)blockIdx.x >= live) {                   // uniform in the block
     if (kCompact && f_n <= 0 && blockIdx.x == 0 && threadIdx.x == 0) {
@@ -480,9 +515,11 @@ level_kernel(Buffers b, Params prm, int parity) {
   const int warp = threadIdx.x >> 5;
   const Frontier f{b.f_int, b.f_cor};
   for (int i = blockIdx.x * kLevelWarps + warp; i < f_n;
-       i += live * kLevelWarps)
+       i += live * kLevelWarps) {
+    if (level == 0) stage_root(i, b, prm.cap);
     evaluate_slot<kRidged>(i, f, b.kid_int, b.kid_cor, b.flags, cam, tab,
                            b.freq, prm, es[warp]);
+  }
   if constexpr (kCompact) {
     __threadfence();
     __syncthreads();
@@ -491,7 +528,7 @@ level_kernel(Buffers b, Params prm, int parity) {
     __syncthreads();
     if (!last) return;
     __threadfence();
-    compact_block<kLevelThreads>(f, b.kid_int, b.kid_cor, b.flags, st,
+    compact_block<kLevelThreads>(f, b.kid_int, b.kid_cor, b.flags, f_n, st,
                                  st_next, b.n_int, b.n_cor, b.l_int, b.l_cor,
                                  prm.cap, sh);
     if (threadIdx.x == 0) b.state[kTicket] = 0;
@@ -500,12 +537,15 @@ level_kernel(Buffers b, Params prm, int parity) {
 
 // bench-only: the compaction as a kernel of its own (one block)
 __global__ void __launch_bounds__(kBlockThreads)
-compact_kernel(Buffers b, int cap, int parity) {
+compact_kernel(Buffers b, Params prm, int level) {
   __shared__ CompactShared<kBlockThreads> sh;
+  const int parity = level & 1;
+  const int* st = b.state + 3 * parity;
   compact_block<kBlockThreads>(Frontier{b.f_int, b.f_cor}, b.kid_int,
-                               b.kid_cor, b.flags, b.state + 3 * parity,
+                               b.kid_cor, b.flags,
+                               level_slots(prm, st, level), st,
                                b.state + 3 * (1 - parity), b.n_int, b.n_cor,
-                               b.l_int, b.l_cor, cap, sh);
+                               b.l_int, b.l_cor, prm.cap, sh);
 }
 
 // bench-only: a whole refine of `levels` levels in one block, the frontier
@@ -522,21 +562,23 @@ refine_block_kernel(Buffers b, Params prm, int levels) {
   DF cam[3];
   load_camera(b, cam);
   const int warp = threadIdx.x >> 5;
-  int* cur_int = const_cast<int*>(b.f_int);
-  float* cur_cor = const_cast<float*>(b.f_cor);
+  int* cur_int = b.f_int;
+  float* cur_cor = b.f_cor;
   int* nxt_int = b.n_int;
   float* nxt_cor = b.n_cor;
   int parity = 0;
   for (int level = 0; level < levels; ++level) {
     const int* st = b.state + 3 * parity;
-    const int f_n = __ldcg(st);
+    const int f_n = level_slots(prm, st, level);
     if (f_n <= 0) break;                          // uniform in the block
     const Frontier f{cur_int, cur_cor};
-    for (int i = warp; i < f_n; i += kBlockWarps)
+    for (int i = warp; i < f_n; i += kBlockWarps) {
+      if (level == 0) stage_root(i, b, prm.cap);
       evaluate_slot<kRidged>(i, f, b.kid_int, b.kid_cor, b.flags, cam, tab,
                              b.freq, prm, es[warp]);
+    }
     __syncthreads();
-    compact_block<kBlockThreads>(f, b.kid_int, b.kid_cor, b.flags, st,
+    compact_block<kBlockThreads>(f, b.kid_int, b.kid_cor, b.flags, f_n, st,
                                  b.state + 3 * (1 - parity), nxt_int,
                                  nxt_cor, b.l_int, b.l_cor, prm.cap, sh);
     __syncthreads();
@@ -576,18 +618,17 @@ enum RefineVariant { kFused = 0, kSplit = 1, kOneBlock = 2 };
 template <bool kRidged>
 int launch_refine(int variant, const Buffers& b, const Params& prm,
                   int level, int levels, cudaStream_t s) {
-  const int parity = level & 1;
   switch (variant) {
     case kFused:
       level_kernel<kRidged, true><<<level_blocks(prm.cap), kLevelThreads, 0,
-                                    s>>>(b, prm, parity);
+                                    s>>>(b, prm, level);
       break;
     case kSplit: {
       level_kernel<kRidged, false><<<level_blocks(prm.cap), kLevelThreads, 0,
-                                     s>>>(b, prm, parity);
+                                     s>>>(b, prm, level);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
-      compact_kernel<<<1, kBlockThreads, 0, s>>>(b, prm.cap, parity);
+      compact_kernel<<<1, kBlockThreads, 0, s>>>(b, prm, level);
       break;
     }
     case kOneBlock:
@@ -600,24 +641,28 @@ int launch_refine(int variant, const Buffers& b, const Params& prm,
   return (int)cudaGetLastError();
 }
 
-int refine_entry(int variant, const void* f_int, const void* f_cor,
-                 void* n_int, void* n_cor, void* kid_int, void* kid_cor,
-                 void* flags, void* state, void* l_int, void* l_cor,
-                 const void* cam_hi, const void* cam_lo, const void* perm,
-                 const void* sign, const void* freq, int cap, int max_lod,
-                 int ridged, int use_quality, float radius_hi,
-                 float radius_lo, float quality_hi, float quality_lo,
-                 int level, int levels, void* stream) {
-  if (cap <= 0 || max_lod < 0 || level < 0 ||
+int refine_entry(int variant, const void* r_lo, const void* r_hi,
+                 const void* r_depth, const void* r_ch, const void* r_cl,
+                 int n_roots, void* f_int, void* f_cor, void* n_int,
+                 void* n_cor, void* kid_int, void* kid_cor, void* flags,
+                 void* state, void* l_int, void* l_cor, const void* cam_hi,
+                 const void* cam_lo, const void* perm, const void* sign,
+                 const void* freq, int cap, int max_lod, int ridged,
+                 int use_quality, float radius_hi, float radius_lo,
+                 float quality_hi, float quality_lo, int level, int levels,
+                 void* stream) {
+  if (cap <= 0 || max_lod < 0 || level < 0 || n_roots < 0 || n_roots > cap ||
       (ridged && (!perm || !sign || !freq)))
     return (int)cudaErrorInvalidValue;
-  const Params prm{cap, max_lod, use_quality, DF{radius_hi, radius_lo},
-                   DF{quality_hi, quality_lo}};
-  const Buffers b{(const int*)f_int, (const float*)f_cor, (int*)n_int,
+  const Params prm{cap, max_lod, use_quality, n_roots,
+                   DF{radius_hi, radius_lo}, DF{quality_hi, quality_lo}};
+  const Buffers b{(int*)f_int, (float*)f_cor, (int*)n_int,
                   (int*)kid_int, (int*)flags, (int*)state, (int*)l_int,
                   (float*)n_cor, (float*)kid_cor, (float*)l_cor,
                   (const float*)cam_hi, (const float*)cam_lo,
-                  (const int*)perm, (const int*)sign, (const float*)freq};
+                  (const int*)perm, (const int*)sign, (const float*)freq,
+                  (const int*)r_lo, (const int*)r_hi, (const int*)r_depth,
+                  (const float*)r_ch, (const float*)r_cl};
   cudaStream_t s = (cudaStream_t)stream;
   return ridged ? launch_refine<true>(variant, b, prm, level, levels, s)
                 : launch_refine<false>(variant, b, prm, level, levels, s);
@@ -628,22 +673,28 @@ int refine_entry(int variant, const void* f_int, const void* f_cor,
 // Refine level `level`: evaluate the frontier (f_int (3, cap) int32 id
 // lo, id hi, depth; f_cor (24, cap) f32 DF corners) and compact it into
 // the leaf buffers (l_int, l_cor: the same layout) and the next frontier
-// (n_int, n_cor). state: (7,) int32, the counts f_n, l_n, overflowed of
-// even levels at 0-2 and of odd levels at 3-5, and the blocks' ticket at 6
-// (0 between launches), read and updated on the device; level 0 reads
-// 0-2. kid_int (4, 3, cap), kid_cor (4, 24, cap) and flags (cap,) are
-// scratch. perm, sign, freq: perlin_cuda.kernel_tables(2.0), read only
-// when ridged.
+// (n_int, n_cor). Level 0's frontier is the n_roots roots (r_lo, r_hi,
+// r_depth (R,) int32, r_depth null for depth 0; r_ch, r_cl (R, 4, 3) f32),
+// which it stages into f_int and f_cor itself. state: (7,) int32, zeros
+// before level 0, the counts f_n, l_n, overflowed of even levels at 0-2
+// and of odd levels at 3-5, and the blocks' ticket at 6 (0 between
+// launches), read and updated on the device. The leaf buffers start as
+// zeros; the frontier, kid_int (4, 3, cap), kid_cor (4, 24, cap) and flags
+// (cap,) are scratch. perm, sign, freq: perlin_cuda.kernel_tables(2.0),
+// read only when ridged.
 extern "C" int planet_refine_level(
-    const void* f_int, const void* f_cor, void* n_int, void* n_cor,
-    void* kid_int, void* kid_cor, void* flags, void* state, void* l_int,
-    void* l_cor, const void* cam_hi, const void* cam_lo, const void* perm,
-    const void* sign, const void* freq, int cap, int max_lod, int ridged,
-    int use_quality, float radius_hi, float radius_lo, float quality_hi,
-    float quality_lo, int level, void* stream) {
-  return refine_entry(kFused, f_int, f_cor, n_int, n_cor, kid_int, kid_cor,
-                      flags, state, l_int, l_cor, cam_hi, cam_lo, perm, sign,
-                      freq, cap, max_lod, ridged, use_quality, radius_hi,
+    const void* r_lo, const void* r_hi, const void* r_depth, const void* r_ch,
+    const void* r_cl, int n_roots, void* f_int, void* f_cor, void* n_int,
+    void* n_cor, void* kid_int, void* kid_cor, void* flags, void* state,
+    void* l_int, void* l_cor, const void* cam_hi, const void* cam_lo,
+    const void* perm, const void* sign, const void* freq, int cap,
+    int max_lod, int ridged, int use_quality, float radius_hi,
+    float radius_lo, float quality_hi, float quality_lo, int level,
+    void* stream) {
+  return refine_entry(kFused, r_lo, r_hi, r_depth, r_ch, r_cl, n_roots,
+                      f_int, f_cor, n_int, n_cor, kid_int, kid_cor, flags,
+                      state, l_int, l_cor, cam_hi, cam_lo, perm, sign, freq,
+                      cap, max_lod, ridged, use_quality, radius_hi,
                       radius_lo, quality_hi, quality_lo, level, 1, stream);
 }
 
@@ -652,16 +703,18 @@ extern "C" int planet_refine_level(
 // (`levels` levels from level 0 in one block: the whole refine in one
 // call, the frontier ping-ponging between f and n).
 extern "C" int planet_t_refine(
-    int variant, const void* f_int, const void* f_cor, void* n_int,
-    void* n_cor, void* kid_int, void* kid_cor, void* flags, void* state,
-    void* l_int, void* l_cor, const void* cam_hi, const void* cam_lo,
-    const void* perm, const void* sign, const void* freq, int cap,
-    int max_lod, int ridged, int use_quality, float radius_hi,
+    int variant, const void* r_lo, const void* r_hi, const void* r_depth,
+    const void* r_ch, const void* r_cl, int n_roots, void* f_int,
+    void* f_cor, void* n_int, void* n_cor, void* kid_int, void* kid_cor,
+    void* flags, void* state, void* l_int, void* l_cor, const void* cam_hi,
+    const void* cam_lo, const void* perm, const void* sign, const void* freq,
+    int cap, int max_lod, int ridged, int use_quality, float radius_hi,
     float radius_lo, float quality_hi, float quality_lo, int level,
     int levels, void* stream) {
-  return refine_entry(variant, f_int, f_cor, n_int, n_cor, kid_int, kid_cor,
-                      flags, state, l_int, l_cor, cam_hi, cam_lo, perm, sign,
-                      freq, cap, max_lod, ridged, use_quality, radius_hi,
+  return refine_entry(variant, r_lo, r_hi, r_depth, r_ch, r_cl, n_roots,
+                      f_int, f_cor, n_int, n_cor, kid_int, kid_cor, flags,
+                      state, l_int, l_cor, cam_hi, cam_lo, perm, sign, freq,
+                      cap, max_lod, ridged, use_quality, radius_hi,
                       radius_lo, quality_hi, quality_lo, level, levels,
                       stream);
 }

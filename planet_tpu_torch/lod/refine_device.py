@@ -36,6 +36,11 @@ Roots may be any frontier of quads of one tree, with their depths
 (`root_depth`): the sharded engine refines each rank's depth-1 subtrees
 (parallel/sharded_lod.py). Left out, as TPU-only: the lane-major layout's
 window/sort tricks.
+
+`dfs_order` puts the leaves in the reference's DFS emission order and cuts
+them to the rows a frame renders: the DFS order kernel
+(refine_cuda.dfs_order_cuda, csrc/order.cu) for CUDA tensors, its plain
+version `dfs_order_plain` (a stable sort of packed keys) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ PROBES = refine_cuda.PROBES
 _PROBE_SCALE = 1e-5        # terrain coord_scale (main.cpp:823-832)
 _PROBE_AMPLITUDE = 8848.0
 _CHILD_CORNERS = ((0, 1, 3, 4), (1, 2, 4, 5), (3, 4, 6, 7), (4, 5, 7, 8))
+KEY_PAD = 2**63 - 1        # DFS key of a padding row: after every real leaf
 
 
 class DeviceRefineResult(NamedTuple):
@@ -64,6 +70,18 @@ class DeviceRefineResult(NamedTuple):
     leaf_depth: torch.Tensor       # (cap,) int32
     n_leaves: torch.Tensor         # () int32
     overflowed: torch.Tensor       # () bool
+
+
+class Ordered(NamedTuple):
+    """The first render_cap leaves in DFS order (rows past n_leaves are
+    padding: the leaf buffers' zeros)."""
+    leaf_lo: torch.Tensor          # (render_cap,) int32 id words
+    leaf_hi: torch.Tensor
+    leaf_depth: torch.Tensor       # (render_cap,) int32
+    corners_hi: torch.Tensor       # (12, render_cap) f32, lane-major
+    corners_lo: torch.Tensor
+    n_leaves: torch.Tensor         # () int32, at most render_cap
+    overflowed: torch.Tensor       # () bool: refine's, or n > render_cap
 
 
 def _split_const(x, like):
@@ -129,6 +147,23 @@ def _probe_heights(probe, p):
     h = perlin_cuda.noise_df("ridged", xh[0], xl[0], xh[1], xl[1], xh[2],
                              xl[2], octaves=6, gain=0.55)
     return h * float(np.float32(_PROBE_AMPLITUDE))
+
+
+def _frontier(root_lo, root_hi, root_ch, root_cl, root_depth, cap: int):
+    """The first frontier from R roots: ints (3, cap) and corners (24, cap),
+    the roots in columns [0, R), zeros after them (R1's level 0 stages the
+    roots on the card)."""
+    dev = root_lo.device
+    n_roots = root_lo.shape[0]
+    f_int = torch.zeros((3, cap), dtype=torch.int32, device=dev)
+    f_cor = torch.zeros((24, cap), dtype=torch.float32, device=dev)
+    f_int[0, :n_roots] = root_lo
+    f_int[1, :n_roots] = root_hi
+    if root_depth is not None:
+        f_int[2, :n_roots] = root_depth
+    f_cor[:12, :n_roots] = root_ch.permute(1, 2, 0).reshape(12, n_roots)
+    f_cor[12:, :n_roots] = root_cl.permute(1, 2, 0).reshape(12, n_roots)
+    return f_int, f_cor
 
 
 def _level(f_int, f_cor, f_n, l_int, l_cor, l_n, overflow, consts, *,
@@ -227,8 +262,8 @@ def refine_plain(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
     dev = cam_hi.device
     i32 = torch.int32
     n_roots = root_lo.shape[0]
-    f_int, f_cor = refine_cuda.frontier(root_lo, root_hi, root_ch, root_cl,
-                                        root_depth, cap)
+    f_int, f_cor = _frontier(root_lo, root_hi, root_ch, root_cl, root_depth,
+                             cap)
     f_n = torch.full((), n_roots, dtype=i32, device=dev)
     l_int = torch.zeros((3, cap + 1), dtype=i32, device=dev)
     l_cor = torch.zeros((24, cap + 1), dtype=torch.float32, device=dev)
@@ -293,3 +328,32 @@ def refine_device(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
         c_lo = c_lo.reshape(4, 3, cap).permute(2, 0, 1)
     return DeviceRefineResult(l_int[0], l_int[1], c_hi, c_lo, l_int[2], l_n,
                               overflow)
+
+
+def dfs_order_plain(lo, hi, depth, c_hi, c_lo, n, overflowed,
+                    render_cap: int) -> Ordered:
+    """The plain version of the DFS order kernel: leaves (cap,) int32 id
+    words and depths and (12, cap) f32 lane-major DF corners, in level
+    order at [0, n) (n () int32, overflowed () bool) -> the first
+    render_cap in DFS order (the rows past n keyed KEY_PAD, so they follow
+    every leaf in their own order), the refine's or the render cap's
+    overflow and n clamped to render_cap."""
+    rows = torch.arange(lo.shape[0], device=lo.device, dtype=torch.int32)
+    key = quadid.words_dfs_key(lo, hi)
+    key = torch.where(rows < n, key, torch.full_like(key, KEY_PAD))
+    perm = torch.argsort(key, stable=True)[:render_cap]
+    return Ordered(lo.index_select(0, perm), hi.index_select(0, perm),
+                   depth.index_select(0, perm), c_hi.index_select(1, perm),
+                   c_lo.index_select(1, perm), torch.clamp(n, max=render_cap),
+                   overflowed | (n > render_cap))
+
+
+def dfs_order(ref: DeviceRefineResult, render_cap: int) -> Ordered:
+    """refine_device's leaves (transposed=True) in DFS order, cut to the
+    first render_cap: the DFS order kernel on CUDA tensors, dfs_order_plain
+    on CPU tensors."""
+    args = (ref.leaf_lo, ref.leaf_hi, ref.leaf_depth, ref.leaf_corners_hi,
+            ref.leaf_corners_lo, ref.n_leaves, ref.overflowed)
+    if ref.leaf_lo.device.type == "cuda":
+        return Ordered(*refine_cuda.dfs_order_cuda(*args, render_cap))
+    return dfs_order_plain(*args, render_cap)

@@ -14,10 +14,16 @@ refine_plain.
 
 The frontier and leaf layout is refine_plain's: ints (3, cap) (id lo, id
 hi, depth) and corners (24, cap) (hi rows 0-11, lo rows 12-23, row =
-corner*3 + axis). The wrapper reads no tensor value and allocates every
-buffer from metadata, so it stays legal inside a CUDA-graph capture (the
-noise tables come from perlin_cuda.kernel_tables' cache, which an eager
-call fills first).
+corner*3 + axis). Level 0 stages the roots into its frontier itself, so
+the set-up on the card is one zero fill (the leaf buffers and the counts
+share it). The wrapper reads no tensor value and allocates every buffer
+from metadata, so it stays legal inside a CUDA-graph capture (the noise
+tables come from perlin_cuda.kernel_tables' cache, which an eager call
+fills first).
+
+`dfs_order_cuda` launches the DFS order kernel (csrc/order.cu) on R1's
+leaves; refine_device.dfs_order is its entry point, which runs the plain
+version, refine_device.dfs_order_plain, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -44,22 +50,6 @@ def lane_map():
              for lane in range(WARP)]
     folds = [PROBE_OCTAVES * j for j in range(N_PROBES)]
     return lanes, folds
-
-
-def frontier(root_lo, root_hi, root_ch, root_cl, root_depth, cap: int):
-    """The first frontier from R roots: ints (3, cap) and corners (24, cap),
-    the roots in columns [0, R), zeros after them."""
-    dev = root_lo.device
-    n_roots = root_lo.shape[0]
-    f_int = torch.zeros((3, cap), dtype=torch.int32, device=dev)
-    f_cor = torch.zeros((24, cap), dtype=torch.float32, device=dev)
-    f_int[0, :n_roots] = root_lo
-    f_int[1, :n_roots] = root_hi
-    if root_depth is not None:
-        f_int[2, :n_roots] = root_depth
-    f_cor[:12, :n_roots] = root_ch.permute(1, 2, 0).reshape(12, n_roots)
-    f_cor[12:, :n_roots] = root_cl.permute(1, 2, 0).reshape(12, n_roots)
-    return f_int, f_cor
 
 
 def split_f32(x: float):
@@ -99,7 +89,7 @@ def _check_args(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
         if t.device != cam_hi.device or t.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor on "
                              f"{cam_hi.device}, got {t.device}")
-    for name, t, dtype, shape in named[:2]:     # the kernel reads these
+    for name, t, dtype, shape in named:         # the kernel reads these
         _cuda.check_cuda(t, name, dtype, shape)
 
 
@@ -108,30 +98,36 @@ def _levels(key: str, symbol: str, head: tuple, tail: tuple, calls: int,
             max_lod: int, cap: int, radius: float, probe: str, root_depth,
             quality: float):
     """`calls` calls of C entry `symbol` (counted under `key`), call L with
-    the arguments head, level L's operands and tail, on buffers allocated
-    from metadata: the first frontier and the next one (swapped after each
-    call), the children's scratch, the flags, the state (the counts f_n =
-    the roots' count, l_n and overflowed of even levels, the same of odd
-    levels, the blocks' ticket) and the leaf buffers. Returns refine_cuda's
-    result after max_lod + 1 levels."""
+    the arguments head, the roots, level L's operands and tail, on buffers
+    allocated from metadata: the first frontier (level 0 stages the roots
+    into it) and the next one (swapped after each call), the children's
+    scratch, the flags, and one zero fill holding the leaf buffers and the
+    state (the counts f_n, l_n and overflowed of even levels, the same of
+    odd levels, the blocks' ticket; level 0 takes its f_n, the roots'
+    count, from the arguments). Returns refine_cuda's result after max_lod
+    + 1 levels."""
     _check_args(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
                 root_depth, max_lod=max_lod, cap=cap, probe=probe)
     dev = cam_hi.device
     i32 = torch.int32
-    cur = frontier(root_lo, root_hi, root_ch, root_cl, root_depth, cap)
+    cur = (torch.empty((3, cap), dtype=i32, device=dev),
+           torch.empty((24, cap), dtype=torch.float32, device=dev))
     nxt = (torch.empty_like(cur[0]), torch.empty_like(cur[1]))
     kid_int = torch.empty((4, 3, cap), dtype=i32, device=dev)
     kid_cor = torch.empty((4, 24, cap), dtype=torch.float32, device=dev)
     flags = torch.empty((cap,), dtype=i32, device=dev)
-    state = torch.zeros((7,), dtype=i32, device=dev)
-    state[0].fill_(root_lo.shape[0])
-    l_int = torch.zeros((3, cap), dtype=i32, device=dev)
-    l_cor = torch.zeros((24, cap), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((27 * cap + 7,), dtype=i32, device=dev)
+    l_int = zeros[:3 * cap].view(3, cap)
+    l_cor = zeros[3 * cap:27 * cap].view(torch.float32).view(24, cap)
+    state = zeros[27 * cap:]
     tables = (perlin_cuda.kernel_tables(2.0, str(dev)) if probe == "ridged6"
               else (None, None, None))
     ptrs = [None if t is None else t.data_ptr() for t in tables]
+    roots = [None if t is None else t.data_ptr() for t in (
+        root_lo, root_hi, root_depth, root_ch, root_cl)]
     for level in range(calls):
-        _cuda.launch(key, symbol, *head, cur[0].data_ptr(), cur[1].data_ptr(),
+        _cuda.launch(key, symbol, *head, *roots, root_lo.shape[0],
+                     cur[0].data_ptr(), cur[1].data_ptr(),
                      nxt[0].data_ptr(), nxt[1].data_ptr(), kid_int.data_ptr(),
                      kid_cor.data_ptr(), flags.data_ptr(), state.data_ptr(),
                      l_int.data_ptr(), l_cor.data_ptr(), cam_hi.data_ptr(),
@@ -140,7 +136,10 @@ def _levels(key: str, symbol: str, head: tuple, tail: tuple, calls: int,
                      *split_f32(radius), *split_f32(quality), level, *tail)
         cur, nxt = nxt, cur
     q = 3 * ((int(max_lod) + 1) % 2)      # the parity the last level wrote
-    return l_int, l_cor, state[q + 1], state[q + 2] != 0
+    # the flag word is 0 or 1, so its first byte (the card is
+    # little-endian) is the bool, read in place by a view
+    return (l_int, l_cor, state[q + 1],
+            state[q + 2:q + 3].view(torch.bool)[0])
 
 
 def refine_cuda(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
@@ -150,9 +149,9 @@ def refine_cuda(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
 
     Returns (l_int (3, cap) int32 leaf id lo, id hi, depth; l_cor (24, cap)
     f32 leaf corners; n_leaves () int32; overflowed () bool), leaves in
-    level order at [0, n_leaves) and zeros after them. One launch a level
-    (one kernel: the level's evaluation and compaction), max_lod + 1 in
-    all."""
+    level order at [0, n_leaves) and zeros after them. One zero fill, then
+    one launch a level (one kernel: the level's evaluation and compaction),
+    max_lod + 1 in all."""
     return _levels("refine", "planet_refine_level", (), (), int(max_lod) + 1,
                    cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
                    max_lod=max_lod, cap=cap, radius=radius, probe=probe,
@@ -177,3 +176,47 @@ def refine_design(design: str, cam_hi, cam_lo, root_lo, root_hi, root_ch,
                    cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
                    max_lod=max_lod, cap=cap, radius=radius, probe=probe,
                    root_depth=root_depth, quality=quality)
+
+
+def _check_order_args(lo, hi, depth, c_hi, c_lo, n, overflowed,
+                      render_cap: int):
+    cap = lo.shape[0] if lo.dim() == 1 else -1
+    if not 1 <= int(render_cap) <= cap:
+        raise ValueError(f"render_cap {render_cap}: expected 1 <= render_cap "
+                         f"<= cap, the leaf rows' {cap}")
+    named = [("leaf_lo", lo, torch.int32, (cap,)),
+             ("leaf_hi", hi, torch.int32, (cap,)),
+             ("leaf_depth", depth, torch.int32, (cap,)),
+             ("corners_hi", c_hi, torch.float32, (12, cap)),
+             ("corners_lo", c_lo, torch.float32, (12, cap)),
+             ("n_leaves", n, torch.int32, ()),
+             ("overflowed", overflowed, torch.bool, ())]
+    for name, t, dtype, shape in named:
+        if t.device != lo.device:
+            raise ValueError(f"{name}: expected a tensor on {lo.device}, got "
+                             f"{t.device}")
+        _cuda.check_cuda(t, name, dtype, shape)
+
+
+def dfs_order_cuda(lo, hi, depth, c_hi, c_lo, n, overflowed,
+                   render_cap: int):
+    """The DFS order kernel on R1's leaves, refine_device.dfs_order_plain's
+    arguments: (cap,) int32 id words and depths and (12, cap) f32 lane-major
+    DF corners in level order at [0, n), n () int32 and overflowed () bool
+    on the card. Returns what dfs_order_plain returns, from one launch
+    (counted in _cuda.launches["order"])."""
+    _check_order_args(lo, hi, depth, c_hi, c_lo, n, overflowed, render_cap)
+    dev = lo.device
+    i32 = torch.int32
+    out = (torch.empty((render_cap,), dtype=i32, device=dev),
+           torch.empty((render_cap,), dtype=i32, device=dev),
+           torch.empty((render_cap,), dtype=i32, device=dev),
+           torch.empty((12, render_cap), dtype=torch.float32, device=dev),
+           torch.empty((12, render_cap), dtype=torch.float32, device=dev),
+           torch.empty((), dtype=i32, device=dev),
+           torch.empty((), dtype=torch.bool, device=dev))
+    _cuda.launch("order", "planet_dfs_order",
+                 *(t.data_ptr() for t in (lo, hi, depth, c_hi, c_lo, n,
+                                          overflowed)),
+                 lo.shape[0], int(render_cap), *(t.data_ptr() for t in out))
+    return out

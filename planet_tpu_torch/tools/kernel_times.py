@@ -9,9 +9,10 @@ from that tree's own sources: run it as old, new, new, old and compare
 within the run. Times (tools/common.time_ms: the median of REPS calls
 queued behind a spin kernel) the calls of `calls` — the set that
 chip_smoke.py phase 8 times for the kernels line: K1 at phase 3's shape
-and at the fused frame's occupancy, K4, R1, C1, V1, A1 and U1 (on trees
-that have them; C1 with C2, K3's clip pass and the whole clip pass; U1
-then V1 against V1's rows mode on A1's and U1's frames), K5,
+and at the fused frame's occupancy, K4, R1, the DFS order kernel, C1,
+V1, A1 and U1 (on trees that have them; C1 with C2, K3's clip pass and
+the whole clip pass; U1 then V1 against V1's rows mode on A1's and U1's
+frames; the DFS order kernel beside its plain chain), K5,
 K2 and K3 on the record sets
 of `record_sets` (the 1080p static scene, the three goldens, the orbit
 frames with huge records) and on a screen-filling triangle, S1 at phase
@@ -54,6 +55,9 @@ STAGE_MAIN = "1080p orbit frame 1"
 # second frame, the rows of tess_inputs' main set
 ROWS_MAIN = "1080p static frame 1"
 STAGE_ORBIT_FRAMES = 4
+# the leaf counts the DFS order is timed at (order_calls): the flight's
+# fewest and most over a lap, the look-around's, the dense camera's all
+ORDER_LEAVES = (135, 210, 462, 3177)
 # host seconds each queued call may take (tools/common.QUEUE_S, set for
 # both trees of a comparison)
 QUEUE_S = 2e-3
@@ -567,6 +571,55 @@ def refine_call(device):
         probe="ridged6")
 
 
+def order_calls(device) -> list:
+    """[(None, label, call, tuple)]: the DFS order kernel
+    (refine_cuda.dfs_order_cuda) and its plain chain on the card
+    (refine_device.dfs_order_plain: the torch ops the fused step ran before
+    the kernel) on R1's leaves of r1_s1_parts' dense camera cut to their
+    first n, for n in ORDER_LEAVES (the rows past n zeros, as R1 leaves
+    them), at the fused frame's render cap of 512 and, at n = 3,177, at
+    the whole cap of 4,096 too; none on a tree without the kernel."""
+    import torch
+
+    from planet_tpu_torch.lod import refine_device
+    from planet_tpu_torch.ops.kernels import refine_cuda
+    from planet_tpu_torch.tools import r1_s1_parts
+
+    if not hasattr(refine_cuda, "dfs_order_cuda"):
+        return []
+    from planet_tpu_torch.engine import device_step
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.nums import df as dfm
+
+    cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
+    cam = [torch.as_tensor(a, device=device) for a in
+           dfm.from_f64_np(r1_s1_parts.dense_camera(cfg))]
+    roots = device_step.face_roots(cfg.radius, device)[:4]
+    cap = 4096
+    l_int, l_cor, n_all, _ = refine_cuda.refine_cuda(
+        *cam, *roots, max_lod=cfg.max_lod, cap=cap, radius=cfg.radius,
+        probe="ridged6", quality=r1_s1_parts.DENSE_QUALITY)
+    n_all = int(n_all)
+    out = []
+    for n in ORDER_LEAVES:
+        n = min(n, n_all)
+        li, lc = l_int.clone(), l_cor.clone()
+        li[:, n:] = 0
+        lc[:, n:] = 0
+        args = (li[0], li[1], li[2], lc[:12], lc[12:],
+                torch.tensor(n, dtype=torch.int32, device=device),
+                torch.tensor(False, device=device))
+        for render_cap in (512, cap) if n > 512 else (512,):
+            tag = f"n {n}, render cap {render_cap}"
+            out += [(None, f"DFS order kernel, {tag}",
+                     lambda a=args, r=render_cap:
+                     refine_cuda.dfs_order_cuda(*a, r), tuple),
+                    (None, f"DFS order plain chain, {tag}",
+                     lambda a=args, r=render_cap:
+                     refine_device.dfs_order_plain(*a, r), tuple)]
+    return out
+
+
 def splat_inputs(device) -> dict:
     """{name: S1's arguments (clip, shade, valid, width, height, k,
     wireframe)} as chip_smoke.py phase 9a times them: the 1080p static
@@ -620,7 +673,9 @@ def calls(device, sets=None, fused=None, setups=None, tess=None,
     (`fused`, else fused_tile_inputs), K4 at the refine-probe shape (5 x
     4096 points, ridged 6) and at 2^20 points x 18 octaves, R1 (where the
     tree has it: ops/kernels/refine_cuda) on the 1080p scene's camera from
-    the six faces (max_lod 18, cap 4096, ridged probes), K5 at 6 x 2048^2;
+    the six faces (max_lod 18, cap 4096, ridged probes), the DFS order
+    kernel and its plain chain (where the tree has the kernel:
+    order_calls), K5 at 6 x 2048^2;
     on each frame set of `sets` (else record_sets): K2 on its span
     records as the tree's main path draws them (routed), K3 on its huge
     records (the huge class and the clipped straddlers), each into a fresh
@@ -688,6 +743,7 @@ def calls(device, sets=None, fused=None, setups=None, tess=None,
     if refine is not None:
         out.insert(4, ("refine", "R1 refine, 1080p static camera, ridged6, "
                                  "cap 4096", refine, tuple))
+    out += order_calls(device)
     for name, fs in sets.items():
         r = routed(fs)
         fb = fresh_fb(fs["width"], fs["height"])

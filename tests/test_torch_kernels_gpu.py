@@ -49,7 +49,9 @@ on 2^20 inputs; A1 launched once a geometry replay; V1's rows mode
 its plain version and to V1 on U1's outputs in all six outputs, on
 torch_scenes' rows cases and the 1080p static and orbit frames' rows, its
 padding rows' five NaN outputs the word 0x7fffffff; a geometry replay
-launching V1 once and U1 never, and U1 on the "uniforms" rung alone;
+launching V1 once and U1 never, and U1 on the "uniforms" rung alone; a
+geometry replay's refine layer at most two fills, R1's 19 levels and the
+DFS order kernel, with A1 right after it;
 five profiled interactive frames: the graphs' captures in the first
 alone, each later frame's kernels starting after its geometry replay's
 span has started, the readback's copies ending inside its span."""
@@ -499,8 +501,8 @@ def test_stop_after_rungs_captured_equal_eager(dev, rung):
     """Each stop_after rung captured as a graph of its own: replays from
     two cameras (the golden one, then one 10 % nearer) equal the cut step
     run eagerly on the card, outputs and pool bit for bit; a replay
-    launches R1 19 times (a launch a level), K4 never, K1 once from
-    "generate" on, A1 once from "cache" on, U1 on the "uniforms" rung
+    launches R1 19 times (a launch a level), the DFS order kernel once,
+    K4 never, K1 once from "generate" on, A1 once from "cache" on, U1 on the "uniforms" rung
     alone (V1 computes the uniforms itself past it) and V1 once from
     "tess" on."""
     cfg = EngineConfig()
@@ -534,6 +536,7 @@ def test_stop_after_rungs_captured_equal_eager(dev, rung):
     assert int(got.meta[0]) > 0
     tally = r.graph_launches
     assert tally["refine"] == 19 and tally["noise"] == 0, tally
+    assert tally["order"] == 1, tally
     assert tally["tile"] == (0 if rung in ("refine", "cache") else 1), tally
     assert tally["cache"] == (0 if rung == "refine" else 1), tally
     assert tally["uniforms"] == (1 if rung == "uniforms" else 0), tally
@@ -1110,6 +1113,44 @@ def test_geometry_replay_launches_v1_once(dev):
         for k, n in (("tess", 1), ("cache", 1), ("uniforms", 0)):
             assert _cuda.launches[k] - before[k] == r._tally[k] == n, k
     assert int(geom.meta[0]) > 100
+
+
+def test_geometry_replay_refine_layer_nodes(dev):
+    """One profiled replay of the fused frame's geometry graph at 1080p:
+    after the camera's uploads, the refine layer is at most two fills, R1's
+    19 level launches and the DFS order kernel, which A1 follows at once
+    (no torch op between R1's last level and A1); the graph's tally counts
+    one order launch."""
+    cfg = EngineConfig(window_w=1920, window_h=1080)
+    args = stage_times.camera_args(cfg, kernel_times.scene_camera(cfg),
+                                   1920, 1080)
+    r = device_step.DeviceRenderer(cfg, 1920, 1080, device=dev)
+    pool = r.init_pool()
+    r.geometry(pool, *args)     # the warm-up and the capture
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r.geometry(pool, *args)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    uploads = [i for i, n in enumerate(names) if "Memcpy HtoD" in n]
+    cache = next(i for i, n in enumerate(names) if "cache_kernel" in n)
+    assert len(uploads) == 3 and uploads[-1] < cache, names
+    refine = names[uploads[-1] + 1:cache]
+    levels = [i for i, n in enumerate(refine) if "level_kernel" in n]
+    assert len(levels) == 19, refine
+    assert len(refine) == levels[-1] + 2 and "order_kernel" in refine[-1], \
+        refine
+    assert len(refine) <= 24, refine
+    assert all("level_kernel" in n for n in refine[levels[0]:-1]), refine
+    assert len(refine[:levels[0]]) <= 2, refine
+    assert all("FillFunctor" in n or "emset" in n
+               for n in refine[:levels[0]]), refine
+    assert r._tally["order"] == 1 and r._tally["refine"] == 19
 
 
 def test_cuda_sqrt_is_correctly_rounded(dev):

@@ -16,11 +16,23 @@ lane map: each lane's one octave of the probes' noise, folded in order
 from its probe's fold lane, is ops/perlin.accumulate_octaves bit for bit
 at the refine's five probes.
 
+The DFS order: the rank rule the order kernel (csrc/order.cu) computes a
+row's column by, written in numpy, gives torch's stable argsort's
+permutation on random keys with ties and padding rows; its wrapper's
+metadata checks.
+
 Marked `gpu` (skipped without a card): R1 equals the plain version on the
 same inputs on the card, bit for bit, on the same cases plus the oracle's
 max_lod 18 LOD scenes (whose DFS-ordered ids are also the oracle's), R1
 captured in a CUDA graph equals R1 run eagerly, and R1's bench-only
-designs (refine_cuda.DESIGNS) equal the plain version."""
+designs (refine_cuda.DESIGNS) equal the plain version. The order kernel
+equals its plain version (refine_device.dfs_order_plain) bit for bit on
+R1's leaves of every case (the dense camera's 3,177 leaves among them)
+at render caps of 512 (past which the overflow is set) and the whole cap,
+on the oracle's LOD scenes (whose ids it puts in the oracle's order), and
+on leaf buffers of random ids with ties and non-zero rows past n; the
+step's "refine" rung on the card equals R1's leaves through the plain
+order."""
 
 import numpy as np
 import pytest
@@ -35,7 +47,7 @@ from planet_tpu_torch.nums import df as tdf
 from planet_tpu_torch.ops.kernels import refine_cuda
 from planet_tpu_torch.parallel import sharded_lod
 from planet_tpu_torch.ops import perlin
-from planet_tpu_torch.tools import kernel_times, r1_s1_parts
+from planet_tpu_torch.tools import kernel_times, r1_s1_parts, stage_times
 
 torch.set_num_threads(1)
 CFG = EngineConfig(window_w=1920, window_h=1080)
@@ -75,7 +87,7 @@ def _inputs(name, device):
 
 
 def _same(got, want):
-    """Two (l_int, l_cor, n_leaves, overflowed) results equal bit for bit."""
+    """Two results (tensors in the same order) equal bit for bit."""
     for a, b in zip(got, want):
         a, b = a.cpu(), b.cpu()
         if a.dtype.is_floating_point:
@@ -220,6 +232,64 @@ def test_lane_octaves_folded_equal_accumulate_octaves():
         assert torch.equal(value.view(torch.int32), want[j].view(torch.int32))
 
 
+def _rank_rule(key, n):
+    """The order kernel's column of each row (numpy): a live row (< n) goes
+    after the live keys below its own and the equal live keys of lower
+    rows, a padding row to its own index."""
+    live = key[:n]
+    below = (live[None, :] < live[:, None]).sum(1)
+    ties = np.tril(live[None, :] == live[:, None], -1).sum(1)
+    return np.concatenate([below + ties, np.arange(n, key.shape[0])])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_rank_rule_is_the_stable_argsort(seed):
+    """On random non-negative int64 keys drawn from a few values (so with
+    ties), the rank rule's columns are the inverse of torch's stable
+    argsort of the keys with the rows past n set to KEY_PAD."""
+    rng = np.random.default_rng(seed)
+    cap = int(rng.integers(1, 600))
+    n = int(rng.integers(0, cap + 1))
+    key = rng.integers(0, 2**57, 1 + cap // 8)[rng.integers(0, 1 + cap // 8,
+                                                            cap)]
+    rows = torch.arange(cap)
+    padded = torch.where(rows < n, torch.from_numpy(key),
+                         torch.full((cap,), trd.KEY_PAD))
+    perm = torch.argsort(padded, stable=True).numpy()
+    rank = _rank_rule(key, n)
+    np.testing.assert_array_equal(perm[rank], np.arange(cap))
+
+
+def _order_inputs(device, cap=64, n=40):
+    """dfs_order's arguments on zero leaves of `cap` rows."""
+    i32 = torch.int32
+    return ([torch.zeros(cap, dtype=i32, device=device) for _ in range(3)]
+            + [torch.zeros((12, cap), device=device) for _ in range(2)]
+            + [torch.tensor(n, dtype=i32, device=device),
+               torch.tensor(False, device=device)])
+
+
+@pytest.mark.parametrize("which,bad,render_cap", [
+    (None, None, 0),                            # render_cap below 1
+    (None, None, 65),                           # render_cap past cap
+    (0, lambda t: t.long(), 32),                # lo int64
+    (3, lambda t: t.t().contiguous(), 32),      # corners (cap, 12)
+    (5, lambda t: t[None], 32),                 # n (1,)
+    (6, lambda t: t.int(), 32),                 # overflowed int32
+])
+def test_order_wrapper_raises_for_bad_metadata(which, bad, render_cap):
+    args = _order_inputs("cpu")
+    if which is not None:
+        args[which] = bad(args[which])
+    with pytest.raises(ValueError, match="expected"):
+        refine_cuda.dfs_order_cuda(*args, render_cap)
+
+
+def test_order_wrapper_raises_for_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        refine_cuda.dfs_order_cuda(*_order_inputs("cpu"), 32)
+
+
 # ------------------------------------------------------------- the card
 
 
@@ -296,3 +366,110 @@ def test_captured_r1_equals_eager(dev, probe):
     torch.cuda.synchronize()
     assert tally["refine"] == kw["max_lod"] + 1
     _same(got, want)
+
+
+def _order_args(res):
+    """dfs_order's arguments from a refine_cuda / refine_plain result."""
+    l_int, l_cor, n, overflowed = res
+    return (l_int[0], l_int[1], l_int[2], l_cor[:12], l_cor[12:], n,
+            overflowed)
+
+
+def _assert_order_equal(args, render_cap):
+    before = _cuda.launches["order"]
+    got = refine_cuda.dfs_order_cuda(*args, render_cap)
+    assert _cuda.launches["order"] == before + 1
+    want = trd.dfs_order_plain(*args, render_cap)
+    _same(got, want)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("render_cap", [512, None])
+@pytest.mark.parametrize("name", list(CASES))
+def test_order_equals_plain(dev, name, render_cap):
+    """The order kernel on R1's leaves equals the plain chain bit for bit,
+    at render cap 512 (the fused frame's: the dense camera's 3,177 leaves
+    overflow it) and at the whole cap (None)."""
+    args, kw = _inputs(name, dev)
+    res = refine_cuda.refine_cuda(*args, probe="ridged6", **kw)
+    cap = kw["cap"]
+    rc = cap if render_cap is None else min(render_cap, cap)
+    got = _assert_order_equal(_order_args(res), rc)
+    n = int(res[2])
+    assert bool(got[6]) == (bool(res[3]) or n > rc)
+    if name == "dense":
+        assert n > 3000 and bool(got[6]) == (rc < n)
+
+
+@pytest.mark.gpu
+def test_order_equals_plain_on_the_oracle_lod_scenes(dev):
+    """The LOD golden cameras at max_lod 18: the order kernel on R1's
+    leaves equals the plain chain, and its ids are the oracle's."""
+    cams = np.load(GOLD + "lod_cams.npy")
+    counts = np.load(GOLD + "lod_leaf_counts.npy")
+    all_ids = np.load(GOLD + "lod_leaf_ids.npy")
+    roots = device_step.face_roots(CFG.radius, dev)[:4]
+    offset = 0
+    for cam, count in zip(cams, counts):
+        c = [torch.as_tensor(a, device=dev) for a in tdf.from_f64_np(cam)]
+        res = refine_cuda.refine_cuda(*c, *roots, max_lod=18, cap=1024,
+                                      radius=CFG.radius, probe="ridged6")
+        got = _assert_order_equal(_order_args(res), 1024)
+        n = int(got[5])
+        assert n == count
+        ids = tq.from_words(got[0][:n].cpu().numpy(),
+                            got[1][:n].cpu().numpy())
+        np.testing.assert_array_equal(ids, all_ids[offset:offset + count])
+        offset += count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(6))
+def test_order_equals_plain_on_random_leaves(dev, seed):
+    """Leaf buffers of random ids drawn from a few (so with ties: equal
+    keys keep their rows' order), random words in every row (past n too:
+    the padding columns copy them), a random n (below 0 and past cap
+    among them) and render cap, and either overflow flag."""
+    rng = np.random.default_rng(seed)
+    cap = int(rng.integers(1, 4097))
+    render_cap = int(rng.integers(1, cap + 1))
+    n = int(rng.integers(-2, cap + 3))
+    pick = rng.integers(0, 1 + cap // 4, cap)
+    words = rng.integers(-2**31, 2**31, (27, 1 + cap // 4))[:, pick]
+    words[:, rng.random(cap) < 0.5] = rng.integers(-2**31, 2**31, (27, 1))
+    t = torch.as_tensor(np.ascontiguousarray(words, np.int32), device=dev)
+    args = (t[0], t[1], t[2], t[3:15].view(torch.float32),
+            t[15:].view(torch.float32),
+            torch.tensor(n, dtype=torch.int32, device=dev),
+            torch.tensor(bool(seed % 2), device=dev))
+    _assert_order_equal(args, render_cap)
+
+
+@pytest.mark.gpu
+def test_refine_rung_equals_r1_through_the_plain_order(dev):
+    """The fused step's "refine" rung on the card (R1, then the order
+    kernel) gives what R1's leaves through the plain chain give: the ids,
+    depths and corners in DFS order and the early counts."""
+    cfg = EngineConfig(window_w=1920, window_h=1080)
+    args = stage_times.camera_args(cfg, kernel_times.scene_camera(cfg),
+                                   1920, 1080)
+    targs = [torch.as_tensor(a, device=dev) for a in args]
+    roots = device_step.face_roots(cfg.radius, dev)
+    step = device_step.build_geometry_step(cfg, device=dev,
+                                           stop_after="refine")
+    got = step(None, *targs, *roots)
+    ref = trd.refine_device(*targs[:2], *roots[:4], max_lod=cfg.max_lod,
+                            cap=4096, radius=cfg.radius, probe="ridged6",
+                            root_depth=roots[4], quality=cfg.lod_quality,
+                            transposed=True)
+    want = trd.dfs_order_plain(*ref[:2], ref.leaf_depth,
+                               ref.leaf_corners_hi, ref.leaf_corners_lo,
+                               ref.n_leaves, ref.overflowed, 512)
+    o = got.outputs
+    _same((o["leaf_lo"], o["leaf_hi"], o["leaf_depth"],
+           o["corners_hi"].permute(1, 2, 0).reshape(12, 512),
+           o["corners_lo"].permute(1, 2, 0).reshape(12, 512)), want[:5])
+    assert got.meta.tolist() == [int(want.n_leaves), 0,
+                                 int(want.overflowed)]
+    assert int(want.n_leaves) > 100
