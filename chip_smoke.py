@@ -86,7 +86,11 @@ result line is printed:
    apart) and the 8-frame orbit, each orbit frame's leaf ids equal to
    phase 5's PlanetEngine on the same camera; V1 (in its rows mode) and
    A1 launched once a geometry replay (and once by each capture's eager
-   warm-up), U1 never;
+   warm-up), U1 never; BASELINE config 3's frame (64-vertex patches over
+   66 x 66 tiles, perfbench/configs/lod-1080p-p64.json) on four cameras of
+   the flight (perfbench/traffic/flight.json), none overflowing, V1's
+   wide instance ("tess_wide") once a geometry replay and capture and its
+   narrow ones never;
 6. launch counts: each kernel of each path launched during that path's
    phases (4-5: tile, tess, gather, span, huge; 5b: those, refine, cache,
    setup and clip) > 0, and K4 and U1 not launched by 5b;
@@ -2239,6 +2243,84 @@ def main() -> int:
     print(f"[5b] A1 launches {launches_dev['cache']}: once a geometry "
           f"replay and capture; U1 launches {launches_dev['uniforms']}",
           flush=True)
+    # BASELINE config 3: 64-vertex patches over 66 x 66 tiles, the
+    # benchmark's configuration, on the flight's cameras
+    conf64 = json.loads((ROOT / "perfbench/configs/lod-1080p-p64.json")
+                        .read_text())
+    cfg64 = EngineConfig(**{k: v for k, v in conf64["settings"].items()
+                            if k in EngineConfig.__dataclass_fields__})
+    from perfbench.harness import traffic as traffic_mod
+    flight = traffic_mod.make(json.loads(
+        (ROOT / "perfbench/traffic/flight.json").read_text()), 0, cfg64.radius)
+    before = dict(_cuda.launches)
+    rend64 = device_step.DeviceRenderer(
+        cfg64, W_1080, H_1080, device=dev,
+        **{k: v for k, v in conf64["engine"].items() if k != "preview"})
+    pool64 = rend64.init_pool()
+    for k in (0, 24, 48, 72):
+        pos, ang = flight.at(k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr = rend64.render(pool64, *device_args(
+            cfg64, cam_mod.Camera(position=pos, angles=ang), W_1080, H_1080))
+        torch.cuda.synchronize()
+        print(f"[5b] config 3 (64-vertex patches) flight frame {k}: leaves "
+              f"{int(fr.n_leaves)}, tiles generated {int(fr.n_generated)}, "
+              f"live triangles {int(rend64.last_counters.n_tris)}, "
+              f"overflowed {bool(fr.overflowed)}; "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+        check(not fr.overflowed, f"5b config 3 frame {k}: overflowed")
+        check(bool(torch.isfinite(fr.image).all()),
+              f"5b config 3 frame {k}: not finite")
+    wide = {k: _cuda.launches[k] - before[k] for k in ("tess", "tess_wide")}
+    check(rend64._tally["tess_wide"] == 1 and rend64._tally["tess"] == 0
+          and wide["tess"] == 0 and wide["tess_wide"]
+          == rend64.geometry_replays + rend64.geometry_captures,
+          f"5b: config 3's V1 launches {wide}, not V1's wide instance once "
+          "a geometry replay")
+    print(f"[5b] config 3: V1's wide instance launched {wide['tess_wide']} "
+          f"times ({rend64.geometry_replays} replays, "
+          f"{rend64.geometry_captures} captures), its narrow ones "
+          f"{wide['tess']}", flush=True)
+    # V1's wide instance queued, on the rows the last camera's step passes
+    # it (the step run eagerly from a copy of the pool), beside its bound
+    rows64 = []
+    real_rows = vertex_cuda.tessellate_rows
+
+    def record_rows(*a, **kw):
+        rows64.append(a + (kw["grid"],))
+        return real_rows(*a, **kw)
+
+    vertex_cuda.tessellate_rows = record_rows
+    try:
+        device_step.build_geometry_step(
+            cfg64, device=dev,
+            **{k: v for k, v in conf64["engine"].items() if k != "preview"})(
+            device_step.dp.PoolState(*(t.clone() for t in pool64)),
+            *(torch.as_tensor(a, device=dev) for a in device_args(
+                cfg64, cam_mod.Camera(position=pos, angles=ang), W_1080,
+                H_1080)), *device_step.face_roots(cfg64.radius, dev))
+    finally:
+        vertex_cuda.tessellate_rows = real_rows
+    args64 = rows64[0]
+    normals64 = uniforms_cuda.uniforms_cuda(*args64[:9]).normals
+    live64 = int(tool_common.tess_live(normals64).sum())
+    bound64, by64 = tool_common.bound_ms(*tool_common.tess_rows_work(
+        args64[0].shape[0], 66, tool_common.tess_slerps(normals64, 66), 66,
+        live64))
+    ms64 = tool_common.time_calls(
+        lambda: vertex_cuda.tessellate_rows_cuda(*args64))
+    pv64, shade64 = vertex_cuda.tessellate_rows_cuda(*args64)
+    want64 = vertex_cuda.tessellate_rows_plain(*args64)
+    check(all(same_bits(a, b) for a, b in zip(pv64, want64[0]))
+          and same_bits(shade64, want64[1]),
+          "5b config 3: V1's wide instance != its plain version")
+    print(f"[5b] config 3: V1's wide instance queued ms "
+          f"{', '.join(f'{t:.4f}' for t in ms64)} (median "
+          f"{float(np.median(ms64)):.4f}) on {args64[0].shape[0]} rows, "
+          f"{live64} live; bound {bound64:.4f} ms ({by64}); bitwise its "
+          "plain version", flush=True)
+    del rend64, pool64
 
     # ------------------------------------------------------------ phase 6
     check("jax" not in sys.modules, "jax was imported")

@@ -90,9 +90,9 @@ _SIGNATURES = {
 # kernel name -> launches so far (reset with reset_launches)
 launches = {"tile": 0, "noise": 0, "gather": 0, "span": 0, "huge": 0,
             "field": 0, "splat": 0, "refine": 0, "order": 0, "setup": 0,
-            "clip": 0, "tess": 0, "cache": 0, "uniforms": 0, "t_noise": 0,
-            "t_tile": 0, "t_lut": 0, "t_span": 0, "t_refine": 0,
-            "t_splat": 0}
+            "clip": 0, "tess": 0, "tess_wide": 0, "cache": 0,
+            "uniforms": 0, "t_noise": 0, "t_tile": 0, "t_lut": 0,
+            "t_span": 0, "t_refine": 0, "t_splat": 0}
 
 _lib = None
 build_info: dict = {}

@@ -73,6 +73,22 @@
 // normals (0 / 0), which the padding test finds as before. So the fused
 // step launches no U1, and its values never leave the SM (PERF.md).
 
+// Wide rows (BASELINE config 3's 64-vertex patches: a 66 x 66 grid and
+// 66 x 66 tiles, kWideGrid): the rows mode only, as the instance
+// tess_kernel<kWideGrid, kWideDim, 1, true>. A 66-wide row does not fit
+// a lane a column, and the whole tile and its three x-blended arrays
+// would take 70 KB of shared memory, so a patch row is three blocks of
+// 256 threads (kWideParts), each a band of 22 grid rows: it stages only
+// the tile rows its band's y taps read (the taps are nondecreasing along
+// the grid, so the band's first and last rows bound them: at most
+// kBandTex rows, which the CPU tests check for every variant), blends
+// those, and its threads stride over the band's vertices in memory order
+// (a thread a vertex at a time: row and column by a division by the
+// compile-time width, each store coalesced across the warp). The column
+// terms, the corners and the padding test are the narrow instance's code;
+// every block computes its row's for itself. 42 KB of static shared
+// memory a block.
+
 // Bits: every rounding is the plain version's op, in its order: dots as
 // x x + y y + z z, cross products as separate products and differences,
 // the clip transform as ((m0 x + m1 y) + m2 z) + m3, the two-tap blends as
@@ -93,8 +109,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kParts = 2;         // blocks a patch row
-constexpr int kMaxGrid = 32;
+constexpr int kMaxGrid = 32;      // the narrow instances' grid and tile side
 constexpr int kMaxDim = 32;
+constexpr int kWideGrid = 66;     // the wide instance's, exactly
+constexpr int kWideDim = 66;
+constexpr int kWideParts = 3;     // its blocks (bands) a patch row
+constexpr int kBandTex = 24;      // tile rows a band's y taps may read
 constexpr float kClampHi = (float)(1.0 - 1e-6);
 constexpr float kLinEps = (float)0.001;
 constexpr float kShadeFloor = (float)0.001;
@@ -154,16 +174,18 @@ __device__ __forceinline__ void interpolate(const float* p0, const float* n0,
   for (int j = 0; j < 3; ++j) p[j] = (p0[j] + x * half[j]) + (y * n[j]) * hlen;
 }
 
+template <int kGrid>
 struct Taps {
-  int a[3][kMaxGrid], b[3][kMaxGrid];
-  float wa[3][kMaxGrid], wb[3][kMaxGrid];
+  int a[3][kGrid], b[3][kGrid];
+  float wa[3][kGrid], wb[3][kGrid];
 };
 
 // The NaN word of the card's f32 arithmetic, whatever the operands' words
 constexpr unsigned kNaNWord = 0x7fffffffu;
 
 // out[0, n) = the NaN word, by the block's threads: 16-byte stores where
-// out is 16-byte aligned (every row of a 32 x 32 grid), else 4-byte stores
+// out is 16-byte aligned (every row of a 32 x 32 grid, every band of a
+// 66 x 66 one), else 4-byte stores
 __device__ __forceinline__ void fill_nan(float* __restrict__ out, int n) {
   const float nan = __uint_as_float(kNaNWord);
   int done = 0;
@@ -178,8 +200,10 @@ __device__ __forceinline__ void fill_nan(float* __restrict__ out, int n) {
 }
 
 // The terms of interpolate(pa, na, pb, nb, t) that do not depend on t, for
-// one column of a row: its endpoints, the branch, the differences, and on
-// the slerp branch the angle terms and the half chord
+// one column of a row: its endpoints, the branch, the differences, the
+// tangent scale (the row's length over its `quads`, the patch's quads:
+// the grid less 3), and on the slerp branch the angle terms and the half
+// chord
 struct Column {
   float pa[3], na[3], nb[3], dn[3], row_dir[3], half[3];
   float theta2, theta, tan_theta, inv_sin, hlen, xyscale;
@@ -188,7 +212,7 @@ struct Column {
 
 __device__ __forceinline__ void column_terms(const float* pa, const float* na,
                                              const float* pb, const float* nb,
-                                             Column& o) {
+                                             float quads, Column& o) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     o.pa[k] = pa[k];
@@ -198,7 +222,7 @@ __device__ __forceinline__ void column_terms(const float* pa, const float* na,
     o.row_dir[k] = pb[k] - pa[k];
     o.half[k] = o.row_dir[k] * 0.5f;
   }
-  o.xyscale = sqrtf(dot3(o.row_dir, o.row_dir)) / 29.0f;
+  o.xyscale = sqrtf(dot3(o.row_dir, o.row_dir)) / quads;
   const float d = dot3(na, nb);
   o.lin = (1.0f - d) < kLinEps;
   if (!o.lin) {
@@ -238,6 +262,57 @@ __device__ __forceinline__ void interpolate_at(const Column& o, float t,
     p[j] = (o.pa[j] + x * o.half[j]) + (y * n[j]) * o.hlen;
 }
 
+// A live vertex's outputs from its column's terms, its interpolated
+// position p and normal nv, its five blended heights (the centre tap and
+// the y and x neighbours) and its skirt flag, written at vertex v
+__device__ __forceinline__ void finish_vertex(
+    const Column& o, const float* p, const float* nv, float hgt, float y0,
+    float y1, float x0, float x1, float sk, float skirt_q, const float* m,
+    float lx, float ly, float lz, long long v, float* __restrict__ clip_out,
+    float* __restrict__ world_out, float* __restrict__ normal_out,
+    float* __restrict__ height_out, float* __restrict__ snormal_out,
+    float* __restrict__ shade_out) {
+  const float height = hgt - skirt_q * sk;
+
+  float nt[3] = {x0 - x1, 2.0f * o.xyscale, y0 - y1};
+  norm3(nt);
+  float tv[3], bi[3], nrm[3];
+  cross3(nv, o.row_dir, tv);
+  norm3(tv);
+  cross3(tv, nv, bi);
+  norm3(bi);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    nrm[j] = (tv[j] * nt[0] + nv[j] * nt[1]) + bi[j] * nt[2];
+  norm3(nrm);
+
+  float w[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) w[j] = p[j] + nv[j] * height;
+  float cl[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    cl[j] = ((m[4 * j] * w[0] + m[4 * j + 1] * w[1]) + m[4 * j + 2] * w[2])
+            + m[4 * j + 3];
+
+  // the pinned lambert
+  float sn[3] = {nrm[0], nrm[1], nrm[2]};
+  norm3(sn);
+  const float s = (sn[0] * lx + sn[1] * ly) + sn[2] * lz;
+  const float shade = sqrtf(kShadeFloor + (s != s ? s : fmaxf(s, 0.0f)));
+
+  reinterpret_cast<float4*>(clip_out)[v] =
+      make_float4(cl[0], cl[1], cl[2], cl[3]);
+  height_out[v] = height;
+  shade_out[v] = shade;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    world_out[v * 3 + j] = w[j];
+    normal_out[v * 3 + j] = nrm[j];
+    snormal_out[v * 3 + j] = nv[j];
+  }
+}
+
 // Rows mode's inputs: U1's, for the batch's q rows (null in the uniforms
 // mode)
 struct Words {
@@ -252,13 +327,49 @@ struct Words {
   float max_skirt;
 };
 
+// The row's words, and thread 3 c + a's corner c and camera axis a, read
+// before anything is staged, by read-only loads (words' pointers carry no
+// __restrict__, so plain loads through them would wait behind the
+// staging's shared-memory stores); nq rows in the batch
+struct RowWords {
+  int lo = 0, hi = 0, depth = 0;
+  unsigned char crop = 0;
+  float cnrm[3] = {0.0f, 0.0f, 0.0f}, own_h = 0.0f, own_l = 0.0f;
+  float cam_h = 0.0f, cam_l = 0.0f;
+};
+
+__device__ __forceinline__ RowWords read_words(const Words& words, int q,
+                                               int nq, int tid) {
+  RowWords w;
+  w.lo = __ldg(words.q_lo + q);
+  w.hi = __ldg(words.q_hi + q);
+  w.crop = __ldg(words.crop + q);
+  if (tid == 0) w.depth = __ldg(words.depth + q);
+  if (tid < 12) {
+    const int c = tid / 3, a = tid - 3 * c;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int at = (3 * c + k) * nq + q;
+      const float h = __ldg(words.c_hi + at), l = __ldg(words.c_lo + at);
+      w.cnrm[k] = h + l;
+      if (k == a) w.own_h = h, w.own_l = l;     // word 3 c + a, tid's own
+    }
+    w.cam_h = __ldg(words.cam_hi + a);
+    w.cam_l = __ldg(words.cam_lo + a);
+  }
+  return w;
+}
+
 // Block b takes grid rows [r0, r1) of patch row b / kParts, its half
 // b % kParts of them; lane c of warp w takes column c of rows r0 + w,
 // r0 + w + 8, ..., at most kRows of them (kRows 8-row groups). The fused
 // frame's live rows come first, so its longest blocks start first.
 // kFromRows: the row's uniforms from `words`, else from corners,
-// corner_normals, vx, vy and skirt.
-template <int kRows, bool kFromRows>
+// corner_normals, vx, vy and skirt. kGrid and kDim: the largest grid and
+// tile side (kMaxGrid, kMaxDim), g and dim at most those; the wide
+// instance (kGrid = kWideGrid) is the band layout above, at g = kGrid and
+// dim = kDim exactly, rows mode only.
+template <int kGrid, int kDim, int kRows, bool kFromRows>
 __global__ void __launch_bounds__(kThreads)
 tess_kernel(const Words words, const float* __restrict__ corners,
             const float* __restrict__ corner_normals,
@@ -272,216 +383,282 @@ tess_kernel(const Words words, const float* __restrict__ corners,
             float* __restrict__ normal_out, float* __restrict__ height_out,
             float* __restrict__ snormal_out, float* __restrict__ shade_out) {
   constexpr int kWarps = kThreads / 32;
-  __shared__ float tile[kMaxDim * kMaxDim];
-  __shared__ float xbl[3][kMaxDim][kMaxGrid];     // x-blended, taps 0-2
-  __shared__ float colp[2][kMaxGrid][3], coln[2][kMaxGrid][3];
-  __shared__ Column col[kMaxGrid];
-  __shared__ Taps tx, ty;
-  __shared__ float cp[4][3], cn[4][3], m[16], u[kMaxGrid];
-  __shared__ float skirt_q;
+  if constexpr (kGrid > kMaxGrid) {
+    static_assert(kFromRows, "the wide instance runs the rows mode alone");
+    constexpr int kBand = (kGrid + kWideParts - 1) / kWideParts;
+    __shared__ float tex[kBandTex * kDim];          // the band's tile rows
+    __shared__ float xbl[3][kBandTex][kGrid];       // x-blended, taps 0-2
+    __shared__ float colp[2][kGrid][3], coln[2][kGrid][3];
+    __shared__ Column col[kGrid];
+    __shared__ Taps<kGrid> tx, ty;
+    __shared__ float cp[4][3], cn[4][3], m[16], u[kGrid];
+    __shared__ float skirt_q;
 
-  const int q = blockIdx.x / kParts, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int rows = (g + kParts - 1) / kParts;
-  const int r0 = (blockIdx.x - q * kParts) * rows, r1 = min(g, r0 + rows);
-  if (r0 >= r1) return;                            // g = 1: one row
-  const long long v0 = (long long)q * g * g;       // the row's first vertex
-  // rows mode: the row's words, and thread 3 c + a's corner c and camera
-  // axis a, read before anything is staged, by read-only loads (words'
-  // pointers carry no __restrict__, so plain loads through them would
-  // wait behind the staging's shared-memory stores)
-  int w_lo = 0, w_hi = 0, w_depth = 0;
-  unsigned char w_crop = 0;
-  float cnrm[3] = {0.0f, 0.0f, 0.0f}, own_h = 0.0f, own_l = 0.0f;
-  float cam_h = 0.0f, cam_l = 0.0f;
-  if (kFromRows) {
-    w_lo = __ldg(words.q_lo + q);
-    w_hi = __ldg(words.q_hi + q);
-    w_crop = __ldg(words.crop + q);
-    if (tid == 0) w_depth = __ldg(words.depth + q);
+    const int q = blockIdx.x / kWideParts, tid = threadIdx.x;
+    const int r0 = (blockIdx.x - q * kWideParts) * kBand;
+    const int r1 = min(kGrid, r0 + kBand), band = (r1 - r0) * kGrid;
+    const long long v0 = (long long)q * kGrid * kGrid;
+    const RowWords rw = read_words(words, q, gridDim.x / kWideParts, tid);
+    int var_x, var_y;
+    uniforms_core::crop_variants(rw.lo, rw.hi, rw.crop != 0, &var_x,
+                                 &var_y);
+    // the band's tile rows [y_lo, y_lo + ny): the y taps of its first and
+    // last grid rows bound those of the rows between
+    int y_lo = kDim, y_hi = -1;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const int* row = tap_idx + (var_y * 3 + t) * kGrid * 2;
+      y_lo = min(y_lo, __ldg(row + r0 * 2));
+      y_hi = max(y_hi, __ldg(row + (r1 - 1) * 2 + 1));
+    }
+    const int ny = y_hi - y_lo + 1;
+    if (ny > kBandTex) __trap();
+    const float* src = tiles + (long long)q * kDim * kDim + y_lo * kDim;
+    for (int i = tid; i < ny * kDim; i += kThreads) tex[i] = src[i];
+    for (int i = tid; i < 2 * 3 * kGrid; i += kThreads) {
+      const int axis = i / (3 * kGrid), rem = i - axis * 3 * kGrid;
+      const int tap = rem / kGrid, o = rem - tap * kGrid;
+      const int var = axis ? var_y : var_x;
+      const int at = ((var * 3 + tap) * kGrid + o) * 2;
+      Taps<kGrid>& t = axis ? ty : tx;
+      t.a[tap][o] = tap_idx[at], t.b[tap][o] = tap_idx[at + 1];
+      t.wa[tap][o] = tap_w[at], t.wb[tap][o] = tap_w[at + 1];
+    }
+    float cn_word = 0.0f;
     if (tid < 12) {
-      const int nq = gridDim.x / kParts, c = tid / 3, a = tid - 3 * c;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const int at = (3 * c + k) * nq + q;
-        const float h = __ldg(words.c_hi + at), l = __ldg(words.c_lo + at);
-        cnrm[k] = h + l;
-        if (k == a) own_h = h, own_l = l;     // word 3 c + a, tid's own
-      }
-      cam_h = __ldg(words.cam_hi + a);
-      cam_l = __ldg(words.cam_lo + a);
-    }
-  }
-  for (int i = tid; i < dim * dim; i += kThreads)
-    tile[i] = tiles[(long long)q * dim * dim + i];
-  // the row's variants' taps, taken as the plain version's idx[variant]
-  // takes them: -3..-1 count from the end of the table; any other value
-  // outside {0, 1, 2} stops the kernel, as the plain version's index
-  // raises on the CPU and asserts on the card. Each entry is read for all
-  // three variants, so these reads need not wait for the variant's.
-  int var_x, var_y;
-  if (kFromRows)
-    uniforms_core::crop_variants(w_lo, w_hi, w_crop != 0, &var_x, &var_y);
-  else
-    var_x = vx[q], var_y = vy[q];
-  for (int i = tid; i < 2 * 3 * g; i += kThreads) {
-    const int axis = i / (3 * g), rem = i - axis * 3 * g;
-    const int tap = rem / g, o = rem - tap * g;
-    int ia[3], ib[3];
-    float wa[3], wb[3];
-#pragma unroll
-    for (int v = 0; v < 3; ++v) {
-      const int at = ((v * 3 + tap) * g + o) * 2;
-      ia[v] = tap_idx[at], ib[v] = tap_idx[at + 1];
-      wa[v] = tap_w[at], wb[v] = tap_w[at + 1];
-    }
-    const int var = axis ? var_y : var_x;
-    const int sel = var == 0 || var == -3 ? 0 : var == 1 || var == -2 ? 1 : 2;
-    Taps& t = axis ? ty : tx;
-    t.a[tap][o] = sel == 0 ? ia[0] : sel == 1 ? ia[1] : ia[2];
-    t.b[tap][o] = sel == 0 ? ib[0] : sel == 1 ? ib[1] : ib[2];
-    t.wa[tap][o] = sel == 0 ? wa[0] : sel == 1 ? wa[1] : wa[2];
-    t.wb[tap][o] = sel == 0 ? wb[0] : sel == 1 ? wb[1] : wb[2];
-  }
-  // rows mode's variants are 0-2 by construction
-  if (!kFromRows && (var_x < -3 || var_x > 2 || var_y < -3 || var_y > 2))
-    __trap();
-  float cn_word = 0.0f;
-  if (tid < 12) {
-    const int c = tid / 3, a = tid - 3 * c;
-    float p;
-    if (kFromRows) {
+      const int c = tid / 3, a = tid - 3 * c;
       // U1's (row, corner) work for one axis
-      const float len = uniforms_core::normal_len(cnrm);
-      cn_word = (a == 0 ? cnrm[0] : a == 1 ? cnrm[1] : cnrm[2]) / len;
-      p = uniforms_core::df_sub_hi(own_h, own_l, cam_h, cam_l);
-    } else {
-      cn_word = corner_normals[q * 12 + tid];
-      p = corners[q * 12 + tid];
+      const float len = uniforms_core::normal_len(rw.cnrm);
+      cn_word = (a == 0 ? rw.cnrm[0] : a == 1 ? rw.cnrm[1] : rw.cnrm[2])
+                / len;
+      cp[c][a] = uniforms_core::df_sub_hi(rw.own_h, rw.own_l, rw.cam_h,
+                                          rw.cam_l);
+      cn[c][a] = cn_word;
     }
-    cp[c][a] = p;
-    cn[c][a] = cn_word;
-  }
-  if (tid < 16) m[tid] = view_proj[tid];
-  if (tid < g) u[tid] = u_table[tid];
-  if (tid == 0)
-    skirt_q = kFromRows ? uniforms_core::skirt_of(w_depth, words.max_skirt)
-                        : skirt[q];
-  // a padding row: a NaN among its corner normals
-  const bool pad = __syncthreads_or(cn_word != cn_word);
+    if (tid < 16) m[tid] = view_proj[tid];
+    if (tid < kGrid) u[tid] = u_table[tid];
+    if (tid == 0) skirt_q = uniforms_core::skirt_of(rw.depth, words.max_skirt);
+    const bool pad = __syncthreads_or(cn_word != cn_word);
 
-  // warps 0-1: interpolate's row endpoints at u (side 0 between corners 0
-  // and 1, side 1 between corners 2 and 3); the other warps (all of them
-  // on a padding row): the x blends, xbl[tap][y][o] = T[y][a] w_a +
-  // T[y][b] w_b (a padding row's height needs tap 1 alone)
-  const int blend_warp = pad ? 0 : 2;
-  if (!pad && tid < 2 * g) {
-    const int side = tid / g, c = tid - side * g;
-    interpolate(cp[2 * side], cn[2 * side], cp[2 * side + 1],
-                cn[2 * side + 1], u[c], colp[side][c], coln[side][c]);
-  }
-  if (warp >= blend_warp && lane < g) {
-    for (int tap = pad ? 1 : 0; tap < (pad ? 2 : 3); ++tap) {
-      const int a = tx.a[tap][lane], b = tx.b[tap][lane];
-      const float wa = tx.wa[tap][lane], wb = tx.wb[tap][lane];
-      for (int yy = warp - blend_warp; yy < dim; yy += kWarps - blend_warp)
-        xbl[tap][yy][lane] = tile[yy * dim + a] * wa + tile[yy * dim + b] * wb;
+    // the first 2 kGrid threads: interpolate's row endpoints; the warps
+    // past theirs (every thread on a padding row): the x blends of the
+    // band's tile rows (a padding row's height needs tap 1 alone)
+    if (!pad && tid < 2 * kGrid) {
+      const int side = tid / kGrid, c = tid - side * kGrid;
+      interpolate(cp[2 * side], cn[2 * side], cp[2 * side + 1],
+                  cn[2 * side + 1], u[c], colp[side][c], coln[side][c]);
     }
-  }
-  __syncthreads();
+    const int first = pad ? 0 : (2 * kGrid + 31) / 32 * 32;
+    if (tid >= first) {
+      for (int tap = pad ? 1 : 0; tap < (pad ? 2 : 3); ++tap)
+        for (int i = tid - first; i < ny * kGrid; i += kThreads - first) {
+          const int yy = i / kGrid, o = i - yy * kGrid;
+          const int a = tx.a[tap][o], b = tx.b[tap][o];
+          xbl[tap][yy][o] = tex[yy * kDim + a] * tx.wa[tap][o]
+                            + tex[yy * kDim + b] * tx.wb[tap][o];
+        }
+    }
+    __syncthreads();
 
-  if (pad) {
-    if (lane < g) {
-      for (int r = r0 + warp; r < r1; r += kWarps) {
-        const int a1 = ty.a[1][r], b1 = ty.b[1][r];
-        const float hgt = xbl[1][a1][lane] * ty.wa[1][r]
-                          + xbl[1][b1][lane] * ty.wb[1][r];
-        const float sk = (r == 0 || r == g - 1 || lane == 0 || lane == g - 1)
-                             ? 1.0f : 0.0f;
-        height_out[v0 + r * g + lane] = hgt - skirt_q * sk;
+    if (pad) {
+      for (int i = tid; i < band; i += kThreads) {
+        const int r = r0 + i / kGrid, c = i - (r - r0) * kGrid;
+        const int a1 = ty.a[1][r] - y_lo, b1 = ty.b[1][r] - y_lo;
+        const float hgt = xbl[1][a1][c] * ty.wa[1][r]
+                          + xbl[1][b1][c] * ty.wb[1][r];
+        const float sk = (r == 0 || r == kGrid - 1 || c == 0
+                          || c == kGrid - 1) ? 1.0f : 0.0f;
+        height_out[v0 + r * kGrid + c] = hgt - skirt_q * sk;
+      }
+      const long long at = v0 + (long long)r0 * kGrid;
+      fill_nan(clip_out + at * 4, band * 4);
+      fill_nan(world_out + at * 3, band * 3);
+      fill_nan(normal_out + at * 3, band * 3);
+      fill_nan(snormal_out + at * 3, band * 3);
+      fill_nan(shade_out + at, band);
+      return;
+    }
+    if (tid < kGrid)
+      column_terms(colp[0][tid], coln[0][tid], colp[1][tid], coln[1][tid],
+                   (float)(kGrid - 3), col[tid]);
+    __syncthreads();
+    for (int i = tid; i < band; i += kThreads) {
+      const int r = r0 + i / kGrid, c = i - (r - r0) * kGrid;
+      const Column& o = col[c];
+      float p[3], nv[3];
+      interpolate_at(o, u[r], p, nv);
+      // the y blends of the x-blended arrays
+      const int a0 = ty.a[0][r] - y_lo, b0 = ty.b[0][r] - y_lo;
+      const int a1 = ty.a[1][r] - y_lo, b1 = ty.b[1][r] - y_lo;
+      const int a2 = ty.a[2][r] - y_lo, b2 = ty.b[2][r] - y_lo;
+      const float w0a = ty.wa[0][r], w0b = ty.wb[0][r];
+      const float w1a = ty.wa[1][r], w1b = ty.wb[1][r];
+      const float w2a = ty.wa[2][r], w2b = ty.wb[2][r];
+      const float hgt = xbl[1][a1][c] * w1a + xbl[1][b1][c] * w1b;
+      const float y0 = xbl[1][a0][c] * w0a + xbl[1][b0][c] * w0b;
+      const float y1 = xbl[1][a2][c] * w2a + xbl[1][b2][c] * w2b;
+      const float x0 = xbl[0][a1][c] * w1a + xbl[0][b1][c] * w1b;
+      const float x1 = xbl[2][a1][c] * w1a + xbl[2][b1][c] * w1b;
+      const float sk = (r == 0 || r == kGrid - 1 || c == 0 || c == kGrid - 1)
+                           ? 1.0f : 0.0f;
+      finish_vertex(o, p, nv, hgt, y0, y1, x0, x1, sk, skirt_q, m, lx, ly,
+                    lz, v0 + r * kGrid + c, clip_out, world_out, normal_out,
+                    height_out, snormal_out, shade_out);
+    }
+  } else {
+    __shared__ float tile[kDim * kDim];
+    __shared__ float xbl[3][kDim][kGrid];     // x-blended, taps 0-2
+    __shared__ float colp[2][kGrid][3], coln[2][kGrid][3];
+    __shared__ Column col[kGrid];
+    __shared__ Taps<kGrid> tx, ty;
+    __shared__ float cp[4][3], cn[4][3], m[16], u[kGrid];
+    __shared__ float skirt_q;
+    const int q = blockIdx.x / kParts, tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int rows = (g + kParts - 1) / kParts;
+    const int r0 = (blockIdx.x - q * kParts) * rows, r1 = min(g, r0 + rows);
+    if (r0 >= r1) return;                            // g = 1: one row
+    const long long v0 = (long long)q * g * g;       // the row's first vertex
+    // rows mode: the row's words and corners, read first
+    RowWords rw;
+    if (kFromRows) rw = read_words(words, q, gridDim.x / kParts, tid);
+    for (int i = tid; i < dim * dim; i += kThreads)
+      tile[i] = tiles[(long long)q * dim * dim + i];
+    // the row's variants' taps, taken as the plain version's idx[variant]
+    // takes them: -3..-1 count from the end of the table; any other value
+    // outside {0, 1, 2} stops the kernel, as the plain version's index
+    // raises on the CPU and asserts on the card. Each entry is read for all
+    // three variants, so these reads need not wait for the variant's.
+    int var_x, var_y;
+    if (kFromRows)
+      uniforms_core::crop_variants(rw.lo, rw.hi, rw.crop != 0, &var_x,
+                                   &var_y);
+    else
+      var_x = vx[q], var_y = vy[q];
+    for (int i = tid; i < 2 * 3 * g; i += kThreads) {
+      const int axis = i / (3 * g), rem = i - axis * 3 * g;
+      const int tap = rem / g, o = rem - tap * g;
+      int ia[3], ib[3];
+      float wa[3], wb[3];
+  #pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        const int at = ((v * 3 + tap) * g + o) * 2;
+        ia[v] = tap_idx[at], ib[v] = tap_idx[at + 1];
+        wa[v] = tap_w[at], wb[v] = tap_w[at + 1];
+      }
+      const int var = axis ? var_y : var_x;
+      const int sel = var == 0 || var == -3 ? 0 : var == 1 || var == -2 ? 1 : 2;
+      Taps<kGrid>& t = axis ? ty : tx;
+      t.a[tap][o] = sel == 0 ? ia[0] : sel == 1 ? ia[1] : ia[2];
+      t.b[tap][o] = sel == 0 ? ib[0] : sel == 1 ? ib[1] : ib[2];
+      t.wa[tap][o] = sel == 0 ? wa[0] : sel == 1 ? wa[1] : wa[2];
+      t.wb[tap][o] = sel == 0 ? wb[0] : sel == 1 ? wb[1] : wb[2];
+    }
+    // rows mode's variants are 0-2 by construction
+    if (!kFromRows && (var_x < -3 || var_x > 2 || var_y < -3 || var_y > 2))
+      __trap();
+    float cn_word = 0.0f;
+    if (tid < 12) {
+      const int c = tid / 3, a = tid - 3 * c;
+      float p;
+      if (kFromRows) {
+        // U1's (row, corner) work for one axis
+        const float len = uniforms_core::normal_len(rw.cnrm);
+        cn_word = (a == 0 ? rw.cnrm[0] : a == 1 ? rw.cnrm[1] : rw.cnrm[2])
+                  / len;
+        p = uniforms_core::df_sub_hi(rw.own_h, rw.own_l, rw.cam_h, rw.cam_l);
+      } else {
+        cn_word = corner_normals[q * 12 + tid];
+        p = corners[q * 12 + tid];
+      }
+      cp[c][a] = p;
+      cn[c][a] = cn_word;
+    }
+    if (tid < 16) m[tid] = view_proj[tid];
+    if (tid < g) u[tid] = u_table[tid];
+    if (tid == 0)
+      skirt_q = kFromRows ? uniforms_core::skirt_of(rw.depth, words.max_skirt)
+                          : skirt[q];
+    // a padding row: a NaN among its corner normals
+    const bool pad = __syncthreads_or(cn_word != cn_word);
+
+    // warps 0-1: interpolate's row endpoints at u (side 0 between corners 0
+    // and 1, side 1 between corners 2 and 3); the other warps (all of them
+    // on a padding row): the x blends, xbl[tap][y][o] = T[y][a] w_a +
+    // T[y][b] w_b (a padding row's height needs tap 1 alone)
+    const int blend_warp = pad ? 0 : 2;
+    if (!pad && tid < 2 * g) {
+      const int side = tid / g, c = tid - side * g;
+      interpolate(cp[2 * side], cn[2 * side], cp[2 * side + 1],
+                  cn[2 * side + 1], u[c], colp[side][c], coln[side][c]);
+    }
+    if (warp >= blend_warp && lane < g) {
+      for (int tap = pad ? 1 : 0; tap < (pad ? 2 : 3); ++tap) {
+        const int a = tx.a[tap][lane], b = tx.b[tap][lane];
+        const float wa = tx.wa[tap][lane], wb = tx.wb[tap][lane];
+        for (int yy = warp - blend_warp; yy < dim; yy += kWarps - blend_warp)
+          xbl[tap][yy][lane] =
+              tile[yy * dim + a] * wa + tile[yy * dim + b] * wb;
       }
     }
-    const long long at = v0 + (long long)r0 * g;
-    const int n = (r1 - r0) * g;
-    fill_nan(clip_out + at * 4, n * 4);
-    fill_nan(world_out + at * 3, n * 3);
-    fill_nan(normal_out + at * 3, n * 3);
-    fill_nan(snormal_out + at * 3, n * 3);
-    fill_nan(shade_out + at, n);
-    return;
-  }
-  if (warp == 0 && lane < g)
-    column_terms(colp[0][lane], coln[0][lane], colp[1][lane], coln[1][lane],
-                 col[lane]);
-  __syncthreads();
-  if (lane >= g) return;
+    __syncthreads();
 
-  const int c = lane;
-  const Column& o = col[c];
-  float pv[kRows][3], nv[kRows][3];
-#pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    const int r = min(r0 + warp + k * kWarps, g - 1);
-    interpolate_at(o, u[r], pv[k], nv[k]);
-  }
-#pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    const int r = r0 + warp + k * kWarps;
-    if (r >= r1) break;
-    // the y blends of the x-blended arrays
-    const int a0 = ty.a[0][r], b0 = ty.b[0][r];
-    const int a1 = ty.a[1][r], b1 = ty.b[1][r];
-    const int a2 = ty.a[2][r], b2 = ty.b[2][r];
-    const float w0a = ty.wa[0][r], w0b = ty.wb[0][r];
-    const float w1a = ty.wa[1][r], w1b = ty.wb[1][r];
-    const float w2a = ty.wa[2][r], w2b = ty.wb[2][r];
-    const float hgt = xbl[1][a1][c] * w1a + xbl[1][b1][c] * w1b;
-    const float y0 = xbl[1][a0][c] * w0a + xbl[1][b0][c] * w0b;
-    const float y1 = xbl[1][a2][c] * w2a + xbl[1][b2][c] * w2b;
-    const float x0 = xbl[0][a1][c] * w1a + xbl[0][b1][c] * w1b;
-    const float x1 = xbl[2][a1][c] * w1a + xbl[2][b1][c] * w1b;
+    if (pad) {
+      if (lane < g) {
+        for (int r = r0 + warp; r < r1; r += kWarps) {
+          const int a1 = ty.a[1][r], b1 = ty.b[1][r];
+          const float hgt = xbl[1][a1][lane] * ty.wa[1][r]
+                            + xbl[1][b1][lane] * ty.wb[1][r];
+          const float sk = (r == 0 || r == g - 1 || lane == 0 || lane == g - 1)
+                               ? 1.0f : 0.0f;
+          height_out[v0 + r * g + lane] = hgt - skirt_q * sk;
+        }
+      }
+      const long long at = v0 + (long long)r0 * g;
+      const int n = (r1 - r0) * g;
+      fill_nan(clip_out + at * 4, n * 4);
+      fill_nan(world_out + at * 3, n * 3);
+      fill_nan(normal_out + at * 3, n * 3);
+      fill_nan(snormal_out + at * 3, n * 3);
+      fill_nan(shade_out + at, n);
+      return;
+    }
+    if (warp == 0 && lane < g)
+      column_terms(colp[0][lane], coln[0][lane], colp[1][lane], coln[1][lane],
+                   (float)(g - 3), col[lane]);
+    __syncthreads();
+    if (lane >= g) return;
 
-    const float sk = (r == 0 || r == g - 1 || c == 0 || c == g - 1) ? 1.0f
-                                                                     : 0.0f;
-    const float height = hgt - skirt_q * sk;
+    const int c = lane;
+    const Column& o = col[c];
+    float pv[kRows][3], nv[kRows][3];
+  #pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int r = min(r0 + warp + k * kWarps, g - 1);
+      interpolate_at(o, u[r], pv[k], nv[k]);
+    }
+  #pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int r = r0 + warp + k * kWarps;
+      if (r >= r1) break;
+      // the y blends of the x-blended arrays
+      const int a0 = ty.a[0][r], b0 = ty.b[0][r];
+      const int a1 = ty.a[1][r], b1 = ty.b[1][r];
+      const int a2 = ty.a[2][r], b2 = ty.b[2][r];
+      const float w0a = ty.wa[0][r], w0b = ty.wb[0][r];
+      const float w1a = ty.wa[1][r], w1b = ty.wb[1][r];
+      const float w2a = ty.wa[2][r], w2b = ty.wb[2][r];
+      const float hgt = xbl[1][a1][c] * w1a + xbl[1][b1][c] * w1b;
+      const float y0 = xbl[1][a0][c] * w0a + xbl[1][b0][c] * w0b;
+      const float y1 = xbl[1][a2][c] * w2a + xbl[1][b2][c] * w2b;
+      const float x0 = xbl[0][a1][c] * w1a + xbl[0][b1][c] * w1b;
+      const float x1 = xbl[2][a1][c] * w1a + xbl[2][b1][c] * w1b;
 
-    float nt[3] = {x0 - x1, 2.0f * o.xyscale, y0 - y1};
-    norm3(nt);
-    float tv[3], bi[3], nrm[3];
-    cross3(nv[k], o.row_dir, tv);
-    norm3(tv);
-    cross3(tv, nv[k], bi);
-    norm3(bi);
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      nrm[j] = (tv[j] * nt[0] + nv[k][j] * nt[1]) + bi[j] * nt[2];
-    norm3(nrm);
-
-    float w[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) w[j] = pv[k][j] + nv[k][j] * height;
-    float cl[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      cl[j] = ((m[4 * j] * w[0] + m[4 * j + 1] * w[1]) + m[4 * j + 2] * w[2])
-              + m[4 * j + 3];
-
-    // the pinned lambert
-    float sn[3] = {nrm[0], nrm[1], nrm[2]};
-    norm3(sn);
-    const float s = (sn[0] * lx + sn[1] * ly) + sn[2] * lz;
-    const float shade = sqrtf(kShadeFloor + (s != s ? s : fmaxf(s, 0.0f)));
-
-    const long long v = v0 + r * g + c;
-    reinterpret_cast<float4*>(clip_out)[v] =
-        make_float4(cl[0], cl[1], cl[2], cl[3]);
-    height_out[v] = height;
-    shade_out[v] = shade;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      world_out[v * 3 + j] = w[j];
-      normal_out[v * 3 + j] = nrm[j];
-      snormal_out[v * 3 + j] = nv[k][j];
+      const float sk = (r == 0 || r == g - 1 || c == 0 || c == g - 1) ? 1.0f
+                                                                       : 0.0f;
+      finish_vertex(o, pv[k], nv[k], hgt, y0, y1, x0, x1, sk, skirt_q, m, lx,
+                    ly, lz, v0 + r * g + c, clip_out, world_out, normal_out,
+                    height_out, snormal_out, shade_out);
     }
   }
 }
@@ -494,14 +671,27 @@ int launch_tess(const Words& words, const void* corners,
                 int g, int dim, float lx, float ly, float lz, void* clip,
                 void* world, void* normal, void* height, void* snormal,
                 void* shade, void* stream) {
-  if (q < 0 || g <= 0 || g > kMaxGrid || dim <= 0 || dim > kMaxDim
-      || ((size_t)clip & 15) != 0)
+  const bool wide = kFromRows && g == kWideGrid && dim == kWideDim;
+  if (q < 0 || ((size_t)clip & 15) != 0
+      || (!wide && (g <= 0 || g > kMaxGrid || dim <= 0 || dim > kMaxDim)))
     return (int)cudaErrorInvalidValue;
   if (q == 0) return (int)cudaSuccess;
+  if constexpr (kFromRows) {
+    if (wide) {
+      tess_kernel<kWideGrid, kWideDim, 1, true>
+          <<<q * kWideParts, kThreads, 0, (cudaStream_t)stream>>>(
+              words, nullptr, nullptr, (const float*)tiles, nullptr, nullptr,
+              nullptr, (const float*)view_proj, (const int*)tap_idx,
+              (const float*)tap_w, (const float*)u, g, dim, lx, ly, lz,
+              (float*)clip, (float*)world, (float*)normal, (float*)height,
+              (float*)snormal, (float*)shade);
+      return (int)cudaGetLastError();
+    }
+  }
   // the 8-row groups a warp takes: 1 or 2
   const auto kernel = (g + kParts - 1) / kParts > 8
-                          ? tess_kernel<2, kFromRows>
-                          : tess_kernel<1, kFromRows>;
+                          ? tess_kernel<kMaxGrid, kMaxDim, 2, kFromRows>
+                          : tess_kernel<kMaxGrid, kMaxDim, 1, kFromRows>;
   kernel<<<q * kParts, kThreads, 0, (cudaStream_t)stream>>>(
       words, (const float*)corners, (const float*)corner_normals,
       (const float*)tiles, (const int*)vx, (const int*)vy,
@@ -537,7 +727,8 @@ extern "C" int planet_tess(const void* corners, const void* corner_normals,
 // Rows mode: U1's inputs in place of the uniforms — q_lo, q_hi, depth (Q,)
 // int32, crop (Q,) bool, c_hi, c_lo (12, Q) f32 lane-major DF corners (row
 // 3 c + a: corner c's axis a), cam_hi, cam_lo (3,) f32, max_skirt — and the
-// rest as planet_tess.
+// rest as planet_tess; G and dim at most 32, or both 66 (the wide
+// instance).
 extern "C" int planet_tess_rows(const void* q_lo, const void* q_hi,
                                 const void* crop, const void* depth,
                                 const void* c_hi, const void* c_lo,

@@ -19,7 +19,11 @@ tess/vertex.tessellate_blend and raster/shade.lambert.
   uniforms in its own staging with U1's arithmetic (csrc/uniforms.cuh),
   so no U1 runs and nothing is written between them; its plain version
   is uniforms_plain, then tessellate_shaded_plain, which it equals bit for
-  bit.
+  bit. It takes a grid and tile side of at most MAX_GRID and MAX_DIM, or
+  exactly WIDE_GRID and WIDE_DIM (64-vertex patches: V1's wide instance,
+  a band of grid rows a block, counted under the launch key "tess_wide";
+  the narrow instances count under "tess"); the uniforms mode takes the
+  narrow sizes alone.
 
 The dispatcher launches the kernel for CUDA tensors (or raises) and runs
 the plain version, `tessellate_shaded_plain`, for CPU tensors. The plain
@@ -48,9 +52,16 @@ from planet_tpu_torch.tess import mesh
 from planet_tpu_torch.tess import uniforms_cuda
 from planet_tpu_torch.tess import vertex
 
-# the kernel's largest grid and tile side (csrc/tess.cu kMaxGrid, kMaxDim)
+# the narrow instances' largest grid and tile side (csrc/tess.cu kMaxGrid,
+# kMaxDim), and the wide instance's (kWideGrid, kWideDim): its blocks a
+# patch row (kWideParts) and the tile rows a block's band of grid rows may
+# read (kBandTex)
 MAX_GRID = 32
 MAX_DIM = 32
+WIDE_GRID = 66
+WIDE_DIM = 66
+WIDE_PARTS = 3
+BAND_TEX = 24
 
 
 def lambert(normal: torch.Tensor) -> torch.Tensor:
@@ -71,10 +82,17 @@ def tessellate_shaded_plain(corners_rel, corner_normals, tiles, variant_x,
     return pv, lambert(pv.normal)
 
 
-def _check_grid(grid: int, dim: int):
-    if not (0 < grid <= MAX_GRID and 0 < dim <= MAX_DIM):
-        raise ValueError(f"grid {grid}, tile side {dim}: the kernel takes "
-                         f"at most {MAX_GRID} and {MAX_DIM}")
+def _check_grid(grid: int, dim: int, rows: bool = False) -> str:
+    """The launch key of V1's instance for the grid and tile side (rows:
+    the rows mode, which alone has the wide instance), or raise."""
+    if 0 < grid <= MAX_GRID and 0 < dim <= MAX_DIM:
+        return "tess"
+    if rows and (grid, dim) == (WIDE_GRID, WIDE_DIM):
+        return "tess_wide"
+    wide = (f", or exactly {WIDE_GRID} and {WIDE_DIM} in the rows mode"
+            if rows else " in the uniforms mode")
+    raise ValueError(f"grid {grid}, tile side {dim}: the kernel takes at "
+                     f"most {MAX_GRID} and {MAX_DIM}{wide}")
 
 
 def _outputs(q: int, grid: int, dev):
@@ -162,7 +180,7 @@ def tessellate_rows_cuda(q_lo, q_hi, crop, depth, corners_hi, corners_lo,
     """V1 in its rows mode. Checks its operands' metadata alone (no copy,
     no host read), so a CUDA graph can capture it."""
     q, dim = tiles.shape[0], tiles.shape[-1]
-    _check_grid(grid, dim)
+    key = _check_grid(grid, dim, rows=True)
     for t, name in ((q_lo, "q_lo"), (q_hi, "q_hi"), (depth, "depth")):
         _cuda.check_cuda(t, name, torch.int32, (q,))
     _cuda.check_cuda(crop, "crop", torch.bool, (q,))
@@ -183,7 +201,7 @@ def tessellate_rows_cuda(q_lo, q_hi, crop, depth, corners_hi, corners_lo,
     pv, shade = _outputs(q, grid, dev)
     if q:
         tables, light = _tables(grid, dim, dev)
-        _cuda.launch("tess", "planet_tess_rows", q_lo.data_ptr(),
+        _cuda.launch(key, "planet_tess_rows", q_lo.data_ptr(),
                      q_hi.data_ptr(), crop.data_ptr(), depth.data_ptr(),
                      corners_hi.data_ptr(), corners_lo.data_ptr(),
                      cam_hi.data_ptr(), cam_lo.data_ptr(),

@@ -51,7 +51,13 @@ torch_scenes' rows cases and the 1080p static and orbit frames' rows, its
 padding rows' five NaN outputs the word 0x7fffffff; a geometry replay
 launching V1 once and U1 never, and U1 on the "uniforms" rung alone; a
 geometry replay's refine layer at most two fills, R1's 19 levels and the
-DFS order kernel, with A1 right after it;
+DFS order kernel, with A1 right after it; V1's wide instance (grid 66
+and 66 x 66 tiles, BASELINE config 3's 64-vertex patches) equal to its
+plain version on live, padding, cropped and every-depth rows, under its
+own launch key, and config 3's 1080p frame (the benchmark's
+configuration) on three flight cameras: each geometry replay equal to
+the eager step bit for bit and launching the wide instance once, and the
+wide instance on the step's own rows equal to its plain version;
 five profiled interactive frames: the graphs' captures in the first
 alone, each later frame's kernels starting after its geometry replay's
 span has started, the readback's copies ending inside its span."""
@@ -1267,16 +1273,16 @@ def test_cache_and_uniforms_kernels_bitwise_on_the_main_path(dev):
 
 # ------------------------------------------------------ V1's rows mode
 
-def _assert_tess_rows_equal(args):
-    """V1's rows mode equals its plain version and V1 on U1's outputs in
-    all six outputs bit for bit, one V1 launch and no U1 launch; returns
-    the outputs."""
+def _assert_tess_rows_equal(args, key="tess"):
+    """V1's rows mode equals its plain version and (at the narrow grids) V1
+    on U1's outputs in all six outputs bit for bit, one V1 launch under
+    `key` and no other V1 or U1 launch; returns the outputs."""
     before = dict(_cuda.launches)
     pv, shade = vertex_cuda.tessellate_rows_cuda(*args)
-    assert _cuda.launches["tess"] == before["tess"] + 1
-    assert _cuda.launches["uniforms"] == before["uniforms"]
+    for k in ("tess", "tess_wide", "uniforms"):
+        assert _cuda.launches[k] == before[k] + (k == key), k
     want = vertex_cuda.tessellate_rows_plain(*args)
-    pair = kernel_times.u1_then_v1(args)
+    pair = (kernel_times.u1_then_v1(args) if key == "tess" else want)
     for other in (want, pair):
         for f in pv._fields:
             assert _same_bits(getattr(pv, f), getattr(other[0], f)), f
@@ -1339,3 +1345,83 @@ def test_tess_rows_kernel_refuses_bad_metadata(dev):
     bad[9] = args[9].cpu()
     with pytest.raises(ValueError):
         vertex_cuda.tessellate_rows_cuda(*bad)
+
+
+@pytest.mark.parametrize("case", ["pressure", "crops", "depths", "spill_parent"])
+def test_tess_rows_wide_kernel_bitwise(dev, case):
+    """V1's wide instance (grid 66, 66 x 66 tiles: 64-vertex patches) equal
+    to its plain version in all six outputs bit for bit, counted under its
+    own launch key: on live rows, padding rows ("pressure", "spill_parent":
+    stale and zero words), every row cropped ("crops") and depths 0-29
+    ("depths")."""
+    args, live = tess_rows(case, dev, grid=66)
+    assert args[-1] == 66 and args[9].shape[1:] == (66, 66)
+    pv, shade = _assert_tess_rows_equal(args, key="tess_wide")
+    _assert_padding_words(pv, shade, live)
+    assert pv.clip.shape == (args[0].shape[0], 66, 66, 4)
+
+
+def test_p64_frame_captured_equals_eager_and_v1_wide_plain(dev):
+    """BASELINE config 3's frame (perfbench/configs/lod-1080p-p64.json: 64-
+    vertex patches, 66 x 66 tiles, its quality, cache and caps) at 1920 x
+    1080 on three cameras of the flight (perfbench/traffic/flight.json):
+    each geometry replay equals the eager step on the card bit for bit
+    (leaf rows, slots, tiles, vertices, counts, the pool), launches V1's
+    wide instance once and its narrow ones never, the frame does not
+    overflow, and V1's wide instance on the eager step's own rows equals
+    its plain version bit for bit."""
+    import json
+    import pathlib
+
+    from perfbench.harness import traffic
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    conf = json.loads((root / "perfbench/configs/lod-1080p-p64.json")
+                      .read_text())
+    fields = EngineConfig.__dataclass_fields__
+    cfg = EngineConfig(**{k: v for k, v in conf["settings"].items()
+                          if k in fields})
+    kw = {k: v for k, v in conf["engine"].items() if k != "preview"}
+    path = traffic.make(json.loads((root / "perfbench/traffic/flight.json")
+                                   .read_text()), 7, cfg.radius)
+    r = device_step.DeviceRenderer(cfg, 1920, 1080, device=dev, **kw)
+    step = device_step.build_geometry_step(cfg, device=dev, **kw)
+    pool_g, pool_e = r.init_pool(), r.init_pool()
+    roots = device_step.face_roots(cfg.radius, dev)
+    calls = []
+    real = vertex_cuda.tessellate_rows
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    for k in (0, 24, 48):
+        pos, ang = path.at(k)
+        args = stage_times.camera_args(cfg, cam_mod.Camera(pos, ang), 1920,
+                                       1080)
+        before = dict(_cuda.launches)
+        got = r.geometry(pool_g, *args)
+        if k:     # the first call also ran the warm-up
+            assert _cuda.launches["tess_wide"] - before["tess_wide"] == 1
+            assert _cuda.launches["tess"] == before["tess"]
+        assert r._tally["tess_wide"] == 1 and r._tally["tess"] == 0
+        vertex_cuda.tessellate_rows = record
+        try:
+            want = step(pool_e, *(torch.as_tensor(a, device=dev)
+                                  for a in args), *roots)
+        finally:
+            vertex_cuda.tessellate_rows = real
+        for name in ("leaf_lo", "leaf_hi", "leaf_depth", "slot", "tiles",
+                     "valid", "vertex_shade", "meta"):
+            assert _same_bits(getattr(got, name), getattr(want, name)), name
+        for a, b in zip(got.vertices, want.vertices):
+            assert _same_bits(a, b)
+        for a, b in zip(pool_g, pool_e):
+            assert torch.equal(a, b)
+        assert int(want.meta[0]) > 300 and not int(want.meta[2])
+    assert len(calls) == 3
+    for args, kwargs in calls:
+        assert kwargs.get("grid", args[-1] if len(args) > 11 else None) == 66
+        full = args + (kwargs["grid"],) if "grid" in kwargs else args
+        pv, shade = _assert_tess_rows_equal(full, key="tess_wide")
+

@@ -94,6 +94,29 @@ def test_plain_at_tess_bars_against_planet_tpu(name, pair):
 
 
 @pytest.mark.parametrize("name", sorted(BATCHES))
+def test_plain_at_64_vertex_patches_against_planet_tpu(name, monkeypatch):
+    """BASELINE config 3's 64-vertex patches (grid 66, 66 x 66 tiles) on
+    every pair of the batch, at the tess bars, with planet_tpu's one
+    number fixed at the 30-vertex patch, its vertex program's divisor
+    mesh.PATCH_QUADS (the reference shader's 29), set to the patch's 63
+    quads, as the port's takes it from the grid."""
+    from planet_tpu.tess import mesh as jmesh
+    monkeypatch.setattr(jmesh, "PATCH_QUADS", 63)
+    args = tess_batch(*BATCHES[name], dim=66)
+    pv, shade = vertex_cuda.tessellate_shaded(
+        *(torch.as_tensor(a) for a in args), grid=66)
+    got = {**{k: getattr(pv, k).numpy() for k in FIELDS},
+           "shade": shade.numpy()}
+    jpv = jvertex.tessellate_blend(*(jnp.asarray(a) for a in args), grid=66)
+    want = {k: np.asarray(getattr(jpv, k)) for k in FIELDS}
+    want["shade"] = np.asarray(jlambert(jpv.normal))
+    assert got["clip"].shape == want["clip"].shape == (len(PAIRS), 66, 66, 4)
+    for k in range(len(PAIRS)):
+        assert_tess_bars({f: v[k] for f, v in got.items()},
+                         {f: v[k] for f, v in want.items()})
+
+
+@pytest.mark.parametrize("name", sorted(BATCHES))
 def test_batches_take_the_interpolation_branch_they_name(name):
     """Every corner pair of the slerp batches takes the slerp, of the
     linear batch the fallback (1 - dot(n0, n1) < 0.001 in f32)."""

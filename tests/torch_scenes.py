@@ -212,17 +212,18 @@ def _unit(v):
 
 
 def tess_batch(seed: int, half: float, skirt: float, altitude: float,
-               q: int = len(TESS_PAIRS)):
+               q: int = len(TESS_PAIRS), dim: int = 32):
     """(corners_rel, corner_normals, tiles, variant_x, variant_y, skirt,
     view_proj) as numpy arrays: q quads on the sphere whose centres lie
     within 0.2 rad of the point below a camera `altitude` up, each a square
     of corners half +- `half` rad along the tangent frame, with 32x32
     tiles of heights (sigma 3000 m), skirts uniform in [0, skirt), row k
-    the pair TESS_PAIRS[k % 9], and the camera's view-projection."""
-    return _tess_scene(seed, half, skirt, altitude, q)[0]
+    the pair TESS_PAIRS[k % 9], and the camera's view-projection (tiles
+    dim x dim with `dim`)."""
+    return _tess_scene(seed, half, skirt, altitude, q, dim)[0]
 
 
-def _tess_scene(seed, half, skirt, altitude, q):
+def _tess_scene(seed, half, skirt, altitude, q, dim=32):
     """(tess_batch's arrays, the camera's position in m, f64)."""
     rng = np.random.default_rng(seed)
     up = _unit(rng.normal(size=3))
@@ -237,7 +238,7 @@ def _tess_scene(seed, half, skirt, altitude, q):
         signs[None, :, 0:1] * t1[:, None, :]
         + signs[None, :, 1:2] * t2[:, None, :]))
     corners_rel = (nrm * RADIUS - cam_pos).astype(F)
-    tiles = (rng.normal(size=(q, 32, 32)) * 3000.0).astype(F)
+    tiles = (rng.normal(size=(q, dim, dim)) * 3000.0).astype(F)
     pairs = np.array([TESS_PAIRS[k % len(TESS_PAIRS)] for k in range(q)],
                      np.int32)
     skirts = rng.uniform(0.0, skirt, q).astype(F)
@@ -377,13 +378,14 @@ def cache_case(name: str, seed: int = 7) -> dict:
 TESS_ROWS_CASES = list(CACHE_CASES) + ["depths", "crops"]
 
 
-def tess_rows(name: str, device="cpu", seed: int = 17):
+def tess_rows(name: str, device="cpu", seed: int = 17, grid: int = 32):
     """tessellate_rows' arguments (q_lo, q_hi, crop, depth, corners_hi,
     corners_lo, cam_hi, cam_lo, max_skirt, tiles, view_proj, grid) for
     TESS_ROWS_CASES[name] on `device`, and the live rows' count: the
     case's rows and camera (cache_case), its crops as the cache stage's
-    plain version plans them, 32x32 tiles of heights (sigma 3000 m) and a
-    view-projection from the camera's position."""
+    plain version plans them, grid x grid tiles of heights (sigma 3000 m;
+    the reference's tile side is the grid's) and a view-projection from
+    the camera's position."""
     import torch
 
     from planet_tpu_torch.cache import device_pool, device_pool_cuda
@@ -402,7 +404,7 @@ def tess_rows(name: str, device="cpu", seed: int = 17):
     if name == "crops":
         crop = torch.ones_like(crop)
     rng = np.random.default_rng(seed)
-    tiles = (rng.normal(size=(rows, 32, 32)) * 3000.0).astype(F)
+    tiles = (rng.normal(size=(rows, grid, grid)) * 3000.0).astype(F)
     pos = c["cam_hi"].astype(np.float64) + c["cam_lo"]
     cam = cam_mod.Camera(position=pos, angles=np.array([0.35, 0.3, 0.0]))
     vp = (cam_mod.perspective_lh(cam_mod.proj_factor_from_fovy(
@@ -413,4 +415,4 @@ def tess_rows(name: str, device="cpu", seed: int = 17):
             torch.as_tensor(c["cam_hi"], device=device),
             torch.as_tensor(c["cam_lo"], device=device), c["max_skirt"],
             torch.as_tensor(tiles, device=device),
-            torch.as_tensor(vp.astype(F), device=device), 32), c["n"]
+            torch.as_tensor(vp.astype(F), device=device), grid), c["n"]
