@@ -30,7 +30,10 @@ result line is printed:
    the record sets of tools/kernel_times.record_sets (the 1080p static
    scene, the three goldens, the orbit frames with huge records): K6
    route + gather (records and counts bitwise, also with every candidate
-   dead, huge, span or live; the sectors its 1080p reads touch), K2 on
+   dead, huge, span or live; the sectors its 1080p reads touch; and on
+   config 3's flight, kernel_times.p64_route_inputs' 2,048 rows x 8,712
+   candidates, also with every candidate dead or live, and its time
+   against its bound), K2 on
    the span and K3 on the huge records and a screen-filling triangle
    (framebuffers bitwise equal, with and without wireframe; each K3 set
    timed under its own name), K2 and K3 on records whose every fragment
@@ -125,7 +128,7 @@ result line is printed:
    occupancy (with R1 and S1 at phase 9a's shapes, C1 and C2 on phase
    3's setup inputs, V1 on phase 3's vertex inputs and on the parts of
    the 512 rows (kernel_times.tess_probes), A1, U1, V1's rows mode and U1
-   + V1 on phase 3's calls,
+   + V1 on phase 3's calls, K6 on phase 3's config-3 flight too,
    and the clip pass on each setup set: C2, K3 on its records' count, and
    the two together), A1's and U1's plain versions (the composed torch
    ops they replace) queued the same way, and its host_calls
@@ -1622,7 +1625,7 @@ def main() -> int:
             tm1080, live1080, span1080), REPS),
         # the route words read once, each live record read and written
         # once, the two counts written
-        bound=bound_ms(0, n1080 * (4 + 1 + 4) + n_live * 256 + 8),
+        bound=bound_ms(*tool_common.route_work(n1080, n_live)),
         sectors=sectors)
     print(f"[3] K6 route + gather, 1080p: kernel {report['gather']['ms']:.3f} "
           f"ms (host clock with a synchronize "
@@ -1631,6 +1634,29 @@ def main() -> int:
           f"index_select + transpose {report['gather']['composed_ms']:.3f} "
           f"ms (host clock), bound {report['gather']['bound'][0]:.5f} ms",
           flush=True)
+    # K6 at config 3's flight (kernel_times.p64_route_inputs: 2,048 rows x
+    # 8,712 candidates, 69,696 blocks), also with every candidate dead and
+    # every candidate live, and its queued time against its bound
+    p64 = kernel_times.p64_route_inputs(dev)
+    route_compare("p64 flight", p64["tm"], p64["live"], p64["span"])
+    for name, args in (
+            ("p64 flight, all dead", (p64["tm"],
+                                      torch.zeros_like(p64["live"]),
+                                      p64["span"])),
+            ("p64 flight, every candidate live",
+             (p64["tm"], torch.ones_like(p64["live"]), p64["span"]))):
+        route_compare(name, *args)
+    report["gather"]["p64"] = dict(
+        candidates=p64["tm"].shape[1], live=int(p64["live"].sum()),
+        ms=time_ms(lambda: cc.route_records_cuda(p64["tm"], p64["live"],
+                                                 p64["span"])),
+        bound=kernel_times.route_bound(p64))
+    print(f"[3] K6 route + gather, p64 flight: "
+          f"{report['gather']['p64']['candidates']} candidates, "
+          f"{report['gather']['p64']['live']} live, kernel "
+          f"{report['gather']['p64']['ms']:.3f} ms, bound "
+          f"{report['gather']['p64']['bound'][0]:.5f} ms "
+          f"({report['gather']['p64']['bound'][1]})", flush=True)
 
     area = ((g6[:, 26] - g6[:, 24] + 1) * (g6[:, 27] - g6[:, 25] + 1)).cpu()
     area = area.numpy()
@@ -2531,7 +2557,8 @@ def main() -> int:
                                                     fused=fused,
                                                     setups=setups,
                                                     tess=tess_sets,
-                                                    stages=stage_sets):
+                                                    stages=stage_sets,
+                                                    p64=p64):
         ms = tool_common.time_ms(fn, setup, reps=REPS)
         by_label[label] = ms
         if key:
@@ -2756,9 +2783,15 @@ def main() -> int:
                 bound_ms=r["bound"][0], bound_by=r["bound"][1],
                 pair_ms=r["pair_ms"], pair_queued_ms=r["pair_queued_ms"])
         if k == "gather":
+            p64 = report[k]["p64"]
             kernels[-1].update(composed_ms=report[k]["composed_ms"],
                                host_ms=report[k]["host_ms"],
-                               sectors=report[k]["sectors"])
+                               sectors=report[k]["sectors"],
+                               p64=dict(candidates=p64["candidates"],
+                                        live=p64["live"], ms=p64["ms"],
+                                        queued_ms=by_label[
+                                            kernel_times.ROUTE_P64],
+                                        bound_ms=p64["bound"][0]))
         if k == "huge":
             kernels[-1]["sets"] = {
                 name: dict(records=r["records"], ms=r["ms"],

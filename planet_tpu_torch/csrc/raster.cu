@@ -6,6 +6,7 @@
 // Replaces, in planet_tpu/raster/coverage_pallas.py:
 //   _tr_kernel (via _transpose_records), with the routing of
 //   raster_frame_pallas folded in             -> route_count_kernel,
+//                                                route_offsets_kernel,
 //                                                route_scatter_kernel
 //   _raster_class_kernel / _one_triangle      -> span_kernel
 //   _huge_class_kernel / _one_huge            -> huge_kernel
@@ -80,29 +81,45 @@
 // records: the queued launch's floor (~5 us) and the fragment math; on
 // many small records, every block testing every record's bbox.
 //
-// K6, route_count_kernel + route_scatter_kernel: the route and the
-// gather of raster_frame in two passes, with the counts left on the
-// device. The (32, N) record matrix is column-major and the live columns
-// (~8 % at 1080p) are scattered, so a warp's load of one word of 32 records
-// touches up to 32 sectors and no gather from this layout reads fewer;
-// what the pass does away with is the work around the gather: the
-// elementwise route over all N candidates, two nonzero() host
+// K6, route_count_kernel + route_offsets_kernel + route_scatter_kernel:
+// the route and the gather of raster_frame in three launches, with the
+// counts left on the device. The (32, N) record matrix is column-major and
+// the live columns (~8 % at 1080p) are scattered, so a warp's load of one
+// word of 32 records touches up to 32 sectors and no gather from this
+// layout reads fewer; what K6 does away with is the work around the
+// gather: the elementwise route over all N candidates, two nonzero() host
 // synchronisations, and a gather launch per class. Pass 1 reads the route
 // words (row 28, live, span) once, coalesced, and writes a ballot mask a
-// class for every 32 candidates and a count pair for every 256; pass 2
-// sums the counts of the blocks before it, prefix-sums its 8 mask words,
-// lists its live candidates in candidate order in shared memory, and
-// gathers them a warp 32 records (a lane a record, 32 loads in flight),
-// writing each record as one coalesced 128-byte row to its class's buffer
-// through a padded shared-memory transpose; the last block writes the two
-// counts. Pass 2 is launched as pass 1's programmatic dependent (Hopper's
-// griddepcontrol), so its launch overlaps pass 1's tail; pass 1 issues
-// its three route reads together. Blocks take 256 candidates, not more: the live ones cluster (a
-// visible patch's triangles are contiguous), and with 1024 a block a few
-// blocks gathered several chunks in a row. The first port's index input
-// goes with the route it came from (and with it the dead record an
-// out-of-range index gave); its padded 32x32 transpose stays, a warp's
-// tile.
+// class for every 32 candidates and a count pair for every 256. The scan,
+// one block of 1024 threads, turns the count pairs into each block's two
+// exclusive class offsets in place (tiles of 2 pairs a thread, the next
+// tile read while one is scanned, a block prefix sum, the running totals
+// carried) and writes the two totals.
+// Pass 2 reads its block's offsets and the next block's (their
+// differences are its counts; a block with none leaves there), prefix-sums
+// its 8 mask words, lists its live candidates in candidate order in
+// shared memory, and gathers them a warp 32 records (a lane a record, 32
+// loads in flight), writing each record as one coalesced 128-byte row to
+// its class's buffer through a padded shared-memory transpose. The scan
+// is pass 1's programmatic dependent and pass 2 the scan's (Hopper's
+// griddepcontrol), so each launch overlaps the tail of the one before;
+// pass 1 issues its three route reads together. Blocks take 256
+// candidates, not more: the live ones cluster (a visible patch's
+// triangles are contiguous), and with 1024 a block a few blocks gathered
+// several chunks in a row. Until the scan, each pass-2 block summed the
+// counts of every block before it: B^2 reads for B blocks, a few us at
+// config 4's 1,680 blocks (430,080 candidates) but ~4.9 G reads of L2 at
+// config 3's 69,696 (2,048 rows x 8,712 candidates), where that pass took
+// 2.2 of the frame's 3.7 busy ms. Queued (tools/kernel_times.py, one
+// H100): the whole of K6 0.0147-0.0153 -> 0.0140-0.0142 ms at 1,680
+// blocks and 2.344-2.345 -> 0.2374-0.2379 ms at 69,696 (565,877 live;
+// bound 0.0912, bytes). Measured and dropped: a decoupled look-back in
+// pass 1 (blocks in ticket order, status words zero-filled each call),
+// 0.0214 and 0.3523 ms; pass 2 reading its mask words before it knows
+// it is empty, 0.2767 against 0.2535 ms at 69,696 (with an 8-pair scan).
+// The first port's index input goes with the route it came from (and
+// with it the dead record an out-of-range index gave); its padded 32x32
+// transpose stays, a warp's tile.
 //
 // The TPU-only machinery does not come across: no class caps or ladder, no
 // _class_fixup window addressing, no per-block flags, no framebuffer
@@ -406,7 +423,7 @@ route_count_kernel(const float* __restrict__ tm,
                    unsigned* __restrict__ masks,
                    int* __restrict__ block_counts) {
   __shared__ int s_cnt[2][kRouteWarps];
-  // pass 2's blocks may be scheduled as this grid's drain (they wait for
+  // the scan's block may be scheduled as this grid's drain (it waits for
   // its results in griddepcontrol.wait)
   asm volatile("griddepcontrol.launch_dependents;");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -435,38 +452,110 @@ route_count_kernel(const float* __restrict__ tm,
   }
 }
 
+// The scan between the passes, one block: the block counts' pairs in
+// tiles of kScanThreads * 2, each thread a run of two pairs (one 16-byte
+// read, the next tile's issued before this tile is scanned), a block
+// prefix sum of the runs' sums (one barrier a tile), then each pair
+// overwritten with its exclusive offsets, the running totals carried to
+// the next tile; the two totals go to counts. Runs of 8 and 4 pairs a
+// thread measured slower at both of K6's shapes.
+constexpr int kScanThreads = 1024;
+
+// A thread's run: pairs first and first + 1 as (s, h, s, h), zeros past
+// the last block.
+__device__ __forceinline__ int4 load_run(const int* pairs, long long blocks,
+                                         long long first) {
+  if (first + 2 <= blocks)
+    return *reinterpret_cast<const int4*>(pairs + 2 * first);
+  if (first < blocks)
+    return make_int4(pairs[2 * first], pairs[2 * first + 1], 0, 0);
+  return make_int4(0, 0, 0, 0);
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+route_offsets_kernel(long long blocks, int* __restrict__ pairs,
+                     int* __restrict__ counts) {
+  // the warps' run sums, a buffer a tile parity: one barrier a tile
+  __shared__ int s_warp[2][2][kScanThreads / 32];
+  // pass 2's blocks may be scheduled now; this block waits for pass 1
+  asm volatile("griddepcontrol.launch_dependents;");
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long step = 2LL * kScanThreads;
+  int carry_s = 0, carry_h = 0, parity = 0;
+  int4 v = load_run(pairs, blocks, 2LL * tid);
+  for (long long base = 0; base < blocks; base += step, parity ^= 1) {
+    const long long first = base + 2LL * tid;
+    // the next tile's run, read while this one is scanned
+    const int4 nv = base + step < blocks
+                        ? load_run(pairs, blocks, first + step)
+                        : make_int4(0, 0, 0, 0);
+    const int ts = v.x + v.z, th = v.y + v.w;
+    int is = ts, ih = th;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int us = __shfl_up_sync(kFull, is, d);
+      const int uh = __shfl_up_sync(kFull, ih, d);
+      if (lane >= d) is += us, ih += uh;
+    }
+    int (*sw)[kScanThreads / 32] = s_warp[parity];
+    if (lane == 31) sw[0][warp] = is, sw[1][warp] = ih;
+    __syncthreads();
+    // every warp scans the warp sums itself: its offset and the tile's sum
+    int ws = sw[0][lane], wh = sw[1][lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int us = __shfl_up_sync(kFull, ws, d);
+      const int uh = __shfl_up_sync(kFull, wh, d);
+      if (lane >= d) ws += us, wh += uh;
+    }
+    const int before_s = __shfl_sync(kFull, ws, (warp + 31) & 31);
+    const int before_h = __shfl_sync(kFull, wh, (warp + 31) & 31);
+    int os = carry_s + is - ts, oh = carry_h + ih - th;
+    if (warp > 0) os += before_s, oh += before_h;
+    carry_s += __shfl_sync(kFull, ws, 31);
+    carry_h += __shfl_sync(kFull, wh, 31);
+    const int4 out = make_int4(os, oh, os + v.x, oh + v.y);
+    if (first + 2 <= blocks)
+      *reinterpret_cast<int4*>(pairs + 2 * first) = out;
+    else if (first < blocks)
+      pairs[2 * first] = out.x, pairs[2 * first + 1] = out.y;
+    v = nv;
+  }
+  if (tid == 0) counts[0] = carry_s, counts[1] = carry_h;
+}
+
 // Pass 2: the block's live candidates in candidate order, each class's
-// rows written from the class's offset (the counts of the blocks before);
-// the last block writes the two totals. A block holds at most 256 live
-// candidates, so each warp gathers at most one 32-record chunk: the live
-// candidates cluster (a visible patch's triangles are contiguous), and
-// larger blocks left a few of them several chunks to run in a row.
+// rows written from the class's offset (the scan's pair for this block).
+// A block holds at most 256 live candidates, so each warp gathers at most
+// one 32-record chunk: the live candidates cluster (a visible patch's
+// triangles are contiguous), and larger blocks left a few of them several
+// chunks to run in a row.
 __global__ void __launch_bounds__(kRouteThreads)
 route_scatter_kernel(const float* __restrict__ tm, int n,
                      const unsigned* __restrict__ masks,
-                     const int* __restrict__ block_counts,
+                     const int* __restrict__ offsets,
+                     const int* __restrict__ totals,
                      float* __restrict__ span_out,
-                     float* __restrict__ huge_out, int* __restrict__ counts) {
+                     float* __restrict__ huge_out) {
   __shared__ float s_tile[kRouteWarps][32][33];
   __shared__ int s_src[kRouteTile];      // candidate of each listed record
   __shared__ int s_dst[kRouteTile];      // its row in its class's buffer
   __shared__ int s_base[2][kRouteWords]; // class rank of each word's first
-  __shared__ int s_part[2][kRouteWarps];
-  __shared__ int s_tot[2];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
-  // launched as pass 1's programmatic dependent: wait for its results
+  // launched as the scan's programmatic dependent: wait for its offsets
+  // (it waited for pass 1, so pass 1's masks are written too)
   asm volatile("griddepcontrol.wait;" ::: "memory");
-  // the class offsets: the counts of the blocks before this one
-  int os = 0, oh = 0;
-  for (int k = tid; k < b; k += kRouteThreads)
-    os += block_counts[2 * k], oh += block_counts[2 * k + 1];
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    os += __shfl_xor_sync(kFull, os, d);
-    oh += __shfl_xor_sync(kFull, oh, d);
-  }
-  if (lane == 0) s_part[0][warp] = os, s_part[1][warp] = oh;
+  // the block's class offsets and the next block's (after the last, the
+  // totals): their differences are its counts, and a block with none
+  // leaves before it reads a mask word
+  const int2 first = reinterpret_cast<const int2*>(offsets)[b];
+  const int2 next = b + 1 < (int)gridDim.x
+                        ? reinterpret_cast<const int2*>(offsets)[b + 1]
+                        : make_int2(totals[0], totals[1]);
+  const int ns = next.x - first.x, nh = next.y - first.y;
+  if (ns + nh == 0) return;
   // this thread's candidate's word (one a warp) and its rank in the block
   const size_t w = (size_t)b * kRouteWords + warp;
   const unsigned ms = masks[2 * w], mh = masks[2 * w + 1];
@@ -483,16 +572,9 @@ route_scatter_kernel(const float* __restrict__ tm, int n,
     }
     if (lane < kRouteWords)
       s_base[0][lane] = is - cs, s_base[1][lane] = ih - ch;
-    if (lane == kRouteWords - 1) s_tot[0] = is, s_tot[1] = ih;
   }
   __syncthreads();
-  int base_s = 0, base_h = 0;
-#pragma unroll
-  for (int k = 0; k < kRouteWarps; ++k)
-    base_s += s_part[0][k], base_h += s_part[1][k];
-  const int ns = s_tot[0], nh = s_tot[1];
-  if (b == (int)gridDim.x - 1 && tid == 0)
-    counts[0] = base_s + ns, counts[1] = base_h + nh;
+  const int base_s = first.x, base_h = first.y;
   const unsigned one = 1u << lane, below = one - 1u;
   if (ms & one) {
     const int e = s_base[0][warp] + __popc(ms & below);
@@ -519,6 +601,24 @@ route_scatter_kernel(const float* __restrict__ tm, int n,
   }
 }
 
+// A launch of kernel on stream s as its predecessor's programmatic
+// dependent (Hopper's griddepcontrol): it may start during the
+// predecessor's tail and waits for its results in griddepcontrol.wait.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), unsigned blocks,
+                             int threads, cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(threads);
+  config.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, args...);
+}
+
 }  // namespace
 
 // K6: tm (32, n) f32, live (n,) bool, span (n,) int32 -> the span-class
@@ -531,7 +631,8 @@ extern "C" int planet_route_records(const void* tm, const void* live,
                                     void* span_out, void* huge_out,
                                     void* counts, void* stream) {
   const long long blocks = ((long long)n + kRouteTile - 1) / kRouteTile;
-  if (n <= 0 || scratch_ints < blocks * (2 * kRouteWords + 2))
+  if (n <= 0 || scratch_ints < blocks * (2 * kRouteWords + 2) ||
+      ((size_t)scratch & 15) != 0)
     return (int)cudaErrorInvalidValue;
   unsigned* masks = (unsigned*)scratch;
   int* block_counts = (int*)scratch + blocks * 2 * kRouteWords;
@@ -539,24 +640,19 @@ extern "C" int planet_route_records(const void* tm, const void* live,
   route_count_kernel<<<(unsigned)blocks, kRouteThreads, 0, s>>>(
       (const float*)tm, (const unsigned char*)live, (const int*)span, n,
       max_span, masks, block_counts);
-  const cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // pass 2 as a programmatic dependent launch: its launch overlaps pass
-  // 1's tail instead of following its end
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((unsigned)blocks);
-  config.blockDim = dim3(kRouteThreads);
-  config.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&config, route_scatter_kernel,
-                                 (const float*)tm, n,
-                                 (const unsigned*)masks,
-                                 (const int*)block_counts, (float*)span_out,
-                                 (float*)huge_out, (int*)counts);
+  // the scan and pass 2 as programmatic dependents: each launch overlaps
+  // the tail of the kernel before it instead of following its end
+  err = launch_dependent(route_offsets_kernel, 1, kScanThreads, s, blocks,
+                         block_counts, (int*)counts);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_dependent(route_scatter_kernel, (unsigned)blocks,
+                               kRouteThreads, s, (const float*)tm, n,
+                               (const unsigned*)masks,
+                               (const int*)block_counts,
+                               (const int*)counts, (float*)span_out,
+                               (float*)huge_out);
 }
 
 // recs must be 16-byte aligned (the wrapper checks). count: a device int

@@ -32,8 +32,9 @@ the clip pass's `blocks`:
   (span-class records, huge-class records, counts (2,) int32): each
   class's live records as rows in candidate order, the first counts[c]
   rows of each buffer (the kernel's buffers hold N rows, the plain
-  version's exactly the count) — the route and the gather in one pass,
-  the counts left on the device;
+  version's exactly the count) — the route and the gather in one call
+  (K6: pass 1, a scan of its block counts, pass 2), the counts left on
+  the device;
 * raster_span(records (M, 32), fb (H, W) int32, count=None) — fragments
   without the interpolated-1/w test (vacuous inside the exact coverage
   domain);

@@ -228,6 +228,16 @@ def clip_work(blocks: int, slots: int, used: int, live_records: int,
     return float(used * OPS_CLIP_SLOT), float(nbytes)
 
 
+def route_work(candidates: int, live: int):
+    """(f32 operations, bytes) of K6 on `candidates` candidates, `live` of
+    them live: each candidate's route words (row 28's f32, its live byte
+    and its span, 9 B) read once, each live record's 128 bytes read and
+    written once, and the two counts written; no f32 operation (the
+    class tests are compares of words read once, the offsets integer
+    sums)."""
+    return 0.0, float(candidates * (4 + 1 + 4) + live * 256 + 8)
+
+
 def tess_work(rows: int, grid: int, slerps: int = 0, dim: int = TILE_DIM,
               live: int | None = None):
     """(f32 operations, bytes) of V1 on `rows` patch rows of grid x grid

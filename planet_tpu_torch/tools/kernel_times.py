@@ -17,12 +17,13 @@ K2 and K3 on the record sets
 of `record_sets` (the 1080p static scene, the three goldens, the orbit
 frames with huge records) and on a screen-filling triangle, S1 at phase
 9a's two shapes with and without wireframe (`splat_inputs`), and K6 on
-the 1080p scene — and t_noise's variants (noise_stages.NOISE_VARIANTS,
+the 1080p scene and on config 3's flight (p64_route_inputs: 2,048 rows x
+8,712 candidates) — and t_noise's variants (noise_stages.NOISE_VARIANTS,
 which phase 8 times through noise_stages.bench) on DIR's tree; then, by
 the host clock, the 1080p scene's route and gather as DIR's raster_frame
 runs them (`host_calls`). Prints the card's nvidia-smi name and power
-limit, then one JSON line: {"root": DIR, "ms": {label: ms}, "build_s":
-s}. Needs a CUDA device.
+limit, then one JSON line: {"root": DIR, "ms": {label: ms}, "bounds":
+{K6's two labels: [least ms, by] or null}, "build_s": s}. Needs a CUDA device.
 
 chip_smoke.py cannot take this role with a --root argument: it drives and
 checks the whole main path, and an older tree's phases and kernels line
@@ -61,6 +62,12 @@ ORDER_LEAVES = (135, 210, 462, 3177)
 # host seconds each queued call may take (tools/common.QUEUE_S, set for
 # both trees of a comparison)
 QUEUE_S = 2e-3
+# BASELINE config 3 as the benchmark runs it (64-vertex patches, 66 x 66
+# tiles, its quality, cache and caps), for K6 at its candidates
+P64_CONFIG = (pathlib.Path(__file__).resolve().parents[2] / "perfbench"
+              / "configs" / "lod-1080p-p64.json")
+ROUTE_1080P = "K6 route + gather, 1080p"
+ROUTE_P64 = "K6 route + gather, p64 flight"
 
 
 def scene_camera(cfg):
@@ -233,6 +240,49 @@ def fused_tile_inputs(device):
     return (torch.as_tensor(ch, device=device),
             torch.as_tensor(cl, device=device),
             torch.as_tensor(octs, device=device))
+
+
+def p64_route_inputs(device, frames: int = ORBIT_FRAMES) -> dict:
+    """K6's inputs on config 3's flight (P64_CONFIG's settings and caps at
+    1920x1080): a DeviceRenderer flies the orbit's first `frames` frames
+    (orbit_cameras) from an empty pool, and C1 on the last frame's
+    render_cap rows, with the leaf count on the device as the raster
+    graph reads it, gives setup's `tm`, `live` and `span`: 2,048 rows x
+    8,712 candidates, 69,696 route blocks."""
+    from planet_tpu_torch.engine import device_step
+    from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.raster import coverage_cuda as cc
+    from planet_tpu_torch.tess import mesh
+    from planet_tpu_torch.tools import stage_times
+
+    conf = json.loads(P64_CONFIG.read_text())
+    fields = EngineConfig.__dataclass_fields__
+    cfg = EngineConfig(**{k: v for k, v in conf["settings"].items()
+                          if k in fields})
+    w, h = cfg.window_w, cfg.window_h
+    rend = device_step.DeviceRenderer(
+        cfg, w, h, device=device,
+        **{k: v for k, v in conf["engine"].items() if k != "preview"})
+    pool = rend.init_pool()
+    for _, cam in orbit_cameras(cfg)[:frames]:
+        geom = rend.geometry(pool, *stage_times.camera_args(cfg, cam, w, h))
+    tm, live, span = cc.setup_cuda(
+        geom.vertices.clip, geom.vertices.normal, geom.valid, w, h,
+        mesh.cell_triangle_mask(cfg.patch_verts), cfg.far_plane,
+        geom.meta[0:1].clone())[:3]
+    return dict(tm=tm, live=live, span=span)
+
+
+def route_bound(fs: dict):
+    """K6's (least ms, by) on one set of route inputs: its candidates and
+    live ones through tools/common.route_work, or None on a tree whose
+    tools/common has no route_work."""
+    from planet_tpu_torch.tools import common
+
+    if not hasattr(common, "route_work"):
+        return None
+    return common.bound_ms(*common.route_work(fs["tm"].shape[1],
+                                              int(fs["live"].sum())))
 
 
 def host_ms(fn, reps: int = 7) -> float:
@@ -666,7 +716,7 @@ def splat_inputs(device) -> dict:
 
 
 def calls(device, sets=None, fused=None, setups=None, tess=None,
-          stages=None) -> list:
+          stages=None, p64=None) -> list:
     """[(key or None, label, call, setup)]: the main path's kernels at its
     shapes, each timed as call(*setup()) — K1 on 256 tiles of octaves 6-18
     (noise_stages.tile_inputs) and at the fused frame's occupancy
@@ -691,7 +741,8 @@ def calls(device, sets=None, fused=None, setups=None, tess=None,
     its outputs ("U1 + V1", every tree) and as V1's rows mode ("V1 rows",
     where the tree has it: vertex_cuda.tessellate_rows_cuda); and K6 on the 1080p scene: this tree's route_records, or on a tree before it the
     two record gathers its route fed (given the indices: its route
-    synchronizes, see host_calls). The key is the kernel's in
+    synchronizes, see host_calls), and, where the tree has route_records,
+    on config 3's flight (`p64`, else p64_route_inputs). The key is the kernel's in
     chip_smoke.py's kernels line ("tile_fused": its tile entry's
     queued_fused_ms). Inputs come from numpy seeds and the scenes'
     cameras; the modules are imported here, so they come from whichever
@@ -823,11 +874,14 @@ def calls(device, sets=None, fused=None, setups=None, tess=None,
                         .tessellate_rows_cuda(*a), tuple))
     fs = sets["1080p static"]
     if hasattr(cc, "route_records"):
-        out.append(("gather", "K6 route + gather, 1080p",
-                    lambda: cc.route_records_cuda(fs["tm"], fs["live"],
-                                                  fs["span"]), tuple))
+        p64 = p64_route_inputs(device) if p64 is None else p64
+        for key, label, r in (("gather", ROUTE_1080P, fs),
+                              (None, ROUTE_P64, p64)):
+            out.append((key, label,
+                        lambda r=r: cc.route_records_cuda(r["tm"], r["live"],
+                                                          r["span"]), tuple))
     else:
-        out.append(("gather", "K6 route + gather, 1080p",
+        out.append(("gather", ROUTE_1080P,
                     lambda: (cc.gather_records_cuda(fs["tm"], fs["span_idx"]),
                              cc.gather_records_cuda(fs["tm"],
                                                     fs["huge_idx"])),
@@ -892,7 +946,9 @@ def main(argv=None) -> int:
     _cuda.library()
     dev = torch.device("cuda")
     sets = record_sets(dev)
-    runs = {label: (fn, setup) for _, label, fn, setup in calls(dev, sets)}
+    p64 = p64_route_inputs(dev)
+    runs = {label: (fn, setup)
+            for _, label, fn, setup in calls(dev, sets, p64=p64)}
     points = noise_stages.noise_inputs(1 << 22, dev)
     for name in noise_stages.NOISE_VARIANTS:
         runs[f"t_noise {name}"] = (
@@ -909,7 +965,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    print(json.dumps({"root": args.root, "ms": ms,
+    bounds = {ROUTE_1080P: route_bound(sets["1080p static"]),
+              ROUTE_P64: route_bound(p64)}
+    print(json.dumps({"root": args.root, "ms": ms, "bounds": bounds,
                       "build_s": _cuda.build_info.get("seconds")}))
     return 0
 

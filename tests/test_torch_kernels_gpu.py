@@ -9,7 +9,8 @@ amplitude), K4 noise (at the refine-probe shape and at sizes that are no
 multiple of its block), K5 field (full cube and strips, at n = 128 and
 256) and K6 route and gather (records in candidate order and counts,
 with dead, far-straddler, tall and span-class candidates, all dead, all
-huge, all span) bitwise; K2 span and K3 huge raster framebuffers bitwise
+huge, all span; and at config 3's 2,048 x 8,712 candidates and 77 more,
+on runs of each class, all dead and every one live) bitwise; K2 span and K3 huge raster framebuffers bitwise
 equal to their plain versions (built with -fmad=false and IEEE
 division/sqrt), K2 also on adversarial records (near-horizontal and
 near-vertical edges, slivers, one-pixel and full-width bboxes, bboxes
@@ -199,6 +200,59 @@ def test_gather_kernel_bitwise(dev, case):
         assert int(want[2][0]) > 0 and int(want[2][1]) > 0
     with pytest.raises(ValueError):
         tcc.route_records_cuda(tm.to(dev), live.to(dev), span.to(dev).long())
+
+
+# config 3's route at render_cap 2,048: 2,048 rows x 8,712 candidates, and
+# 77 more, so the last of its 69,697 blocks is partial
+CONFIG3_CANDIDATES = 2048 * 8712 + 77
+
+
+def _route_runs(n, seed, dev):
+    """(tm (32, n), live, span) on the card: runs of 1-2,047 candidates,
+    each run dead (NaN words in some), span-class, tall (huge class),
+    far-straddlers (huge class) or mixed at random as _route_inputs."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 2048, n // 256 + 16)    # ~4n candidates
+    kind = np.repeat(rng.integers(0, 5, lengths.size).astype(np.int8),
+                     lengths)[:n]
+    mixed = kind == 4
+    live = (kind == 1) | (kind == 2) | (kind == 3) | (
+        mixed & (rng.uniform(size=n) < 0.3))
+    far = (kind == 3) | (mixed & (rng.uniform(size=n) < 0.1))
+    span = np.where(kind == 2, rng.integers(17, 24, n),
+                    np.where(mixed, rng.integers(1, 24, n),
+                             rng.integers(1, 17, n))).astype(np.int32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tm = torch.randn((32, n), generator=gen, device=dev)
+    live_t = torch.as_tensor(live, device=dev)
+    tm[28] = torch.where(live_t, torch.where(
+        torch.as_tensor(far, device=dev), 1.0 / 40.0, -1.0), 0.0)
+    nan = torch.as_tensor(~live & (rng.uniform(size=n) < 0.2), device=dev)
+    tm[:, nan] = float("nan")
+    return tm, live_t, torch.as_tensor(span, device=dev)
+
+
+@pytest.mark.parametrize("case", ["runs", "all dead", "every live"])
+def test_gather_kernel_bitwise_at_config3_scale(dev, case):
+    """K6 at config 3's candidate count (more than 65,536 blocks, the last
+    one partial) against route + gather_records_plain on the card: records
+    in candidate order and counts bit for bit, on runs of dead, span-class
+    and huge-class candidates and at both extremes."""
+    tm, live, span = _route_runs(CONFIG3_CANDIDATES, 23, dev)
+    if case == "all dead":
+        live = torch.zeros_like(live)
+    elif case == "every live":
+        live = torch.ones_like(live)
+    before = _cuda.launches["gather"]
+    sk, hk, ck = tcc.route_records(tm, live, span)
+    assert _cuda.launches["gather"] == before + 1
+    sp, hp, cp = tcc.route_records_plain(tm, live, span)
+    assert torch.equal(ck, cp), (ck, cp)
+    ns, nh = (int(v) for v in cp)
+    if case == "runs":
+        assert ns > 0 and nh > 0 and ns + nh < CONFIG3_CANDIDATES
+    assert torch.equal(sk[:ns].view(torch.int32), sp.view(torch.int32))
+    assert torch.equal(hk[:nh].view(torch.int32), hp.view(torch.int32))
 
 
 def _scene_setups(dev):

@@ -1,9 +1,9 @@
 """The raster's route on the CPU: K6's plain version, the huge class's row
 intervals, and raster_frame with the class counts kept as a tensor.
 
-K6 (csrc/raster.cu route_count_kernel + route_scatter_kernel) routes and
-gathers in one pass and leaves the counts on the device, so that K2 and K3
-read them there. Its plain version, coverage_cuda.route_records_plain, is
+K6 (csrc/raster.cu route_count_kernel, route_offsets_kernel and
+route_scatter_kernel) routes and gathers and leaves the counts on the
+device, so that K2 and K3 read them there. Its plain version, coverage_cuda.route_records_plain, is
 today's route and gather_records_plain with the counts as a tensor; these
 tests hold it
 
