@@ -81,10 +81,6 @@ _SIGNATURES = {
     "planet_t_tile": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
     "planet_t_lut": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "planet_t_span": (_I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
-    # bench-only variants of R1 and S1 (tools/r1_s1_parts)
-    "planet_t_refine": (_I,) + (_P,) * 5 + (_I,) + (_P,) * 15
-                       + (_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P),
-    "planet_t_splat": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 # kernel name -> launches so far (reset with reset_launches)
@@ -92,7 +88,7 @@ launches = {"tile": 0, "noise": 0, "gather": 0, "span": 0, "huge": 0,
             "field": 0, "splat": 0, "refine": 0, "order": 0, "setup": 0,
             "clip": 0, "tess": 0, "tess_wide": 0, "cache": 0,
             "uniforms": 0, "t_noise": 0, "t_tile": 0, "t_lut": 0,
-            "t_span": 0, "t_refine": 0, "t_splat": 0}
+            "t_span": 0}
 
 _lib = None
 build_info: dict = {}

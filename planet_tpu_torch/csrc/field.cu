@@ -136,7 +136,7 @@ __device__ __forceinline__ float height(const FieldParams& p,
 
 // 4 blocks an SM: at most 64 registers a thread (x 256 threads x 4 = the
 // SM's 65,536; ptxas took 64 with no spills for this kernel, and
-// chip_smoke.py phase 2 prints its count), and 4 x 39 KB of shared memory
+// tools/kernel_times.py prints its count), and 4 x 39 KB of shared memory
 // fit; 32 of the SM's 64 warps are resident
 __global__ void __launch_bounds__(kThreads, 4)
 field_kernel(const int* __restrict__ perm_g, const int* __restrict__ sign_g,

@@ -58,13 +58,11 @@
 // -fmad=false and IEEE division and square root, so every other product
 // and sum rounds as torch's.
 //
-// Bench-only (planet_t_refine, tools/r1_s1_parts): the same evaluation with
-// the compaction as a second kernel (two launches a level, as the first
-// design split them), and the whole refine in one launch of one block (its
-// 32 warps stride over each level's frontier in rounds, __syncthreads
-// between evaluation and compaction, stopping at an empty frontier): it
-// wins by 8-17 % at the flying cameras and loses 4.8x at the dense one,
-// where one SM evaluates up to 384 slots a level (PERF.md).
+// Two designs lost to this one on the card and were taken out (PERF.md
+// R1 row; git ee5a145 holds them): the compaction as a second kernel (two
+// launches a level), and the whole refine in one launch of one block,
+// which won by 8-17 % at the flying cameras and lost 4.8x at the dense
+// one, where one SM evaluates up to 384 slots a level.
 
 #include <algorithm>
 
@@ -354,9 +352,8 @@ __device__ __forceinline__ void copy_slot(const int* src_int,
 // leaves appended at l_n, children to slots 4r + c of the next frontier;
 // the counts l_n and overflowed read from st, and (f_n, l_n, overflowed)
 // written to st_next. The flags and
-// children come from other blocks of the same launch (and in the one-block
-// refine the frontier from the level before), so every operand is read
-// from L2 (__ldcg). A chunk of kThreads slots is scanned (leaf and split
+// children come from other blocks of the same launch, so every operand is
+// read from L2 (__ldcg). A chunk of kThreads slots is scanned (leaf and split
 // counts packed in one word), each leaf's and split's slot listed in
 // shared memory, then the block copies the leaves' 27 words and the
 // splits' children's 4 x 27 together, a thread a destination column.
@@ -431,8 +428,6 @@ __device__ __forceinline__ void compact_block(
 
 constexpr int kLevelThreads = 256;              // 8 warps, 8 slots at once
 constexpr int kLevelWarps = kLevelThreads / 32;
-constexpr int kBlockThreads = 1024;             // the one-block refine
-constexpr int kBlockWarps = kBlockThreads / 32;
 // state: the counts (f_n, l_n, overflowed) of even levels at 0-2, of odd
 // levels at 3-5 (a level reads its own and writes the other), and the live
 // blocks' ticket at 6 (0 between launches). It starts as zeros: level 0
@@ -481,14 +476,15 @@ __device__ __forceinline__ void stage_root(int i, const Buffers& b, int cap) {
   __syncwarp();
 }
 
-// One level (the shipped kernel), its counts at state + 3 * (level % 2):
-// the live blocks' warps stride over [0, f_n), a warp a slot (at level 0
-// staging its root first); with kCompact the live block that takes the
-// last ticket compacts the level into the other parity's counts (without
-// it, bench-only: compact_kernel does). A block past the live ones exits
-// at once (block 0 carries the counts over when the frontier is empty);
-// every block reads only this level's counts, which nothing writes in this
-// launch.
+// One level, its counts at state + 3 * (level % 2): the live blocks' warps
+// stride over [0, f_n), a warp a slot (at level 0 staging its root first),
+// and the live block that takes the last ticket compacts the level into
+// the other parity's counts. kCompact is always true: as a template
+// argument it keeps the kernel's name, level_kernel<kRidged, true>, which
+// traces and the benchmark's breakdowns read. A block past the live ones
+// exits at once (block 0 carries the counts over when the frontier is
+// empty); every block reads only this level's counts, which nothing writes
+// in this launch.
 template <bool kRidged, bool kCompact>
 __global__ void __launch_bounds__(kLevelThreads)
 level_kernel(Buffers b, Params prm, int level) {
@@ -535,66 +531,6 @@ level_kernel(Buffers b, Params prm, int level) {
   }
 }
 
-// bench-only: the compaction as a kernel of its own (one block)
-__global__ void __launch_bounds__(kBlockThreads)
-compact_kernel(Buffers b, Params prm, int level) {
-  __shared__ CompactShared<kBlockThreads> sh;
-  const int parity = level & 1;
-  const int* st = b.state + 3 * parity;
-  compact_block<kBlockThreads>(Frontier{b.f_int, b.f_cor}, b.kid_int,
-                               b.kid_cor, b.flags,
-                               level_slots(prm, st, level), st,
-                               b.state + 3 * (1 - parity), b.n_int, b.n_cor,
-                               b.l_int, b.l_cor, prm.cap, sh);
-}
-
-// bench-only: a whole refine of `levels` levels in one block, the frontier
-// ping-ponging between (f_int, f_cor) and (n_int, n_cor) and the counts
-// between the parities; stops at an empty frontier, its counts then in both
-// parities
-template <bool kRidged>
-__global__ void __launch_bounds__(kBlockThreads)
-refine_block_kernel(Buffers b, Params prm, int levels) {
-  __shared__ Tables<kFast> tab;
-  __shared__ float es[kBlockWarps][kWarpScratch];
-  __shared__ CompactShared<kBlockThreads> sh;
-  if constexpr (kRidged) load_tables(tab, b.perm, b.sign);
-  DF cam[3];
-  load_camera(b, cam);
-  const int warp = threadIdx.x >> 5;
-  int* cur_int = b.f_int;
-  float* cur_cor = b.f_cor;
-  int* nxt_int = b.n_int;
-  float* nxt_cor = b.n_cor;
-  int parity = 0;
-  for (int level = 0; level < levels; ++level) {
-    const int* st = b.state + 3 * parity;
-    const int f_n = level_slots(prm, st, level);
-    if (f_n <= 0) break;                          // uniform in the block
-    const Frontier f{cur_int, cur_cor};
-    for (int i = warp; i < f_n; i += kBlockWarps) {
-      if (level == 0) stage_root(i, b, prm.cap);
-      evaluate_slot<kRidged>(i, f, b.kid_int, b.kid_cor, b.flags, cam, tab,
-                             b.freq, prm, es[warp]);
-    }
-    __syncthreads();
-    compact_block<kBlockThreads>(f, b.kid_int, b.kid_cor, b.flags, f_n, st,
-                                 b.state + 3 * (1 - parity), nxt_int,
-                                 nxt_cor, b.l_int, b.l_cor, prm.cap, sh);
-    __syncthreads();
-    parity = 1 - parity;
-    int* ti = cur_int;
-    cur_int = nxt_int;
-    nxt_int = ti;
-    float* tc = cur_cor;
-    cur_cor = nxt_cor;
-    nxt_cor = tc;
-  }
-  if (threadIdx.x < 3)
-    b.state[3 * (1 - parity) + threadIdx.x] =
-        __ldcg(b.state + 3 * parity + threadIdx.x);
-}
-
 // blocks of a level launch: as many as the frontier can fill (cap slots,
 // kLevelWarps a block), at most two an SM (all resident at once)
 int level_blocks(int cap) {
@@ -612,60 +548,12 @@ int level_blocks(int cap) {
   return std::min((cap + kLevelWarps - 1) / kLevelWarps, 2 * sms[device]);
 }
 
-// the launches of planet_refine_level (variant 0) and planet_t_refine
-enum RefineVariant { kFused = 0, kSplit = 1, kOneBlock = 2 };
-
 template <bool kRidged>
-int launch_refine(int variant, const Buffers& b, const Params& prm,
-                  int level, int levels, cudaStream_t s) {
-  switch (variant) {
-    case kFused:
-      level_kernel<kRidged, true><<<level_blocks(prm.cap), kLevelThreads, 0,
-                                    s>>>(b, prm, level);
-      break;
-    case kSplit: {
-      level_kernel<kRidged, false><<<level_blocks(prm.cap), kLevelThreads, 0,
-                                     s>>>(b, prm, level);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      compact_kernel<<<1, kBlockThreads, 0, s>>>(b, prm, level);
-      break;
-    }
-    case kOneBlock:
-      refine_block_kernel<kRidged><<<1, kBlockThreads, 0, s>>>(b, prm,
-                                                               levels);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+int launch_level(const Buffers& b, const Params& prm, int level,
+                 cudaStream_t s) {
+  level_kernel<kRidged, true><<<level_blocks(prm.cap), kLevelThreads, 0, s>>>(
+      b, prm, level);
   return (int)cudaGetLastError();
-}
-
-int refine_entry(int variant, const void* r_lo, const void* r_hi,
-                 const void* r_depth, const void* r_ch, const void* r_cl,
-                 int n_roots, void* f_int, void* f_cor, void* n_int,
-                 void* n_cor, void* kid_int, void* kid_cor, void* flags,
-                 void* state, void* l_int, void* l_cor, const void* cam_hi,
-                 const void* cam_lo, const void* perm, const void* sign,
-                 const void* freq, int cap, int max_lod, int ridged,
-                 int use_quality, float radius_hi, float radius_lo,
-                 float quality_hi, float quality_lo, int level, int levels,
-                 void* stream) {
-  if (cap <= 0 || max_lod < 0 || level < 0 || n_roots < 0 || n_roots > cap ||
-      (ridged && (!perm || !sign || !freq)))
-    return (int)cudaErrorInvalidValue;
-  const Params prm{cap, max_lod, use_quality, n_roots,
-                   DF{radius_hi, radius_lo}, DF{quality_hi, quality_lo}};
-  const Buffers b{(int*)f_int, (float*)f_cor, (int*)n_int,
-                  (int*)kid_int, (int*)flags, (int*)state, (int*)l_int,
-                  (float*)n_cor, (float*)kid_cor, (float*)l_cor,
-                  (const float*)cam_hi, (const float*)cam_lo,
-                  (const int*)perm, (const int*)sign, (const float*)freq,
-                  (const int*)r_lo, (const int*)r_hi, (const int*)r_depth,
-                  (const float*)r_ch, (const float*)r_cl};
-  cudaStream_t s = (cudaStream_t)stream;
-  return ridged ? launch_refine<true>(variant, b, prm, level, levels, s)
-                : launch_refine<false>(variant, b, prm, level, levels, s);
 }
 
 }  // namespace
@@ -691,30 +579,20 @@ extern "C" int planet_refine_level(
     int max_lod, int ridged, int use_quality, float radius_hi,
     float radius_lo, float quality_hi, float quality_lo, int level,
     void* stream) {
-  return refine_entry(kFused, r_lo, r_hi, r_depth, r_ch, r_cl, n_roots,
-                      f_int, f_cor, n_int, n_cor, kid_int, kid_cor, flags,
-                      state, l_int, l_cor, cam_hi, cam_lo, perm, sign, freq,
-                      cap, max_lod, ridged, use_quality, radius_hi,
-                      radius_lo, quality_hi, quality_lo, level, 1, stream);
+  if (cap <= 0 || max_lod < 0 || level < 0 || n_roots < 0 || n_roots > cap ||
+      (ridged && (!perm || !sign || !freq)))
+    return (int)cudaErrorInvalidValue;
+  const Params prm{cap, max_lod, use_quality, n_roots,
+                   DF{radius_hi, radius_lo}, DF{quality_hi, quality_lo}};
+  const Buffers b{(int*)f_int, (float*)f_cor, (int*)n_int,
+                  (int*)kid_int, (int*)flags, (int*)state, (int*)l_int,
+                  (float*)n_cor, (float*)kid_cor, (float*)l_cor,
+                  (const float*)cam_hi, (const float*)cam_lo,
+                  (const int*)perm, (const int*)sign, (const float*)freq,
+                  (const int*)r_lo, (const int*)r_hi, (const int*)r_depth,
+                  (const float*)r_ch, (const float*)r_cl};
+  cudaStream_t s = (cudaStream_t)stream;
+  return ridged ? launch_level<true>(b, prm, level, s)
+                : launch_level<false>(b, prm, level, s);
 }
 
-// Bench-only (tools/r1_s1_parts): variant kFused (planet_refine_level),
-// kSplit (the same level, the compaction a second kernel) or kOneBlock
-// (`levels` levels from level 0 in one block: the whole refine in one
-// call, the frontier ping-ponging between f and n).
-extern "C" int planet_t_refine(
-    int variant, const void* r_lo, const void* r_hi, const void* r_depth,
-    const void* r_ch, const void* r_cl, int n_roots, void* f_int,
-    void* f_cor, void* n_int, void* n_cor, void* kid_int, void* kid_cor,
-    void* flags, void* state, void* l_int, void* l_cor, const void* cam_hi,
-    const void* cam_lo, const void* perm, const void* sign, const void* freq,
-    int cap, int max_lod, int ridged, int use_quality, float radius_hi,
-    float radius_lo, float quality_hi, float quality_lo, int level,
-    int levels, void* stream) {
-  return refine_entry(variant, r_lo, r_hi, r_depth, r_ch, r_cl, n_roots,
-                      f_int, f_cor, n_int, n_cor, kid_int, kid_cor, flags,
-                      state, l_int, l_cor, cam_hi, cam_lo, perm, sign, freq,
-                      cap, max_lod, ridged, use_quality, radius_hi,
-                      radius_lo, quality_hi, quality_lo, level, levels,
-                      stream);
-}

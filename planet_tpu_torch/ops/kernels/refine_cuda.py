@@ -93,19 +93,22 @@ def _check_args(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
         _cuda.check_cuda(t, name, dtype, shape)
 
 
-def _levels(key: str, symbol: str, head: tuple, tail: tuple, calls: int,
-            cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
-            max_lod: int, cap: int, radius: float, probe: str, root_depth,
-            quality: float):
-    """`calls` calls of C entry `symbol` (counted under `key`), call L with
-    the arguments head, the roots, level L's operands and tail, on buffers
-    allocated from metadata: the first frontier (level 0 stages the roots
-    into it) and the next one (swapped after each call), the children's
-    scratch, the flags, and one zero fill holding the leaf buffers and the
-    state (the counts f_n, l_n and overflowed of even levels, the same of
-    odd levels, the blocks' ticket; level 0 takes its f_n, the roots'
-    count, from the arguments). Returns refine_cuda's result after max_lod
-    + 1 levels."""
+def refine_cuda(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
+                max_lod: int, cap: int, radius: float, probe: str = "zero",
+                root_depth=None, quality: float = 1.0):
+    """R1 from R roots on the card; refine_device.refine_plain's arguments.
+
+    Returns (l_int (3, cap) int32 leaf id lo, id hi, depth; l_cor (24, cap)
+    f32 leaf corners; n_leaves () int32; overflowed () bool), leaves in
+    level order at [0, n_leaves) and zeros after them. One zero fill, then
+    one launch a level (one kernel: the level's evaluation and compaction),
+    max_lod + 1 in all, call L with level L's operands on buffers allocated
+    from metadata: the first frontier (level 0 stages the roots into it)
+    and the next one (swapped after each call), the children's scratch,
+    the flags, and one zero fill holding the leaf buffers and the state
+    (the counts f_n, l_n and overflowed of even levels, the same of odd
+    levels, the blocks' ticket; level 0 takes its f_n, the roots' count,
+    from the arguments)."""
     _check_args(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
                 root_depth, max_lod=max_lod, cap=cap, probe=probe)
     dev = cam_hi.device
@@ -125,57 +128,21 @@ def _levels(key: str, symbol: str, head: tuple, tail: tuple, calls: int,
     ptrs = [None if t is None else t.data_ptr() for t in tables]
     roots = [None if t is None else t.data_ptr() for t in (
         root_lo, root_hi, root_depth, root_ch, root_cl)]
-    for level in range(calls):
-        _cuda.launch(key, symbol, *head, *roots, root_lo.shape[0],
-                     cur[0].data_ptr(), cur[1].data_ptr(),
+    for level in range(int(max_lod) + 1):
+        _cuda.launch("refine", "planet_refine_level", *roots,
+                     root_lo.shape[0], cur[0].data_ptr(), cur[1].data_ptr(),
                      nxt[0].data_ptr(), nxt[1].data_ptr(), kid_int.data_ptr(),
                      kid_cor.data_ptr(), flags.data_ptr(), state.data_ptr(),
                      l_int.data_ptr(), l_cor.data_ptr(), cam_hi.data_ptr(),
                      cam_lo.data_ptr(), *ptrs, int(cap), int(max_lod),
                      int(probe == "ridged6"), int(quality != 1.0),
-                     *split_f32(radius), *split_f32(quality), level, *tail)
+                     *split_f32(radius), *split_f32(quality), level)
         cur, nxt = nxt, cur
     q = 3 * ((int(max_lod) + 1) % 2)      # the parity the last level wrote
     # the flag word is 0 or 1, so its first byte (the card is
     # little-endian) is the bool, read in place by a view
     return (l_int, l_cor, state[q + 1],
             state[q + 2:q + 3].view(torch.bool)[0])
-
-
-def refine_cuda(cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl, *,
-                max_lod: int, cap: int, radius: float, probe: str = "zero",
-                root_depth=None, quality: float = 1.0):
-    """R1 from R roots on the card; refine_device.refine_plain's arguments.
-
-    Returns (l_int (3, cap) int32 leaf id lo, id hi, depth; l_cor (24, cap)
-    f32 leaf corners; n_leaves () int32; overflowed () bool), leaves in
-    level order at [0, n_leaves) and zeros after them. One zero fill, then
-    one launch a level (one kernel: the level's evaluation and compaction),
-    max_lod + 1 in all."""
-    return _levels("refine", "planet_refine_level", (), (), int(max_lod) + 1,
-                   cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
-                   max_lod=max_lod, cap=cap, radius=radius, probe=probe,
-                   root_depth=root_depth, quality=quality)
-
-
-# planet_t_refine's variants (csrc/refine.cu RefineVariant): "fused" is
-# planet_refine_level; "split" the same level with its compaction as a
-# second kernel; "one block" the whole refine in one launch of one block
-DESIGNS = {"fused": 0, "split": 1, "one block": 2}
-
-
-def refine_design(design: str, cam_hi, cam_lo, root_lo, root_hi, root_ch,
-                  root_cl, *, max_lod: int, cap: int, radius: float,
-                  probe: str = "zero", root_depth=None, quality: float = 1.0):
-    """Bench-only: refine_cuda's result by R1 design `design` of DESIGNS
-    (counted in _cuda.launches["t_refine"], a count a C call: max_lod + 1
-    calls, or one for "one block")."""
-    levels = int(max_lod) + 1
-    return _levels("t_refine", "planet_t_refine", (DESIGNS[design],),
-                   (levels,), 1 if design == "one block" else levels,
-                   cam_hi, cam_lo, root_lo, root_hi, root_ch, root_cl,
-                   max_lod=max_lod, cap=cap, radius=radius, probe=probe,
-                   root_depth=root_depth, quality=quality)
 
 
 def _check_order_args(lo, hi, depth, c_hi, c_lo, n, overflowed,

@@ -14,8 +14,7 @@ variant:
 
 Run one on the card with `python -m planet_tpu_torch.tools.<name>`, or on
 the CPU (plain versions only) with `--device cpu --small`. Beside them,
-kernel_times times the main path's kernels (K1 at two occupancies, K2 on
-the 1080p scene's records, K4, K5, t_noise) of this tree or of another
-unpacked beside it, so two trees compare on one card in one run;
-chip_smoke.py times the same calls (kernel_times.calls).
+kernel_times times every kernel of the main path at its shapes
+(kernel_times.calls) on this tree or on another unpacked beside it, so
+two trees compare on one card in one run.
 """

@@ -1,4 +1,4 @@
-"""What the attribution tools and chip_smoke.py share: the device argument,
+"""What the attribution tools and kernel_times share: the device argument,
 timing, the card's instruction rates and the bound (with the noise core's
 operation counts), a census of compiled instructions, and the per-variant
 report line."""

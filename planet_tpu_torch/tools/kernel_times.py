@@ -4,32 +4,32 @@ of the port on one card in one run.
     python planet_tpu_torch/tools/kernel_times.py [--root DIR] [--reps N]
 
 Imports planet_tpu_torch from DIR (default: the checkout that holds this
-file), so the same script times an older tree unpacked beside it, built
-from that tree's own sources: run it as old, new, new, old and compare
-within the run. Times (tools/common.time_ms: the median of REPS calls
-queued behind a spin kernel) the calls of `calls` — the set that
-chip_smoke.py phase 8 times for the kernels line: K1 at phase 3's shape
-and at the fused frame's occupancy, K4, R1, the DFS order kernel, C1,
-V1, A1 and U1 (on trees that have them; C1 with C2, K3's clip pass and
-the whole clip pass; U1 then V1 against V1's rows mode on A1's and U1's
-frames; the DFS order kernel beside its plain chain), K5,
-K2 and K3 on the record sets
-of `record_sets` (the 1080p static scene, the three goldens, the orbit
-frames with huge records) and on a screen-filling triangle, S1 at phase
-9a's two shapes with and without wireframe (`splat_inputs`), and K6 on
-the 1080p scene and on config 3's flight (p64_route_inputs: 2,048 rows x
-8,712 candidates) — and t_noise's variants (noise_stages.NOISE_VARIANTS,
-which phase 8 times through noise_stages.bench) on DIR's tree; then, by
-the host clock, the 1080p scene's route and gather as DIR's raster_frame
-runs them (`host_calls`). Prints the card's nvidia-smi name and power
-limit, then one JSON line: {"root": DIR, "ms": {label: ms}, "bounds":
-{K6's two labels: [least ms, by] or null}, "build_s": s}. Needs a CUDA device.
+file), so the same script times another tree unpacked beside it (a
+change's parent), built from that tree's own sources: run it as old, new,
+new, old and compare within the run. Times (tools/common.time_ms: the
+median of REPS calls queued behind a spin kernel) the calls of `calls`:
+K1 on 256 tiles and at the fused frame's occupancy, K4, R1, the DFS order
+kernel beside its plain chain, C1 with C2, K3's clip pass and the whole
+clip pass, V1 and its probes, A1, U1, U1 then V1 against V1's rows mode
+on A1's and U1's frames, K5, K2 and K3 on the record sets of
+`record_sets` (the 1080p static scene, the three goldens, the orbit
+frames with huge records) and on a screen-filling triangle, S1 at
+`splat_inputs`' two shapes with and without wireframe, and K6 on the
+1080p scene and on config 3's flight (p64_route_inputs: 2,048 rows x
+8,712 candidates) — and t_noise's variants (noise_stages.NOISE_VARIANTS);
+then, by the host clock, the 1080p scene's route and gather
+(`host_calls`).
 
-chip_smoke.py cannot take this role with a --root argument: it drives and
-checks the whole main path, and an older tree's phases and kernels line
-differ from this one's; this script needs only the kernels' wrappers, the
-host frame's record setup and noise_stages' inputs, which every tree
-since the attribution tools has.
+Prints what the build reports when this run builds the library (ptxas'
+registers, shared memory and spills a kernel) and, where the toolkit has
+cuobjdump, a census of the noise, field, tile, setup and refine kernels'
+conversions, f64, f32, shared-memory and shuffle instructions
+(tools/common.sass_census); then the card's nvidia-smi name and power
+limit, then one JSON line: {"root": DIR, "ms": {label: ms}, "bounds":
+{K6's two labels: [least ms, by]}, "sectors": {K6's 1080p label: the
+distinct 32-byte sectors its live records' reads touch}, "build_s": s}.
+Needs a CUDA device. chip_smoke.py reads the same times (`measure`) and
+each kernel's bound at the shape keyed to it (`bounds`).
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 
 
@@ -49,6 +48,12 @@ FUSED_SLOTS, FUSED_LIVE = 256, 24
 # the first frames of tools/bench_moving.py's descending orbit (48 frames
 # from 20 km to 3 km)
 ORBIT_FRAMES = 8
+# the dense frontier: a camera this high above the ridged surface under
+# the 1080p scene camera, at this LOD quality (EngineConfig.lod_quality):
+# 3,177 leaves, frontiers of up to 384 slots a level, ~4,300 live slots in
+# all (quality 24 overflows cap 4096)
+DENSE_ALTITUDE = 300.0
+DENSE_QUALITY = 16.0
 # the frame of stage_inputs whose A1 and U1 times the kernels line keeps:
 # one that generates a few tiles, as a moving frame does
 STAGE_MAIN = "1080p orbit frame 1"
@@ -59,8 +64,8 @@ STAGE_ORBIT_FRAMES = 4
 # the leaf counts the DFS order is timed at (order_calls): the flight's
 # fewest and most over a lap, the look-around's, the dense camera's all
 ORDER_LEAVES = (135, 210, 462, 3177)
-# host seconds each queued call may take (tools/common.QUEUE_S, set for
-# both trees of a comparison)
+# host seconds each queued call may take (tools/common.QUEUE_S): R1's
+# wrapper takes ~0.5 ms of host a call
 QUEUE_S = 2e-3
 # BASELINE config 3 as the benchmark runs it (64-vertex patches, 66 x 66
 # tiles, its quality, cache and caps), for K6 at its candidates
@@ -100,12 +105,28 @@ def orbit_cameras(cfg):
     return out
 
 
+def dense_camera(cfg):
+    """The dense case's camera position (f64, metres): DENSE_ALTITUDE above
+    the probes' ridged6 surface (6 ridged octaves at gain 0.55 of the unit
+    point at 1e-5 per metre, times 8848) under the 1080p scene camera."""
+    import numpy as np
+
+    from planet_tpu_torch.ops import perlin
+
+    pos = scene_camera(cfg).position
+    unit = pos / np.linalg.norm(pos)
+    p = unit * cfg.radius * 1e-5
+    h = perlin.ridged_f64(*(np.array([c]) for c in p), gain=np.float32(0.55),
+                          octaves=6, device="cpu")
+    return unit * (cfg.radius + float(h[0]) * 8848.0 + DENSE_ALTITUDE)
+
+
 def frame_set(engine, camera) -> dict:
     """One PlanetEngine frame's raster inputs, as its raster makes them:
     setup_t's route inputs `tm`, `live`, `span`; the span-kernel records
     `span_recs` and the huge kernel's `huge_recs` (the huge class, then the
     clipped near-plane straddlers' live triangles), built with the plain
-    route and gather that every tree of the port has; `width`, `height`."""
+    route and gather; `width`, `height`."""
     import numpy as np
     import torch
 
@@ -275,12 +296,9 @@ def p64_route_inputs(device, frames: int = ORBIT_FRAMES) -> dict:
 
 def route_bound(fs: dict):
     """K6's (least ms, by) on one set of route inputs: its candidates and
-    live ones through tools/common.route_work, or None on a tree whose
-    tools/common has no route_work."""
+    live ones through tools/common.route_work."""
     from planet_tpu_torch.tools import common
 
-    if not hasattr(common, "route_work"):
-        return None
     return common.bound_ms(*common.route_work(fs["tm"].shape[1],
                                               int(fs["live"].sum())))
 
@@ -301,19 +319,6 @@ def host_ms(fn, reps: int = 7) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
-
-
-def routed(fs: dict) -> dict:
-    """What K2 and K3 draw on one frame set in this tree's main path: the
-    class buffers and device counts of coverage_cuda.route_records where
-    the tree has it ("counts" set), else the exact record sets."""
-    from planet_tpu_torch.raster import coverage_cuda as cc
-
-    if not hasattr(cc, "route_records"):
-        return dict(span=fs["span_recs"], huge=fs["huge_recs"], counts=None)
-    span_buf, huge_buf, counts = cc.route_records(fs["tm"], fs["live"],
-                                                  fs["span"])
-    return dict(span=span_buf, huge=huge_buf, counts=counts)
 
 
 def setup_inputs(device) -> dict:
@@ -431,20 +436,18 @@ def stage_inputs(device):
     the static camera's first two frames from an
     empty pool (the first generating every leaf's tile, the second none)
     and the orbit's first STAGE_ORBIT_FRAMES frames from an empty pool
-    (frames 1 on generating a few tiles each). On a tree whose step
-    launches U1 and then V1 on its outputs, the U1 call and V1's tiles,
-    view-projection and grid are recorded instead. Copies."""
+    (frames 1 on generating a few tiles each). Copies."""
     import torch
 
     from planet_tpu_torch.cache import device_pool as dp
     from planet_tpu_torch.cache import device_pool_cuda
     from planet_tpu_torch.engine import device_step
     from planet_tpu_torch.engine.config import EngineConfig
-    from planet_tpu_torch.tess import mesh, uniforms_cuda, vertex_cuda
+    from planet_tpu_torch.tess import mesh, vertex_cuda
     from planet_tpu_torch.tools import stage_times
 
     cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
-    seen_c, seen_u, seen_v = [], [], []
+    seen_c, seen_v = [], []
 
     def clone(a):
         return a.clone() if isinstance(a, torch.Tensor) else a
@@ -460,20 +463,12 @@ def stage_inputs(device):
     def grid(kw):
         return (kw.get("grid", mesh.GRID),)
 
-    patches = [recording(device_pool_cuda, "cache_stage", lambda a, kw: (
-        seen_c.append((dp.PoolState(*(t.clone() for t in a[0])),
-                       tuple(map(clone, a[1:])), dict(kw)))))]
-    if hasattr(vertex_cuda, "tessellate_rows"):
-        patches.append(recording(vertex_cuda, "tessellate_rows",
-                                 lambda a, kw: seen_v.append(
-                                     tuple(map(clone, a)) + grid(kw))))
-    else:
-        patches += [
-            recording(uniforms_cuda, "uniforms", lambda a, kw: seen_u.append(
-                tuple(map(clone, a)))),
-            recording(vertex_cuda, "tessellate_shaded",
-                      lambda a, kw: seen_v.append(
-                          (a[2].clone(), a[6].clone()) + grid(kw)))]
+    patches = [
+        recording(device_pool_cuda, "cache_stage", lambda a, kw: (
+            seen_c.append((dp.PoolState(*(t.clone() for t in a[0])),
+                           tuple(map(clone, a[1:])), dict(kw))))),
+        recording(vertex_cuda, "tessellate_rows", lambda a, kw: seen_v.append(
+            tuple(map(clone, a)) + grid(kw)))]
     render = device_step.build_device_render(cfg, SCENE_W, SCENE_H,
                                              device=device)
     frames = [(f"1080p static frame {i}", scene_camera(cfg), i == 0)
@@ -489,8 +484,7 @@ def stage_inputs(device):
                 pool = dp.init(cfg.cache_capacity, cfg.tile_dim, device)
             render(pool, *stage_times.camera_args(cfg, cam, SCENE_W,
                                                   SCENE_H))
-            caches[name], v = seen_c.pop(), seen_v.pop()
-            rows[name] = v if len(v) == 12 else seen_u.pop() + v
+            caches[name], rows[name] = seen_c.pop(), seen_v.pop()
     finally:
         for module, name, fn, _ in patches:
             setattr(module, name, fn)
@@ -505,8 +499,9 @@ def tess_probes(args) -> dict:
     set to its first (every interpolation the linear fallback)."""
     import torch
 
-    # tools/common.tess_live, which a tree before it lacks
-    n = int((~torch.isnan(args[1]).flatten(1).any(1)).sum())
+    from planet_tpu_torch.tools import common
+
+    n = int(common.tess_live(args[1]).sum())
     live = tuple(t[:n].clone() if torch.is_tensor(t) and t.dim()
                  and t.shape[0] == args[2].shape[0] else t for t in args)
     flat = list(live)
@@ -520,72 +515,45 @@ def tess_probes(args) -> dict:
 
 
 def clip_inputs(setups: dict) -> dict:
-    """{name: C2's arguments} on each C1 input set, as the tree's
-    raster_frame hands them over: on a tree with the clip pass
-    (coverage_cuda.clip_pass) (clip, normal, straddle, blocks, width,
-    height, far_w, CLIP_CAP), C1's straddler mask and block counts; on a
-    tree before it (clip, normal, s_idx, width, height, far_w), the first
-    CLIP_CAP straddlers compacted by compact_indices."""
+    """{name: C2's arguments (clip, normal, straddle, blocks, width, height,
+    far_w, CLIP_CAP)} on each C1 input set, as raster_frame hands them
+    over: C1's straddler mask and block counts."""
     from planet_tpu_torch.raster import coverage_cuda as cc
 
     out = {}
     for name, (clip, normal, valid, w, h, cm, far, count) in setups.items():
         c1 = cc.setup(clip, normal, valid, w, h, cm, far, count)
-        if hasattr(cc, "clip_pass"):
-            out[name] = (clip, normal, c1[3], c1[4], w, h, far, cc.CLIP_CAP)
-        else:
-            s_idx, _ = cc.compact_indices(c1[3], cc.CLIP_CAP)
-            out[name] = (clip, normal, s_idx, w, h, far)
+        out[name] = (clip, normal, c1[3], c1[4], w, h, far, cc.CLIP_CAP)
     return out
 
 
-def clip_pass_calls(setups: dict, clips: dict) -> list:
-    """[(key or None, label, call, setup)]: on each set of `setups` and its
-    C2 arguments in `clips` (clip_inputs), as the tree's raster_frame runs
-    them: "C2 clip" (on a tree with the clip pass its kernel, the
-    compaction included; before it the record kernel alone on the
-    compacted slots), "K3 clip pass" (K3 on C2's records: with their
-    count; before, all 2 CLIP_CAP records) and "clip pass" (compaction,
-    C2 and K3: the clip pass's whole cost; before, a cumsum and a
-    searchsorted over the mask, C2 and K3), each K3 call into a fresh
-    framebuffer. The key of the 1080p static DeviceRenderer set's C2 call
-    is "clip", chip_smoke.py's kernels line entry."""
+def clip_pass_calls(clips: dict) -> list:
+    """[(key or None, label, call, setup)]: on each set's C2 arguments in
+    `clips` (clip_inputs), as raster_frame runs them: "C2 clip" (the clip
+    pass's kernel, the compaction included), "K3 clip pass" (K3 on C2's
+    records and their count) and "clip pass" (C2, then K3: the clip pass's
+    whole cost), each K3 call into a fresh framebuffer. The key of the
+    1080p static DeviceRenderer set's C2 call is "clip"."""
     import torch
 
     from planet_tpu_torch.raster import coverage as cov
     from planet_tpu_torch.raster import coverage_cuda as cc
 
-    new = hasattr(cc, "clip_pass_cuda")
     out = []
     for name, args in clips.items():
-        w, h = args[4] if new else args[3], args[5] if new else args[4]
-        if new:
-            def c2(args=args):
-                return cc.clip_pass_cuda(*args)
+        w, h = args[4], args[5]
 
-            _, _, recs, count = c2()
+        def c2(args=args):
+            return cc.clip_pass_cuda(*args)
 
-            def k3(fb, recs=recs, count=count):
-                return cc.raster_huge_cuda(recs, fb, count=count)
+        _, _, recs, count = c2()
 
-            def whole(fb, c2=c2):
-                recs, count = c2()[2:]
-                return cc.raster_huge_cuda(recs, fb, count=count)
-        else:
-            straddle = cc.setup(*setups[name])[3]
+        def k3(fb, recs=recs, count=count):
+            return cc.raster_huge_cuda(recs, fb, count=count)
 
-            def c2(args=args):
-                return cc.clip_records_cuda(*args)
-
-            recs = c2()
-
-            def k3(fb, recs=recs):
-                return cc.raster_huge_cuda(recs, fb)
-
-            def whole(fb, args=args, straddle=straddle):
-                s_idx, _ = cc.compact_indices(straddle, cc.CLIP_CAP)
-                recs = cc.clip_records_cuda(*args[:2], s_idx, *args[3:])
-                return cc.raster_huge_cuda(recs, fb)
+        def whole(fb, c2=c2):
+            recs, count = c2()[2:]
+            return cc.raster_huge_cuda(recs, fb, count=count)
 
         def fb(w=w, h=h):
             return (torch.full((h, w), cov._EMPTY, dtype=torch.int32,
@@ -600,17 +568,13 @@ def clip_pass_calls(setups: dict, clips: dict) -> list:
 
 def refine_call(device):
     """R1 on the 1080p static scene's camera from the six faces, as the
-    fused frame calls it (refine_device's CUDA route), or None on a tree
-    without R1."""
-    try:
-        from planet_tpu_torch.ops.kernels import refine_cuda
-    except ImportError:
-        return None
+    fused frame calls it (refine_device's CUDA route)."""
     import torch
 
     from planet_tpu_torch.engine import device_step
     from planet_tpu_torch.engine.config import EngineConfig
     from planet_tpu_torch.nums import df as dfm
+    from planet_tpu_torch.ops.kernels import refine_cuda
 
     cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
     cam = [torch.as_tensor(a, device=device)
@@ -622,33 +586,30 @@ def refine_call(device):
 
 
 def order_calls(device) -> list:
-    """[(None, label, call, tuple)]: the DFS order kernel
+    """[(key or None, label, call, tuple)]: the DFS order kernel
     (refine_cuda.dfs_order_cuda) and its plain chain on the card
     (refine_device.dfs_order_plain: the torch ops the fused step ran before
-    the kernel) on R1's leaves of r1_s1_parts' dense camera cut to their
-    first n, for n in ORDER_LEAVES (the rows past n zeros, as R1 leaves
-    them), at the fused frame's render cap of 512 and, at n = 3,177, at
-    the whole cap of 4,096 too; none on a tree without the kernel."""
+    the kernel) on R1's leaves of the dense camera (dense_camera) cut to
+    their first n, for n in ORDER_LEAVES (the rows past n zeros, as R1
+    leaves them), at the fused frame's render cap of 512 and, at n = 3,177,
+    at the whole cap of 4,096 too. The key of the kernel's call at the
+    flight's most leaves and the render cap is "order"."""
     import torch
 
-    from planet_tpu_torch.lod import refine_device
-    from planet_tpu_torch.ops.kernels import refine_cuda
-    from planet_tpu_torch.tools import r1_s1_parts
-
-    if not hasattr(refine_cuda, "dfs_order_cuda"):
-        return []
     from planet_tpu_torch.engine import device_step
     from planet_tpu_torch.engine.config import EngineConfig
+    from planet_tpu_torch.lod import refine_device
     from planet_tpu_torch.nums import df as dfm
+    from planet_tpu_torch.ops.kernels import refine_cuda
 
     cfg = EngineConfig(window_w=SCENE_W, window_h=SCENE_H)
     cam = [torch.as_tensor(a, device=device) for a in
-           dfm.from_f64_np(r1_s1_parts.dense_camera(cfg))]
+           dfm.from_f64_np(dense_camera(cfg))]
     roots = device_step.face_roots(cfg.radius, device)[:4]
     cap = 4096
     l_int, l_cor, n_all, _ = refine_cuda.refine_cuda(
         *cam, *roots, max_lod=cfg.max_lod, cap=cap, radius=cfg.radius,
-        probe="ridged6", quality=r1_s1_parts.DENSE_QUALITY)
+        probe="ridged6", quality=DENSE_QUALITY)
     n_all = int(n_all)
     out = []
     for n in ORDER_LEAVES:
@@ -661,7 +622,8 @@ def order_calls(device) -> list:
                 torch.tensor(False, device=device))
         for render_cap in (512, cap) if n > 512 else (512,):
             tag = f"n {n}, render cap {render_cap}"
-            out += [(None, f"DFS order kernel, {tag}",
+            main = n == ORDER_LEAVES[1] and render_cap == 512
+            out += [("order" if main else None, f"DFS order kernel, {tag}",
                      lambda a=args, r=render_cap:
                      refine_cuda.dfs_order_cuda(*a, r), tuple),
                     (None, f"DFS order plain chain, {tag}",
@@ -672,7 +634,7 @@ def order_calls(device) -> list:
 
 def splat_inputs(device) -> dict:
     """{name: S1's arguments (clip, shade, valid, width, height, k,
-    wireframe)} as chip_smoke.py phase 9a times them: the 1080p static
+    wireframe)} at the splat raster's 1080p shapes: the 1080p static
     scene in splat mode (supersample 8, the driver's rule for 1920 wide)
     through PlanetEngine's leaves ("PlanetEngine") and through
     DeviceRenderer's render_cap rows, padding rows invalid ("DeviceRenderer
@@ -715,50 +677,45 @@ def splat_inputs(device) -> dict:
     return out
 
 
-def calls(device, sets=None, fused=None, setups=None, tess=None,
-          stages=None, p64=None) -> list:
+def calls(device, sets=None, p64=None) -> list:
     """[(key or None, label, call, setup)]: the main path's kernels at its
     shapes, each timed as call(*setup()) — K1 on 256 tiles of octaves 6-18
     (noise_stages.tile_inputs) and at the fused frame's occupancy
-    (`fused`, else fused_tile_inputs), K4 at the refine-probe shape (5 x
-    4096 points, ridged 6) and at 2^20 points x 18 octaves, R1 (where the
-    tree has it: ops/kernels/refine_cuda) on the 1080p scene's camera from
-    the six faces (max_lod 18, cap 4096, ridged probes), the DFS order
-    kernel and its plain chain (where the tree has the kernel:
-    order_calls), K5 at 6 x 2048^2;
-    on each frame set of `sets` (else record_sets): K2 on its span
-    records as the tree's main path draws them (routed), K3 on its huge
-    records (the huge class and the clipped straddlers), each into a fresh
-    framebuffer a call; K3 on screen_triangle_records at 1080p; S1 at
-    splat_inputs' shapes; C1 (where the tree has it) on each set of
-    setup_inputs (else `setups`), C2, K3's clip pass and the whole clip
-    pass on their straddlers (clip_pass_calls); V1 (where the tree has
-    it: tess/vertex_cuda) on each set of tess_inputs (else `tess`) and
-    on tess_probes' parts of its 512 rows; A1 and U1 (where the tree has
-    them: cache/device_pool_cuda, tess/uniforms_cuda) on each frame of
-    stage_inputs (else `stages`), A1 into a fresh copy of the frame's pool
-    a call, and on the same frames the tessellate stage as U1 then V1 on
-    its outputs ("U1 + V1", every tree) and as V1's rows mode ("V1 rows",
-    where the tree has it: vertex_cuda.tessellate_rows_cuda); and K6 on the 1080p scene: this tree's route_records, or on a tree before it the
-    two record gathers its route fed (given the indices: its route
-    synchronizes, see host_calls), and, where the tree has route_records,
-    on config 3's flight (`p64`, else p64_route_inputs). The key is the kernel's in
-    chip_smoke.py's kernels line ("tile_fused": its tile entry's
-    queued_fused_ms). Inputs come from numpy seeds and the scenes'
-    cameras; the modules are imported here, so they come from whichever
-    tree is first on sys.path."""
+    (fused_tile_inputs), K4 at the refine-probe shape (5 x 4096 points,
+    ridged 6) and at 2^20 points x 18 octaves, R1 on the 1080p scene's
+    camera from the six faces (max_lod 18, cap 4096, ridged probes), the
+    DFS order kernel and its plain chain (order_calls), K5 at 6 x 2048^2;
+    on each frame set of `sets` (else record_sets): K2 on K6's span buffer
+    with the count on the device, as the main path draws it, K3 on its
+    huge records (the huge class and the clipped straddlers), each into a
+    fresh framebuffer a call; K3 on screen_triangle_records at 1080p; S1
+    at splat_inputs' shapes; C1 on each set of setup_inputs, C2, K3's clip
+    pass and the whole clip pass on their straddlers (clip_pass_calls); V1
+    on each set of tess_inputs and on tess_probes' parts of its 512 rows;
+    A1 and U1 on each frame of stage_inputs, A1 into a fresh copy of the
+    frame's pool a call, and on the same frames the tessellate stage as U1
+    then V1 on its outputs ("U1 + V1") and as V1's rows mode ("V1 rows");
+    and K6 on the 1080p scene and on config 3's flight (`p64`, else
+    p64_route_inputs). The key names the kernel ("tile_fused": K1 at the
+    fused occupancy; "tess_pair" and "tess_rows": the tessellate stage's
+    two forms). Inputs come from numpy seeds and the scenes' cameras; the
+    modules are imported here, so they come from whichever tree is first
+    on sys.path."""
     import numpy as np
     import torch
 
+    from planet_tpu_torch.cache import device_pool_cuda
     from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
     from planet_tpu_torch.raster import coverage as cov
     from planet_tpu_torch.raster import coverage_cuda as cc
+    from planet_tpu_torch.raster import splat
+    from planet_tpu_torch.tess import uniforms_cuda, vertex_cuda
     from planet_tpu_torch.tools import noise_stages
 
     corners = noise_stages.tile_inputs(256, device)
     octs = torch.as_tensor(6 + np.arange(256, dtype=np.int32) % 13,
                            device=device)
-    fused = fused_tile_inputs(device) if fused is None else fused
+    fused = fused_tile_inputs(device)
     probe = noise_stages.noise_inputs(5 * 4096, device)
     sphere = noise_stages.noise_inputs(1 << 20, device)
     sets = record_sets(device) if sets is None else sets
@@ -767,12 +724,6 @@ def calls(device, sets=None, fused=None, setups=None, tess=None,
     def fresh_fb(width, height):
         return lambda: (torch.full((height, width), cov._EMPTY,
                                    dtype=torch.int32, device=device),)
-
-    def span_call(r):
-        if r["counts"] is None:
-            return lambda fb: cc.raster_span_cuda(r["span"], fb)
-        return lambda fb: cc.raster_span_cuda(r["span"], fb,
-                                              count=r["counts"][0:1])
 
     out = [
         ("tile", "K1 tile, 256 tiles x octaves 6-18",
@@ -786,106 +737,84 @@ def calls(device, sets=None, fused=None, setups=None, tess=None,
         (None, "K4 noise, 2^20 points, ridged 18",
          lambda: perlin_cuda.noise_cuda("ridged", *sphere, octaves=18,
                                         gain=0.55), tuple),
+        ("refine", "R1 refine, 1080p static camera, ridged6, cap 4096",
+         refine_call(device), tuple),
         ("field", "K5 field 6x2048^2",
          lambda: field_cuda.field_kernel(2048, 6371000.0, device=device),
          tuple),
     ]
-    refine = refine_call(device)
-    if refine is not None:
-        out.insert(4, ("refine", "R1 refine, 1080p static camera, ridged6, "
-                                 "cap 4096", refine, tuple))
     out += order_calls(device)
     for name, fs in sets.items():
-        r = routed(fs)
-        fb = fresh_fb(fs["width"], fs["height"])
+        span_buf, _, counts = cc.route_records(fs["tm"], fs["live"],
+                                               fs["span"])
         out.append(("span" if name == "1080p static" else None,
                     f"K2 span, {name}, {fs['span_recs'].shape[0]} records",
-                    span_call(r), fb))
+                    lambda fb, b=span_buf, c=counts: cc.raster_span_cuda(
+                        b, fb, count=c[0:1]),
+                    fresh_fb(fs["width"], fs["height"])))
         if fs["huge_recs"].shape[0]:
             hrecs = fs["huge_recs"]
             out.append(("huge" if name == "golden nearclip" else None,
                         f"K3 huge, {name}, {hrecs.shape[0]} records",
-                        lambda fb, h=hrecs: cc.raster_huge_cuda(h, fb), fb))
+                        lambda fb, h=hrecs: cc.raster_huge_cuda(h, fb),
+                        fresh_fb(fs["width"], fs["height"])))
     tri = screen_triangle_records(SCENE_W, SCENE_H, device)
     out.append((None, "K3 huge, screen-filling triangle 1080p, 2 records",
                 lambda fb: cc.raster_huge_cuda(tri, fb),
                 fresh_fb(SCENE_W, SCENE_H)))
-    from planet_tpu_torch.raster import splat
     for name, sargs in splat_inputs(device).items():
-        out.append((None, f"S1 splat, {name}",
+        out.append(("splat" if name == "DeviceRenderer rows" else None,
+                    f"S1 splat, {name}",
                     lambda a=sargs: splat.splat_keys_cuda(*a), tuple))
     main = "1080p static, DeviceRenderer rows"
-    if hasattr(cc, "setup_cuda"):
-        setups = setup_inputs(device) if setups is None else setups
-        for name, args in setups.items():
-            out.append(("setup" if name == main else None, f"C1 setup, {name}",
-                        lambda a=args: cc.setup_cuda(*a), tuple))
-        out += clip_pass_calls(setups, clip_inputs(setups))
-    try:
-        from planet_tpu_torch.tess import vertex_cuda
-    except ImportError:
-        vertex_cuda = None
-    if vertex_cuda is not None:
-        tess = tess_inputs(device) if tess is None else tess
-        for name, args in tess.items():
-            out.append(("tess" if name == main else None, f"V1 tess, {name}",
-                        lambda a=args: vertex_cuda.tessellate_shaded_cuda(*a),
-                        tuple))
-        for label, args in tess_probes(tess[main]).items():
-            out.append((None, f"V1 probe, {label}",
-                        lambda a=args: vertex_cuda.tessellate_shaded_cuda(
-                            *a), tuple))
-    try:
-        from planet_tpu_torch.cache import device_pool_cuda
-        from planet_tpu_torch.tess import uniforms_cuda
-    except ImportError:
-        device_pool_cuda = None
-    if device_pool_cuda is not None:
-        caches, rows = stage_inputs(device) if stages is None else stages
-        for name, (pool, args, kw) in caches.items():
-            out.append(("cache" if name == STAGE_MAIN else None,
-                        f"A1 cache, {name}",
-                        lambda p, a=args, k=kw: device_pool_cuda
-                        .cache_stage_cuda(p, *a, **k),
-                        lambda p=pool: (type(p)(*(t.clone() for t in p)),)))
-        for name, args in rows.items():
-            out.append(("uniforms" if name == STAGE_MAIN else None,
-                        f"U1 uniforms, {name}",
-                        lambda a=args[:9]: uniforms_cuda.uniforms_cuda(*a),
-                        tuple))
-        # the fused step's tessellate stage: U1, then V1 on its outputs
-        # (every tree before V1's rows mode), against V1's rows mode
-        for name, args in rows.items():
-            out.append(("tess_pair" if name == ROWS_MAIN else None,
-                        f"U1 + V1, {name}",
-                        lambda a=args: u1_then_v1(a), tuple))
-            if hasattr(vertex_cuda, "tessellate_rows_cuda"):
-                out.append(("tess_rows" if name == ROWS_MAIN else None,
-                            f"V1 rows, {name}",
-                            lambda a=args: vertex_cuda.tessellate_rows_cuda(
-                                *a), tuple))
-        if hasattr(vertex_cuda, "tessellate_rows_cuda"):
-            # the staging's share: every row a padding row (zero DF
-            # corners), beside V1's "every row padding" probe
-            pad = list(rows[ROWS_MAIN])
-            pad[4], pad[5] = (torch.zeros_like(t) for t in pad[4:6])
-            out.append((None, "V1 rows probe, every row padding",
-                        lambda a=tuple(pad): vertex_cuda
-                        .tessellate_rows_cuda(*a), tuple))
-    fs = sets["1080p static"]
-    if hasattr(cc, "route_records"):
-        p64 = p64_route_inputs(device) if p64 is None else p64
-        for key, label, r in (("gather", ROUTE_1080P, fs),
-                              (None, ROUTE_P64, p64)):
-            out.append((key, label,
-                        lambda r=r: cc.route_records_cuda(r["tm"], r["live"],
-                                                          r["span"]), tuple))
-    else:
-        out.append(("gather", ROUTE_1080P,
-                    lambda: (cc.gather_records_cuda(fs["tm"], fs["span_idx"]),
-                             cc.gather_records_cuda(fs["tm"],
-                                                    fs["huge_idx"])),
+    setups = setup_inputs(device)
+    for name, args in setups.items():
+        out.append(("setup" if name == main else None, f"C1 setup, {name}",
+                    lambda a=args: cc.setup_cuda(*a), tuple))
+    out += clip_pass_calls(clip_inputs(setups))
+    tess = tess_inputs(device)
+    for name, args in tess.items():
+        out.append(("tess" if name == main else None, f"V1 tess, {name}",
+                    lambda a=args: vertex_cuda.tessellate_shaded_cuda(*a),
                     tuple))
+    for label, args in tess_probes(tess[main]).items():
+        out.append((None, f"V1 probe, {label}",
+                    lambda a=args: vertex_cuda.tessellate_shaded_cuda(*a),
+                    tuple))
+    caches, rows = stage_inputs(device)
+    for name, (pool, args, kw) in caches.items():
+        out.append(("cache" if name == STAGE_MAIN else None,
+                    f"A1 cache, {name}",
+                    lambda p, a=args, k=kw: device_pool_cuda
+                    .cache_stage_cuda(p, *a, **k),
+                    lambda p=pool: (type(p)(*(t.clone() for t in p)),)))
+    for name, args in rows.items():
+        out.append(("uniforms" if name == STAGE_MAIN else None,
+                    f"U1 uniforms, {name}",
+                    lambda a=args[:9]: uniforms_cuda.uniforms_cuda(*a),
+                    tuple))
+    # the fused step's tessellate stage: U1, then V1 on its outputs,
+    # against V1's rows mode
+    for name, args in rows.items():
+        out.append(("tess_pair" if name == ROWS_MAIN else None,
+                    f"U1 + V1, {name}", lambda a=args: u1_then_v1(a), tuple))
+        out.append(("tess_rows" if name == ROWS_MAIN else None,
+                    f"V1 rows, {name}",
+                    lambda a=args: vertex_cuda.tessellate_rows_cuda(*a),
+                    tuple))
+    # the staging's share: every row a padding row (zero DF corners),
+    # beside V1's "every row padding" probe
+    pad = list(rows[ROWS_MAIN])
+    pad[4], pad[5] = (torch.zeros_like(t) for t in pad[4:6])
+    out.append((None, "V1 rows probe, every row padding",
+                lambda a=tuple(pad): vertex_cuda.tessellate_rows_cuda(*a),
+                tuple))
+    p64 = p64_route_inputs(device) if p64 is None else p64
+    for key, label, r in (("gather", ROUTE_1080P, sets["1080p static"]),
+                          (None, ROUTE_P64, p64)):
+        out.append((key, label,
+                    lambda r=r: cc.route_records_cuda(r["tm"], r["live"],
+                                                      r["span"]), tuple))
     return out
 
 
@@ -903,28 +832,208 @@ def u1_then_v1(args):
 
 def host_calls(sets: dict) -> list:
     """[(label, call)] timed by the host clock (host_ms): the 1080p scene's
-    route and gather as the tree's raster_frame runs them (this tree: one
-    route_records; before it: route, which synchronizes on its two
-    nonzero() calls, and the two gathers), and the route alone on a tree
-    before this one."""
+    route and gather, one route_records."""
     from planet_tpu_torch.raster import coverage_cuda as cc
 
     fs = sets["1080p static"]
-    tm, live, span = fs["tm"], fs["live"], fs["span"]
-    if hasattr(cc, "route_records"):
-        return [("K6 route + gather, 1080p, host clock",
-                 lambda: cc.route_records_cuda(tm, live, span))]
+    return [("K6 route + gather, 1080p, host clock",
+             lambda: cc.route_records_cuda(fs["tm"], fs["live"], fs["span"]))]
 
-    def composed():
-        s, h = cc.route(tm, live, span)
-        if s.numel():
-            cc.gather_records_cuda(tm, s)
-        if h.numel():
-            cc.gather_records_cuda(tm, h)
 
-    return [("K6 route + gather, 1080p, host clock", composed),
-            ("route alone, 1080p, host clock",
-             lambda: cc.route(tm, live, span))]
+def build_report(cuda_module, common) -> list:
+    """The lines that describe the kernel library as this run loaded it:
+    ptxas' report of each kernel (registers, shared memory, spills) when
+    the run built it, and a census of the compiled instructions of the
+    noise, field, tile, setup and refine kernels (common.sass_census)
+    where the toolkit has cuobjdump."""
+    lines = [f"ptxas: {line.strip()}" for line in
+             cuda_module.build_info.get("log", "").splitlines()
+             if any(k in line for k in ("registers", "spill", "Compiling"))]
+    for name, counts in common.sass_census(
+            cuda_module.build_info["path"]).items():
+        lines.append(f"sass {name[:70]}: " + " ".join(
+            f"{op} {k}" for op, k in counts.items()))
+    return lines
+
+
+# f32 operations per element beyond the noise core's (tools/common's
+# counts), from the kernel bodies in planet_tpu_torch/csrc, counted as
+# tools/common counts them (integer hashing and conversions not counted,
+# so each bound is a floor): K5's texel (field.cu: coordinates 84 with 5
+# error-free products, the amplitude, normal and shade 16); K2/K3's
+# function (raster.cu) per bbox row, its exact interval (per edge the
+# line's boundary estimate 4 and the exact edge test on either side of it
+# 2 x 5), per pixel inside the interval fragment()'s edge functions and
+# tests, per accepted fragment the depth, normal, shade and packing; S1's
+# fragment of a valid cell (splat.cu: the blend of 5 values 35, the w test
+# and reciprocal 2, the NDC 3, the pixel 8, range and depth tests 2, the
+# two clamped quantizations 10)
+OPS_FIELD_TEXEL = 101
+OPS_RASTER_ROW = 3 * (4 + 2 * 5)
+OPS_RASTER_CANDIDATE = 15
+OPS_RASTER_ACCEPTED = {"span": 41, "huge": 48}
+OPS_SPLAT_FRAGMENT = 60
+
+
+def raster_bound(kernel: str, recs, width: int, height: int, clock=None):
+    """K2's or K3's (`kernel` "span" or "huge") (least ms, by) on records
+    `recs`, a property of the function: each bbox row's exact interval
+    found (coverage_cuda.row_intervals_plain counts the rows and the
+    pixels inside them), each pixel inside tested, each covered pixel
+    took at least one accepted fragment; the records read once and each
+    covered pixel's key read and written once."""
+    import torch
+
+    from planet_tpu_torch.raster import coverage as cov
+    from planet_tpu_torch.raster import coverage_cuda as cc
+    from planet_tpu_torch.tools import common
+
+    fb = torch.full((height, width), cov._EMPTY, dtype=torch.int32,
+                    device=recs.device)
+    (cc.raster_span_cuda if kernel == "span" else cc.raster_huge_cuda)(
+        recs, fb)
+    _, _, lo, hi = cc.row_intervals_plain(recs)
+    inside = float((hi - lo + 1).clamp_min(0).sum())
+    covered = int((fb != cov._EMPTY).sum())
+    return common.bound_ms(
+        lo.numel() * OPS_RASTER_ROW + inside * OPS_RASTER_CANDIDATE
+        + covered * OPS_RASTER_ACCEPTED[kernel],
+        recs.shape[0] * 128 + 2 * covered * 4, sm_clock_hz=clock)
+
+
+def bounds(device, sets: dict, clock=None) -> dict:
+    """{key: (least ms, by)} (tools/common.bound_ms at SM clock `clock`)
+    of each kernel at the shape `calls` times it at under that key: K1 on
+    its 256 tiles, K4 at the refine probes, R1 on the static camera (its
+    leaves and their splits), D1 on the flight's most leaves, K5 at 6 x
+    2048^2, K2 and K3 on the record sets of `sets` (record_sets) that
+    `calls` keys, K6 on the 1080p scene (route_bound), C1 and C2 on the
+    static camera's DeviceRenderer rows, V1 on tess_inputs' rows, A1 and
+    U1 on STAGE_MAIN, V1's rows mode on ROWS_MAIN and S1 on splat_inputs'
+    DeviceRenderer rows; each count of live work read from the kernel's
+    own output."""
+    import numpy as np
+    import torch
+
+    from planet_tpu_torch.cache import device_pool_cuda
+    from planet_tpu_torch.raster import coverage_cuda as cc
+    from planet_tpu_torch.raster import splat
+    from planet_tpu_torch.tess import uniforms_cuda, vertex_cuda
+    from planet_tpu_torch.tools import common
+
+    def bound(ops, nbytes, f64_ops=0.0):
+        return common.bound_ms(ops, nbytes, f64_ops=f64_ops,
+                               sm_clock_hz=clock)
+
+    out = {}
+    octs = 6 + np.arange(256) % 13
+    work = [common.noise_work(o) for o in octs]
+    texel = common.OPS_TILE_UV + common.OPS_TILE_BLEND + 1
+    out["tile"] = bound(1024 * sum(texel + w[0] for w in work),
+                        len(octs) * (2 * 12 * 4 + 4 + 1024 * 4),
+                        1024 * sum(w[1] for w in work))
+    n4 = 5 * 4096
+    ops4, f64_4 = common.noise_work(6)
+    out["noise"] = bound(n4 * ops4, n4 * 28, n4 * f64_4)
+    # D1: 224 B a live row (27 words read and written, an 8-byte key)
+    out["order"] = bound(0.0, 224 * ORDER_LEAVES[1])
+    n_r1 = int(refine_call(device)()[2])
+    splits = (n_r1 - 6) // 3            # each split slot's 4 children
+    ops_r1, f64_r1 = common.refine_work(n_r1 + splits, splits)
+    # read once: the camera and the six roots; written once: the (27,
+    # cap) leaf rows, n_leaves and the flag
+    out["refine"] = bound(ops_r1,
+                          24 + 6 * (3 * 4 + 2 * 48) + 4096 * 27 * 4 + 5,
+                          f64_r1)
+    texels = 6 * 2048 * 2048
+    ops5, f64_5 = common.noise_work(6)
+    out["field"] = bound(texels * (OPS_FIELD_TEXEL + ops5), texels * 8,
+                         texels * f64_5)
+    for key, name, recs in (("span", "1080p static", "span_recs"),
+                            ("huge", "golden nearclip", "huge_recs")):
+        fs = sets[name]
+        out[key] = raster_bound(key, fs[recs], fs["width"], fs["height"],
+                                clock)
+    out["gather"] = route_bound(sets["1080p static"])
+    main = "1080p static, DeviceRenderer rows"
+    args = setup_inputs(device)[main]
+    c1 = cc.setup_cuda(*args)
+    out["setup"] = bound(*common.setup_work(
+        int(args[7][0]), args[0].shape[1], c1[1].numel(), int(c1[1].sum())))
+    cargs = clip_inputs({main: args})[main]
+    c2 = cc.clip_pass_cuda(*cargs)
+    blocks, slots = cargs[3], cargs[7]
+    out["clip"] = bound(*common.clip_work(
+        blocks.numel(), slots, min(int(c1[3].sum()), slots), int(c2[3][0]),
+        int((blocks > 0).sum())))
+    targs = tess_inputs(device)[main]
+    grid = vertex_cuda.tessellate_shaded_cuda(*targs)[0].clip.shape[1]
+    out["tess"] = bound(*common.tess_work(
+        targs[2].shape[0], grid, common.tess_slerps(targs[1], grid),
+        live=int(common.tess_live(targs[1]).sum())))
+    caches, rows = stage_inputs(device)
+    pool, aargs, kw = caches[STAGE_MAIN]
+    generated = int(device_pool_cuda.cache_stage_cuda(
+        type(pool)(*(t.clone() for t in pool)), *aargs, **kw).n_generated)
+    out["cache"] = bound(*common.cache_work(
+        aargs[0].shape[0], pool.capacity, int(aargs[5]), generated,
+        kw["gen_cap"]))
+    out["uniforms"] = bound(*common.uniforms_work(rows[STAGE_MAIN][0]
+                                                  .shape[0]))
+    rargs = rows[ROWS_MAIN]
+    normals = uniforms_cuda.uniforms_cuda(*rargs[:9]).normals
+    out["tess_rows"] = bound(*common.tess_rows_work(
+        rargs[0].shape[0], rargs[11], common.tess_slerps(normals, rargs[11]),
+        live=int(common.tess_live(normals).sum())))
+    clip, _, sv, _, _, ss, _ = sargs = splat_inputs(device)[
+        "DeviceRenderer rows"]
+    cells = int((sv[:, :-1, :-1] & sv[:, :-1, 1:] & sv[:, 1:, :-1]
+                 & sv[:, 1:, 1:]).sum())
+    covered = int((splat.splat_keys_cuda(*sargs) != splat._EMPTY).sum())
+    g = clip.shape[1]
+    out["splat"] = bound(cells * ss * ss * OPS_SPLAT_FRAGMENT,
+                         clip.shape[0] * g * g * 21 + covered * 4)
+    torch.cuda.synchronize()
+    return out
+
+
+def measure(reps: int = 7) -> dict:
+    """On the card: the queued ms of every call of `calls` and of t_noise's
+    variants and the host-clock ms of `host_calls`: {"ms": {label: ms},
+    "keys": {key: label}, "bounds": {K6's two labels: [least ms, by]},
+    "sectors": {K6's 1080p label: the distinct 32-byte sectors its live
+    records' reads touch}, "sets": the record sets}."""
+    import torch
+
+    from planet_tpu_torch.tools import common, noise_stages
+
+    common.QUEUE_S = max(common.QUEUE_S, QUEUE_S)
+    dev = torch.device("cuda")
+    sets = record_sets(dev)
+    p64 = p64_route_inputs(dev)
+    runs, keys = {}, {}
+    for key, label, fn, setup in calls(dev, sets, p64=p64):
+        runs[label] = (fn, setup)
+        if key:
+            keys[key] = label
+    points = noise_stages.noise_inputs(1 << 22, dev)
+    for name in noise_stages.NOISE_VARIANTS:
+        runs[f"t_noise {name}"] = (
+            lambda name=name: noise_stages.noise_stage(name, points), tuple)
+    ms = {}
+    for name, (fn, setup) in runs.items():
+        fn(*setup())
+        ms[name] = common.time_ms(fn, setup, reps=reps)
+    for name, fn in host_calls(sets):
+        fn()
+        ms[name] = host_ms(fn, reps=reps)
+    torch.cuda.synchronize()
+    fs = sets["1080p static"]
+    return dict(
+        ms=ms, keys=keys, sets=sets,
+        bounds={ROUTE_1080P: route_bound(fs), ROUTE_P64: route_bound(p64)},
+        sectors={ROUTE_1080P: gather_sectors(
+            torch.cat([fs["span_idx"], fs["huge_idx"]]), fs["tm"].shape[1])})
 
 
 def main(argv=None) -> int:
@@ -937,37 +1046,18 @@ def main(argv=None) -> int:
     import torch
 
     from planet_tpu_torch import _cuda
-    from planet_tpu_torch.tools import common, noise_stages
+    from planet_tpu_torch.tools import common
 
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
-    common.QUEUE_S = max(common.QUEUE_S, QUEUE_S)     # an older tree's too
     _cuda.library()
-    dev = torch.device("cuda")
-    sets = record_sets(dev)
-    p64 = p64_route_inputs(dev)
-    runs = {label: (fn, setup)
-            for _, label, fn, setup in calls(dev, sets, p64=p64)}
-    points = noise_stages.noise_inputs(1 << 22, dev)
-    for name in noise_stages.NOISE_VARIANTS:
-        runs[f"t_noise {name}"] = (
-            lambda name=name: noise_stages.noise_stage(name, points), tuple)
-    ms = {}
-    for name, (fn, setup) in runs.items():
-        fn(*setup())
-        ms[name] = common.time_ms(fn, setup, reps=args.reps)
-    for name, fn in host_calls(sets):
-        fn()
-        ms[name] = host_ms(fn, reps=args.reps)
-    torch.cuda.synchronize()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi)
-    bounds = {ROUTE_1080P: route_bound(sets["1080p static"]),
-              ROUTE_P64: route_bound(p64)}
-    print(json.dumps({"root": args.root, "ms": ms, "bounds": bounds,
+    for line in build_report(_cuda, common):
+        print(line, flush=True)
+    r = measure(args.reps)
+    print(common.card_line())
+    print(json.dumps({"root": args.root, "ms": r["ms"], "bounds": r["bounds"],
+                      "sectors": r["sectors"],
                       "build_s": _cuda.build_info.get("seconds")}))
     return 0
 

@@ -111,10 +111,9 @@ REPLACES = {"T8": "tools/microbench_span2.py:86",
 SIZES = {"width": 1920, "height": 1080, "small": 4096, "big": 32768}
 SMALL = {"width": 384, "height": 128, "small": 64, "big": 256}
 
-# f32 operations of each body, counted from csrc/bench_span.cu like
-# chip_smoke's OPS_CANDIDATE / OPS_ACCEPTED: per candidate pixel (the edge
-# functions and their tests) and per accepted fragment (depth, normal,
-# shade, packing).
+# f32 operations of each body, counted from csrc/bench_span.cu: per
+# candidate pixel (the edge functions and their tests) and per accepted
+# fragment (depth, normal, shade, packing).
 OPS_CANDIDATE = {"full": 15, "noshade": 15, "fewscalar": 5, "rmw_only": 0,
                  "empty": 0, "static_rmw": 15}
 OPS_ACCEPTED = {"full": 41, "noshade": 12, "fewscalar": 31, "rmw_only": 0,

@@ -38,7 +38,7 @@ from planet_tpu_torch.raster import coverage as cov
 from planet_tpu_torch.raster import coverage_cuda as cc
 from planet_tpu_torch.raster import nearclip
 from planet_tpu_torch.tess import mesh
-from tests.torch_scenes import (STRADDLE, VIEW, straddle_scene,
+from torch_scenes import (STRADDLE, VIEW, straddle_scene,
                                 view_scene)
 
 torch.set_num_threads(1)

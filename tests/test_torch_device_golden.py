@@ -30,7 +30,7 @@ from planet_tpu_torch.lod import refine as lod_refine
 from planet_tpu_torch.nums import df as tdf
 from planet_tpu_torch.raster import coverage as cov
 from planet_tpu_torch.tess import mesh, vertex
-from tests.test_golden_frame import _ssim
+from torch_scenes import assert_golden_counts, assert_golden_image
 
 torch.set_num_threads(1)
 GOLD = pathlib.Path(__file__).parent / "goldens"
@@ -75,30 +75,12 @@ def scene(request):
 
 
 def test_device_frame_meets_the_golden_bars(scene):
-    name, frames, rc, _, _, _, meta = scene
+    name, frames, rc, _, _, _, _ = scene
     frame = frames[-1]
     assert frame.n_generated == 0 and len(frames) <= 4
-    assert not frame.overflowed and not rc.overflowed
-    assert frame.n_leaves == int(meta[0])
-    if name == "nearclip":
-        assert rc.n_straddle == int(meta[3])
-        assert rc.n_huge > 0
-    else:
-        assert int(meta[5]) > 1000          # the scene really crosses far
-        assert rc.n_huge > 0                # far-straddlers take the huge path
-    image, depth = frame.image.numpy(), frame.depth.numpy()
-    gold_img = np.load(GOLD / f"{name}_image.npy")
-    gold_dep = np.load(GOLD / f"{name}_depth.npy")
-    cov_d, gcov = np.isfinite(depth), np.isfinite(gold_dep)
-    if name == "nearclip":
-        assert 0.5 < gcov.mean() < 0.95, gcov.mean()
-    agree = (cov_d == gcov).mean()
-    assert agree > 0.999, f"coverage agreement {agree}"
-    both = cov_d & gcov
-    ds = np.abs(image[both] - gold_img[both])
-    assert np.quantile(ds, 0.99) <= 2.5 / 1023, np.quantile(ds, 0.99)
-    assert ds.mean() < 1.0 / 1023, ds.mean()
-    assert _ssim(image, gold_img) > 0.99
+    assert not frame.overflowed
+    assert_golden_counts(name, frame.n_leaves, rc)
+    assert_golden_image(name, frame.image.numpy(), frame.depth.numpy())
 
 
 def test_live_triangles_against_planet_engine(scene):

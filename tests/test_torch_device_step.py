@@ -52,7 +52,6 @@ from planet_tpu_torch.geom import quadid as tq
 from planet_tpu_torch.lod import refine as lod_refine
 from planet_tpu_torch.nums import df as tdf
 from planet_tpu_torch.tess import uniforms_cuda
-from tests.test_golden_frame import _ssim
 
 torch.set_num_threads(1)
 GOLD = pathlib.Path(__file__).parent / "goldens"
@@ -103,18 +102,8 @@ def test_golden_frame_converges_at_the_bars(golden):
     assert frame.n_generated == 0 and len(frames) <= 4
     assert not frame.overflowed
     assert frame.n_leaves == int(meta[0])
-    image, depth = frame.image.numpy(), frame.depth.numpy()
-    gold_img = np.load(GOLD / "frame_image.npy")
-    gold_dep = np.load(GOLD / "frame_depth.npy")
-    cov, gcov = np.isfinite(depth), np.isfinite(gold_dep)
-    assert (cov == gcov).mean() > 0.999, (cov == gcov).mean()
-    both = cov & gcov
-    ds = np.abs(image[both] - gold_img[both])
-    assert np.quantile(ds, 0.99) <= 2.5 / 1023, np.quantile(ds, 0.99)
-    assert ds.mean() < 1.0 / 1023, ds.mean()
-    dd = np.abs(depth[both] - gold_dep[both])
-    assert np.quantile(dd, 0.99) < 1e-5, np.quantile(dd, 0.99)
-    assert _ssim(image, gold_img) > 0.99
+    torch_scenes.assert_golden_image("frame", frame.image.numpy(),
+                                     frame.depth.numpy())
 
 
 def test_matches_host_engine_on_the_converged_camera(golden):

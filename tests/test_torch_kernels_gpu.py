@@ -61,7 +61,31 @@ the eager step bit for bit and launching the wide instance once, and the
 wide instance on the step's own rows equal to its plain version;
 five profiled interactive frames: the graphs' captures in the first
 alone, each later frame's kernels starting after its geometry replay's
-span has started, the readback's copies ending inside its span."""
+span has started, the readback's copies ending inside its span.
+
+At the main path's shapes and on the paths around the kernels: K1, K4,
+K6, K2, K3, C1 and C2 bitwise on the inputs tools/kernel_times builds
+(the 1080p scene's leaves and records, the goldens', the orbit's,
+config 3's flight); both frame paths at the golden bars, and the fused
+1080p frame against PlanetEngine on the orbit and under
+set_sync_debug_mode("error"); config 3's frame on the flight; BASELINE
+configs 1, 2 and 5 (K4's flat patch, K5 at 1024 and 2048 against the
+composed frame, the 6x8192^2 strips); the attribution tools at their own
+sizes; the splat raster at 1080p; terrain and heightmap against the
+goldens; run_interactive on both engines and the driver's --profile;
+entry()'s forward against the CPU; the sharded field and LOD paths on
+one card (an NCCL world of one rank, ranks in turn, four gloo
+processes); the stage ladder (tools/stage_times in a process of its
+own, its launches and device-event bounds) and the rungs from a warm
+pool against the renderer."""
+
+import contextlib
+import io
+import json
+import pathlib
+import subprocess
+import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -73,11 +97,14 @@ from planet_tpu_torch.cache import device_pool
 from planet_tpu_torch.cache import device_pool_cuda
 from planet_tpu_torch.engine import device_step
 from planet_tpu_torch.engine.config import EngineConfig
-from planet_tpu_torch.engine.planet import PlanetEngine
+from planet_tpu_torch.engine.planet import PlanetEngine, splat_raster
 from planet_tpu_torch.geom import camera as cam_mod
 from planet_tpu_torch.geom import quadid
+from planet_tpu_torch.lod import refine as lod_refine
 from planet_tpu_torch.nums import df as tdf
+from planet_tpu_torch.nums.fp import sqrt_rn
 from planet_tpu_torch.models import heightfield
+from planet_tpu_torch.ops import perlin_np
 from planet_tpu_torch.ops.kernels import field_cuda, perlin_cuda, tile_cuda
 from planet_tpu_torch.parallel import sharded, sharded_lod
 from planet_tpu_torch.raster import coverage as tcov
@@ -86,13 +113,15 @@ from planet_tpu_torch.raster import splat
 from planet_tpu_torch.tess import mesh
 from planet_tpu_torch.tess import uniforms_cuda
 from planet_tpu_torch.tess import vertex_cuda
+from planet_tpu_torch.tess.vertex import PatchVertices
 from planet_tpu_torch.tools import (kernel_times, lut, noise_stages,
                                     span_parts, stage_times)
 from planet_tpu_torch.tools import common as tools_common
 import torch_ranks
 from torch_scenes import (CACHE_CASES, EDGE, SCREEN, STRADDLE,
                           TESS_BATCHES, TESS_ROWS_CASES, VIEW,
-                          adversarial_records, cache_case,
+                          adversarial_records, assert_golden_counts,
+                          assert_golden_image, cache_case, counter_values,
                           nan_shade_records, screen_scene, straddle_scene,
                           tess_batch, tess_padded, tess_rows, view_scene)
 
@@ -399,20 +428,22 @@ def test_splat_kernel_bitwise(dev, k, wireframe):
 def _assert_nan_shades_bitwise(dev, cuda, plain, key):
     recs = nan_shade_records(**EDGE)
     fb = torch.full((EDGE["height"], EDGE["width"]), EMPTY, dtype=torch.int32)
-    before = _cuda.launches[key]
-    got = cuda(recs.to(dev), fb.to(dev))
-    assert _cuda.launches[key] == before + 1
-    want = plain(recs, fb.clone())
-    _assert_fb_bars(got, want)
-    covered = want != EMPTY
-    assert int(covered.sum()) > 0
-    assert torch.equal(want[covered] & 1023,
-                       torch.zeros_like(want[covered]))
+    for wireframe in (False, True):
+        before = _cuda.launches[key]
+        got = cuda(recs.to(dev), fb.to(dev), wireframe)
+        assert _cuda.launches[key] == before + 1
+        want = plain(recs, fb.clone(), wireframe)
+        _assert_fb_bars(got, want)
+        covered = want != EMPTY
+        assert int(covered.sum()) > 0
+        assert torch.equal(want[covered] & 1023,
+                           torch.zeros_like(want[covered]))
 
 
 def test_span_kernel_nan_shades_bitwise(dev):
     """K2 on records whose every fragment has a NaN shade, against its
-    plain version: equal bit for bit, every shade packed as 0 (planet_tpu
+    plain version, with and without wireframe: equal bit for bit, every
+    shade packed as 0 (planet_tpu
     converts NaN to int32 as 0; the kernel tests the NaN before its
     fminf clamp, which would return the number)."""
     _assert_nan_shades_bitwise(dev, tcc.raster_span, tcc.raster_span_plain,
@@ -433,8 +464,9 @@ def test_frame_on_card_matches_cpu(dev):
     _cuda.reset_launches()
     out_g, img_g, dep_g = PlanetEngine(cfg, device=dev).render(cam)
     # the host-orchestrated path's kernels (K4 belongs to the fused path)
-    assert all(_cuda.launches[k] > 0 for k in ("tile", "gather", "span",
-                                               "huge")), _cuda.launches
+    assert all(_cuda.launches[k] > 0 for k in ("tile", "tess", "gather",
+                                               "span", "huge")), \
+        _cuda.launches
     out_c, img_c, dep_c = PlanetEngine(cfg, device="cpu").render(cam)
     np.testing.assert_array_equal(out_g.leaf_ids, out_c.leaf_ids)
     cov_g = torch.isfinite(dep_g).cpu().numpy()
@@ -486,10 +518,12 @@ def test_noise_kernel_sizes_bitwise(dev, n, octaves):
             (kind, lacunarity, float((got - want).abs().max()))
 
 
-def test_graph_replay_equals_eager_step(dev):
-    """Two frames of the golden camera: the captured geometry step, replayed,
-    gives the eager step's leaf ids, slots, tiles and vertices bit for bit,
-    and each replay counts the graph's kernels."""
+@pytest.mark.parametrize("caps", ["small", "default"])
+def test_graph_replay_equals_eager_step(dev, caps):
+    """Three frames of the golden camera: the captured geometry step,
+    replayed, gives the eager step's leaf ids, slots, tiles and vertices bit
+    for bit, and each replay counts the graph's kernels; at caps 1024 /
+    512 / 128 and at DeviceRenderer's default caps."""
     cfg = EngineConfig()
     cam = cam_mod.Camera(position=np.load(GOLD + "frame_cam.npy"),
                          angles=np.load(GOLD + "frame_angles.npy"))
@@ -498,7 +532,7 @@ def test_graph_replay_equals_eager_step(dev):
     vp = (cam_mod.perspective_lh(pf, 4 / 3, cfg.near_plane, cfg.far_plane)
           @ cam_mod.view_from_rotation(rot)).astype(np.float32)
     cam_hi, cam_lo = tdf.from_f64_np(cam.position)
-    kw = dict(cap=1024, render_cap=512, gen_cap=128)
+    kw = dict(cap=1024, render_cap=512, gen_cap=128) if caps == "small" else {}
     r = device_step.DeviceRenderer(cfg, 800, 600, device=dev, **kw)
     step = device_step.build_geometry_step(cfg, device=dev, **kw)
     pool_g, pool_e = r.init_pool(), r.init_pool()
@@ -603,11 +637,12 @@ def test_stop_after_rungs_captured_equal_eager(dev, rung):
     assert tally["tess"] == (1 if rung in ("tess", "geometry") else 0), tally
 
 
-def test_dryrun_multichip_on_the_card(dev):
-    """entry.dryrun_multichip(2): two gloo ranks sharing the card, every
-    check of (a) and (b) (2 is below the 2-axis meshes' 4)."""
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_dryrun_multichip_on_the_card(dev, ranks):
+    """entry.dryrun_multichip: gloo ranks sharing the card, every check of
+    (a) and (b); with four ranks the 2-axis meshes' checks too."""
     from planet_tpu_torch import entry
-    entry.dryrun_multichip(2)
+    entry.dryrun_multichip(ranks)
 
 
 def _sharded_scene(dev):
@@ -629,8 +664,8 @@ def _sharded_scene(dev):
 
 
 def test_sharded_render_world_of_one_equals_single_device(dev, tmp_path):
-    """chip_smoke.py phase 10(b) at 160x120: build_sharded_render on an
-    NCCL world of one rank over all 24 roots."""
+    """build_sharded_render on an NCCL world of one rank over all 24 roots
+    at 160x120 and small caps, bitwise the single-device frame."""
     cfg, kw, args, _, want, _, want_ids = _sharded_scene(dev)
     dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
                             rank=0, world_size=1,
@@ -651,8 +686,8 @@ def test_sharded_render_world_of_one_equals_single_device(dev, tmp_path):
 
 
 def test_sharded_ranks_in_turn_fold_to_single_device(dev):
-    """chip_smoke.py phase 10(c) at 160x120: four ranks' shares, each with
-    its own pool and graph, folded by torch.minimum."""
+    """Four ranks' shares at 160x120 and small caps, each with its own
+    pool and graph, folded by torch.minimum: the single-device frame."""
     cfg, kw, args, roots, want, packed, want_ids = _sharded_scene(dev)
     fold, got = None, set()
     for rank in range(4):
@@ -1150,11 +1185,21 @@ def test_tess_kernel_bitwise_on_the_main_path(dev):
     """V1 against its plain version at the main path's shapes
     (kernel_times.tess_inputs: DeviceRenderer's 512 rows at 1080p, 302 of
     them padding rows, as the fused step passes them; PlanetEngine's
-    leaves on the three goldens)."""
+    leaves on the three goldens); the plain version's padding rows hold
+    the NaN word 0x7fffffff in its five NaN outputs."""
     sets = kernel_times.tess_inputs(dev)
     assert len(sets["1080p static, DeviceRenderer rows"]) == 8
     for args in sets.values():
         _assert_tess_equal(args)
+    # the plain version's padding rows hold the NaN word torch's CUDA
+    # arithmetic gives, 0x7fffffff, which the kernel writes from a constant
+    args = sets["1080p static, DeviceRenderer rows"]
+    want, want_shade = vertex_cuda.tessellate_shaded_plain(*args)
+    live = tools_common.tess_live(args[1])
+    assert 0 < int(live.sum()) < live.numel()
+    for t in (want.clip, want.world, want.normal, want.snormal, want_shade):
+        words = t[~live].reshape(-1).view(torch.int32)
+        assert bool((words == 0x7FFFFFFF).all())
 
 
 def test_geometry_replay_launches_v1_once(dev):
@@ -1180,7 +1225,7 @@ def test_geometry_replay_refine_layer_nodes(dev):
     after the camera's uploads, the refine layer is at most two fills, R1's
     19 level launches and the DFS order kernel, which A1 follows at once
     (no torch op between R1's last level and A1); the graph's tally counts
-    one order launch."""
+    one order launch; K1's kernel is in the replay and K4's is not."""
     cfg = EngineConfig(window_w=1920, window_h=1080)
     args = stage_times.camera_args(cfg, kernel_times.scene_camera(cfg),
                                    1920, 1080)
@@ -1211,17 +1256,21 @@ def test_geometry_replay_refine_layer_nodes(dev):
     assert all("FillFunctor" in n or "emset" in n
                for n in refine[:levels[0]]), refine
     assert r._tally["order"] == 1 and r._tally["refine"] == 19
+    # K1 runs in the replay; K4 does not (R1 computes its probes' noise)
+    assert any("tiles_kernel" in n for n in names), names
+    assert not any("noise_kernel" in n for n in names), names
 
 
 def test_cuda_sqrt_is_correctly_rounded(dev):
     """torch.sqrt on the card is the correctly rounded root, as the
-    kernels' sqrtf is (nums.fp.sqrt_rn takes it there)."""
+    kernels' sqrtf is, and nums.fp.sqrt_rn takes it there."""
     rng = np.random.default_rng(20)
     x = (rng.uniform(0.0, 1.0, 1 << 20)
          * 10.0 ** rng.integers(-6, 14, 1 << 20)).astype(np.float32)
     t = torch.as_tensor(x, device=dev)
     want = torch.sqrt(t.double()).float()
     assert _same_bits(torch.sqrt(t), want)
+    assert _same_bits(sqrt_rn(t), want)
     assert _same_bits(torch.sqrt(t).cpu(), torch.from_numpy(np.sqrt(x)))
 
 
@@ -1313,7 +1362,8 @@ def test_cache_and_uniforms_kernels_bitwise_on_the_main_path(dev):
     """A1 (with and without the touch) and U1 against their plain
     versions on the calls of DeviceRenderer's step at 1080p
     (kernel_times.stage_inputs: the static camera's first two frames and
-    the orbit's first four)."""
+    the orbit's first four); U1's padding rows' normals the NaN word
+    0x7fffffff."""
     caches, rows = kernel_times.stage_inputs(dev)
     generated = []
     for name, (pool, args, kw) in caches.items():
@@ -1322,7 +1372,10 @@ def test_cache_and_uniforms_kernels_bitwise_on_the_main_path(dev):
         generated.append(int(got.n_generated))
     assert generated[0] > 100 and max(generated[3:]) > 0, generated
     for args in rows.values():
-        _assert_uniforms_equal(args[:9])
+        got = _assert_uniforms_equal(args[:9])
+        live = int(torch.isfinite(got.normals).all(dim=(1, 2)).sum())
+        pad = got.normals[live:].reshape(-1).view(torch.int32)
+        assert live < args[0].shape[0] and bool((pad == 0x7FFFFFFF).all())
 
 
 # ------------------------------------------------------ V1's rows mode
@@ -1424,20 +1477,7 @@ def test_p64_frame_captured_equals_eager_and_v1_wide_plain(dev):
     wide instance once and its narrow ones never, the frame does not
     overflow, and V1's wide instance on the eager step's own rows equals
     its plain version bit for bit."""
-    import json
-    import pathlib
-
-    from perfbench.harness import traffic
-
-    root = pathlib.Path(__file__).resolve().parent.parent
-    conf = json.loads((root / "perfbench/configs/lod-1080p-p64.json")
-                      .read_text())
-    fields = EngineConfig.__dataclass_fields__
-    cfg = EngineConfig(**{k: v for k, v in conf["settings"].items()
-                          if k in fields})
-    kw = {k: v for k, v in conf["engine"].items() if k != "preview"}
-    path = traffic.make(json.loads((root / "perfbench/traffic/flight.json")
-                                   .read_text()), 7, cfg.radius)
+    cfg, kw, path = _p64(7)
     r = device_step.DeviceRenderer(cfg, 1920, 1080, device=dev, **kw)
     step = device_step.build_geometry_step(cfg, device=dev, **kw)
     pool_g, pool_e = r.init_pool(), r.init_pool()
@@ -1479,3 +1519,954 @@ def test_p64_frame_captured_equals_eager_and_v1_wide_plain(dev):
         full = args + (kwargs["grid"],) if "grid" in kwargs else args
         pv, shade = _assert_tess_rows_equal(full, key="tess_wide")
 
+
+
+# ---------------------------------- the main path's shapes and paths
+
+W1080, H1080 = 1920, 1080
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _cfg1080(**kw):
+    return EngineConfig(window_w=W1080, window_h=H1080, **kw)
+
+
+def _golden_cam(name):
+    return cam_mod.Camera(position=np.load(GOLD + f"{name}_cam.npy"),
+                          angles=np.load(GOLD + f"{name}_angles.npy"))
+
+
+def _fb(width, height, dev):
+    return torch.full((height, width), EMPTY, dtype=torch.int32, device=dev)
+
+
+@contextlib.contextmanager
+def _no_host_reads():
+    """A block in which torch raises on any host synchronisation."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _ids(q_lo, q_hi, n):
+    return set(int(q) for q in quadid.from_words(
+        q_lo[:int(n)].cpu().numpy(), q_hi[:int(n)].cpu().numpy()))
+
+
+def _frame_counts(frame):
+    return (int(frame.n_leaves), int(frame.n_generated),
+            bool(frame.overflowed))
+
+
+def _converge(render, counts=_frame_counts, first_overflow=False):
+    """Frames until one generates nothing (at most four), none
+    overflowing (but the first, with first_overflow: a scene whose leaves
+    outnumber the generation slots overflows them once); the last one's
+    output."""
+    for i in range(4):
+        out = render()
+        _, n_gen, overflowed = counts(out)
+        assert not overflowed or (first_overflow and i == 0)
+        if n_gen == 0:
+            return out
+    raise AssertionError("still generating after four frames")
+
+
+@pytest.mark.parametrize("case", ["scene, lacunarity 2.0",
+                                  "scene, lacunarity 1.7",
+                                  "fused, amplitude +", "fused, amplitude -"])
+def test_tile_kernel_bitwise_at_the_main_path_shapes(dev, case):
+    """K1 on 256 tiles of the 1080p static scene's leaves with octave
+    counts 6-18 at lacunarity 2.0 and 1.7, and at the fused frame's
+    occupancy (kernel_times.fused_tile_inputs: 24 of 256 slots live, the
+    rest count 0) with a positive and a negative amplitude: bitwise."""
+    cfg = _cfg1080()
+    kw = dict(kind="ridged", gain=cfg.gain, amplitude=cfg.amplitude)
+    if case.startswith("scene"):
+        leaves = lod_refine.refine(kernel_times.scene_camera(cfg).position,
+                                   cfg.max_lod, cfg.radius)
+        sel = np.arange(256) % len(leaves.ids)
+        ch, cl = tdf.from_f64_np(leaves.corners[sel] * cfg.coord_scale)
+        args = (torch.as_tensor(ch, device=dev),
+                torch.as_tensor(cl, device=dev),
+                torch.as_tensor(6 + np.arange(256, dtype=np.int32) % 13,
+                                device=dev))
+        kw["lacunarity"] = float(case.rsplit(" ", 1)[1])
+    else:
+        args = kernel_times.fused_tile_inputs(dev)
+        if case.endswith("-"):
+            kw["amplitude"] = -cfg.amplitude
+    got = tile_cuda.tiles_cuda(*args, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert _same_bits(got, tile_cuda.tiles_plain(*args, **kw))
+
+
+def test_noise_kernel_bitwise_at_the_main_path_shapes(dev):
+    """K4 at the refine probes' shape (5 x 4096 points around the 1080p
+    static scene's leaf corners; ridged 6, and fBm 5 at lacunarity 1.7)
+    and at 2^20 seeded points on the sphere x 18 ridged octaves: bitwise,
+    finite."""
+    cfg = _cfg1080()
+    leaves = lod_refine.refine(kernel_times.scene_camera(cfg).position,
+                               cfg.max_lod, cfg.radius)
+    rng = np.random.default_rng(0)
+    probe = leaves.corners.reshape(-1, 3)[np.arange(5 * 4096)
+                                          % (4 * len(leaves.ids))]
+    probe = (probe + rng.normal(0.0, 50.0, probe.shape)).reshape(5, 4096, 3)
+    big = rng.normal(size=(1 << 20, 3))
+    big = big / np.linalg.norm(big, axis=1, keepdims=True) * cfg.radius
+    for pts, kind, lacunarity, octaves in ((probe, "ridged", 2.0, 6),
+                                           (big, "ridged", 2.0, 18),
+                                           (probe, "fbm", 1.7, 5)):
+        coords = [torch.as_tensor(np.ascontiguousarray(x), device=dev)
+                  for a in range(3) for x in tdf.from_f64_np(pts[..., a] * 1e-5)]
+        kw = dict(lacunarity=lacunarity, gain=cfg.gain, octaves=octaves)
+        got = perlin_cuda.noise_cuda(kind, *coords, **kw)
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, perlin_cuda.noise_plain(kind, *coords, **kw)), \
+            (kind, octaves)
+
+
+@pytest.fixture(scope="module")
+def record_sets():
+    """kernel_times.record_sets on the card: PlanetEngine's raster inputs
+    of the 1080p static scene, the three goldens and the orbit frames with
+    huge records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return kernel_times.record_sets(torch.device("cuda"))
+
+
+def _assert_route_equal_on_card(got, want):
+    """K6's class buffers and counts against the plain version's, on the
+    card: the counts, and the first count records of each class."""
+    sk, hk, ck = got
+    sp, hp, cp = want
+    assert torch.equal(ck, cp), (ck, cp)
+    ns, nh = (int(v) for v in cp)
+    assert _same_bits(sk[:ns], sp) and _same_bits(hk[:nh], hp)
+
+
+def test_route_and_raster_kernels_bitwise_on_the_record_sets(dev,
+                                                             record_sets):
+    """On kernel_times.record_sets: K6 against its plain version (records
+    and counts), its records those of the plain route's gather; K2 on the
+    span records and K3 on the huge records (the huge class, then the
+    clipped straddlers' triangles), with and without wireframe; the routed
+    raster (K6 -> K2 -> K3, the counts on the device) against the plain
+    composition, and run again under set_sync_debug_mode("error") with the
+    plain route's counts; and K6 on the 1080p scene with every candidate
+    dead, huge, span-class or live."""
+    assert {"golden nearclip", "golden farclip"} <= {
+        name for name, fs in record_sets.items() if fs["huge_recs"].shape[0]}
+    for name, fs in record_sets.items():
+        w, h = fs["width"], fs["height"]
+        tm, live, span = fs["tm"], fs["live"], fs["span"]
+        want = tcc.route_records_plain(tm, live, span)
+        _assert_route_equal_on_card(tcc.route_records_cuda(tm, live, span),
+                                    want)
+        n_span, n_huge = fs["span_idx"].numel(), fs["huge_idx"].numel()
+        assert want[2].tolist() == [n_span, n_huge], name
+        assert _same_bits(want[0], fs["span_recs"])
+        assert _same_bits(want[1], fs["huge_recs"][:n_huge])
+        for wireframe in (False, True):
+            for recs, cuda, plain in (
+                    (fs["span_recs"], tcc.raster_span_cuda,
+                     tcc.raster_span_plain),
+                    (fs["huge_recs"], tcc.raster_huge_cuda,
+                     tcc.raster_huge_plain)):
+                if recs.shape[0]:
+                    fbk, fbp = _fb(w, h, dev), _fb(w, h, dev)
+                    cuda(recs, fbk, wireframe)
+                    plain(recs, fbp, wireframe)
+                    _assert_fb_bars(fbk, fbp)
+        fbk, fbp = _fb(w, h, dev), _fb(w, h, dev)
+        tcc.raster_routed(tm, live, span, fbk)
+        if fs["huge_recs"].shape[0] > n_huge:       # the clipped triangles
+            tcc.raster_huge_cuda(fs["huge_recs"][n_huge:], fbk)
+        tcc.raster_span_plain(fs["span_recs"], fbp)
+        tcc.raster_huge_plain(fs["huge_recs"], fbp)
+        _assert_fb_bars(fbk, fbp)
+        fb = _fb(w, h, dev)
+        with _no_host_reads():
+            counts = tcc.raster_routed(tm, live, span, fb)
+        assert counts.tolist() == [n_span, n_huge], name
+    fs = record_sets["1080p static"]
+    tm, live, span = fs["tm"], fs["live"], fs["span"]
+    alive = tm.clone()
+    alive[28] = torch.where(live, -1.0, 0.0)
+    for args in ((tm, torch.zeros_like(live), span),
+                 (tm, live, torch.full_like(span, 17)),
+                 (alive, live, torch.ones_like(span)),
+                 (tm, torch.ones_like(live), span)):
+        _assert_route_equal_on_card(tcc.route_records_cuda(*args),
+                                    tcc.route_records_plain(*args))
+
+
+def test_gather_kernel_bitwise_on_the_config3_flight(dev):
+    """K6 on config 3's flight (kernel_times.p64_route_inputs: C1 on the
+    2,048 rows of the orbit's eighth frame, 8,712 candidates a row), as
+    it is and with every candidate dead and every candidate live."""
+    p64 = kernel_times.p64_route_inputs(dev)
+    tm, live, span = p64["tm"], p64["live"], p64["span"]
+    assert tm.shape[1] == 2048 * 8712
+    for lv in (live, torch.zeros_like(live), torch.ones_like(live)):
+        _assert_route_equal_on_card(tcc.route_records_cuda(tm, lv, span),
+                                    tcc.route_records_plain(tm, lv, span))
+
+
+def test_setup_and_clip_kernels_bitwise_on_the_main_path(dev):
+    """C1 on kernel_times.setup_inputs (DeviceRenderer's 512 rows at 1080p
+    with the leaf count on the device: the static camera's second frame
+    and the orbit's first; PlanetEngine's leaves with none: the 1080p
+    static scene and the near-clip and far-clip goldens) against its plain
+    version; C2, the clip pass, on its straddler mask and block counts
+    (kernel_times.clip_inputs, 512 slots): the slots' indices, n_straddle
+    (C1's straddler count), the live records and their count bitwise."""
+    setups = kernel_times.setup_inputs(dev)
+    straddlers = {}
+    for name, args in setups.items():
+        _, straddlers[name] = _assert_setup_equal(tcc.setup_cuda(*args),
+                                                  tcc.setup_plain(*args))
+    assert any(straddlers.values()), straddlers
+    for name, args in kernel_times.clip_inputs(setups).items():
+        want = tcc.clip_pass_plain(*args[:3], *args[4:])
+        _assert_clip_pass_equal(tcc.clip_pass_cuda(*args), want)
+        assert int(want[1]) == straddlers[name], name
+
+
+def _assert_golden_bars(name, n_leaves, image, depth, counters):
+    """A frame of golden scene `name` at tests/test_torch_golden.py's bars
+    (torch_scenes.assert_golden_counts and assert_golden_image)."""
+    assert_golden_counts(name, n_leaves, counter_values(counters))
+    assert_golden_image(name, image.cpu().numpy(), depth.cpu().numpy())
+
+
+@pytest.mark.parametrize("engine", ["PlanetEngine", "DeviceRenderer"])
+@pytest.mark.parametrize("name", ["frame", "nearclip", "farclip"])
+def test_golden_scenes_on_the_card(dev, engine, name):
+    """The oracle's golden scenes on the card at the golden bars:
+    PlanetEngine.render, whose near- and far-clip frames launch K3, and
+    DeviceRenderer.render at its default caps (the geometry graph, then
+    the raster graph), run until a frame generates nothing (the near-clip
+    scene's 354 leaves overflow the 256 generation slots in its first
+    frame)."""
+    cfg = EngineConfig()
+    cam = _golden_cam(name)
+    if engine == "PlanetEngine":
+        before = _cuda.launches["huge"]
+        eng = PlanetEngine(cfg, device=dev)
+        out, image, depth = eng.render(cam)
+        _assert_golden_bars(name, out.n_leaves, image, depth,
+                            eng.last_counters)
+        assert (_cuda.launches["huge"] > before) or name == "frame"
+    else:
+        r = device_step.DeviceRenderer(cfg, 800, 600, device=dev)
+        pool = r.init_pool()
+        args = stage_times.camera_args(cfg, cam, 800, 600)
+        fr = _converge(lambda: r.render(pool, *args), first_overflow=True)
+        _assert_golden_bars(name, fr.n_leaves, fr.image, fr.depth,
+                            r.last_counters)
+
+
+def test_fused_frame_at_1080p_matches_planet_engine_on_the_orbit(dev):
+    """At 1920x1080: PlanetEngine's static and orbit frames finite, with
+    K1, V1, K6 and K2 launched; DeviceRenderer's ten static frames finite
+    and not overflowing, one more whole render under
+    set_sync_debug_mode("error") bitwise the tenth; on the orbit's first
+    eight frames from an empty pool each DeviceRenderer frame's leaf ids
+    PlanetEngine's on the same camera; the fused path launching K1, R1,
+    A1, V1, C1, K6, K2, C2 and K3 and neither K4 nor U1, and V1 (its rows
+    mode) and A1 once a geometry replay and once a capture's warm-up."""
+    cfg = _cfg1080()
+    cam = kernel_times.scene_camera(cfg)
+    orbit = [c for _, c in kernel_times.orbit_cameras(cfg)]
+    _cuda.reset_launches()
+    eng = PlanetEngine(cfg, device=dev)
+    for _ in range(3):
+        _, image, _ = eng.render(cam)
+        assert bool(torch.isfinite(image).all())
+    eng = PlanetEngine(cfg, device=dev)
+    orbit_ids = []
+    for c in orbit:
+        out, image, _ = eng.render(c)
+        assert bool(torch.isfinite(image).all())
+        orbit_ids.append(out.leaf_ids)
+    host = dict(_cuda.launches)
+    assert all(host[k] > 0 for k in ("tile", "tess", "gather", "span")), host
+    _cuda.reset_launches()
+    r = device_step.DeviceRenderer(cfg, W1080, H1080, device=dev)
+    pool = r.init_pool()
+    args = stage_times.camera_args(cfg, cam, W1080, H1080)
+    for _ in range(10):
+        fr = r.render(pool, *args)
+        assert bool(torch.isfinite(fr.image).all()) and not bool(fr.overflowed)
+    image, depth = fr.image.clone(), fr.depth.clone()
+    with _no_host_reads():
+        fr = r.render(pool, *args)
+    assert _same_bits(fr.image, image) and _same_bits(fr.depth, depth)
+    pool = r.init_pool()
+    for c, want in zip(orbit, orbit_ids):
+        fr = r.render(pool, *stage_times.camera_args(cfg, c, W1080, H1080))
+        assert bool(torch.isfinite(fr.image).all())
+        g, n = r.last_geometry, int(fr.n_leaves)
+        np.testing.assert_array_equal(quadid.from_words(
+            g.leaf_lo[:n].cpu().numpy(), g.leaf_hi[:n].cpu().numpy()), want)
+    fused = dict(_cuda.launches)
+    assert all(fused[k] > 0 for k in ("tile", "refine", "cache", "tess",
+                                      "setup", "gather", "span", "clip",
+                                      "huge")), fused
+    assert fused["noise"] == 0 and fused["uniforms"] == 0, fused
+    assert r._tally["tess"] == r._tally["cache"] == 1
+    assert r._tally["uniforms"] == 0
+    for k in ("tess", "cache"):
+        assert fused[k] == r.geometry_replays + r.geometry_captures, k
+
+
+def _p64(seed):
+    """BASELINE config 3 as the benchmark runs it
+    (perfbench/configs/lod-1080p-p64.json: 64-vertex patches, 66 x 66
+    tiles, its quality, cache and caps): its EngineConfig, the renderer's
+    keywords and the flight (perfbench/traffic/flight.json) from `seed`."""
+    from perfbench.harness import traffic
+
+    conf = json.loads((ROOT / "perfbench/configs/lod-1080p-p64.json")
+                      .read_text())
+    fields = EngineConfig.__dataclass_fields__
+    cfg = EngineConfig(**{k: v for k, v in conf["settings"].items()
+                          if k in fields})
+    kw = {k: v for k, v in conf["engine"].items() if k != "preview"}
+    path = traffic.make(json.loads((ROOT / "perfbench/traffic/flight.json")
+                                   .read_text()), seed, cfg.radius)
+    return cfg, kw, path
+
+
+def test_p64_frames_render_on_the_flight(dev):
+    """Config 3's frame rendered whole (the geometry graph, then the
+    raster graph) at 1920 x 1080 on four cameras of the flight from seed
+    0 (frames 0, 24, 48, 72): no overflow, finite images, V1's wide
+    instance launched once a geometry replay and once a capture's warm-up
+    and its narrow instances never."""
+    cfg, kw, path = _p64(0)
+    before = dict(_cuda.launches)
+    r = device_step.DeviceRenderer(cfg, W1080, H1080, device=dev, **kw)
+    pool = r.init_pool()
+    for k in (0, 24, 48, 72):
+        pos, ang = path.at(k)
+        fr = r.render(pool, *stage_times.camera_args(
+            cfg, cam_mod.Camera(pos, ang), W1080, H1080))
+        assert not bool(fr.overflowed), k
+        assert bool(torch.isfinite(fr.image).all()), k
+    assert r._tally["tess_wide"] == 1 and r._tally["tess"] == 0
+    assert {k: _cuda.launches[k] - before[k] for k in ("tess", "tess_wide")} \
+        == {"tess": 0, "tess_wide": r.geometry_replays + r.geometry_captures}
+
+
+def test_config1_flat_patch_through_k4(dev):
+    """BASELINE config 1: the flat 256 x 256 patch, fBm 4, through K4: its
+    heights within 2e-5 of the host's numpy fBm and bitwise K4's plain
+    version on the same noise coordinates; the shade finite."""
+    n = 256
+    px, py, pz, xyscale = heightfield.flat_patch_points(n, extent=256.0,
+                                                        device=dev)
+    before = _cuda.launches["noise"]
+    c1 = heightfield.field_from_padded_points(
+        px, py, pz, xyscale, kind="fbm", octaves=4, gain=0.5, coord_scale=1.0,
+        amplitude=1.0)
+    assert _cuda.launches["noise"] > before
+    assert c1.heights.shape == (n, n) and c1.shade.shape == (n, n)
+    assert bool(torch.isfinite(c1.shade).all())
+    pts = [(d[0].double() + d[1].double()).cpu().numpy() for d in (px, py, pz)]
+    want = perlin_np.fbm(*pts, octaves=4, gain=np.float32(0.5))[1:-1, 1:-1]
+    assert float(np.abs(c1.heights.cpu().numpy() - want).max()) <= 2e-5
+    plain = perlin_cuda.noise_plain(
+        "fbm", *heightfield.noise_coords(px, py, pz, 1.0), lacunarity=2.0,
+        gain=np.float32(0.5), octaves=4)[1:-1, 1:-1] * np.float32(1.0)
+    assert _same_bits(c1.heights, plain)
+
+
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_field_kernel_bitwise_at_the_configs_sizes(dev, n):
+    """K5 at BASELINE config 2's 6 x 1024^2 (through frame_cube, fused) and
+    the regen's 6 x 2048^2: bitwise its plain version, finite, and within
+    0.2 m in heights and 1e-3 in shade of the composed frame
+    (frame_cube(fused=False); tests/test_field_pallas.py's bars)."""
+    radius = EngineConfig().radius
+    before = _cuda.launches["field"]
+    if n == 1024:
+        hk, sk = heightfield.frame_cube(n, radius, fused=True, device=dev)
+    else:
+        hk, sk = field_cuda.field_kernel(n, radius, device=dev)
+    assert _cuda.launches["field"] == before + 1
+    assert hk.shape == sk.shape == (6, n, n)
+    assert bool(torch.isfinite(hk).all() and torch.isfinite(sk).all())
+    hp, sp = field_cuda.field_plain(n, radius, device=dev)
+    assert _same_bits(hk, hp) and _same_bits(sk, sp)
+    del hp, sp
+    hc, sc = heightfield.frame_cube(n, radius, fused=False, device=dev)
+    assert float((hk - hc).abs().max()) <= 0.2
+    assert float((sk - sc).abs().max()) <= 1e-3
+
+
+def test_config5_strips_match_the_full_cube_and_plain(dev):
+    """BASELINE config 5 on one card: the 6 x 8192^2 field as 8 strips of
+    1,024 rows, each bitwise equal to the matching rows of one
+    field_cube(8192) and to K5's plain version on the same rows; the cube
+    finite."""
+    n, rows = 8192, 1024
+    radius = EngineConfig().radius
+    full_h, full_s = field_cuda.field_cube(n, radius, device=dev)
+    assert bool(torch.isfinite(full_h).all() and torch.isfinite(full_s).all())
+    for row0 in range(0, n, rows):
+        h, s = field_cuda.field_cube_strip(n, radius, row0, rows, device=dev)
+        strip = slice(row0, row0 + rows)
+        assert _same_bits(h, full_h[:, strip]), row0
+        assert _same_bits(s, full_s[:, strip]), row0
+        hp, sp = field_cuda.field_plain(n, radius, row0, rows, device=dev)
+        assert _same_bits(h, hp) and _same_bits(s, sp), row0
+        del h, s, hp, sp
+
+
+def test_attribution_tools_equal_plain_at_their_sizes(dev, record_sets):
+    """The attribution tools at their own sizes (noise_stages: 2^22 points
+    and 4,096 tiles; lut: 2^22-2^23 lookups; span_parts: 4,096 and 32,768
+    records at 1920x1080): every variant equal to its plain version, each
+    t_* kernel launched, t_noise's full body equal to K4 and t_tile's to
+    K1 on the same inputs; span_parts' per-record bodies on the 1080p
+    static scene's span records equal to their plain versions."""
+    before = dict(_cuda.launches)
+    res_noise = noise_stages.bench("cuda", reps=1)
+    res_lut = lut.bench("cuda", reps=1)
+    res_span = span_parts.bench("cuda", reps=1)
+    for key, rows in (("t_noise", res_noise["t_noise"]),
+                      ("t_tile", res_noise["t_tile"]),
+                      ("t_lut", res_lut["rows"]),
+                      ("t_span", res_span["rows"])):
+        assert _cuda.launches[key] > before[key], key
+        assert rows and all(r["equal"] for r in rows), \
+            [r["name"] for r in rows if not r["equal"]]
+    coords = res_noise["inputs"]["coords"]
+    k4 = perlin_cuda.noise_cuda("ridged", *coords, octaves=6,
+                                gain=np.float32(0.55))
+    assert _same_bits(noise_stages.noise_stage("full", coords), k4)
+    ch, cl = res_noise["inputs"]["corners"]
+    k1 = tile_cuda.tiles_cuda(
+        ch, cl, torch.full((ch.shape[0],), 6, dtype=torch.int32, device=dev),
+        kind="ridged", gain=0.55, amplitude=8848.0)
+    assert _same_bits(noise_stages.tile_stage("full", ch, cl), k1)
+    rows = span_parts.bench_given(record_sets["1080p static"]["span_recs"],
+                                  W1080, H1080, reps=1)
+    assert rows and all(r["equal"] for r in rows), rows
+
+
+def test_splat_raster_on_the_card_at_1080p(dev):
+    """The splat raster at 1920 x 1080, supersample 8 (the driver's rule
+    for 1920 wide): S1 at both of the main path's shapes
+    (kernel_times.splat_inputs: PlanetEngine's leaves of the static scene
+    and DeviceRenderer's 512 rows, padding rows invalid; with and without
+    wireframe) under set_sync_debug_mode("error"), bitwise its plain
+    version on the same card tensors and, on PlanetEngine's leaves, on CPU
+    copies; PlanetEngine's splat raster on the card bitwise the CPU's,
+    covering over half the screen (a tenth with wireframe);
+    DeviceRenderer's splat frame bitwise the splat of all its rows, drawn
+    with no host read, and of its first n_leaves rows; then PlanetEngine's
+    and DeviceRenderer's static frames and DeviceRenderer's orbit (its
+    first eight frames, from an empty pool) finite, the orbit's leaf ids
+    the exact raster's, one S1 launch a frame and a raster capture's
+    warm-up, and no K4."""
+    ss = max(4, round(W1080 / 240))
+    cfg = _cfg1080(raster_mode="splat", raster_supersample=ss)
+    cam = kernel_times.scene_camera(cfg)
+    for name, sargs in kernel_times.splat_inputs(dev).items():
+        with _no_host_reads():
+            keys = splat.splat_keys(*sargs)
+        assert _same_bits(keys, splat.splat_keys_plain(*sargs)), name
+        if name.startswith("PlanetEngine"):
+            cpu = [a.cpu() if torch.is_tensor(a) else a for a in sargs]
+            assert _same_bits(keys.cpu(), splat.splat_keys_plain(*cpu)), name
+    eng = PlanetEngine(cfg, device=dev)
+    out = eng.frame(cam)
+    grid = torch.as_tensor(mesh.grid_uv_skirt(cfg.patch_verts)[3], device=dev)
+    valid = grid[None].expand(out.n_leaves, -1, -1)
+    pv_cpu = PatchVertices(*(a.cpu() for a in out.vertices))
+    for wireframe in (False, True):
+        image, depth = splat_raster(out.vertices, out.vertex_shade, valid,
+                                    cfg, W1080, H1080, wireframe)
+        image_c, depth_c = splat_raster(pv_cpu, out.vertex_shade.cpu(),
+                                        valid.cpu(), cfg, W1080, H1080,
+                                        wireframe)
+        assert _same_bits(image.cpu(), image_c)
+        assert _same_bits(depth.cpu(), depth_c)
+        covered = float(torch.isfinite(depth).float().mean())
+        assert covered > (0.1 if wireframe else 0.5)
+    r = device_step.DeviceRenderer(cfg, W1080, H1080, device=dev)
+    pool = r.init_pool()
+    args = stage_times.camera_args(cfg, cam, W1080, H1080)
+    for wireframe in (False, True):
+        r.wireframe = wireframe
+        fr = r.render(pool, *args)
+        assert bool(torch.isfinite(fr.image).all()) and not bool(fr.overflowed)
+        g, n = r.last_geometry, int(fr.n_leaves)
+        with _no_host_reads():
+            image, depth = splat_raster(g.vertices, g.vertex_shade, g.valid,
+                                        cfg, W1080, H1080, wireframe)
+        image_n, depth_n = splat_raster(
+            PatchVertices(*(a[:n] for a in g.vertices)), g.vertex_shade[:n],
+            g.valid[:n], cfg, W1080, H1080, wireframe)
+        for a, b in ((image, fr.image), (depth, fr.depth),
+                     (image_n, fr.image), (depth_n, fr.depth)):
+            assert _same_bits(a, b), wireframe
+    r.wireframe = False
+    exact = PlanetEngine(_cfg1080(), device=dev)
+    orbit = [c for _, c in kernel_times.orbit_cameras(cfg)]
+    orbit_ids = [exact.render(c)[0].leaf_ids for c in orbit]
+    _cuda.reset_launches()
+    captures = r.raster_captures
+    for _ in range(3):
+        _, image, _ = eng.render(cam)
+        assert bool(torch.isfinite(image).all())
+        fr = r.render(pool, *args)
+        assert bool(torch.isfinite(fr.image).all()) and not bool(fr.overflowed)
+    pool = r.init_pool()
+    for c, want in zip(orbit, orbit_ids):
+        fr = r.render(pool, *stage_times.camera_args(cfg, c, W1080, H1080))
+        assert bool(torch.isfinite(fr.image).all())
+        g, n = r.last_geometry, int(fr.n_leaves)
+        np.testing.assert_array_equal(quadid.from_words(
+            g.leaf_lo[:n].cpu().numpy(), g.leaf_hi[:n].cpu().numpy()), want)
+    launched = dict(_cuda.launches)
+    assert all(launched[k] > 0 for k in ("tile", "refine", "tess")), launched
+    assert launched["noise"] == 0, launched
+    frames = 3 + 3 + len(orbit)
+    assert launched["splat"] == frames + r.raster_captures - captures
+
+
+def test_terrain_and_heightmap_on_the_card_match_the_goldens(dev):
+    """The terrain and heightmap API on the card: RidgedTerrain.height_f64
+    and the f64 octave sums bitwise the oracle's goldens,
+    generate_tile_f64 bitwise its tiles32 tiles, and generate_tiles_df
+    (K4) within 1e-5 of them relative (to at least 884.8 m)."""
+    from planet_tpu_torch.geom import cubesphere
+    from planet_tpu_torch.models.terrain import RidgedTerrain
+    from planet_tpu_torch.ops import heightmap, perlin
+
+    ridged = RidgedTerrain()
+    pts = torch.as_tensor(np.load(GOLD + "pts_sphere.npy"), device=dev)
+    for name, depth, max_depth in (("terrain_d0_md1", 0, 1),
+                                   ("terrain_d6_md18", 6, 18),
+                                   ("terrain_d18_md18", 18, 18)):
+        np.testing.assert_array_equal(
+            ridged.height_f64(pts, depth, max_depth).cpu().numpy(),
+            np.load(GOLD + f"{name}.npy"))
+    pf = torch.as_tensor(np.load(GOLD + "pts_fbm.npy"), device=dev)
+    for name, fn, kw in (
+            ("fbm_o4_g05", perlin.fbm_f64, dict(gain=0.5, octaves=4)),
+            ("ridged_o18_g055", perlin.ridged_f64,
+             dict(gain=0.55, octaves=18)),
+            ("fbm_lac17_o5", perlin.fbm_f64,
+             dict(lacunarity=1.7, gain=0.5, octaves=5))):
+        kw["gain"] = np.float32(kw["gain"])
+        np.testing.assert_array_equal(
+            fn(pf[:, 0], pf[:, 1], pf[:, 2], **kw).cpu().numpy(),
+            np.load(GOLD + f"{name}.npy"))
+    tiles32 = np.load(GOLD + "tiles32.npy")
+    paths = [(int(r[0]), [int(c) for c in r[1:] if c >= 0])
+             for r in np.load(GOLD + "tile_paths.npy")]
+    corners = np.stack([cubesphere.corners_from_path(f, d, 6371000.0)
+                        for f, d in paths])
+    for i, (_, d) in enumerate(paths):
+        np.testing.assert_array_equal(heightmap.generate_tile_f64(
+            torch.as_tensor(corners[i], device=dev), 32, ridged, len(d),
+            18).cpu().numpy(), tiles32[i])
+    ch, cl = (torch.as_tensor(a, device=dev)
+              for a in tdf.from_f64_np(corners))
+    depths = np.array([len(d) for _, d in paths])
+    before = _cuda.launches["noise"]
+    for depth in np.unique(depths):
+        sel = torch.as_tensor(np.nonzero(depths == depth)[0], device=dev)
+        got = heightmap.generate_tiles_df(ch[sel], cl[sel], 32, ridged,
+                                          int(depth), 18).cpu().numpy()
+        want = tiles32[depths == depth]
+        assert float((np.abs(got - want)
+                      / np.maximum(np.abs(want), 884.8)).max()) <= 1e-5
+    assert _cuda.launches["noise"] > before
+
+
+# the scripted interactive session: moves, look keys, speed digits, a slot
+# save and recall, the wireframe toggle, the timing toggle and two PNG
+# dumps, one frame a line ("q" ends it)
+INTERACTIVE_SCRIPT = (
+    "w", "w w", "3 w", "d", "a", "s", "up", "down", "left", "right",
+    "sf1", "4 w", "w", "f1", "p", "png", "p", "left up", "w", "sf2 d",
+    "right", "5 s", "f2", "png", "2 w", "down", "a d", "t", "t", "w", "q")
+
+
+class _KeepFrames:
+    """run_interactive's engine with each frame's image kept (the device
+    engine's image is its raster graph's buffer, which the next frame
+    writes)."""
+
+    def __init__(self, engine):
+        object.__setattr__(self, "engine", engine)
+        object.__setattr__(self, "images", [])
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.engine, name, value)
+
+    def render(self, cam, width=None, height=None):
+        out = self.engine.render(cam, width, height)
+        self.images.append(out[1].clone())
+        return out
+
+
+def _png_pixels(path) -> np.ndarray:
+    """The (H, W) u8 pixels of a grayscale PNG written by io/png.py."""
+    data = pathlib.Path(path).read_bytes()
+    width, height = (int.from_bytes(data[16 + 4 * i:20 + 4 * i], "big")
+                     for i in range(2))
+    idat = data[data.index(b"IDAT") + 4:data.index(b"IEND") - 8]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    return raw.reshape(height, -1)[:, 1:].reshape(height, width)
+
+
+@pytest.mark.parametrize("engine", ["PlanetEngine", "DeviceInteractiveEngine"])
+def test_run_interactive_on_the_card(dev, tmp_path, engine):
+    """driver.run_interactive on a 30-frame script at 1920 x 1080 on
+    PlanetEngine and on DeviceInteractiveEngine(preview=2): a frametime
+    line a frame, each of the two PNG dumps equal to its frame's full
+    image, the path's kernels launched (R1 on the device path)."""
+    from planet_tpu_torch.io import checkpoint, driver
+
+    cfg = _cfg1080(raster_supersample=8)
+    _cuda.reset_launches()
+    eng = _KeepFrames(
+        PlanetEngine(cfg, device=dev) if engine == "PlanetEngine" else
+        driver.DeviceInteractiveEngine(cfg, W1080, H1080, preview=2,
+                                       device=dev))
+    _, slots = checkpoint.default_state(cfg.radius)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        driver.run_interactive(eng, kernel_times.scene_camera(cfg), slots,
+                               W1080, H1080, str(tmp_path),
+                               stream=io.StringIO(
+                                   "\n".join(INTERACTIVE_SCRIPT) + "\n"))
+    assert text.getvalue().count("frametime:") == len(INTERACTIVE_SCRIPT) - 1
+    dumps = sorted(tmp_path.iterdir())
+    assert len(dumps) == 2
+    for path in dumps:
+        image = eng.images[int(path.stem.split("_")[1])]
+        if image.dtype != torch.uint8:
+            image = (torch.clamp(image, 0.0, 1.0) * 255.0 + 0.5).to(
+                torch.uint8)
+        np.testing.assert_array_equal(_png_pixels(path), image.cpu().numpy())
+    kernels = ("tile", "tess", "span", "gather", "huge") + (
+        () if engine == "PlanetEngine" else ("refine",))
+    assert all(_cuda.launches[k] > 0 for k in kernels), dict(_cuda.launches)
+
+
+def test_driver_profile_trace_holds_k1(dev, tmp_path):
+    """`python -m planet_tpu_torch.io.driver --profile DIR` at 1920 x 1080
+    in a process of its own (a long-lived process's later profiler
+    sessions can miss the port's ctypes-launched kernels): its trace holds
+    K1's kernels."""
+    run = subprocess.run(
+        [sys.executable, "-m", "planet_tpu_torch.io.driver", "--frames", "2",
+         "--width", str(W1080), "--height", str(H1080), "--altitude",
+         "20000", "--out", str(tmp_path / "frames"), "--save",
+         str(tmp_path / "none.npz"), "--no-save", "--profile",
+         str(tmp_path / "profile"), "--backend", "cuda"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    events = json.loads((tmp_path / "profile" / "trace.json").read_text())
+    assert sum("tiles_kernel" in e.get("name", "")
+               for e in events.get("traceEvents", [])
+               if e.get("cat") == "kernel") > 0
+
+
+def test_entry_forward_on_the_card_matches_cpu(dev):
+    """entry()'s forward on the card (K4's tiles, then the vertex program
+    and the shade) against the same forward on CPU tensors: finite, clip
+    within 1e-5 of max(|clip|, 1) and shade within 1e-5."""
+    from planet_tpu_torch import entry
+
+    forward, args = entry.entry(device=dev)
+    before = _cuda.launches["noise"]
+    clip, shade = (t.cpu().numpy() for t in forward(*args))
+    assert _cuda.launches["noise"] > before
+    clip_p, shade_p = (t.numpy() for t in forward(*(a.cpu() for a in args)))
+    assert np.isfinite(clip).all() and np.isfinite(shade).all()
+    assert float((np.abs(clip - clip_p)
+                  / np.maximum(np.abs(clip_p), 1.0)).max()) <= 1e-5
+    assert float(np.abs(shade - shade_p).max()) <= 1e-5
+
+
+def test_sharded_field_steps_on_an_nccl_world_of_one(dev, tmp_path):
+    """On an NCCL world of one rank: sharded_field_step (ridged 6, K4) at
+    6 x 1024^2 with seam "exchange" and "clamp" bitwise
+    unsharded_field_step, its stats within rtol 1e-6, its heights within
+    0.2 m and shade within 1e-3 of the composed frame (with "exchange"
+    off the face-edge texels, whose differences it changes by design),
+    finite; and sharded_field_step_fused at BASELINE config 5's 6 x
+    8192^2 bitwise field_cube, its texel count 6 x 8192^2; K4 and K5
+    launched."""
+    from planet_tpu_torch.parallel import facemesh
+
+    radius = EngineConfig().radius
+    n, n5 = 1024, 8192
+    before = dict(_cuda.launches)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh1 = sharded.make_mesh(1, device_type="cuda")
+        px, py, pz = facemesh.face_grid_points_df(n, radius, device=dev)
+        comps = (*px, *py, *pz)
+        xyscale = field_cuda.default_xyscale(n, radius)
+        hc, sc = heightfield.frame_cube(n, radius, fused=False, device=dev)
+        inner = (slice(None), slice(1, -1), slice(1, -1))
+        for seam in sharded.SEAMS:
+            h, sh, st = sharded.sharded_field_step(
+                mesh1, octaves=6, xyscale=xyscale, seam=seam)(*comps)
+            uh, ush, ust = sharded.unsharded_field_step(
+                octaves=6, xyscale=xyscale, seam=seam)(*comps)
+            assert _same_bits(h, uh) and _same_bits(sh, ush), seam
+            assert torch.allclose(st, ust, rtol=1e-6, atol=0.0), seam
+            assert float((h - hc).abs().max()) <= 0.2, seam
+            off = (sh - sc)[inner if seam == "exchange" else ...]
+            assert float(off.abs().max()) <= 1e-3, seam
+            assert bool(torch.isfinite(sh).all()), seam
+        del px, py, pz, comps, hc, sc, h, sh, uh, ush
+        h5, s5, st5 = sharded.sharded_field_step_fused(mesh1, n5, radius)()
+        f5h, f5s = field_cuda.field_cube(n5, radius, device=dev)
+        assert _same_bits(h5, f5h) and _same_bits(s5, f5s)
+        assert float(st5[0]) == 6 * n5 ** 2
+    finally:
+        dist.destroy_process_group()
+    assert all(_cuda.launches[k] > before[k] for k in ("noise", "field"))
+
+
+def test_sharded_lod_at_1080p_on_one_card(dev, tmp_path):
+    """The 24 subtree roots at 1920 x 1080 from the static scene's camera
+    at DeviceRenderer's default caps, each path run until a frame
+    generates nothing: the single-device renderer's leaves from the 24
+    roots are its leaves from the six faces with each depth-0 leaf
+    replaced by its four children; build_sharded_render on an NCCL world
+    of one rank bitwise its frame (image, depth) and leaves; four ranks'
+    shares in turn, each with its own pool and graph, disjoint leaf sets
+    whose union is its leaves and whose packed framebuffers fold by
+    torch.minimum to its; and four processes on the card over gloo, each
+    rank's fourth frame bitwise its, the ranks' leaves its leaves; K1,
+    R1, V1, K6 and K2 launched in this process."""
+    cfg = _cfg1080()
+    before = dict(_cuda.launches)
+    args = stage_times.camera_args(cfg, kernel_times.scene_camera(cfg),
+                                   W1080, H1080)
+    faces = device_step.DeviceRenderer(cfg, W1080, H1080, device=dev)
+    fpool = faces.init_pool()
+    fr = _converge(lambda: faces.render(fpool, *args))
+    face_ids = _ids(faces.last_geometry.leaf_lo, faces.last_geometry.leaf_hi,
+                    fr.n_leaves)
+    roots = sharded_lod.subtree_roots(cfg.radius, dev)
+    single = device_step.DeviceRenderer(cfg, W1080, H1080, device=dev,
+                                        roots=roots)
+    spool = single.init_pool()
+    want = _converge(lambda: single.render(spool, *args))
+    g = single.last_geometry
+    want_packed = device_step.raster_packed(g, cfg, W1080, H1080)[0][0]
+    want_ids = _ids(g.leaf_lo, g.leaf_hi, want.n_leaves)
+    depth0 = {q for q in face_ids if quadid.depth_of(np.uint64(q)) == 0}
+    assert want_ids == (face_ids - depth0) | {
+        int(quadid.make_child(np.uint64(q), c)) for q in depth0
+        for c in range(4)}
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        fn = sharded_lod.build_sharded_render(
+            cfg, sharded.make_mesh(1, axis="quads", device_type="cuda"),
+            W1080, H1080)
+        pool = device_pool.init(cfg.cache_capacity, cfg.tile_dim, dev)
+        frame, (q_lo, q_hi, n, _) = _converge(
+            lambda: fn(pool, *args), lambda out: _frame_counts(out[0]))
+    finally:
+        dist.destroy_process_group()
+    assert _same_bits(frame.image, want.image)
+    assert _same_bits(frame.depth, want.depth)
+    assert _ids(q_lo, q_hi, n) == want_ids
+
+    fold, union = None, set()
+    for rank in range(4):
+        r = device_step.DeviceRenderer(
+            cfg, W1080, H1080, device=dev,
+            roots=sharded_lod.local_roots(roots, rank, 4))
+        rpool = r.init_pool()
+        packed, n, _, _, q_lo, q_hi = _converge(
+            lambda: device_step.raster_packed(
+                r.geometry(rpool, *args), cfg, W1080, H1080)[0],
+            lambda out: (int(out[1]), int(out[2]), bool(out[3])))
+        part = _ids(q_lo, q_hi, n)
+        assert not union & part, rank
+        union |= part
+        fold = packed if fold is None else torch.minimum(fold, packed)
+    assert union == want_ids
+    assert torch.equal(fold, want_packed)
+    assert all(_cuda.launches[k] > before[k]
+               for k in ("tile", "refine", "tess", "gather", "span"))
+
+    out = str(tmp_path / "ranks")
+    spec = dict(cfg=dict(window_w=W1080, window_h=H1080), width=W1080,
+                height=H1080, caps={}, device="cuda",
+                cases={"d": dict(mesh=(4,), max_lod=None, probe="ridged6",
+                                 frames=[args] * 4)})
+    torch_ranks.spawn(torch_ranks.lod_worker, 4, out, spec)
+    union = set()
+    for rank in range(4):
+        counts = torch_ranks.load(out, "d.f3", "counts", rank)
+        assert counts[3] == 0 and counts[4] == 0, (rank, counts)
+        np.testing.assert_array_equal(
+            torch_ranks.load(out, "d.f3", "image", rank),
+            want.image.cpu().numpy())
+        np.testing.assert_array_equal(
+            torch_ranks.load(out, "d.f3", "depth", rank),
+            want.depth.cpu().numpy())
+        union |= set(int(q) for q in quadid.from_words(
+            torch_ranks.load(out, "d.f3", "q_lo", rank),
+            torch_ranks.load(out, "d.f3", "q_hi", rank)))
+    assert union == want_ids
+
+
+# the static-1080p full rung's device events a replay, all and beyond the
+# geometry rung's (145 and 29 since the clip pass sat behind its count
+# and A1 and U1 took the cache, generate and uniforms rungs), and those
+# three rungs' device events beyond the refine rung's: A1, K1, the
+# store's few ops and U1
+FULL_EVENTS_MAX, RASTER_EVENTS_MAX, STAGE_EVENTS_MAX = 145, 29, 20
+
+
+def test_stage_ladder_in_a_process_of_its_own(dev, tmp_path):
+    """tools/stage_times (one timed replay a rung) in a fresh process, so
+    that its profiler sees the ctypes-launched kernels: both scenes, every
+    rung; each rung's leaves DeviceRenderer's at 1080p (the static
+    scene's converged frame; the orbit's frames 1-7 from an empty pool);
+    each replay holding device events; R1 launched by every rung and K4 by
+    none, K1 once from "generate" on, A1 once from "cache" on, U1 on the
+    uniforms rung alone, V1 once on the tess, geometry and full rungs, K6
+    and K2 on the full rung; no matrix-product kernel in the tess rung's
+    trace; the cache, generate and uniforms rungs at most STAGE_EVENTS_MAX
+    device events beyond the refine rung's; static-1080p's full rung fewer
+    than FULL_EVENTS_MAX device events, fewer than RASTER_EVENTS_MAX beyond
+    the geometry rung's."""
+    path = tmp_path / "stage_times.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "planet_tpu_torch.tools.stage_times", "--reps",
+         "1", "--json", str(path)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    scenes = json.loads(path.read_text())["scenes"]
+    cfg = _cfg1080()
+    r = device_step.DeviceRenderer(cfg, W1080, H1080, device=dev)
+    pool = r.init_pool()
+    args = stage_times.camera_args(cfg, kernel_times.scene_camera(cfg),
+                                   W1080, H1080)
+    static_leaves = int(_converge(lambda: r.render(pool, *args)).n_leaves)
+    pool = r.init_pool()
+    orbit_leaves = [int(r.render(pool, *stage_times.camera_args(
+        cfg, c, W1080, H1080)).n_leaves)
+        for _, c in kernel_times.orbit_cameras(cfg)]
+    assert list(scenes) == ["static-1080p", "moving-1080p"]
+    for scene, rows in scenes.items():
+        assert [x["rung"] for x in rows] == list(device_step.RUNGS)
+        by = {x["rung"]: x for x in rows}
+        for x in rows:
+            rung, launched = x["rung"], x["launches"]
+            want = (static_leaves if scene == "static-1080p"
+                    else orbit_leaves[1:len(x["n_leaves"]) + 1])
+            assert x["n_leaves"] == want, (scene, rung)
+            assert x["kernels"] > 0, (scene, rung)
+            assert launched.get("refine", 0) > 0, (scene, rung, launched)
+            assert launched.get("noise", 0) == 0, (scene, rung, launched)
+            if rung not in ("refine", "cache"):
+                assert launched.get("tile", 0) == 1, (scene, rung, launched)
+            if rung != "refine":
+                assert launched.get("cache", 0) == 1, (scene, rung, launched)
+            assert launched.get("uniforms", 0) == (rung == "uniforms"), \
+                (scene, rung, launched)
+            if rung in ("tess", "geometry", "full"):
+                assert launched.get("tess", 0) == 1, (scene, rung, launched)
+            if rung == "full":
+                assert launched.get("gather", 0) > 0, (scene, launched)
+                assert launched.get("span", 0) > 0, (scene, launched)
+        assert by["tess"]["gemm_kernels"] == 0, scene
+        assert (by["uniforms"]["kernels"] - by["refine"]["kernels"]
+                <= STAGE_EVENTS_MAX), scene
+    full, geometry = (scenes["static-1080p"][-1],
+                      scenes["static-1080p"][-2])
+    assert (full["rung"], geometry["rung"]) == ("full", "geometry")
+    assert full["kernels"] < FULL_EVENTS_MAX
+    assert full["kernels"] - geometry["kernels"] < RASTER_EVENTS_MAX
+
+
+def test_rungs_from_a_warm_pool_equal_the_renderer(dev):
+    """From the pool of a DeviceRenderer that has rendered the 1080p static
+    scene until a frame generates nothing: the "geometry" rung's Geometry
+    and pool bit for bit DeviceRenderer.geometry's; V1 (its uniforms mode)
+    on the "uniforms" rung's U1 outputs, a graph whose one launch is U1,
+    the geometry rung's vertices and shade (V1's rows mode) bit for bit;
+    the "full" rung's frame bit for bit the renderer's next frame from
+    that pool."""
+    cfg = _cfg1080()
+    args = stage_times.camera_args(cfg, kernel_times.scene_camera(cfg),
+                                   W1080, H1080)
+    r = device_step.DeviceRenderer(cfg, W1080, H1080, device=dev)
+    pool = r.init_pool()
+    _converge(lambda: r.render(pool, *args))
+    state = [t.clone() for t in pool]
+    frame = r.render(pool, *args)
+    frame = (frame.image.clone(), frame.depth.clone(), int(frame.n_leaves))
+
+    def pool_at():
+        p = device_pool.init(cfg.cache_capacity, cfg.tile_dim, dev)
+        for t, v in zip(p, state):
+            t.copy_(v)
+        return p
+
+    base = device_step.DeviceRenderer(cfg, W1080, H1080, device=dev)
+    rung = device_step.DeviceRenderer(cfg, W1080, H1080, device=dev,
+                                      stop_after="geometry")
+    pool_base, pool_rung = pool_at(), pool_at()
+    want = base.geometry(pool_base, *args)
+    got = rung.geometry(pool_rung, *args)
+    for name in ("leaf_lo", "leaf_hi", "leaf_depth", "slot", "tiles",
+                 "valid", "vertex_shade", "meta"):
+        assert _same_bits(getattr(got, name), getattr(want, name)), name
+    for a, b in zip(got.vertices, want.vertices):
+        assert _same_bits(a, b)
+    cap = cfg.cache_capacity
+    for a, b in zip(pool_rung, pool_base):
+        assert _same_bits(a[:cap] if a.dim() else a, b[:cap] if b.dim() else b)
+    uni = device_step.DeviceRenderer(cfg, W1080, H1080, device=dev,
+                                     stop_after="uniforms")
+    pool_uni = pool_at()
+    o = uni.geometry(pool_uni, *args).outputs
+    tiles = device_pool.gather(pool_uni, o["slot"])
+    pv, shade = vertex_cuda.tessellate_shaded(
+        o["corners_rel"], o["normals"], tiles, o["vx"], o["vy"], o["skirt"],
+        torch.as_tensor(np.asarray(args[2], np.float32), device=dev),
+        grid=cfg.patch_verts + 2)
+    assert _same_bits(tiles, want.tiles)
+    assert all(_same_bits(a, b) for a, b in zip(pv, want.vertices))
+    assert _same_bits(shade, want.vertex_shade)
+    assert uni.graph_launches.get("uniforms") == 1
+    assert uni.graph_launches.get("tess", 0) == 0
+    full = device_step.DeviceRenderer(cfg, W1080, H1080, device=dev,
+                                      stop_after="full")
+    got = full.render(pool_at(), *args)
+    assert _same_bits(got.image, frame[0]) and _same_bits(got.depth, frame[1])
+    assert int(got.n_leaves) == frame[2]

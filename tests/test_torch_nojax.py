@@ -6,9 +6,9 @@ terrain and heightmap API, the driver's non-interactive and interactive
 loops, the entry forward step, the three tools at their small sizes and
 the sharded field and LOD paths on a gloo world of one rank, one
 truncated rung of the device step and dryrun_multichip on one spawned
-CPU rank, then check sys.modules. And no source file of the port, nor chip_smoke.py, nor the
-tests' helpers that the port's ranks and chip_smoke.py import, names a
-jax or planet_tpu module in an import."""
+CPU rank, then check sys.modules. And no source file of the port, nor
+chip_smoke.py, nor the tests' helpers that the port's ranks and its card
+tests import, names a jax or planet_tpu module in an import."""
 
 import ast
 import pathlib

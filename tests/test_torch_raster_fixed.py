@@ -38,8 +38,8 @@ from planet_tpu_torch.raster import coverage as cov
 from planet_tpu_torch.raster import coverage_cuda as cc
 from planet_tpu_torch.raster import nearclip
 from planet_tpu_torch.tess import mesh
-from tests.torch_ranks import lod_camera_args
-from tests.torch_scenes import counter_values
+from torch_ranks import lod_camera_args
+from torch_scenes import counter_values
 
 torch.set_num_threads(1)
 GOLD = "tests/goldens/"

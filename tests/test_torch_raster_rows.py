@@ -36,7 +36,7 @@ from planet_tpu_torch.raster import coverage as cov
 from planet_tpu_torch.raster import coverage_cuda as cc
 from planet_tpu_torch.raster import nearclip
 from planet_tpu_torch.tess import mesh
-from tests.torch_scenes import (EDGE, SCREEN, VIEW, adversarial_records,
+from torch_scenes import (EDGE, SCREEN, VIEW, adversarial_records,
                                 nan_shade_records, screen_scene, view_scene)
 
 torch.set_num_threads(1)

@@ -23,9 +23,8 @@ metadata checks.
 
 Marked `gpu` (skipped without a card): R1 equals the plain version on the
 same inputs on the card, bit for bit, on the same cases plus the oracle's
-max_lod 18 LOD scenes (whose DFS-ordered ids are also the oracle's), R1
-captured in a CUDA graph equals R1 run eagerly, and R1's bench-only
-designs (refine_cuda.DESIGNS) equal the plain version. The order kernel
+max_lod 18 LOD scenes (whose DFS-ordered ids are also the oracle's), and R1
+captured in a CUDA graph equals R1 run eagerly. The order kernel
 equals its plain version (refine_device.dfs_order_plain) bit for bit on
 R1's leaves of every case (the dense camera's 3,177 leaves among them)
 at render caps of 512 (past which the overflow is set) and the whole cap,
@@ -47,7 +46,7 @@ from planet_tpu_torch.nums import df as tdf
 from planet_tpu_torch.ops.kernels import refine_cuda
 from planet_tpu_torch.parallel import sharded_lod
 from planet_tpu_torch.ops import perlin
-from planet_tpu_torch.tools import kernel_times, r1_s1_parts, stage_times
+from planet_tpu_torch.tools import kernel_times, stage_times
 
 torch.set_num_threads(1)
 CFG = EngineConfig(window_w=1920, window_h=1080)
@@ -67,8 +66,8 @@ CASES = {
                       "subtrees"),
     # 300 m above the ridged surface at LOD quality 16: 3,177 leaves,
     # frontiers of up to 384 slots a level
-    "dense": (r1_s1_parts.dense_camera(CFG),
-              dict(quality=r1_s1_parts.DENSE_QUALITY), "faces"),
+    "dense": (kernel_times.dense_camera(CFG),
+              dict(quality=kernel_times.DENSE_QUALITY), "faces"),
 }
 
 
@@ -334,23 +333,6 @@ def test_r1_equals_plain_on_the_oracle_lod_scenes(dev):
         ids = tq.from_words(lo[order].cpu().numpy(), hi[order].cpu().numpy())
         np.testing.assert_array_equal(ids, all_ids[offset:offset + count])
         offset += count
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("design", list(refine_cuda.DESIGNS))
-@pytest.mark.parametrize("name", ["static-1080p", "dense", "overflow-cap64",
-                                  "subtree-roots"])
-def test_r1_designs_equal_plain(dev, name, design):
-    """The bench-only designs of R1 (the level kernel, the same with its
-    compaction a second kernel, the whole refine in one block) equal the
-    plain version bit for bit; one C call a level, or one a refine."""
-    args, kw = _inputs(name, dev)
-    want = trd.refine_plain(*args, probe="ridged6", **kw)
-    before = _cuda.launches["t_refine"]
-    got = refine_cuda.refine_design(design, *args, probe="ridged6", **kw)
-    calls = 1 if design == "one block" else kw["max_lod"] + 1
-    assert _cuda.launches["t_refine"] == before + calls
-    _same(got, want)
 
 
 @pytest.mark.gpu

@@ -20,7 +20,7 @@ tests/test_torch_splat_engine.py).
 Marked `gpu` (skipped without a card): S1 bit for bit against the plain
 version at k = 1, 2, 8, 32, with and without wireframe, on grids with
 invalid padding rows, NaN shades and cells that straddle the screen's
-edges; and its bench-only variants that store keys.
+edges.
 """
 
 import numpy as np
@@ -30,7 +30,6 @@ import torch
 from planet_tpu_torch import _cuda
 from planet_tpu_torch.raster import coverage as tcov
 from planet_tpu_torch.raster import splat
-from planet_tpu_torch.tools import r1_s1_parts
 
 torch.set_num_threads(1)
 
@@ -341,18 +340,3 @@ def test_s1_equals_plain(dev, k, wireframe):
     assert torch.equal(got.cpu(), want)
     assert int((want != tcov._EMPTY).sum()) > 40
 
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("variant", [v for v, (_, stores) in
-                                     r1_s1_parts.SPLAT_VARIANTS.items()
-                                     if stores])
-@pytest.mark.parametrize("wireframe", [False, True])
-def test_s1_bench_variants_equal_plain(dev, variant, wireframe):
-    """S1's bench-only variants that store keys (the first design by
-    division and by multiply-high, the cell kernel with its read skip and
-    with 4 lanes a cell) equal the plain version bit for bit."""
-    args = _screen_grids(7 + wireframe)
-    want = splat.splat_keys_plain(*args, 61, 47, 8, wireframe)
-    got = r1_s1_parts.t_splat(variant, *(a.to(dev) for a in args), 61, 47,
-                              8, wireframe)
-    assert torch.equal(got.cpu(), want)

@@ -1,7 +1,7 @@
 """The port's sharded paths (planet_tpu_torch.parallel) as rank workers
 for planet_tpu_torch.parallel.ranks.spawn (one process a rank, over
 gloo), shared by tests/test_torch_sharded.py,
-tests/test_torch_sharded_lod.py and chip_smoke.py's phase 10; `spawn`,
+tests/test_torch_sharded_lod.py and tests/test_torch_kernels_gpu.py; `spawn`,
 `save` and `load` are the package's.
 
 This module imports neither jax nor planet_tpu: the ranks run the port

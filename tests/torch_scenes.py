@@ -1,11 +1,15 @@
 """Seeded raster and vertex-program scenes shared by the port's CPU and GPU
-tests (numpy only, so the GPU tests run where JAX is not installed)."""
+tests (numpy only, so the GPU tests run where JAX is not installed), and
+the bars a frame of the C oracle's golden scenes is held to."""
+
+import pathlib
 
 import numpy as np
 
 from planet_tpu_torch.geom import camera as cam_mod
 
 F = np.float32
+GOLD = pathlib.Path(__file__).parent / "goldens"
 
 # taller than 16 aligned 8-row blocks, so the biggest triangles take the
 # huge kernel
@@ -190,6 +194,65 @@ def counter_values(rc):
                     n_per_class=tuple(int(v) for v in rc.n_per_class),
                     n_huge=int(rc.n_huge), overflowed=bool(rc.overflowed),
                     n_straddle=int(rc.n_straddle))
+
+
+def ssim(a, b, window: int = 8) -> float:
+    """Mean local SSIM over non-overlapping windows (f32 images in [0, 1];
+    tests/test_golden_frame's measure)."""
+    h = a.shape[0] // window * window
+    w = a.shape[1] // window * window
+
+    def blocks(x):
+        return x[:h, :w].reshape(h // window, window, w // window, window) \
+            .transpose(0, 2, 1, 3).reshape(-1, window * window)
+
+    xa, xb = blocks(a.astype(np.float64)), blocks(b.astype(np.float64))
+    mu_a, mu_b = xa.mean(1), xb.mean(1)
+    va, vb = xa.var(1), xb.var(1)
+    cov = ((xa - mu_a[:, None]) * (xb - mu_b[:, None])).mean(1)
+    c1, c2 = 0.01**2, 0.03**2
+    s = ((2 * mu_a * mu_b + c1) * (2 * cov + c2)
+         / ((mu_a**2 + mu_b**2 + c1) * (va + vb + c2)))
+    return float(s.mean())
+
+
+def assert_golden_counts(name, n_leaves, rc):
+    """A frame of golden scene `name` ("frame", "nearclip" or "farclip")
+    holds the oracle's leaf count and its raster counters `rc` did not
+    overflow; the near-clip scene's straddlers and the far-clip scene's
+    far-straddlers take the huge path."""
+    meta = np.load(GOLD / f"{name}_meta.npy")
+    assert int(n_leaves) == int(meta[0])
+    assert not rc.overflowed
+    if name == "nearclip":
+        assert rc.n_straddle == int(meta[3])
+        assert rc.n_huge > 0
+    if name == "farclip":
+        assert int(meta[5]) > 1000          # the scene really crosses far
+        assert rc.n_huge > 0                # far-straddlers take the huge path
+
+
+def assert_golden_image(name, image, depth):
+    """A frame's (H, W) numpy image and depth of golden scene `name` at
+    the bars of tests/test_golden_frame.py:71-97,
+    tests/test_golden_nearclip.py:59-87 and tests/test_golden_farclip.py:
+    56-87: coverage agreement, the shade's p99 and mean, the altitude
+    frame's depth p99, SSIM."""
+    gold_img = np.load(GOLD / f"{name}_image.npy")
+    gold_dep = np.load(GOLD / f"{name}_depth.npy")
+    cov, gcov = np.isfinite(depth), np.isfinite(gold_dep)
+    if name == "nearclip":
+        assert 0.5 < gcov.mean() < 0.95, gcov.mean()
+    agree = (cov == gcov).mean()
+    assert agree > 0.999, f"coverage agreement {agree}"
+    both = cov & gcov
+    ds = np.abs(image[both] - gold_img[both])
+    assert np.quantile(ds, 0.99) <= 2.5 / 1023, np.quantile(ds, 0.99)
+    assert ds.mean() < 1.0 / 1023, ds.mean()
+    if name == "frame":
+        dd = np.abs(depth[both] - gold_dep[both])
+        assert np.quantile(dd, 0.99) < 1e-5, np.quantile(dd, 0.99)
+    assert ssim(image, gold_img) > 0.99
 
 
 # the vertex program's inputs (tests/test_torch_tess.py, and V1 on the
