@@ -310,9 +310,14 @@ def _pinned(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t
 
 
-def _upload(dst: torch.Tensor, src):
-    """Copy a camera input into a static input tensor, queued."""
-    dst.copy_(_pinned(_f32(src), dst.device), non_blocking=True)
+# the camera inputs' places in DeviceRenderer's 22-float input buffer:
+# view_proj first (16-byte aligned), then cam_hi, cam_lo
+_INPUTS = ((16, 19, (3,)), (19, 22, (3,)), (0, 16, (4, 4)))
+
+
+def _input_views(buf):
+    """(cam_hi, cam_lo, view_proj) views of a 22-float input buffer."""
+    return tuple(buf[a:b].reshape(shape) for a, b, shape in _INPUTS)
 
 
 def _meta(out):
@@ -422,8 +427,15 @@ class DeviceRenderer:
     on the CPU).
 
     The camera and view-projection enter through static input tensors,
-    copied in before each replay; the refinement roots (`roots`, as
-    build_device_render takes them) are static inputs filled once. The
+    views of one 22-float device buffer, copied in before each replay: the
+    host inputs (numpy or CPU tensors) are written into one 22-float host
+    buffer (pinned once on CUDA) and go over in one queued copy. On CUDA a
+    later frame writes that buffer only once the copy that read it has
+    run: an event recorded after each copy is queried first, and waited
+    on only when it has not completed (`staging_waits` counts those waits;
+    a caller that reads its frame back before the next never waits). The
+    refinement roots (`roots`, as build_device_render takes them) are
+    static inputs filled once. The
     capture is made on the first frame rendered into a pool: a warm-up run
     of the step on a side stream first uploads the lazily built tables and
     creates the library handles (nothing may be copied from the host during
@@ -475,10 +487,16 @@ class DeviceRenderer:
         self._step = build_geometry_step(
             cfg, device=self.device, stop_after=_step_stage(stop_after), **kw)
         self._roots = _root_tensors(roots, cfg.radius, self.device)
-        self._cam_hi = torch.zeros(3, dtype=torch.float32, device=self.device)
-        self._cam_lo = torch.zeros(3, dtype=torch.float32, device=self.device)
-        self._vp = torch.zeros((4, 4), dtype=torch.float32,
-                               device=self.device)
+        self._inputs = torch.zeros(22, dtype=torch.float32,
+                                   device=self.device)
+        self._cam_hi, self._cam_lo, self._vp = _input_views(self._inputs)
+        cuda = self.device.type == "cuda"
+        self._staging = torch.zeros(22, dtype=torch.float32, pin_memory=cuda)
+        self._staging_views = _input_views(self._staging.numpy())
+        self._staged = torch.cuda.Event() if cuda else None
+        self._staged_pending = False
+        # waits for a staged copy still queued when the next frame staged
+        self.staging_waits = 0
         self._graph = None
         self._graph_pool = None
         self._graph_out = None
@@ -568,16 +586,33 @@ class DeviceRenderer:
                 tally[k] = tally.get(k, 0) + v
         return tally
 
+    def _staging_free(self):
+        """Wait for the last staged copy, if it has not run yet."""
+        if self._staged_pending:
+            self._staged_pending = False
+            if not self._staged.query():
+                self.staging_waits += 1
+                self._staged.synchronize()
+
+    def _upload_inputs(self, srcs):
+        """Write the camera inputs into the staging buffer and queue its
+        one copy to the static inputs."""
+        self._staging_free()
+        for view, src in zip(self._staging_views, srcs):
+            view[...] = src.numpy() if isinstance(src, torch.Tensor) else src
+        self._inputs.copy_(self._staging, non_blocking=True)
+        if self._staged is not None:
+            self._staged.record(torch.cuda.current_stream(self.device))
+            self._staged_pending = True
+
     def geometry(self, pool: dp.PoolState, cam_hi, cam_lo, view_proj):
         """Stages 1-5 for one camera ((3,) f32 DF camera, (4, 4) f32
-        view-projection; numpy or tensors), updating the pool in place: a
-        Geometry, or a Truncated when stop_after names an earlier stage."""
+        view-projection; numpy or CPU tensors), updating the pool in
+        place: a Geometry, or a Truncated when stop_after names an earlier
+        stage."""
         with timing.span("geometry"):
             with timing.span("upload"):
-                for dst, src in ((self._cam_hi, cam_hi),
-                                 (self._cam_lo, cam_lo),
-                                 (self._vp, view_proj)):
-                    _upload(dst, src)
+                self._upload_inputs((cam_hi, cam_lo, view_proj))
             if self.device.type != "cuda":
                 geom = self._run_step(pool)
             else:

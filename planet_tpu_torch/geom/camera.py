@@ -66,23 +66,53 @@ def view_from_rotation(rotation: np.ndarray) -> np.ndarray:
     return v
 
 
+def _sin_cos(rad: float):
+    """sin and cos of the float32 angle, as Python floats (float32 values,
+    so exact)."""
+    r = np.float32(rad)
+    return float(np.sin(r)), float(np.cos(r))
+
+
+def _matrix(*entries) -> np.ndarray:
+    """A (3, 3) float32 matrix from its nine float32-valued entries, row by
+    row (one conversion of Python floats: no per-scalar dtype discovery)."""
+    return np.array(entries, np.float32).reshape(3, 3)
+
+
 def rot_x(rad: float) -> np.ndarray:
-    s, c = np.sin(np.float32(rad)), np.cos(np.float32(rad))
-    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float32)
+    s, c = _sin_cos(rad)
+    return _matrix(1.0, 0.0, 0.0, 0.0, c, -s, 0.0, s, c)
 
 
 def rot_y(rad: float) -> np.ndarray:
-    s, c = np.sin(np.float32(rad)), np.cos(np.float32(rad))
-    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    s, c = _sin_cos(rad)
+    return _matrix(c, 0.0, s, 0.0, 1.0, 0.0, -s, 0.0, c)
 
 
 def rot_z(rad: float) -> np.ndarray:
-    s, c = np.sin(np.float32(rad)), np.cos(np.float32(rad))
-    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    s, c = _sin_cos(rad)
+    return _matrix(c, -s, 0.0, s, c, 0.0, 0.0, 0.0, 1.0)
 
 
 def _normalize(v):
     return v / np.linalg.norm(v)
+
+
+_Y = np.array([0, 1, 0], np.float32)
+_Z = np.array([0, 0, 1], np.float32)
+# np.cross's operands for (3,) vectors: a[_CROSS_A] * b[_CROSS_B] holds
+# a1 b2, a2 b0, a0 b1 in row 0 and a2 b1, a0 b2, a1 b0 in row 1
+_CROSS_A = np.array([[1, 2, 0], [2, 0, 1]])
+_CROSS_B = np.array([[2, 0, 1], [1, 2, 0]])
+
+
+def _cross(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """np.cross(a, b) of two (3,) float32 vectors, bit for bit: the same
+    float32 products (those by b's zeros too, so that signed zeros match)
+    and differences, in numpy's order, without its moveaxis and broadcast
+    set-up."""
+    p = a[_CROSS_A] * b[_CROSS_B]
+    return p[0] - p[1]
 
 
 @dataclasses.dataclass
@@ -104,14 +134,15 @@ def camera_rotation(cam: Camera) -> np.ndarray:
     sphere: tangent base frame from the planet normal, then Euler Y*X*Z
     (reference update loop, main.cpp:1039-1061)."""
     up = _normalize(cam.position.astype(np.float32))
-    if 1.0 - np.dot(up, np.array([0, 1, 0], np.float32)) < 0.1:
-        right = _normalize(np.cross(up, np.array([0, 0, 1], np.float32)))
+    if 1.0 - np.dot(up, _Y) < 0.1:
+        right = _normalize(_cross(up, _Z))
     else:
-        right = _normalize(np.cross(up, np.array([0, 1, 0], np.float32)))
-    forward = _normalize(np.cross(right, up))
-    base = np.stack([right, up, forward], axis=1)   # columns
-    ax, ay, az = (float(a) for a in cam.angles)
-    return (base @ rot_y(ay) @ rot_x(ax) @ rot_z(az)).astype(np.float32)
+        right = _normalize(_cross(up, _Y))
+    forward = _normalize(_cross(right, up))
+    base = np.empty((3, 3), np.float32)     # columns; C order, as np.stack
+    base[:, 0], base[:, 1], base[:, 2] = right, up, forward
+    ax, ay, az = np.asarray(cam.angles).tolist()
+    return base @ rot_y(ay) @ rot_x(ax) @ rot_z(az)
 
 
 def update_camera(cam: Camera, move: np.ndarray, look: np.ndarray,

@@ -52,6 +52,8 @@ from planet_tpu_torch.engine.config import EngineConfig
 from planet_tpu_torch.engine.planet import STAGES, FrameStats, PlanetEngine
 from planet_tpu_torch.geom import camera as cam_mod
 from planet_tpu_torch.io import checkpoint, png
+from planet_tpu_torch.nums import df as dfm
+from planet_tpu_torch.tess import mesh as mesh_mod
 from planet_tpu_torch.utils import timing
 
 INTERACTIVE_HELP = """\
@@ -128,14 +130,11 @@ class DeviceInteractiveEngine:
         """One frame: (an object with .stats, the full u8 image and the
         depth, both left on the device)."""
         with timing.span("render"):
-            from planet_tpu_torch.nums import df as dfm
-            from planet_tpu_torch.tess import mesh as mesh_mod
             t0 = time.perf_counter()
             c = self.cfg
             with timing.span("camera"):
                 rot = cam_mod.camera_rotation(cam)
-                vp = (self._proj @ cam_mod.view_from_rotation(rot)).astype(
-                    np.float32)
+                vp = self._proj @ cam_mod.view_from_rotation(rot)
                 ch, cl = dfm.from_f64_np(cam.position)
             frame = self._r.render(self.pool, ch, cl, vp)
             # the per-frame display fetch: the preview only

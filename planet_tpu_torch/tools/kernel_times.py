@@ -87,15 +87,15 @@ def scene_camera(cfg):
                           angles=np.array([0.35, 0.3, 0.0], np.float32))
 
 
-def orbit_cameras(cfg):
-    """[(altitude m, camera)] of the orbit's first ORBIT_FRAMES frames
-    (tools/bench_moving.py:55-62, 92-94)."""
+def orbit_cameras(cfg, frames: int = ORBIT_FRAMES):
+    """[(altitude m, camera)] of the orbit's first `frames` frames (at most
+    48; tools/bench_moving.py:55-62, 92-94)."""
     import numpy as np
 
     from planet_tpu_torch.geom import camera as cam_mod
 
     out = []
-    for i, alt in enumerate(np.linspace(20000.0, 3000.0, 48)[:ORBIT_FRAMES]):
+    for i, alt in enumerate(np.linspace(20000.0, 3000.0, 48)[:frames]):
         theta = i * 1e-3
         cdir = np.array([np.cos(theta) * 0.8, 0.6, np.sin(theta) * 0.8])
         cdir /= np.linalg.norm(cdir)

@@ -61,7 +61,10 @@ the eager step bit for bit and launching the wide instance once, and the
 wide instance on the step's own rows equal to its plain version;
 five profiled interactive frames: the graphs' captures in the first
 alone, each later frame's kernels starting after its geometry replay's
-span has started, the readback's copies ending inside its span.
+span has started, the readback's copies ending inside its span; the
+camera inputs in one copy a frame from pinned memory, the driver's path
+never waiting for its staging buffer, and PipelinedRenderer, the host
+ahead of the card, waiting for it and equal to the sequential frames.
 
 At the main path's shapes and on the paths around the kernels: K1, K4,
 K6, K2, K3, C1 and C2 bitwise on the inputs tools/kernel_times builds
@@ -1064,6 +1067,76 @@ def test_render_after_capture_syncs_nothing(dev):
     assert frame.preview.shape == (270, 480)
 
 
+def test_staged_upload_one_copy_a_frame(dev):
+    """The camera inputs reach the card in one queued copy a frame from
+    the renderer's pinned staging buffer: over the orbit's 8 frames
+    through io/driver.DeviceInteractiveEngine at 1080p (after a warm-up
+    frame) one `Memcpy HtoD` from pinned memory a frame and no staging
+    wait, the frame's readback having run each copy. PipelinedRenderer
+    over 16 orbit frames, each submitted behind a 10-ms spin so that the
+    host runs ahead of the card and finds the last staged copy still
+    queued, waits for it (`staging_waits` > 0) and returns frames equal
+    to the sequential renderer's. Each returned frame is copied out and
+    let go, so that its pinned block goes back to the host allocator: a
+    fresh 2-MB block a frame can take long enough to pin for the card to
+    run the spin and the copy in the meantime, and the host would never
+    be ahead. So the host writes the staging buffer while its last copy
+    is queued in most frames, and the frames' equality sees the guard:
+    with it taken out, the frames come out wrong."""
+    from planet_tpu_torch.io.driver import DeviceInteractiveEngine
+    cfg = EngineConfig(window_w=1920, window_h=1080)
+    eng = DeviceInteractiveEngine(cfg, 1920, 1080, preview=2, device=dev)
+    cams = [cam for _, cam in kernel_times.orbit_cameras(cfg)]
+    eng.render(cams[0])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for cam in cams:
+            eng.render(cam)
+        torch.cuda.synchronize()
+    uploads = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "Memcpy HtoD" in e.name]
+    assert len(uploads) == len(cams) == 8, uploads
+    assert all("Pinned" in n for n in uploads), uploads
+    assert eng.renderer.staging_waits == 0
+
+    args = [stage_times.camera_args(cfg, cam, 1920, 1080)
+            for _, cam in kernel_times.orbit_cameras(cfg, frames=16)]
+    seq_r = device_step.DeviceRenderer(cfg, 1920, 1080, device=dev,
+                                       fetch="u8")
+    pool = seq_r.init_pool()
+    seq = []
+    for a in args:
+        f = seq_r.render(pool, *a)
+        seq.append((f.image.cpu().numpy(), int(f.n_leaves),
+                    int(f.n_generated)))
+    assert seq_r.staging_waits == 0
+    r = device_step.DeviceRenderer(cfg, 1920, 1080, device=dev, fetch="u8")
+    pipe = device_step.PipelinedRenderer(r, r.init_pool())
+    spin = int(10e-3 * tools_common.sm_clock_hz())
+    got = []
+
+    def keep(out):
+        image, frame = out
+        got.append((image.copy(), int(frame.n_leaves),
+                    int(frame.n_generated)))
+
+    for a in args:
+        torch.cuda._sleep(spin)
+        out = pipe.submit(*a)
+        if out is not None:
+            keep(out)
+        del out
+    keep(pipe.flush())
+    assert len(got) == len(seq) == 16
+    for (image, n, n_gen), (want, n_want, n_gen_want) in zip(got, seq):
+        np.testing.assert_array_equal(image, want)
+        assert (n, n_gen) == (n_want, n_gen_want)
+    assert r.staging_waits > 0
+
+
 def test_interactive_frame_spans_share_the_device_clock(dev, tmp_path):
     """Five profiled frames of io/driver.DeviceInteractiveEngine at 1080p
     from a new engine: the graphs' captures (planet/capture, the geometry
@@ -1244,7 +1317,7 @@ def test_geometry_replay_refine_layer_nodes(dev):
     names = [e.name for e in events]
     uploads = [i for i, n in enumerate(names) if "Memcpy HtoD" in n]
     cache = next(i for i, n in enumerate(names) if "cache_kernel" in n)
-    assert len(uploads) == 3 and uploads[-1] < cache, names
+    assert len(uploads) == 1 and uploads[-1] < cache, names
     refine = names[uploads[-1] + 1:cache]
     levels = [i for i, n in enumerate(refine) if "level_kernel" in n]
     assert len(levels) == 19, refine
