@@ -51,7 +51,8 @@ ORBIT_FRAMES = 8
 # the dense frontier: a camera this high above the ridged surface under
 # the 1080p scene camera, at this LOD quality (EngineConfig.lod_quality):
 # 3,177 leaves, frontiers of up to 384 slots a level, ~4,300 live slots in
-# all (quality 24 overflows cap 4096)
+# all (quality 24 overflows cap 4096); the benchmark's lod-1080p-q16.dense
+# cell turns round at this camera (perfbench/traffic/dense.json)
 DENSE_ALTITUDE = 300.0
 DENSE_QUALITY = 16.0
 # the frame of stage_inputs whose A1 and U1 times the kernels line keeps:

@@ -71,7 +71,9 @@ K6, K2, K3, C1 and C2 bitwise on the inputs tools/kernel_times builds
 (the 1080p scene's leaves and records, the goldens', the orbit's,
 config 3's flight); both frame paths at the golden bars, and the fused
 1080p frame against PlanetEngine on the orbit and under
-set_sync_debug_mode("error"); config 3's frame on the flight; BASELINE
+set_sync_debug_mode("error"); config 3's frame on the flight; the
+dense mountain-valley view (3,177 leaves at LOD quality 16) through
+the driver against the benchmark's plain reference; BASELINE
 configs 1, 2 and 5 (K4's flat patch, K5 at 1024 and 2048 against the
 composed frame, the 6x8192^2 strips); the attribution tools at their own
 sizes; the splat raster at 1080p; terrain and heightmap against the
@@ -1899,6 +1901,15 @@ def test_fused_frame_at_1080p_matches_planet_engine_on_the_orbit(dev):
         assert fused[k] == r.geometry_replays + r.geometry_captures, k
 
 
+def _bench_config(name):
+    """A benchmark configuration (perfbench/configs/<name>.json): its
+    EngineConfig and the file's contents."""
+    conf = json.loads((ROOT / f"perfbench/configs/{name}.json").read_text())
+    fields = EngineConfig.__dataclass_fields__
+    return EngineConfig(**{k: v for k, v in conf["settings"].items()
+                           if k in fields}), conf
+
+
 def _p64(seed):
     """BASELINE config 3 as the benchmark runs it
     (perfbench/configs/lod-1080p-p64.json: 64-vertex patches, 66 x 66
@@ -1906,11 +1917,7 @@ def _p64(seed):
     keywords and the flight (perfbench/traffic/flight.json) from `seed`."""
     from perfbench.harness import traffic
 
-    conf = json.loads((ROOT / "perfbench/configs/lod-1080p-p64.json")
-                      .read_text())
-    fields = EngineConfig.__dataclass_fields__
-    cfg = EngineConfig(**{k: v for k, v in conf["settings"].items()
-                          if k in fields})
+    cfg, conf = _bench_config("lod-1080p-p64")
     kw = {k: v for k, v in conf["engine"].items() if k != "preview"}
     path = traffic.make(json.loads((ROOT / "perfbench/traffic/flight.json")
                                    .read_text()), seed, cfg.radius)
@@ -1936,6 +1943,85 @@ def test_p64_frames_render_on_the_flight(dev):
     assert r._tally["tess_wide"] == 1 and r._tally["tess"] == 0
     assert {k: _cuda.launches[k] - before[k] for k in ("tess", "tess_wide")} \
         == {"tess": 0, "tess_wide": r.geometry_replays + r.geometry_captures}
+
+
+def _driver_engine(name, dev):
+    """io/driver.DeviceInteractiveEngine at a benchmark configuration
+    (perfbench/configs/<name>.json: its settings and engine keywords)
+    and the configuration."""
+    from planet_tpu_torch.io.driver import DeviceInteractiveEngine
+
+    cfg, conf = _bench_config(name)
+    return DeviceInteractiveEngine(cfg, W1080, H1080, device=dev,
+                                   **conf["engine"]), conf
+
+
+def _frame_events(eng, cam):
+    """The device events (kernels, copies, fills) of one driver frame."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        eng.render(cam)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_dense_frame_through_the_driver_equals_the_reference(dev):
+    """The dense mountain-valley view (perfbench/configs/lod-1080p-q16.json:
+    LOD quality 16, cap, render_cap and cache 4,096; the dense traffic's
+    camera, tools/kernel_times.dense_camera) at 1920 x 1080 through
+    io/driver.DeviceInteractiveEngine: frames 0 (from the empty pool, all
+    3,177 tiles generated), 1 and 121 (half a turn on, the cache hitting)
+    each draw 3,177 leaves with no overflow flag (geometry or raster) and
+    no straddler; frames 0 and 121 equal the benchmark's plain reference
+    on the card (perfbench/reference/lod.frame from the pool's
+    bookkeeping before the frame) within the configuration's limits
+    (perfbench/drivers/lod.compare: leaf rows, tiles, clip-space vertices,
+    image, depth, the pool's bookkeeping); a replayed frame runs as many
+    device events as a lod-1080p frame through the same driver (the
+    look-around's camera)."""
+    from perfbench.drivers import lod as drv
+    from perfbench.harness import traffic
+    from perfbench.reference import lod as ref_lod
+
+    eng, conf = _driver_engine("lod-1080p-q16", dev)
+    rcfg = ref_lod.engine_config(conf["settings"])
+    path = traffic.make(json.loads((ROOT / "perfbench/traffic/dense.json")
+                                   .read_text()), 7, rcfg.radius)
+    for k in (0, 1, 121):
+        pos, ang = path.at(k)
+        p = eng.pool
+        book = None if k == 0 else ref_lod.PoolBook(*(t.clone() for t in (
+            p.keys_lo, p.keys_hi, p.tick, p.now)))
+        out, image, depth = eng.render(cam_mod.Camera(pos, ang))
+        r = eng.renderer
+        g = r.last_geometry
+        assert out.stats.quads == 3177, k
+        assert out.stats.tiles_generated == (3177 if k == 0 else 0), k
+        assert not bool(g.meta[2]) and not bool(r.last_counters.overflowed)
+        assert int(r.last_counters.n_straddle) == 0, k
+        if k == 1:
+            continue
+        kept = dict(n=g.meta[0], leaf_lo=g.leaf_lo, leaf_hi=g.leaf_hi,
+                    leaf_depth=g.leaf_depth, tiles=g.tiles,
+                    clip=g.vertices.clip, image=image, depth=depth,
+                    after=ref_lod.PoolBook(p.keys_lo, p.keys_hi, p.tick,
+                                           p.now))
+        ref = ref_lod.frame(rcfg, W1080, H1080, conf["engine"], pos, ang,
+                            book, dev)
+        assert ref.n_leaves == 3177 and not ref.overflowed
+        for name, value in drv.compare(kept, ref).items():
+            assert value <= conf["limits"][name], (k, name, value)
+    dense = _frame_events(eng, cam_mod.Camera(*path.at(122)))
+    eng, _ = _driver_engine("lod-1080p", dev)
+    look = traffic.make(json.loads((ROOT / "perfbench/traffic/lookaround"
+                                    ".json").read_text()), 7, rcfg.radius)
+    for k in range(2):
+        eng.render(cam_mod.Camera(*look.at(k)))
+    base = _frame_events(eng, cam_mod.Camera(*look.at(2)))
+    assert len(dense) == len(base), (len(dense), len(base))
 
 
 def test_config1_flat_patch_through_k4(dev):
