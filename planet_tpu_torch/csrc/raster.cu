@@ -35,20 +35,52 @@
 // its whole bbox row as its interval, with the same fragment().
 //
 // K2, span_kernel. What bounds it on the H100: latency and instruction
-// issue, not bytes. The 1080p LOD scene has ~36k span records whose bboxes
-// hold 189 pixels at the median (2035 at p99), 1.15e7 in all, of which 28%
-// pass the three edge tests; the records are 4.6 MB and the framebuffer
-// (8.3 MB) stays in the 50 MB L2. One warp a record at a time, warps
-// striding over the records; the grid comes from the caller's capacity
-// and stops at its blocks an SM (coverage_cuda.SPAN_BLOCKS_PER_SM), and
-// the record count is read on the device (warps past it leave), so the
-// launch needs no host read. The warp loads its record as eight 16-byte
-// reads (broadcast through L1), takes 32 rows at a time — a lane a row
-// computes its interval — prefix-sums their lengths and strides over the
-// flattened inside pixels, two a lane an iteration, each lane finding
-// their rows by binary searches over the sums with shuffles. Consecutive
-// records sharing a warp measured slower (the large ones near the camera
-// come in runs); the stride pairs records far apart instead.
+// issue, not bytes (its bound by bytes is 3-9 times below its time on the
+// record sets below). Two kinds of record set meet it. The 1080p LOD scene:
+// ~36k span records, bboxes of 189 pixels at the median (2035 at p99), 12
+// rows and 90 inside pixels on average; the records are 4.6 MB and the
+// framebuffer (8.3 MB) stays in the 50 MB L2. The dense and config-3 frames,
+// about a triangle a pixel: 430k-570k records of 14-35 bbox pixels at the
+// median, 3-5 rows and 6-12 inside pixels, on which one warp a record kept
+// 80-90 % of its lanes idle through each record's chain of loads, interval
+// searches, scans and fragments. The grid comes from the caller's capacity
+// and stops at its blocks an SM (coverage_cuda.SPAN_BLOCKS_PER_SM), and the
+// record count is read on the device (warps past it leave), so the launch
+// needs no host read. Warp w takes records w, w + W, w + 2W, ... (W the
+// grid's warps) up to 32 at a time, a batch: records far apart in the array
+// (the large ones near the camera come in runs) share its lanes. The warp
+// stages the batch in shared memory (four whole records a 16-byte load, rows
+// padded to 33 words); a lane a record finds its rows and whether it is
+// scanned whole; a prefix sum flattens the batch's rows, and the lanes take
+// them 32 at a time (a pass), a lane a row, each finding its record by a
+// binary search over the sums with shuffles and computing its row's exact
+// interval; a second prefix sum flattens the pass's inside pixels, and the
+// lanes stride over them two a lane an iteration, each finding its pixel's
+// row by a search and reading the row's record words into registers before
+// fragment() tests them. A batch of one record (every batch when the count
+// is at most W, as on the goldens, and a warp's last when one record is left
+// over) skips the staging: each lane reads the record from global memory
+// (broadcast through L1) and the warp takes its rows 32 at a time. So the
+// lanes' work follows the records' sizes: the 1080p scene's batches hold 2-3
+// records of about a pass of rows, the dense frame's 25-26 records and ~4
+// passes, and the busy share of the lanes' row and pixel slots
+// (coverage_cuda.span_batch_stats) rises from 17 and 20 % to 90 and 66 %
+// there, from 9 and 9 % to 70 and 56 % on the config-3 flight. Measured
+// (tools/kernel_times.py, queued, one warp a record -> batches): dense frame
+// 0.267 -> 0.093 ms, config-3 flight 0.339 -> 0.081, 1080p scene 0.044 ->
+// 0.048, the goldens within 2 %. Measured and dropped: fragment() reading
+// its record's words from shared memory as it tests them (each test then
+// waited for its own round trip: 1080p +10 %, near-clip golden +38 %); the
+// batch's records with bboxes over 256, 1024 or 4096 pixels taken a warp
+// each, as before (70 registers; 1080p 12-17 % slower than one warp a
+// record); a pass whose rows are one record's drawn with that record's words
+// in registers (70 registers; the dense and config-3 sets 5-6 % slower,
+// 1080p 2 %); two neighbouring pixels a lane, sharing one read of their
+// record's words (70 registers; 6-13 % slower); 10 and 12 blocks an SM by
+// launch bounds (48 and 40 registers with a stack; 4 % faster at best, at 12
+// slower). One warp a record measured slower with consecutive records
+// sharing a warp and without the stride (on the 1080p scene, before the
+// batches).
 //
 // K3, huge_kernel: the huge class — records whose bbox touches more than
 // 16 aligned 8-row blocks, far-straddlers (with the interpolated-1/w
@@ -203,12 +235,31 @@ __device__ __forceinline__ bool scan_whole(const float* r) {
   return scan;
 }
 
-// The rows among the warp's 32 (incl: each row's inclusive prefix sum of
-// interval lengths) that hold flattened inside pixels i0 and i1: the
-// number of rows whose sum is at most each (two binary searches over the
-// lanes, interleaved).
-__device__ __forceinline__ void rows_of(int incl, int i0, int i1, int& j0,
-                                        int& j1) {
+// Inclusive prefix sum of v over the warp's lanes.
+__device__ __forceinline__ int warp_incl(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
+// The lane that holds flattened item i (incl: each lane's inclusive
+// prefix sum of its items): the number of lanes whose sum is at most i,
+// by a binary search over the lanes with shuffles (32 when i is past the
+// last item).
+__device__ __forceinline__ int lane_of(int incl, int i) {
+  int j = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1)
+    if (__shfl_sync(kFull, incl, j + step - 1) <= i) j += step;
+  return j;
+}
+
+// lane_of for two items, the two searches interleaved.
+__device__ __forceinline__ void lanes_of(int incl, int i0, int i1, int& j0,
+                                         int& j1) {
   j0 = 0, j1 = 0;
 #pragma unroll
   for (int step = 16; step > 0; step >>= 1) {
@@ -219,10 +270,37 @@ __device__ __forceinline__ void rows_of(int incl, int i0, int i1, int& j0,
   }
 }
 
-// One record by one warp.
+// The number of records a launch draws: the device count where the
+// caller passes one (at most the capacity), else the capacity.
+__device__ __forceinline__ int record_count(const int* count, int cap) {
+  return count ? min(*count, cap) : cap;
+}
+
+// Words [kLo, kHi) of a staged record into registers, the loads issued
+// together: volatile, so that the compiler cannot sink each load to its
+// first use, where fragment()'s early-out tests would wait for them one
+// shared-memory round trip at a time.
+template <int kLo, int kHi>
+__device__ __forceinline__ void load_words(const float* src, float* q) {
+  const volatile float* v = src;
+#pragma unroll
+  for (int k = kLo; k < kHi; ++k) q[k] = v[k];
+}
+
+// The words fragment<false>() reads (all but 26-28) of a staged record.
+__device__ __forceinline__ void load_fragment_words(const float* src,
+                                                    float* q) {
+  load_words<0, 26>(src, q);
+  load_words<29, 32>(src, q);
+}
+
+// One record by the whole warp, from global memory (a batch of one):
+// each lane reads the record, eight 16-byte reads broadcast through L1;
+// its rows 32 at a time, a lane a row, then their inside pixels two a
+// lane an iteration.
 __device__ __forceinline__ void span_record(const float* __restrict__ rec,
                                             int lane, int* __restrict__ fb,
-                                            int width, bool wireframe) {
+                                            int width, bool wf) {
   float r[32];
   const float4* q = reinterpret_cast<const float4*>(rec);
 #pragma unroll
@@ -232,67 +310,128 @@ __device__ __forceinline__ void span_record(const float* __restrict__ rec,
     r[4 * k + 3] = v.w;
   }
   if (r[28] == 0.0f) return;
+  const bool whole = scan_whole(r);
   const int px0 = (int)r[24], py0 = (int)r[25];
   const int bw = (int)r[26] - px0 + 1, bh = (int)r[27] - py0 + 1;
-  if (scan_whole(r)) {
-    for (int i = lane; i < bw * bh; i += 32) {
-      const int ry = i / bw, rx = i - ry * bw;
-      fragment<false>(r, px0 + rx, py0 + ry, rx, ry, width, wireframe, fb);
-    }
-    return;
-  }
   for (int row0 = 0; row0 < bh; row0 += 32) {
     int lo = 0, len = 0;
     if (row0 + lane < bh) {
-      int hi;
-      row_interval(r, row0 + lane, bw, lo, hi);
+      int hi = bw - 1;
+      if (!whole) row_interval(r, row0 + lane, bw, lo, hi);
       len = max(hi - lo + 1, 0);
     }
-    int incl = len;                              // inclusive prefix sum
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += v;
-    }
-    const int excl = incl - len;
+    const int incl = warp_incl(len, lane);
+    const int col = lo - (incl - len);
     const int total = __shfl_sync(kFull, incl, 31);
-    // two pixels a lane an iteration, their row searches interleaved
     for (int base = 0; base < total; base += 64) {
       const int i0 = base + lane, i1 = i0 + 32;
       int j0, j1;
-      rows_of(incl, i0, i1, j0, j1);
-      const int c0 = __shfl_sync(kFull, lo, j0) + i0
-          - __shfl_sync(kFull, excl, j0);
-      const int c1 = __shfl_sync(kFull, lo, j1) + i1
-          - __shfl_sync(kFull, excl, j1);
+      lanes_of(incl, i0, i1, j0, j1);
+      const int c0 = __shfl_sync(kFull, col, j0) + i0;
+      const int c1 = __shfl_sync(kFull, col, j1) + i1;
       if (i0 < total)
         fragment<false>(r, px0 + c0, py0 + row0 + j0, c0, row0 + j0, width,
-                        wireframe, fb);
+                        wf, fb);
       if (i1 < total)
         fragment<false>(r, px0 + c1, py0 + row0 + j1, c1, row0 + j1, width,
-                        wireframe, fb);
+                        wf, fb);
     }
   }
 }
 
-// The number of records a launch draws: the device count where the
-// caller passes one (at most the capacity), else the capacity.
-__device__ __forceinline__ int record_count(const int* count, int cap) {
-  return count ? min(*count, cap) : cap;
-}
-
-// Warp w takes records w, w + W, w + 2W, ... (W the grid's warps): a warp
-// done with a small record goes on to its next at once, and records far
-// apart in the array (the large ones near the camera come in runs) share
-// a warp.
+// Warp w takes records w, w + W, w + 2W, ... (W the grid's warps), 32 at
+// a time: a batch, staged in shared memory a record a row (slot s: the
+// batch's s-th record). The batch's rows are flattened over the lanes, a
+// lane a row, 32 at a time (a pass); the inside pixels of a pass's rows
+// are flattened over the lanes in turn, two a lane an iteration.
 __global__ void __launch_bounds__(kSpanThreads)
 span_kernel(const float* __restrict__ recs, const int* __restrict__ count,
             int cap, int* __restrict__ fb, int width, int wireframe) {
+  __shared__ float s_rec[kSpanThreads / 32][32][33];   // padded rows
   const int m = record_count(count, cap);
+  const int lane = threadIdx.x & 31;
+  const bool wf = wireframe != 0;
+  float (*batch)[33] = s_rec[threadIdx.x >> 5];
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
-  for (long long w = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-       w < m; w += warps)
-    span_record(recs + w * 32, threadIdx.x & 31, fb, width, wireframe != 0);
+  for (long long first = (blockIdx.x * (long long)blockDim.x + threadIdx.x)
+                         >> 5;
+       first < m; first += 32 * warps) {
+    if (first + warps >= m) {           // a batch of one record
+      span_record(recs + first * 32, lane, fb, width, wf);
+      break;
+    }
+    // stage the batch: each load reads four whole records, 16 bytes a lane
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int s = 4 * k + (lane >> 3), q = lane & 7;
+      const long long i = first + s * warps;
+      if (i < m) {
+        const float4 v = reinterpret_cast<const float4*>(recs + i * 32)[q];
+        float* d = batch[s] + 4 * q;
+        d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+      }
+    }
+    __syncwarp();
+    // slot `lane`'s rows (none when dead or past m) and whether it is
+    // scanned whole
+    const float* mine = batch[lane];
+    int bh = 0;
+    bool whole = false;
+    if (first + lane * warps < m && mine[28] != 0.0f) {
+      bh = max((int)mine[27] - (int)mine[25] + 1, 0);
+      whole = scan_whole(mine);
+    }
+    const int rows_incl = warp_incl(bh, lane);
+    const int rows_excl = rows_incl - bh;
+    const int rows = __shfl_sync(kFull, rows_incl, 31);
+    const unsigned whole_mask = __ballot_sync(kFull, whole);
+    for (int row0 = 0; row0 < rows; row0 += 32) {
+      // flattened row t: its slot, its offset ry in the slot's bbox and
+      // its exact interval
+      const int t = row0 + lane;
+      const int slot = lane_of(rows_incl, t);
+      const int ry = t - __shfl_sync(kFull, rows_excl, slot);
+      int lo = 0, len = 0;
+      if (t < rows) {
+        float r[32];
+        load_words<0, 9>(batch[slot], r);
+        load_words<24, 27>(batch[slot], r);
+        load_words<29, 32>(batch[slot], r);
+        const int bw = (int)r[26] - (int)r[24] + 1;
+        int hi = bw - 1;
+        if (!((whole_mask >> slot) & 1u)) row_interval(r, ry, bw, lo, hi);
+        len = max(hi - lo + 1, 0);
+      }
+      const int incl = warp_incl(len, lane);
+      const int total = __shfl_sync(kFull, incl, 31);
+      const int col = lo - (incl - len);        // a pixel's column less i
+      // two pixels a lane an iteration, their row searches interleaved;
+      // each pixel's record words read into registers before its tests
+      const int at = ry << 5 | (slot & 31);
+      for (int base = 0; base < total; base += 64) {
+        const int i0 = base + lane, i1 = i0 + 32;
+        int j0, j1;
+        lanes_of(incl, i0, i1, j0, j1);
+        const int c0 = __shfl_sync(kFull, col, j0) + i0;
+        const int c1 = __shfl_sync(kFull, col, j1) + i1;
+        const int a0 = __shfl_sync(kFull, at, j0);
+        const int a1 = __shfl_sync(kFull, at, j1);
+        if (i0 < total) {
+          float r[32];
+          load_fragment_words(batch[a0 & 31], r);
+          fragment<false>(r, (int)r[24] + c0, (int)r[25] + (a0 >> 5), c0,
+                          a0 >> 5, width, wf, fb);
+        }
+        if (i1 < total) {
+          float r[32];
+          load_fragment_words(batch[a1 & 31], r);
+          fragment<false>(r, (int)r[24] + c1, (int)r[25] + (a1 >> 5), c1,
+                          a1 >> 5, width, wf, fb);
+        }
+      }
+    }
+    __syncwarp();                       // before the next batch is staged
+  }
 }
 
 constexpr int kHugeThreads = 256;     // also the records staged a pass
@@ -302,12 +441,7 @@ constexpr int kHugeScan = 4;          // records a thread tests a pass
 // must call it); total: the block's sum. s_warp holds a word a warp.
 __device__ __forceinline__ int block_scan(int v, int* s_warp, int& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x += y;
-  }
+  const int x = warp_incl(v, lane);
   if (lane == 31) s_warp[warp] = x;
   __syncthreads();
   int before = 0, all = 0;

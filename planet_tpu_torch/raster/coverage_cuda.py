@@ -51,7 +51,11 @@ of the column, so the pixels passing all three edge tests form one
 interval, and every pixel outside it fails fragment()'s edge test.
 `row_intervals_plain` is the interval search in plain PyTorch, the same
 predicate in the same op order; the CPU tests hold it to a scan of every
-pixel, and nothing on the main path calls it.
+pixel, and nothing on the main path calls it. The span kernel takes each
+warp's strided records 32 at a time as one batch, its rows and their
+inside pixels flattened over the lanes; `span_batch_stats` counts, from
+the records alone, how full that keeps the lanes (tools/kernel_times
+prints it beside K2's time).
 
 Routing (coverage_pallas.raster_frame_pallas): a live record whose bbox
 touches at most 16 aligned 8-row blocks and that is not a far-straddler
@@ -366,6 +370,78 @@ def row_intervals_plain(records):
     lo = torch.where(scan, torch.zeros_like(lo), lo)
     hi = torch.where(scan, width - 1, hi)
     return live[rows], ry, lo, hi
+
+
+def span_grid_warps(m: int, sms: int,
+                    blocks_per_sm: int = SPAN_BLOCKS_PER_SM) -> int:
+    """The span kernel's warps for a buffer of m records on a card of
+    `sms` SMs (csrc/raster.cu planet_raster_span): a warp a record, in
+    128-thread blocks, up to blocks_per_sm blocks an SM (0: no cap)."""
+    one_a_record = -(-m * 32 // 128)
+    cap = blocks_per_sm * sms
+    blocks = one_a_record if blocks_per_sm == 0 or one_a_record < cap \
+        else cap
+    return 4 * blocks
+
+
+def _chunk_slots(key, length, per_pass: int):
+    """Over the groups of equal `key`: (the groups, the lane slots their
+    lengths take at per_pass items a pass, each group's last pass
+    rounded up)."""
+    groups, inv = torch.unique(key, return_inverse=True)
+    items = torch.zeros(groups.numel(), dtype=torch.int64,
+                        device=key.device).index_add_(0, inv, length)
+    return groups.numel(), int((-(-items // per_pass)).sum()) * per_pass
+
+
+def span_batch_stats(records, warps: int) -> dict:
+    """How the span kernel spreads its lanes over (M, 32) records drawn by
+    a grid of `warps` warps (span_grid_warps), from the records alone.
+    Warp w takes records w, w + warps, ... up to 32 at a time, a batch;
+    a pass of the row phase takes 32 rows (a lane a row) and an iteration
+    of the pixel phase 64 inside pixels of those rows (two a lane).
+    Returns {"batches", "records_mean", "records_most": records a batch,
+    dead ones too; "rows_mean", "pixels_mean": the live records' bbox rows
+    and inside pixels (row_intervals_plain) a batch; "row_busy",
+    "pixel_busy": {"record": ..., "batch": ...}, the share of lane slots
+    holding a row or a pixel when a warp takes one record at a time (its
+    rows 32 a pass) and when it takes a batch at a time (the batch's rows
+    flattened, 32 a pass)}. A record scanned whole counts its whole rows,
+    as the kernel scans them."""
+    m = records.shape[0]
+    dev = records.device
+    idx = torch.arange(m, device=dev)
+    batch = (idx // warps // 32) * warps + idx % warps
+    sizes = torch.unique(batch, return_counts=True)[1]
+    rec, ry, lo, hi = row_intervals_plain(records)
+    length = (hi - lo + 1).clamp_min(0)
+    # a warp a record: each record's rows 32 a pass
+    rows_key = rec * 2**20 + ry // 32
+    passes, pix_record = _chunk_slots(rows_key, length, 64)
+    row_record = 32 * passes
+    # a batch: its rows in slot order, 32 a pass
+    b = batch[rec]
+    order = torch.sort(b, stable=True)[1]
+    b, length_b = b[order], length[order]
+    first = torch.searchsorted(b, b)
+    passes, pix_batch = _chunk_slots(
+        b * 2**20 + (torch.arange(b.numel(), device=dev) - first) // 32,
+        length_b, 64)
+    row_batch = 32 * passes
+    n_rows, n_pix = rec.numel(), int(length.sum())
+    n = sizes.numel()
+
+    def share(busy, slots):
+        return busy / slots if slots else 0.0
+
+    return dict(batches=n, records_mean=m / n if n else 0.0,
+                records_most=int(sizes.max()) if n else 0,
+                rows_mean=n_rows / n if n else 0.0,
+                pixels_mean=n_pix / n if n else 0.0,
+                row_busy=dict(record=share(n_rows, row_record),
+                              batch=share(n_rows, row_batch)),
+                pixel_busy=dict(record=share(n_pix, pix_record),
+                                batch=share(n_pix, pix_batch)))
 
 
 def _raster_cuda(kernel, symbol, records, fb, wireframe, count, *extra):

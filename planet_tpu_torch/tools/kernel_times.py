@@ -13,7 +13,9 @@ kernel beside its plain chain, C1 with C2, K3's clip pass and the whole
 clip pass, V1 and its probes, A1, U1, U1 then V1 against V1's rows mode
 on A1's and U1's frames, K5, K2 and K3 on the record sets of
 `record_sets` (the 1080p static scene, the three goldens, the orbit
-frames with huge records) and on a screen-filling triangle, S1 at
+frames with huge records), K2 on the dense cell's frame
+(dense_route_inputs) and on config 3's flight (p64_route_inputs), K3
+on a screen-filling triangle, S1 at
 `splat_inputs`' two shapes with and without wireframe, and K6 on the
 1080p scene and on config 3's flight (p64_route_inputs: 2,048 rows x
 8,712 candidates) — and t_noise's variants (noise_stages.NOISE_VARIANTS);
@@ -24,10 +26,13 @@ Prints what the build reports when this run builds the library (ptxas'
 registers, shared memory and spills a kernel) and, where the toolkit has
 cuobjdump, a census of the noise, field, tile, setup and refine kernels'
 conversions, f64, f32, shared-memory and shuffle instructions
-(tools/common.sass_census); then the card's nvidia-smi name and power
-limit, then one JSON line: {"root": DIR, "ms": {label: ms}, "bounds":
-{K6's two labels: [least ms, by]}, "sectors": {K6's 1080p label: the
-distinct 32-byte sectors its live records' reads touch}, "build_s": s}.
+(tools/common.sass_census); then a line a K2 record set (`span_lines`:
+its queued ms, its bound and how its batches fill the lanes), the card's
+nvidia-smi name and power limit, then one JSON line: {"root": DIR, "ms":
+{label: ms}, "bounds": {K6's two labels and the K2 labels: [least ms,
+by]}, "span_batches": {K2 label: coverage_cuda.span_batch_stats},
+"sectors": {K6's 1080p label: the distinct 32-byte sectors its live
+records' reads touch}, "build_s": s}.
 Needs a CUDA device. chip_smoke.py reads the same times (`measure`) and
 each kernel's bound at the shape keyed to it (`bounds`).
 """
@@ -72,8 +77,14 @@ QUEUE_S = 2e-3
 # tiles, its quality, cache and caps), for K6 at its candidates
 P64_CONFIG = (pathlib.Path(__file__).resolve().parents[2] / "perfbench"
               / "configs" / "lod-1080p-p64.json")
+# and config 4 at DENSE_QUALITY as the benchmark's dense cell runs it,
+# for K2 on its pixel-sized triangles
+Q16_CONFIG = P64_CONFIG.parent / "lod-1080p-q16.json"
 ROUTE_1080P = "K6 route + gather, 1080p"
 ROUTE_P64 = "K6 route + gather, p64 flight"
+# the names of K2's record sets from the two configurations' frames
+SPAN_DENSE = "dense camera q16"
+SPAN_P64 = "p64 flight"
 
 
 def scene_camera(cfg):
@@ -264,20 +275,19 @@ def fused_tile_inputs(device):
             torch.as_tensor(octs, device=device))
 
 
-def p64_route_inputs(device, frames: int = ORBIT_FRAMES) -> dict:
-    """K6's inputs on config 3's flight (P64_CONFIG's settings and caps at
-    1920x1080): a DeviceRenderer flies the orbit's first `frames` frames
-    (orbit_cameras) from an empty pool, and C1 on the last frame's
-    render_cap rows, with the leaf count on the device as the raster
-    graph reads it, gives setup's `tm`, `live` and `span`: 2,048 rows x
-    8,712 candidates, 69,696 route blocks."""
+def renderer_route_inputs(config: pathlib.Path, cameras, device) -> dict:
+    """setup's `tm`, `live` and `span` of a benchmark configuration's last
+    frame: a DeviceRenderer with `config`'s settings and caps flies the
+    cameras `cameras(cfg)` gives from an empty pool, and C1 runs on the
+    last frame's render_cap rows with the leaf count on the device, as
+    the raster graph reads it; with the frame's `width` and `height`."""
     from planet_tpu_torch.engine import device_step
     from planet_tpu_torch.engine.config import EngineConfig
     from planet_tpu_torch.raster import coverage_cuda as cc
     from planet_tpu_torch.tess import mesh
     from planet_tpu_torch.tools import stage_times
 
-    conf = json.loads(P64_CONFIG.read_text())
+    conf = json.loads(config.read_text())
     fields = EngineConfig.__dataclass_fields__
     cfg = EngineConfig(**{k: v for k, v in conf["settings"].items()
                           if k in fields})
@@ -286,13 +296,53 @@ def p64_route_inputs(device, frames: int = ORBIT_FRAMES) -> dict:
         cfg, w, h, device=device,
         **{k: v for k, v in conf["engine"].items() if k != "preview"})
     pool = rend.init_pool()
-    for _, cam in orbit_cameras(cfg)[:frames]:
+    for cam in cameras(cfg):
         geom = rend.geometry(pool, *stage_times.camera_args(cfg, cam, w, h))
     tm, live, span = cc.setup_cuda(
         geom.vertices.clip, geom.vertices.normal, geom.valid, w, h,
         mesh.cell_triangle_mask(cfg.patch_verts), cfg.far_plane,
         geom.meta[0:1].clone())[:3]
-    return dict(tm=tm, live=live, span=span)
+    return dict(tm=tm, live=live, span=span, width=w, height=h)
+
+
+def p64_route_inputs(device, frames: int = ORBIT_FRAMES) -> dict:
+    """K6's inputs on config 3's flight (P64_CONFIG's settings and caps at
+    1920x1080, renderer_route_inputs): the orbit's first `frames` frames
+    (orbit_cameras), 2,048 rows x 8,712 candidates, 69,696 route blocks."""
+    return renderer_route_inputs(
+        P64_CONFIG, lambda cfg: [c for _, c in orbit_cameras(cfg)[:frames]],
+        device)
+
+
+def dense_route_inputs(device) -> dict:
+    """The dense cell's raster inputs (Q16_CONFIG, renderer_route_inputs):
+    one frame at dense_camera with the 1080p scene camera's angles, its
+    3,177 leaves all generated in it, on 4,096 rows."""
+    from planet_tpu_torch.geom import camera as cam_mod
+
+    def cameras(cfg):
+        return [cam_mod.Camera(position=dense_camera(cfg),
+                               angles=scene_camera(cfg).angles)]
+
+    return renderer_route_inputs(Q16_CONFIG, cameras, device)
+
+
+def span_set(inputs: dict) -> dict:
+    """K2's inputs as the main path draws them from one set of route
+    inputs: K6's span-class buffer `span_buf` and its counts `counts` on
+    the device, and the `span_recs` it holds; `width`, `height`."""
+    from planet_tpu_torch.raster import coverage_cuda as cc
+
+    buf, _, counts = cc.route_records_cuda(inputs["tm"], inputs["live"],
+                                           inputs["span"])
+    return dict(span_buf=buf, counts=counts,
+                span_recs=buf[:int(counts[0])], width=inputs["width"],
+                height=inputs["height"])
+
+
+def span_label(name: str, n: int) -> str:
+    """The label K2's queued time on record set `name` of n records has."""
+    return f"K2 span, {name}, {n} records"
 
 
 def route_bound(fs: dict):
@@ -678,7 +728,18 @@ def splat_inputs(device) -> dict:
     return out
 
 
-def calls(device, sets=None, p64=None) -> list:
+def span_sets(sets: dict, p64: dict, dense: dict) -> dict:
+    """{name: span_set}: K2's inputs on each frame set of `sets`
+    (record_sets), on the dense cell's frame (`dense`,
+    dense_route_inputs) and on config 3's flight (`p64`,
+    p64_route_inputs), under SPAN_DENSE and SPAN_P64."""
+    out = {name: span_set(fs) for name, fs in sets.items()}
+    out[SPAN_DENSE] = span_set(dense)
+    out[SPAN_P64] = span_set(p64)
+    return out
+
+
+def calls(device, sets=None, p64=None, spans=None) -> list:
     """[(key or None, label, call, setup)]: the main path's kernels at its
     shapes, each timed as call(*setup()) — K1 on 256 tiles of octaves 6-18
     (noise_stages.tile_inputs) and at the fused frame's occupancy
@@ -686,9 +747,11 @@ def calls(device, sets=None, p64=None) -> list:
     ridged 6) and at 2^20 points x 18 octaves, R1 on the 1080p scene's
     camera from the six faces (max_lod 18, cap 4096, ridged probes), the
     DFS order kernel and its plain chain (order_calls), K5 at 6 x 2048^2;
-    on each frame set of `sets` (else record_sets): K2 on K6's span buffer
-    with the count on the device, as the main path draws it, K3 on its
-    huge records (the huge class and the clipped straddlers), each into a
+    K2 on each set of `spans` (else span_sets on `sets`, else
+    record_sets, on `p64`, else p64_route_inputs, and on
+    dense_route_inputs): K6's span buffer with the count on the device,
+    as the main path draws it; on each frame set of `sets` K3 on its huge
+    records (the huge class and the clipped straddlers), each into a
     fresh framebuffer a call; K3 on screen_triangle_records at 1080p; S1
     at splat_inputs' shapes; C1 on each set of setup_inputs, C2, K3's clip
     pass and the whole clip pass on their straddlers (clip_pass_calls); V1
@@ -696,12 +759,11 @@ def calls(device, sets=None, p64=None) -> list:
     A1 and U1 on each frame of stage_inputs, A1 into a fresh copy of the
     frame's pool a call, and on the same frames the tessellate stage as U1
     then V1 on its outputs ("U1 + V1") and as V1's rows mode ("V1 rows");
-    and K6 on the 1080p scene and on config 3's flight (`p64`, else
-    p64_route_inputs). The key names the kernel ("tile_fused": K1 at the
-    fused occupancy; "tess_pair" and "tess_rows": the tessellate stage's
-    two forms). Inputs come from numpy seeds and the scenes' cameras; the
-    modules are imported here, so they come from whichever tree is first
-    on sys.path."""
+    and K6 on the 1080p scene and on config 3's flight. The key names the
+    kernel ("tile_fused": K1 at the fused occupancy; "tess_pair" and
+    "tess_rows": the tessellate stage's two forms). Inputs come from numpy
+    seeds and the scenes' cameras; the modules are imported here, so they
+    come from whichever tree is first on sys.path."""
     import numpy as np
     import torch
 
@@ -745,14 +807,16 @@ def calls(device, sets=None, p64=None) -> list:
          tuple),
     ]
     out += order_calls(device)
-    for name, fs in sets.items():
-        span_buf, _, counts = cc.route_records(fs["tm"], fs["live"],
-                                               fs["span"])
+    p64 = p64_route_inputs(device) if p64 is None else p64
+    if spans is None:
+        spans = span_sets(sets, p64, dense_route_inputs(device))
+    for name, ss in spans.items():
         out.append(("span" if name == "1080p static" else None,
-                    f"K2 span, {name}, {fs['span_recs'].shape[0]} records",
-                    lambda fb, b=span_buf, c=counts: cc.raster_span_cuda(
-                        b, fb, count=c[0:1]),
-                    fresh_fb(fs["width"], fs["height"])))
+                    span_label(name, ss["span_recs"].shape[0]),
+                    lambda fb, b=ss["span_buf"], c=ss["counts"]:
+                    cc.raster_span_cuda(b, fb, count=c[0:1]),
+                    fresh_fb(ss["width"], ss["height"])))
+    for name, fs in sets.items():
         if fs["huge_recs"].shape[0]:
             hrecs = fs["huge_recs"]
             out.append(("huge" if name == "golden nearclip" else None,
@@ -810,7 +874,6 @@ def calls(device, sets=None, p64=None) -> list:
     out.append((None, "V1 rows probe, every row padding",
                 lambda a=tuple(pad): vertex_cuda.tessellate_rows_cuda(*a),
                 tuple))
-    p64 = p64_route_inputs(device) if p64 is None else p64
     for key, label, r in (("gather", ROUTE_1080P, sets["1080p static"]),
                           (None, ROUTE_P64, p64)):
         out.append((key, label,
@@ -1001,19 +1064,23 @@ def bounds(device, sets: dict, clock=None) -> dict:
 def measure(reps: int = 7) -> dict:
     """On the card: the queued ms of every call of `calls` and of t_noise's
     variants and the host-clock ms of `host_calls`: {"ms": {label: ms},
-    "keys": {key: label}, "bounds": {K6's two labels: [least ms, by]},
-    "sectors": {K6's 1080p label: the distinct 32-byte sectors its live
-    records' reads touch}, "sets": the record sets}."""
+    "keys": {key: label}, "bounds": {K6's two labels and each K2 label:
+    [least ms, by]}, "span_batches": {each K2 label: its records'
+    coverage_cuda.span_batch_stats at the kernel's grid (empty where the
+    tree has none)}, "sectors": {K6's 1080p label: the distinct 32-byte
+    sectors its live records' reads touch}, "sets": the record sets}."""
     import torch
 
+    from planet_tpu_torch.raster import coverage_cuda as cc
     from planet_tpu_torch.tools import common, noise_stages
 
     common.QUEUE_S = max(common.QUEUE_S, QUEUE_S)
     dev = torch.device("cuda")
     sets = record_sets(dev)
     p64 = p64_route_inputs(dev)
+    spans = span_sets(sets, p64, dense_route_inputs(dev))
     runs, keys = {}, {}
-    for key, label, fn, setup in calls(dev, sets, p64=p64):
+    for key, label, fn, setup in calls(dev, sets, p64=p64, spans=spans):
         runs[label] = (fn, setup)
         if key:
             keys[key] = label
@@ -1030,11 +1097,45 @@ def measure(reps: int = 7) -> dict:
         ms[name] = host_ms(fn, reps=reps)
     torch.cuda.synchronize()
     fs = sets["1080p static"]
+    bounds = {ROUTE_1080P: route_bound(fs), ROUTE_P64: route_bound(p64)}
+    batches = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, ss in spans.items():
+        label = span_label(name, ss["span_recs"].shape[0])
+        bounds[label] = raster_bound("span", ss["span_recs"], ss["width"],
+                                     ss["height"])
+        if hasattr(cc, "span_batch_stats"):        # a tree before batches
+            batches[label] = cc.span_batch_stats(
+                ss["span_recs"], cc.span_grid_warps(ss["span_buf"].shape[0],
+                                                    sms))
     return dict(
-        ms=ms, keys=keys, sets=sets,
-        bounds={ROUTE_1080P: route_bound(fs), ROUTE_P64: route_bound(p64)},
+        ms=ms, keys=keys, sets=sets, bounds=bounds, span_batches=batches,
         sectors={ROUTE_1080P: gather_sectors(
             torch.cat([fs["span_idx"], fs["huge_idx"]]), fs["tm"].shape[1])})
+
+
+def span_lines(r: dict) -> list:
+    """A line a K2 record set of measure's result `r`: its queued ms, its
+    bound and, where measured, how its batches fill the lanes."""
+    lines = []
+    for label, (bound, by) in r["bounds"].items():
+        if not label.startswith("K2 "):
+            continue
+        line = f"{label}: queued {r['ms'][label]:.4f} ms, bound {bound:.4f} " \
+            f"ms ({by})"
+        st = r["span_batches"].get(label)
+        if st:
+            line += (f"; {st['batches']} batches of {st['records_mean']:.1f} "
+                     f"records (most {st['records_most']}), "
+                     f"{st['rows_mean']:.1f} rows and {st['pixels_mean']:.1f} "
+                     f"inside pixels a batch; lane slots busy, a record a "
+                     f"warp -> a batch: rows "
+                     f"{100 * st['row_busy']['record']:.1f} -> "
+                     f"{100 * st['row_busy']['batch']:.1f} %, pixels "
+                     f"{100 * st['pixel_busy']['record']:.1f} -> "
+                     f"{100 * st['pixel_busy']['batch']:.1f} %")
+        lines.append(line)
+    return lines
 
 
 def main(argv=None) -> int:
@@ -1056,8 +1157,11 @@ def main(argv=None) -> int:
     for line in build_report(_cuda, common):
         print(line, flush=True)
     r = measure(args.reps)
+    for line in span_lines(r):
+        print(line)
     print(common.card_line())
     print(json.dumps({"root": args.root, "ms": r["ms"], "bounds": r["bounds"],
+                      "span_batches": r["span_batches"],
                       "sectors": r["sectors"],
                       "build_s": _cuda.build_info.get("seconds")}))
     return 0

@@ -14,8 +14,11 @@ on runs of each class, all dead and every one live) bitwise; K2 span and K3 huge
 equal to their plain versions (built with -fmad=false and IEEE
 division/sqrt), K2 also on adversarial records (near-horizontal and
 near-vertical edges, slivers, one-pixel and full-width bboxes, bboxes
-clamped at the screen edge, -0.0 edge words, edges it scans whole), K3 on
-them too and on a screen-filling triangle, both
+clamped at the screen edge, -0.0 edge words, edges it scans whole) and on
+pixel-sized records with a few large, dead and scanned-whole ones among
+them, at the shipped grid and at one block an SM (batches of 32 records
+a warp), K3 on the adversarial records too and on a screen-filling
+triangle, both
 drawing the first `count` records where the count is on the device, with
 and without wireframe, and on records whose every shade is NaN (packed as
 0, planet_tpu's conversion) for both; the splat kernel's keys bitwise
@@ -123,11 +126,12 @@ from planet_tpu_torch.tools import (kernel_times, lut, noise_stages,
                                     span_parts, stage_times)
 from planet_tpu_torch.tools import common as tools_common
 import torch_ranks
-from torch_scenes import (CACHE_CASES, EDGE, SCREEN, STRADDLE,
+from torch_scenes import (CACHE_CASES, EDGE, PIXELS, SCREEN, STRADDLE,
                           TESS_BATCHES, TESS_ROWS_CASES, VIEW,
                           adversarial_records, assert_golden_counts,
                           assert_golden_image, cache_case, counter_values,
-                          nan_shade_records, screen_scene, straddle_scene,
+                          nan_shade_records, pixel_records, screen_scene,
+                          straddle_scene,
                           tess_batch, tess_padded, tess_rows, view_scene)
 
 pytestmark = pytest.mark.gpu
@@ -402,6 +406,52 @@ def test_span_kernel_adversarial_records_bitwise(dev, wireframe):
     want = tcc.raster_span_plain(recs, fb.clone(), wireframe)
     _assert_fb_bars(got, want)
     assert int((want != EMPTY).sum()) > 0
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, tcc.SPAN_BLOCKS_PER_SM])
+@pytest.mark.parametrize("wireframe", [False, True])
+def test_span_kernel_batches_bitwise(dev, wireframe, blocks_per_sm):
+    """K2 on torch_scenes.pixel_records (pixel-sized records with a few
+    of ~2,000 px, every 7th dead and every 97th scanned whole, in a seeded
+    order), at the shipped grid (a batch of one or two records a warp) and
+    at one block an SM (two batches a warp, the first of 32 records), one
+    launch: the framebuffer equals the plain version's bit for bit."""
+    recs = pixel_records(**PIXELS)
+    warps = tcc.span_grid_warps(
+        recs.shape[0], torch.cuda.get_device_properties(dev)
+        .multi_processor_count, blocks_per_sm)
+    assert recs.shape[0] > (32 if blocks_per_sm == 1 else 1) * warps
+    fb = _fb(PIXELS["width"], PIXELS["height"], "cpu")
+    before = _cuda.launches["span"]
+    got = tcc.raster_span_cuda(recs.to(dev), fb.to(dev), wireframe,
+                               blocks_per_sm=blocks_per_sm)
+    assert _cuda.launches["span"] == before + 1
+    want = tcc.raster_span_plain(recs, fb.clone(), wireframe)
+    _assert_fb_bars(got, want)
+    assert int((want != EMPTY).sum()) > 1000
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, tcc.SPAN_BLOCKS_PER_SM])
+@pytest.mark.parametrize("wireframe", [False, True])
+def test_span_kernel_batches_draw_the_device_count(dev, wireframe,
+                                                   blocks_per_sm):
+    """K2's batches with the record count on the device: 0, 1, a count
+    that is no multiple of the grid's warps (so warps end on batches of
+    different sizes) and the whole buffer draw exactly the first `count`
+    records of pixel_records."""
+    recs = pixel_records(**PIXELS)
+    m = recs.shape[0]
+    warps = tcc.span_grid_warps(
+        m, torch.cuda.get_device_properties(dev).multi_processor_count,
+        blocks_per_sm)
+    for n in (0, 1, 17 * warps + 5 if 17 * warps + 5 < m else m - 3, m):
+        count = torch.tensor([n], dtype=torch.int32, device=dev)
+        fbk = _fb(PIXELS["width"], PIXELS["height"], dev)
+        fbp = _fb(PIXELS["width"], PIXELS["height"], "cpu")
+        tcc.raster_span_cuda(recs.to(dev), fbk, wireframe, count=count,
+                             blocks_per_sm=blocks_per_sm)
+        tcc.raster_span_plain(recs[:n], fbp, wireframe)
+        _assert_fb_bars(fbk, fbp)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 6, 8])
@@ -1791,6 +1841,26 @@ def test_gather_kernel_bitwise_on_the_config3_flight(dev):
     for lv in (live, torch.zeros_like(live), torch.ones_like(live)):
         _assert_route_equal_on_card(tcc.route_records_cuda(tm, lv, span),
                                     tcc.route_records_plain(tm, lv, span))
+
+
+@pytest.mark.parametrize("frame", ["dense", "p64"])
+def test_span_kernel_bitwise_on_the_pixel_sized_frames(dev, frame):
+    """K2 on the span records of the two frames of pixel-sized triangles
+    (kernel_times.dense_route_inputs: the dense cell's 3,177 leaves at
+    quality 16; p64_route_inputs: config 3's flight), drawn from K6's
+    buffer with the count on the device as the main path draws them, with
+    and without wireframe: equal to the plain version bit for bit."""
+    inputs = (kernel_times.dense_route_inputs if frame == "dense"
+              else kernel_times.p64_route_inputs)(dev)
+    ss = kernel_times.span_set(inputs)
+    assert ss["span_recs"].shape[0] > 300_000
+    for wireframe in (False, True):
+        fbk = _fb(ss["width"], ss["height"], dev)
+        fbp = _fb(ss["width"], ss["height"], dev)
+        tcc.raster_span_cuda(ss["span_buf"], fbk, wireframe,
+                             count=ss["counts"][0:1])
+        tcc.raster_span_plain(ss["span_recs"], fbp, wireframe)
+        _assert_fb_bars(fbk, fbp)
 
 
 def test_setup_and_clip_kernels_bitwise_on_the_main_path(dev):

@@ -4,7 +4,8 @@ The span kernel (csrc/raster.cu) visits only the pixels of each bbox row
 that pass all three edge tests, found as one interval a row. That is exact
 only because each edge's test is monotone along a row in f32; these tests
 hold it on every row of the port's test scenes (tests/torch_scenes: the
-screen and view scenes, the adversarial records) and of the three
+screen and view scenes, the adversarial records, the pixel-sized records
+with dead and scanned-whole ones among them) and of the three
 goldens' records (span, huge and clipped near-plane straddlers):
 
 * each edge's passing columns in a row are contiguous, a prefix of the row
@@ -18,7 +19,11 @@ goldens' records (span, huge and clipped near-plane straddlers):
   is 0, whatever their corners hold, and the live tiles as alone;
 * torch_scenes.nan_shade_records (records whose every fragment has a NaN
   shade, which the GPU tests hold K2 and K3 to bit for bit) pack every
-  shade as 0, as planet_tpu converts NaN to int32, and are scanned whole.
+  shade as 0, as planet_tpu converts NaN to int32, and are scanned whole;
+* coverage_cuda.span_batch_stats, the span kernel's lane figure, counts
+  the batches, rows, pixels and busy lane slots of hand-built records
+  (each its whole bbox inside) as the kernel lays them out, and
+  span_grid_warps gives the kernel's grid.
 """
 
 import pathlib
@@ -36,12 +41,14 @@ from planet_tpu_torch.raster import coverage as cov
 from planet_tpu_torch.raster import coverage_cuda as cc
 from planet_tpu_torch.raster import nearclip
 from planet_tpu_torch.tess import mesh
-from torch_scenes import (EDGE, SCREEN, VIEW, adversarial_records,
-                                nan_shade_records, screen_scene, view_scene)
+from torch_scenes import (EDGE, PIXELS, SCREEN, VIEW, adversarial_records,
+                          nan_shade_records, pixel_records, screen_scene,
+                          view_scene)
 
 torch.set_num_threads(1)
 GOLD = pathlib.Path(__file__).parent / "goldens"
-SCENES = ("screen", "view", "adversarial", "frame", "nearclip", "farclip")
+SCENES = ("screen", "view", "adversarial", "pixels", "frame", "nearclip",
+          "farclip")
 
 
 def _setup_records(clip, normal, valid, width, height, far_w=None,
@@ -73,6 +80,8 @@ def scenes():
                                  w, h, far_w=VIEW["far"]) + (w, h)
     recs = adversarial_records(**EDGE)
     out["adversarial"] = (recs, recs[:0], EDGE["width"], EDGE["height"])
+    recs = pixel_records(**PIXELS)
+    out["pixels"] = (recs, recs[:0], PIXELS["width"], PIXELS["height"])
     cfg = EngineConfig()
     cell_mask = mesh.cell_triangle_mask(cfg.patch_verts)
     gm = mesh.grid_uv_skirt(cfg.patch_verts)[3]
@@ -174,7 +183,7 @@ def test_row_intervals_are_the_rows_passing_columns(scenes, name):
     assert bool(((hi - lo + 1) == cnt)[ok & some].all())
     assert bool((lo > hi)[ok & ~some].all())
     assert bool(((lo == 0) & (hi == bw - 1))[scan].all())
-    if name == "adversarial":
+    if name in ("adversarial", "pixels"):
         assert int(scan.sum()) > 0 and int((~some).sum()) > 0
 
 
@@ -226,6 +235,64 @@ def test_nan_shade_records_shade_every_fragment_nan():
     bw = (recs[:, 26] - recs[:, 24]).long() + 1
     assert torch.equal(lo, torch.zeros_like(lo))
     assert torch.equal(hi, bw[rec] - 1)
+
+
+def _box_record(bw, bh, live=True):
+    """A record whose every bbox pixel passes its three edges (DX = DY =
+    0, c = 1 over biases of 0): a bw x bh bbox at the origin."""
+    r = torch.zeros(32)
+    r[0:9] = torch.tensor([0.0, 0.0, 1.0] * 3)
+    r[26], r[27] = bw - 1, bh - 1
+    r[28] = -1.0 if live else 0.0
+    return r
+
+
+# (boxes (bw, bh, live), warps, the figure): warp 0 takes records 0, 2, 4
+# and warp 1 records 1 and 3, one batch each; by the record, r1's 40 rows
+# take two passes and r3's 70 pixels two iterations; by the batch, warp
+# 1's rows (r1's 40, then r3's one) take two passes, the second holding
+# 8 + 70 pixels. Then 70 one-pixel records on one warp: batches of 32,
+# 32 and 6.
+BATCH_CASES = {
+    "two warps": ([(3, 2, True), (1, 40, True), (2, 2, False),
+                   (70, 1, True), (2, 2, True)], 2,
+                  dict(batches=2, records_mean=2.5, records_most=3,
+                       rows_mean=22.5, pixels_mean=60.0,
+                       row_busy=dict(record=45 / 160, batch=45 / 96),
+                       pixel_busy=dict(record=120 / 384, batch=120 / 256))),
+    "one warp": ([(1, 1, True)] * 70, 1,
+                 dict(batches=3, records_mean=70 / 3, records_most=32,
+                      rows_mean=70 / 3, pixels_mean=70 / 3,
+                      row_busy=dict(record=70 / (70 * 32), batch=70 / 96),
+                      pixel_busy=dict(record=70 / (70 * 64),
+                                      batch=70 / 192))),
+    "none": ([], 4, dict(batches=0, records_mean=0.0, records_most=0,
+                         rows_mean=0.0, pixels_mean=0.0,
+                         row_busy=dict(record=0.0, batch=0.0),
+                         pixel_busy=dict(record=0.0, batch=0.0))),
+}
+
+
+@pytest.mark.parametrize("case", list(BATCH_CASES))
+def test_span_batch_stats_of_hand_built_records(case):
+    boxes, warps, want = BATCH_CASES[case]
+    recs = torch.stack([_box_record(*b) for b in boxes]) if boxes \
+        else torch.zeros((0, 32))
+    got = cc.span_batch_stats(recs, warps)
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        assert got[key] == pytest.approx(value), key
+
+
+def test_span_grid_warps_is_the_kernels_grid():
+    """A warp a record in 128-thread blocks, up to the cap's blocks an SM
+    (planet_raster_span): 10 records on 3 blocks; a million on 32 x 132
+    blocks; with no cap, a warp a record."""
+    assert cc.span_grid_warps(10, 132) == 12
+    assert cc.span_grid_warps(10**6, 132) == 4 * 32 * 132
+    assert cc.span_grid_warps(10**6, 132, 1) == 4 * 132
+    assert cc.span_grid_warps(10**6, 132, 0) == 10**6
+    assert cc.span_grid_warps(16896, 132) == 16896
 
 
 @pytest.mark.parametrize("amplitude", [8848.0, -8848.0])

@@ -172,6 +172,55 @@ def adversarial_records(seed, width, height, device="cpu"):
     return torch.cat([recs, neg0, odd]).contiguous()
 
 
+# pixel_records' set: pixel-sized triangles, as the dense and config-3
+# frames draw them, with a few of ~2,000 px
+PIXELS = dict(seed=5, width=320, height=200, n_small=24000, n_large=12)
+
+
+def pixel_records(seed, width, height, n_small, n_large, device="cpu"):
+    """(M, 32) f32 span records in a seeded order: the live ones of
+    n_small triangles a pixel or two across and n_large of about 2,000
+    pixels (each in both windings; one of them faces the camera), every
+    7th of them made dead (row 28 zero) and every 97th scanned whole (one accept bias or edge constant at or beyond
+    the kernel's limit, as adversarial_records' are), so that a warp's
+    batches hold all three."""
+    import torch
+
+    from planet_tpu_torch.raster import nearclip
+
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform([0, 0], [width, height], (n_small + n_large, 1, 2))
+    reach = np.where(np.arange(n_small + n_large) < n_small, 4.0, 45.0)
+    xy = centre + rng.uniform(-1.0, 1.0, centre.shape[:1] + (3, 2)) \
+        * reach[:, None, None]
+    xy = np.concatenate([xy, xy[:, ::-1]])
+    k = len(xy)
+    w = rng.uniform(0.5, 2.0, (k, 3))
+    clip = np.zeros((k, 3, 4), F)
+    clip[..., 0] = (xy[..., 0] / width - 0.5) * 2.0 * w
+    clip[..., 1] = (0.5 - xy[..., 1] / height) * 2.0 * w
+    clip[..., 2] = rng.uniform(-0.9, 0.9, (k, 3)) * w
+    clip[..., 3] = w
+    nrm = rng.normal(size=(k, 3, 3))
+    normal = (nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)).astype(F)
+    t = nearclip.setup_tris(torch.as_tensor(clip, device=device),
+                            torch.as_tensor(normal, device=device),
+                            torch.ones(k, dtype=torch.bool, device=device),
+                            width, height)
+    recs = nearclip.records_from_tris(t)[t.live]
+    recs = recs[torch.as_tensor(rng.permutation(len(recs)), device=device)]
+    rows = np.arange(len(recs))
+    dead = rows % 7 == 3
+    whole = rows % 97 == 5
+    out = recs.clone()
+    out[torch.as_tensor(dead, device=device), 28] = 0.0
+    odd = ((29, -1e35), (30, float("-inf")), (31, 1e35), (2, float("nan")))
+    for i, row in enumerate(rows[whole]):
+        word, value = odd[i % len(odd)]
+        out[int(row), word] = value
+    return out.contiguous()
+
+
 def nan_shade_records(seed, width, height, device="cpu"):
     """(M, 32) f32 span records whose every fragment has a NaN shade: the
     first live adversarial_tris records, each with one edge constant made
