@@ -6,7 +6,8 @@ Usage:
     python -m planet_tpu_torch.io.driver [--frames N] [--out DIR] [--orbit]
         [--altitude M] [--width W] [--height H] [--wireframe] [--no-skirts]
         [--save FILE] [--slot K] [--save-slot K] [--no-save] [--timing]
-        [--supersample K] [--check-finite] [--profile DIR]
+        [--raster exact|splat] [--supersample K] [--check-finite]
+        [--profile DIR]
         [--interactive [--device [--preview K]]] [--backend cuda|cpu]
 
 Camera controls come three ways: scripted (an orbit or saved slots), the
@@ -18,6 +19,12 @@ terminal mode mapping the reference key set (main.cpp:947-1000) onto
 (DeviceRenderer: one CUDA-graph replay of the geometry step a frame, then
 the raster) and each frame fetches only a k x k-subsampled u8 preview;
 `--device` without `--interactive` is ignored, as in planet_tpu.
+
+--raster picks the raster mode (EngineConfig.raster_mode, on both
+engines): "exact" (the default), the exact-coverage triangle raster, or
+"splat", the depth-tested splat raster, whose fragments per cell edge
+--supersample sets (by default max(4, round(width / 240))). planet_tpu's
+driver has no such switch.
 
 --backend cuda (the default) runs every kernel on the GPU and fails when
 there is none; --backend cpu runs their plain PyTorch versions.
@@ -262,8 +269,14 @@ def main(argv=None):
                     help="grid-line rendering (reference key P)")
     ap.add_argument("--no-skirts", action="store_true",
                     help="disable skirt drop (reference key K)")
+    ap.add_argument("--raster", choices=("exact", "splat"),
+                    default="exact",
+                    help="raster mode: the exact triangle raster, or the "
+                         "depth-tested splat raster (its fragments per "
+                         "cell edge: --supersample)")
     ap.add_argument("--supersample", type=int, default=None,
-                    help="splat fragments per cell edge (default: by width)")
+                    help="splat fragments per cell edge, with --raster "
+                         "splat (default: by width)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the run to "
                          "DIR/trace.json, with the port's planet/ spans "
@@ -279,7 +292,7 @@ def main(argv=None):
         raise SystemExit("--backend cuda: no CUDA device is available")
     ss = args.supersample or max(4, round(args.width / 240))
     cfg = EngineConfig(window_w=args.width, window_h=args.height,
-                       raster_supersample=ss,
+                       raster_mode=args.raster, raster_supersample=ss,
                        check_finite=args.check_finite)
     engine = PlanetEngine(cfg, device=args.backend)
     engine.wireframe = args.wireframe

@@ -4,7 +4,8 @@ speed digits, toggles, unknown keys, --save-slot, `main --frames 1`) on a
 64x48 engine whose probe heights are zeros (planet_tpu marks its copy
 `slow` for its XLA compiles; the port's needs none), the fused device path
 behind --interactive --device (DeviceInteractiveEngine, preview 2: a `png`
-dump holds the full frame), --profile and --check-finite,
+dump holds the full frame), --raster (exact or splat, reaching both
+engines' EngineConfig), --profile and --check-finite,
 utils/timing and its spans (one shared no-op with no profiler running;
 under one, planet/ ranges nested as the fused frame and frame_cube make
 them), and the camera checkpoint across the two packages' drivers
@@ -197,6 +198,45 @@ def test_main_interactive_device_profile(tmp_path, monkeypatch, capsys):
                  "24", "--altitude", "2e7", "--out", str(tmp_path / "f"),
                  "--no-save", "--backend", "cpu"])
     assert os.listdir(tmp_path / "f") == ["frame_0000.png"]
+
+
+@pytest.mark.parametrize("raster", ["exact", "splat"])
+def test_main_raster_switch(raster, tmp_path, monkeypatch, capsys):
+    """--raster reaches EngineConfig.raster_mode on both engines (the host
+    engine and the device engine behind --interactive --device), with
+    --supersample's default rule for the width; the default is "exact".
+    --interactive --device --raster splat flies a short scripted flight
+    on the cpu backend (the exact case quits at once), and its `png` dump
+    holds a drawn frame."""
+    seen = {}
+
+    class Host(PlanetEngine):
+        def __init__(self, cfg, **kw):
+            seen["host"] = cfg
+            super().__init__(cfg, **kw)
+
+    class Device(driver.DeviceInteractiveEngine):
+        def __init__(self, cfg, *args, **kw):
+            seen["device"] = cfg
+            super().__init__(cfg, *args, **kw)
+            seen["renderer"] = self.renderer
+
+    monkeypatch.setattr(driver, "PlanetEngine", Host)
+    monkeypatch.setattr(driver, "DeviceInteractiveEngine", Device)
+    flight = "w\nright png\n" if raster == "splat" else ""
+    monkeypatch.setattr(sys, "stdin", io.StringIO(flight + "q\n"))
+    argv = ["--interactive", "--device", "--width", str(W), "--height",
+            str(H), "--altitude", "2e5", "--out", str(tmp_path), "--no-save",
+            "--backend", "cpu"]
+    driver.main(argv + (["--raster", raster] if raster != "exact" else []))
+    for name in ("host", "device"):
+        assert seen[name].raster_mode == raster, name
+        assert seen[name].raster_supersample == 4, name
+    frames = capsys.readouterr().out.count("frametime:")
+    assert frames == flight.count("\n")
+    if frames:
+        assert seen["renderer"].last_counters is None
+        assert _png_pixels(tmp_path / "interactive_0001.png").any()
 
 
 def test_check_finite_counts_nonfinite_tiles(caplog):

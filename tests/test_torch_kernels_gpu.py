@@ -79,8 +79,10 @@ dense mountain-valley view (3,177 leaves at LOD quality 16) through
 the driver against the benchmark's plain reference; BASELINE
 configs 1, 2 and 5 (K4's flat patch, K5 at 1024 and 2048 against the
 composed frame, the 6x8192^2 strips); the attribution tools at their own
-sizes; the splat raster at 1080p; terrain and heightmap against the
-goldens; run_interactive on both engines and the driver's --profile;
+sizes; the splat raster at 1080p, and its flight (the benchmark's
+lod-1080p-splat) through the driver against the benchmark's plain
+reference, one S1 launch a frame and no exact-raster kernel; terrain
+and heightmap against the goldens; run_interactive on both engines and the driver's --profile;
 entry()'s forward against the CPU; the sharded field and LOD paths on
 one card (an NCCL world of one rank, ranks in turn, four gloo
 processes); the stage ladder (tools/stage_times in a process of its
@@ -2271,6 +2273,72 @@ def test_splat_raster_on_the_card_at_1080p(dev):
     assert launched["noise"] == 0, launched
     frames = 3 + 3 + len(orbit)
     assert launched["splat"] == frames + r.raster_captures - captures
+
+
+def test_splat_flight_through_the_driver_equals_the_reference(dev):
+    """The splat flight (perfbench/configs/lod-1080p-splat.json: the
+    splat raster at supersample 8, lod-1080p's caps; the flight traffic,
+    seed 7) at 1920 x 1080 through io/driver.DeviceInteractiveEngine: its
+    first frame (from the empty pool, 14.3 km up) and the first after the
+    traffic's 96-frame warm-up (at the same height) equal the benchmark's
+    plain reference on the card (perfbench/reference/lod_splat.frame from
+    the pool's bookkeeping before the frame) within the configuration's
+    limits (perfbench/drivers/lod.compare), each drawing over a quarter of
+    the screen; no frame after the first sets the geometry's overflow
+    flag; the raster graph launches S1 once a frame and no exact
+    raster kernel (C1, K6, K2, C2, K3), the geometry and raster graphs
+    replay with no host read, and the u8 preview is every 2nd pixel."""
+    from perfbench.drivers import lod as drv
+    from perfbench.harness import traffic
+    from perfbench.reference import lod_splat as ref_splat
+
+    eng, conf = _driver_engine("lod-1080p-splat", dev)
+    cfg, r = eng.cfg, eng.renderer
+    assert (cfg.raster_mode, cfg.raster_supersample) == ("splat", 8)
+    rcfg = ref_splat.engine_config(conf["settings"])
+    path = traffic.make(json.loads((ROOT / "perfbench/traffic/flight.json")
+                                   .read_text()), 7, rcfg.radius)
+    warm = 96
+    exact = ("setup", "gather", "span", "clip", "huge")
+    before = dict(_cuda.launches)
+    for k in range(warm + 1):
+        pos, ang = path.at(k)
+        p = eng.pool
+        book = None if k == 0 else ref_splat.PoolBook(*(t.clone() for t in (
+            p.keys_lo, p.keys_hi, p.tick, p.now)))
+        _, image, depth = eng.render(cam_mod.Camera(pos, ang))
+        g = r.last_geometry
+        assert r.last_counters is None
+        # the first frame may spill past gen_cap: an empty pool has no
+        # parent tile to crop
+        assert k == 0 or not bool(g.meta[2]), k
+        if k not in (0, warm):
+            continue
+        kept = dict(n=g.meta[0], leaf_lo=g.leaf_lo, leaf_hi=g.leaf_hi,
+                    leaf_depth=g.leaf_depth, tiles=g.tiles,
+                    clip=g.vertices.clip, image=image, depth=depth,
+                    after=ref_splat.PoolBook(p.keys_lo, p.keys_hi, p.tick,
+                                             p.now))
+        ref = ref_splat.frame(rcfg, W1080, H1080, conf["engine"], pos, ang,
+                              book, dev)
+        assert ref.n_leaves > 100 and ref.overflowed == bool(g.meta[2]), k
+        assert ref.filled > W1080 * H1080 // 4, k
+        for name, value in drv.compare(kept, ref).items():
+            assert value <= conf["limits"][name], (k, name, value)
+    launched = {k: _cuda.launches[k] - before[k] for k in _cuda.launches}
+    frames = warm + 1
+    assert r.raster_captures == 1 and r.geometry_captures == 1
+    assert launched["splat"] == frames + r.raster_captures, launched
+    assert all(launched[k] == 0 for k in exact), launched
+    assert r.graph_launches["splat"] == 1
+    assert all(r.graph_launches.get(k, 0) == 0 for k in exact)
+    args = stage_times.camera_args(cfg, cam_mod.Camera(*path.at(warm + 1)),
+                                   W1080, H1080)
+    with _no_host_reads():
+        fr = r.render(eng.pool, *args)
+    assert fr.preview.dtype == torch.uint8
+    assert fr.preview.shape == (H1080 // 2, W1080 // 2)
+    assert torch.equal(fr.preview, fr.image[::2, ::2])
 
 
 def test_terrain_and_heightmap_on_the_card_match_the_goldens(dev):
