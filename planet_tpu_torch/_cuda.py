@@ -55,7 +55,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "planet_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                      _F, _P),
-    "planet_route_records": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P),
+    "planet_route_records": (_P, _I, _P, _I, _P, _P, _P, _P),
     "planet_raster_span": (_P, _P, _I, _P, _I, _I, _I, _I, _P),
     "planet_raster_huge": (_P, _P, _I, _P, _I, _I, _I, _P),
     "planet_noise": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -66,8 +66,8 @@ _SIGNATURES = {
     "planet_refine_level": (_P,) * 5 + (_I,) + (_P,) * 15
                            + (_I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     "planet_dfs_order": (_P,) * 7 + (_I, _I) + (_P,) * 8,
-    "planet_setup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P,
-                     _P, _P, _P),
+    "planet_setup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P, _P,
+                     _P, _P, _I, _P),
     "planet_clip_records": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
                             _P, _P, _P, _P),
     "planet_tess": (_P,) * 10 + (_I, _I, _I, _F, _F, _F) + (_P,) * 7,

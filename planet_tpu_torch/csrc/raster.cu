@@ -5,9 +5,10 @@
 //
 // Replaces, in planet_tpu/raster/coverage_pallas.py:
 //   _tr_kernel (via _transpose_records), with the routing of
-//   raster_frame_pallas folded in             -> route_count_kernel,
-//                                                route_offsets_kernel,
+//   raster_frame_pallas folded in             -> route_offsets_kernel,
 //                                                route_scatter_kernel
+//                                                (the classes from C1,
+//                                                csrc/setup.cu)
 //   _raster_class_kernel / _one_triangle      -> span_kernel
 //   _huge_class_kernel / _one_huge            -> huge_kernel
 // Plain PyTorch versions: planet_tpu_torch/raster/coverage_cuda.py
@@ -113,45 +114,55 @@
 // records: the queued launch's floor (~5 us) and the fragment math; on
 // many small records, every block testing every record's bbox.
 //
-// K6, route_count_kernel + route_offsets_kernel + route_scatter_kernel:
-// the route and the gather of raster_frame in three launches, with the
-// counts left on the device. The (32, N) record matrix is column-major and
-// the live columns (~8 % at 1080p) are scattered, so a warp's load of one
-// word of 32 records touches up to 32 sectors and no gather from this
-// layout reads fewer; what K6 does away with is the work around the
-// gather: the elementwise route over all N candidates, two nonzero() host
-// synchronisations, and a gather launch per class. Pass 1 reads the route
-// words (row 28, live, span) once, coalesced, and writes a ballot mask a
-// class for every 32 candidates and a count pair for every 256. The scan,
-// one block of 1024 threads, turns the count pairs into each block's two
-// exclusive class offsets in place (tiles of 2 pairs a thread, the next
-// tile read while one is scanned, a block prefix sum, the running totals
-// carried) and writes the two totals.
-// Pass 2 reads its block's offsets and the next block's (their
-// differences are its counts; a block with none leaves there), prefix-sums
-// its 8 mask words, lists its live candidates in candidate order in
-// shared memory, and gathers them a warp 32 records (a lane a record, 32
-// loads in flight), writing each record as one coalesced 128-byte row to
-// its class's buffer through a padded shared-memory transpose. The scan
-// is pass 1's programmatic dependent and pass 2 the scan's (Hopper's
-// griddepcontrol), so each launch overlaps the tail of the one before;
-// pass 1 issues its three route reads together. Blocks take 256
-// candidates, not more: the live ones cluster (a visible patch's
-// triangles are contiguous), and with 1024 a block a few blocks gathered
-// several chunks in a row. Until the scan, each pass-2 block summed the
-// counts of every block before it: B^2 reads for B blocks, a few us at
-// config 4's 1,680 blocks (430,080 candidates) but ~4.9 G reads of L2 at
-// config 3's 69,696 (2,048 rows x 8,712 candidates), where that pass took
-// 2.2 of the frame's 3.7 busy ms. Queued (tools/kernel_times.py, one
-// H100): the whole of K6 0.0147-0.0153 -> 0.0140-0.0142 ms at 1,680
-// blocks and 2.344-2.345 -> 0.2374-0.2379 ms at 69,696 (565,877 live;
-// bound 0.0912, bytes). Measured and dropped: a decoupled look-back in
-// pass 1 (blocks in ticket order, status words zero-filled each call),
-// 0.0214 and 0.3523 ms; pass 2 reading its mask words before it knows
-// it is empty, 0.2767 against 0.2535 ms at 69,696 (with an 8-pair scan).
-// The first port's index input goes with the route it came from (and
-// with it the dead record an out-of-range index gave); its padded 32x32
-// transpose stays, a warp's tile.
+// K6, route_offsets_kernel + route_scatter_kernel: the route and the
+// gather of raster_frame in two launches, with the counts left on the
+// device. The (32, N) record matrix is column-major and the live columns
+// (~8 % at 1080p) are scattered, so a warp's load of one word of 32
+// records touches up to 32 sectors and no gather from this layout reads
+// fewer; what K6 does away with is the work around the gather: the
+// elementwise route over all N candidates, two nonzero() host
+// synchronisations, and a gather launch per class. The route itself comes
+// from C1 (setup_kernel, csrc/setup.cu): a C1 block is one of K6's tiles of
+// 256 candidates, and it writes, from the words it holds in registers, a
+// ballot mask a class for every 32 candidates (span class: live, at most
+// max_span 8-row blocks tall, not a far-straddler; huge class: the other
+// live ones), masks[2 w + c] for word w of class c, and each block's two
+// counts after the masks, in the scratch that the wrapper sizes
+// (coverage_cuda.route_scratch_ints). The scan, one block of 1024 threads,
+// turns the count pairs into each block's two exclusive class offsets in
+// place (tiles of 2 pairs a thread, the next tile read while one is
+// scanned, a block prefix sum, the running totals carried) and writes the
+// two totals. The scatter reads its block's offsets and the next block's
+// (their differences are its counts; a block with none leaves there),
+// prefix-sums its 8 mask words, lists its live candidates in candidate
+// order in shared memory, and gathers them a warp 32 records (a lane a
+// record, 32 loads in flight), writing each record as one coalesced
+// 128-byte row to its class's buffer through a padded shared-memory
+// transpose. The scan is C1's programmatic dependent and the scatter the
+// scan's (Hopper's griddepcontrol), so each launch overlaps the tail of
+// the one before. Blocks take 256 candidates, not more: the live ones
+// cluster (a visible patch's triangles are contiguous), and with 1024 a
+// block a few blocks gathered several chunks in a row. Until the scan,
+// each scatter block summed the counts of every block before it: B^2
+// reads for B blocks, a few us at config 4's 1,680 blocks (430,080
+// candidates) but ~4.9 G reads of L2 at config 3's 69,696 (2,048 rows x
+// 8,712 candidates), where that pass took 2.2 of the frame's 3.7 busy ms.
+// Queued (tools/kernel_times.py, one H100): the whole of K6 0.0147-0.0153
+// -> 0.0140-0.0142 ms at 1,680 blocks and 2.344-2.345 -> 0.2374-0.2379 ms
+// at 69,696 (565,877 live; bound 0.0912, bytes). Until C1 wrote the
+// route, a first pass of K6 (a thread a candidate) read live, span and row
+// 28 back for all N candidates, 9 B each, padding rows included, to form
+// the same bits: 0.087 of the p64 frame's traced ms and 0.042 of the dense
+// frame's. With C1 writing the route, K6 (the scan and the scatter) is
+// 0.154-0.157 ms queued at 69,696 blocks and 0.0110-0.0116 at 1,680;
+// C1 + K6 0.476-0.480 -> 0.385 ms at config 3's flight. Measured
+// and dropped: a decoupled look-back in
+// the first pass (blocks in ticket order, status words zero-filled each
+// call), 0.0214 and 0.3523 ms; the scatter reading its mask words before
+// it knows it is empty, 0.2767 against 0.2535 ms at 69,696 (with an 8-pair
+// scan). The first port's index input goes with the route it came from
+// (and with it the dead record an out-of-range index gave); its padded
+// 32x32 transpose stays, a warp's tile.
 //
 // The TPU-only machinery does not come across: no class caps or ladder, no
 // _class_fixup window addressing, no per-block flags, no framebuffer
@@ -542,51 +553,13 @@ huge_kernel(const float* __restrict__ recs, const int* __restrict__ count,
 }
 
 constexpr int kRouteThreads = 256;
-constexpr int kRouteTile = kRouteThreads;         // candidates a block
+// candidates a route block takes: C1's block (csrc/setup.cu kSetupThreads),
+// whose class masks and counts it reads
+constexpr int kRouteTile = kRouteThreads;
 constexpr int kRouteWords = kRouteTile / 32;      // mask words a class
 constexpr int kRouteWarps = kRouteThreads / 32;
 
-// Pass 1: a thread a candidate; each 32 candidates' class masks (span
-// class: live, at most max_span 8-row blocks tall, not a far-straddler;
-// huge class: the other live ones), masks[2 w + c] for word w of class
-// c, and each block's two counts.
-__global__ void __launch_bounds__(kRouteThreads)
-route_count_kernel(const float* __restrict__ tm,
-                   const unsigned char* __restrict__ live,
-                   const int* __restrict__ span, int n, int max_span,
-                   unsigned* __restrict__ masks,
-                   int* __restrict__ block_counts) {
-  __shared__ int s_cnt[2][kRouteWarps];
-  // the scan's block may be scheduled as this grid's drain (it waits for
-  // its results in griddepcontrol.wait)
-  asm volatile("griddepcontrol.launch_dependents;");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long i = (long long)blockIdx.x * kRouteTile + threadIdx.x;
-  bool s = false, h = false;
-  if (i < n) {                           // the three reads issued together
-    const bool lv = live[i] != 0;
-    const int sp = span[i];
-    const float far = tm[28LL * n + i];
-    s = lv && sp <= max_span && !(far > 0.0f);
-    h = lv && !s;
-  }
-  const unsigned ms = __ballot_sync(kFull, s);
-  const unsigned mh = __ballot_sync(kFull, h);
-  if (lane == 0) {
-    const size_t w = (size_t)blockIdx.x * kRouteWords + warp;
-    masks[2 * w] = ms, masks[2 * w + 1] = mh;
-    s_cnt[0][warp] = __popc(ms), s_cnt[1][warp] = __popc(mh);
-  }
-  __syncthreads();
-  if (threadIdx.x < 2) {
-    int t = 0;
-#pragma unroll
-    for (int w = 0; w < kRouteWarps; ++w) t += s_cnt[threadIdx.x][w];
-    block_counts[2 * blockIdx.x + threadIdx.x] = t;
-  }
-}
-
-// The scan between the passes, one block: the block counts' pairs in
+// The scan between C1 and the scatter, one block: the block counts' pairs in
 // tiles of kScanThreads * 2, each thread a run of two pairs (one 16-byte
 // read, the next tile's issued before this tile is scanned), a block
 // prefix sum of the runs' sums (one barrier a tile), then each pair
@@ -611,7 +584,7 @@ route_offsets_kernel(long long blocks, int* __restrict__ pairs,
                      int* __restrict__ counts) {
   // the warps' run sums, a buffer a tile parity: one barrier a tile
   __shared__ int s_warp[2][2][kScanThreads / 32];
-  // pass 2's blocks may be scheduled now; this block waits for pass 1
+  // the scatter's blocks may be scheduled now; this block waits for C1
   asm volatile("griddepcontrol.launch_dependents;");
   asm volatile("griddepcontrol.wait;" ::: "memory");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -659,7 +632,7 @@ route_offsets_kernel(long long blocks, int* __restrict__ pairs,
   if (tid == 0) counts[0] = carry_s, counts[1] = carry_h;
 }
 
-// Pass 2: the block's live candidates in candidate order, each class's
+// The scatter: the block's live candidates in candidate order, each class's
 // rows written from the class's offset (the scan's pair for this block).
 // A block holds at most 256 live candidates, so each warp gathers at most
 // one 32-record chunk: the live candidates cluster (a visible patch's
@@ -679,7 +652,7 @@ route_scatter_kernel(const float* __restrict__ tm, int n,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
   // launched as the scan's programmatic dependent: wait for its offsets
-  // (it waited for pass 1, so pass 1's masks are written too)
+  // (it waited for C1, so C1's masks and records are written too)
   asm volatile("griddepcontrol.wait;" ::: "memory");
   // the block's class offsets and the next block's (after the last, the
   // totals): their differences are its counts, and a block with none
@@ -755,15 +728,16 @@ cudaError_t launch_dependent(void (*kernel)(Params...), unsigned blocks,
 
 }  // namespace
 
-// K6: tm (32, n) f32, live (n,) bool, span (n,) int32 -> the span-class
-// and huge-class records as (n, 32) rows, the first counts[0] and
-// counts[1] of each written, in candidate order. scratch: at least
-// scratch_ints int32 of the wrapper's (coverage_cuda.route_scratch_ints).
-extern "C" int planet_route_records(const void* tm, const void* live,
-                                    const void* span, int n, int max_span,
-                                    void* scratch, int scratch_ints,
-                                    void* span_out, void* huge_out,
-                                    void* counts, void* stream) {
+// K6: tm (32, n) f32 and the route C1 wrote into scratch (at least
+// scratch_ints int32 of the wrapper's, coverage_cuda.route_scratch_ints:
+// the mask words, then the block counts, which the scan overwrites with
+// the blocks' offsets) -> the span-class and huge-class records as (n, 32)
+// rows, the first counts[0] and counts[1] of each written, in candidate
+// order.
+extern "C" int planet_route_records(const void* tm, int n, void* scratch,
+                                    int scratch_ints, void* span_out,
+                                    void* huge_out, void* counts,
+                                    void* stream) {
   const long long blocks = ((long long)n + kRouteTile - 1) / kRouteTile;
   if (n <= 0 || scratch_ints < blocks * (2 * kRouteWords + 2) ||
       ((size_t)scratch & 15) != 0)
@@ -771,15 +745,11 @@ extern "C" int planet_route_records(const void* tm, const void* live,
   unsigned* masks = (unsigned*)scratch;
   int* block_counts = (int*)scratch + blocks * 2 * kRouteWords;
   const cudaStream_t s = (cudaStream_t)stream;
-  route_count_kernel<<<(unsigned)blocks, kRouteThreads, 0, s>>>(
-      (const float*)tm, (const unsigned char*)live, (const int*)span, n,
-      max_span, masks, block_counts);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // the scan and pass 2 as programmatic dependents: each launch overlaps
-  // the tail of the kernel before it instead of following its end
-  err = launch_dependent(route_offsets_kernel, 1, kScanThreads, s, blocks,
-                         block_counts, (int*)counts);
+  // the scan and the scatter as programmatic dependents: each launch
+  // overlaps the tail of the kernel before it (C1, then the scan) instead
+  // of following its end
+  cudaError_t err = launch_dependent(route_offsets_kernel, 1, kScanThreads,
+                                     s, blocks, block_counts, (int*)counts);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_dependent(route_scatter_kernel, (unsigned)blocks,
                                kRouteThreads, s, (const float*)tm, n,

@@ -2,9 +2,10 @@
 // per-candidate setup in one pass. (Q, G, G) patch grids of clip
 // positions, shading normals and validity -> for every cell triangle, in
 // coverage.setup_t's parity-major candidate order (N = 2 Q G G): its
-// 32-float record column of the (32, N) matrix (live candidates only),
-// live, span (the aligned 8-row blocks its clamped bbox touches) and the
-// near-plane straddler mask, and each block's count of straddlers. C2
+// 32-float record column of the (32, N) matrix (live candidates only), the
+// near-plane straddler mask and each block's count of straddlers, and
+// K6's route (csrc/raster.cu): each 32 candidates' two class masks and
+// each block's two class counts. C2
 // (clip_kernel, below): the clip pass, the straddlers compacted and
 // clipped into their live records.
 //
@@ -14,8 +15,10 @@
 // launches a frame and most of the fused frame's raster time (PERF.md).
 // Plain PyTorch version: planet_tpu_torch/raster/coverage_cuda.py:
 // setup_plain (coverage.setup_t and nearclip.straddle_mask_t, unchanged),
-// which it equals bit for bit in live, span, the straddler mask and every
-// live record column; the wrapper is coverage_cuda.setup.
+// which it equals bit for bit in the straddler mask and every live record
+// column, and route_masks_plain (coverage_cuda.route's class test on
+// setup_plain's live, span and records), which it equals in every mask
+// word and count; the wrapper is coverage_cuda.setup_cuda.
 //
 // A thread a candidate. setup_t's lane rotations (coverage.tri3) become
 // index arithmetic: cell j of patch q gives T0 = (j, j + G, j + 1) and
@@ -31,15 +34,50 @@
 // as torch's; min and max propagate NaN as torch.minimum does.
 //
 // The leaf count: with a count pointer (the fused frame's geom.meta[0]) a
-// thread whose patch row is at or past it writes live = 0, span = 0 and
-// straddle = 0 and reads nothing (those rows are padding, all invalid, so
-// the plain version's live and straddle are 0 there too). Without one
-// (PlanetEngine) every row is evaluated. Record columns of dead
-// candidates are not written: every reader of the matrix (the route, K6)
-// reads a column only where live is set. Each block of 256 candidates
-// also writes its straddlers' count (__syncthreads_count), 4,096 words at
-// 1080p: what C2 scans in place of the 1 M-candidate mask (plain version:
-// coverage_cuda.straddle_blocks, which the plain clip pass does not need).
+// thread whose patch row is at or past it writes straddle = 0 and reads
+// nothing (those rows are padding, all invalid, so the plain version's
+// live and straddle are 0 there too, and the route holds none of them), and
+// a block whose candidates all lie on such rows writes its zero words and
+// leaves before any index arithmetic. Without one (PlanetEngine) every row
+// is evaluated. Record columns of dead candidates are not written: the
+// only reader of the matrix, K6's scatter, reads a column only where a
+// class mask holds it. Each block of 256 candidates also writes its
+// straddlers' count, 4,096 words at 1080p: what C2 scans in place of the
+// 1 M-candidate mask (plain version: coverage_cuda.straddle_blocks, which
+// the plain clip pass does not need).
+//
+// K6's route. A C1 block is exactly one of K6's tiles
+// (kSetupThreads = raster.cu kRouteTile = 256), and every bit of the
+// route is a function of what the thread holds in registers: its live
+// flag, its span and its row-28 word. So C1 writes it, with the route's
+// own test (coverage_cuda.route: span class live, at most max_span blocks
+// tall and not a far-straddler, row 28 > 0; huge class the other live
+// ones): each warp's two ballots to masks[2 w] and masks[2 w + 1], and
+// each block's (span, huge) counts to its pair, in the layout of the
+// route's scratch (coverage_cuda.route_scratch_ints: the mask words, then
+// the pairs), which K6's scan and scatter read as before. K6's first pass,
+// which read live, span and row 28 back for all N candidates (9 B each,
+// the padding rows' too) to form the same bits, is gone, and with it the
+// 5 B a candidate of live and span that only it read: C1 writes neither
+// (a candidate's span is only its class's test). A block with live rows
+// runs griddepcontrol.launch_dependents after the padding test, so the
+// scan, launched as C1's programmatic dependent, can start during C1's
+// tail; a padding block leaves without it (a finished block needs no
+// trigger). Issued at the start by every block, the trigger cost C1
+// 0.016 ms at config 3's flight, whose 69,697 blocks are mostly padding
+// ones with nothing else to do. Measured (queued, C1 then K6 as the frame
+// runs them, the old hand-off then this one, one H100): config 3's flight
+// 0.476 -> 0.385 ms, the dense frame 0.315 -> 0.282, the 1080p rows
+// 0.033 -> 0.026; C1 alone 0.2437 -> 0.2336, 0.182 -> 0.189 and 0.0156 ->
+// 0.0160 (what it adds where few blocks are padding is the prologue's
+// integer work: 880 SASS instructions against 784; the class test ~0.001).
+// Measured and dropped (C1 alone at config 3's flight, queued, with the
+// trigger at the start): the block-wide padding test by a division of the
+// block's first index (C1 + K6 0.405 either way, C1 alone 0.0168 at
+// 1080p); the division before the padding test and no block-wide exit,
+// 0.276; that and the three counts by __syncthreads_count, 0.277; the
+// counts alone by __syncthreads_count 0.250, as the ballots; 5 and 6
+// blocks an SM by launch bounds (48 and 40 registers), 0.278 and 0.343.
 //
 // C2, clip_kernel: coverage_cuda.clip_pass on the card, planet_tpu's
 // clip pass behind its lax.cond (raster/coverage.py:_clipped, nearclip.py;
@@ -70,7 +108,11 @@
 
 namespace {
 
+// candidates a C1 block takes: also K6's tile (csrc/raster.cu kRouteTile),
+// so that a block's class counts are one route block's
 constexpr int kSetupThreads = 256;
+constexpr int kSetupWarps = kSetupThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kWMin = 1e-9f;         // coverage._W_MIN
 constexpr float kSnap = 16.0f, kInvSnap = 0.0625f;
 
@@ -183,29 +225,34 @@ __device__ __forceinline__ void record(const Projected* v, const Tri& t,
   r[28] = r28;
 }
 
-// One candidate of C1: writes its live, span and straddle words and its
-// record column where live; returns its straddle word.
-__device__ __forceinline__ bool setup_one(
+// A candidate's outcome: its straddle word and its route class (span or
+// huge class, neither when dead).
+struct Outcome {
+  bool straddle, span, huge;
+};
+
+// One candidate of C1: writes its straddle word and its record column
+// where live; returns its straddle word and class. A candidate past the first
+// live_cells cells of its parity (the cells of the rows below the leaf
+// count) lies on a padding row: it reads nothing.
+__device__ __forceinline__ Outcome setup_one(
     const float* __restrict__ clip, const float* __restrict__ normal,
     const unsigned char* __restrict__ valid,
-    const unsigned char* __restrict__ cell_ok, const int* __restrict__ count,
+    const unsigned char* __restrict__ cell_ok, long long live_cells,
     long long i, int q, int g, float width, float height, int wmax, int hmax,
-    int has_far, float far_w, float far_ilim, float* __restrict__ tm,
-    unsigned char* __restrict__ live_out, int* __restrict__ span_out,
-    unsigned char* __restrict__ straddle_out) {
+    int has_far, float far_w, float far_ilim, int max_span,
+    float* __restrict__ tm, unsigned char* __restrict__ straddle_out) {
   const int gg = g * g;
   const long long ncell = (long long)q * gg;
   const long long n = 2 * ncell;
   const int p = i >= ncell;
   const long long rem = i - p * ncell;
+  if (rem >= live_cells) {
+    straddle_out[i] = 0;
+    return Outcome{false, false, false};
+  }
   const int qq = (int)(rem / gg);
   const int j = (int)(rem - (long long)qq * gg);
-  if (count != nullptr && qq >= *count) {
-    live_out[i] = 0;
-    span_out[i] = 0;
-    straddle_out[i] = 0;
-    return false;
-  }
   const int j1 = j + 1 < gg ? j + 1 : j + 1 - gg;
   const int jg = j + g < gg ? j + g : j + g - gg;
   const int jg1 = j + g + 1 < gg ? j + g + 1 : j + g + 1 - gg;
@@ -229,16 +276,19 @@ __device__ __forceinline__ bool setup_one(
   // ---------------------------------------------- coverage.setup_t
   const Tri t = cull(pv, pv[0].okw && pv[1].okw && pv[2].okw && cell, wmax,
                      hmax);
-  live_out[i] = t.live;
-  span_out[i] = (t.py1 >> 3) - (t.py0 >> 3) + 1;   // floor division by 8
+  const int span = (t.py1 >> 3) - (t.py0 >> 3) + 1;   // floor division by 8
+  float r28 = 0.0f;                                   // live * ilim
   if (t.live) {
     const bool far = has_far && (v[0].w > far_w || v[1].w > far_w
                                  || v[2].w > far_w);
+    r28 = far ? far_ilim : -1.0f;
     float r[32];
-    record(pv, t, 1.0f / t.area2, far ? far_ilim : -1.0f, r);  // live * ilim
+    record(pv, t, 1.0f / t.area2, r28, r);
 #pragma unroll
     for (int k = 0; k < 32; ++k) tm[(long long)k * n + i] = r[k];
   }
+  // ------------------------------------------ coverage_cuda.route
+  const bool span_class = t.live && span <= max_span && !(r28 > 0.0f);
 
   // -------------------------------------- nearclip.straddle_mask_t
   const float x0 = v[0].x, x1 = v[1].x, x2 = v[2].x;
@@ -257,29 +307,72 @@ __device__ __forceinline__ bool setup_one(
   const bool st = v[0].valid && v[1].valid && v[2].valid && wl && fpos
                   && det3 < 0.0f && !all_out && cell;
   straddle_out[i] = st;
-  return st;
+  return Outcome{st, span_class, t.live && !span_class};
 }
 
-// C1: a thread a candidate; each block also writes its straddlers' count
-// (blocks_out, a word a block of kSetupThreads candidates), which C2 scans
+// C1: a thread a candidate. Each block also writes its straddlers' count
+// (blocks_out, a word a block), which C2 scans, and K6's route: each
+// warp's span-class and huge-class ballots (masks[2 w], masks[2 w + 1])
+// and the block's two class counts (pairs[2 b], pairs[2 b + 1]), which
+// K6's scan and scatter read.
 __global__ void __launch_bounds__(kSetupThreads)
 setup_kernel(const float* __restrict__ clip, const float* __restrict__ normal,
              const unsigned char* __restrict__ valid,
              const unsigned char* __restrict__ cell_ok,
              const int* __restrict__ count, int q, int g, float width,
              float height, int wmax, int hmax, int has_far, float far_w,
-             float far_ilim, float* __restrict__ tm,
-             unsigned char* __restrict__ live_out, int* __restrict__ span_out,
+             float far_ilim, int max_span, float* __restrict__ tm,
              unsigned char* __restrict__ straddle_out,
-             int* __restrict__ blocks_out) {
-  const long long n = 2LL * q * g * g;
-  const long long i = (long long)blockIdx.x * kSetupThreads + threadIdx.x;
-  const bool st = i < n && setup_one(clip, normal, valid, cell_ok, count, i,
-                                     q, g, width, height, wmax, hmax,
-                                     has_far, far_w, far_ilim, tm, live_out,
-                                     span_out, straddle_out);
-  const int c = __syncthreads_count(st);
-  if (threadIdx.x == 0) blocks_out[blockIdx.x] = c;
+             int* __restrict__ blocks_out, unsigned* __restrict__ masks,
+             int* __restrict__ pairs) {
+  __shared__ int s_cnt[3][kSetupWarps];
+  const long long ncell = (long long)q * g * g, n = 2 * ncell;
+  const long long first = (long long)blockIdx.x * kSetupThreads;
+  const long long i = first + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t w = (size_t)blockIdx.x * kSetupWarps + warp;
+  // the cells of each parity on the rows below the leaf count: candidates
+  // [0, live_cells) and [ncell, ncell + live_cells)
+  const int rows = count != nullptr ? min(max(*count, 0), q) : q;
+  const long long live_cells = (long long)rows * g * g;
+  const long long last = min(first + kSetupThreads, n) - 1;
+  if (first >= live_cells
+      && (rows == 0 || last < ncell || first >= ncell + live_cells)) {
+    // every candidate of the block lies on a padding row
+    if (i < n) straddle_out[i] = 0;
+    if (lane == 0) masks[2 * w] = 0, masks[2 * w + 1] = 0;
+    if (threadIdx.x == 0)
+      blocks_out[blockIdx.x] = 0, pairs[2 * blockIdx.x] = 0,
+      pairs[2 * blockIdx.x + 1] = 0;
+    return;
+  }
+  // K6's scan may be scheduled as this grid drains (it waits for its
+  // results in griddepcontrol.wait); a padding block leaves without the
+  // trigger, which a grid's finished blocks do not need
+  asm volatile("griddepcontrol.launch_dependents;");
+  Outcome o{false, false, false};
+  if (i < n)
+    o = setup_one(clip, normal, valid, cell_ok, live_cells, i, q, g, width,
+                  height, wmax, hmax, has_far, far_w, far_ilim, max_span, tm,
+                  straddle_out);
+  const unsigned mst = __ballot_sync(kFull, o.straddle);
+  const unsigned ms = __ballot_sync(kFull, o.span);
+  const unsigned mh = __ballot_sync(kFull, o.huge);
+  if (lane == 0) {
+    masks[2 * w] = ms, masks[2 * w + 1] = mh;
+    s_cnt[0][warp] = __popc(mst);
+    s_cnt[1][warp] = __popc(ms), s_cnt[2][warp] = __popc(mh);
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < kSetupWarps; ++k) c += s_cnt[threadIdx.x][k];
+    if (threadIdx.x == 0)
+      blocks_out[blockIdx.x] = c;
+    else
+      pairs[2 * blockIdx.x + threadIdx.x - 1] = c;
+  }
 }
 
 constexpr int kClipThreads = 512;
@@ -500,27 +593,35 @@ clip_kernel(const float* __restrict__ clip, const float* __restrict__ normal,
 
 // clip (Q, G, G, 4) f32, normal (Q, G, G, 3) f32, valid (Q, G, G) bool,
 // cell_ok (2, G, G) bool, count: one int32 on the card or null; tm
-// (32, 2 Q G G) f32, live and straddle (2 Q G G) bool, span (2 Q G G)
-// int32, blocks (ceil(2 Q G G / 256),) int32: each 256 candidates'
-// straddlers. far_w <= 0: no far clip.
+// (32, 2 Q G G) f32, straddle (2 Q G G) bool, blocks (ceil(2 Q G G /
+// 256),) int32: each 256 candidates' straddlers; route: K6's scratch of
+// route_ints int32 words, 16-byte aligned (coverage_cuda.route_scratch_ints:
+// two mask words a warp of candidates, then two counts a block), whose
+// route C1 writes with max_span as the span class's limit. far_w <= 0: no
+// far clip.
 extern "C" int planet_setup(const void* clip, const void* normal,
                             const void* valid, const void* cell_ok,
                             const void* count, int q, int g, int width,
-                            int height, float far_w, float far_ilim, void* tm,
-                            void* live, void* span, void* straddle,
-                            void* blocks, void* stream) {
+                            int height, float far_w, float far_ilim,
+                            int max_span, void* tm, void* straddle,
+                            void* blocks, void* route, int route_ints,
+                            void* stream) {
   if (q < 0 || g <= 0 || width <= 0 || height <= 0
       || ((size_t)clip & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const long long n = 2LL * q * g * g;
   if (n == 0) return (int)cudaSuccess;
   const long long nb = (n + kSetupThreads - 1) / kSetupThreads;
+  const long long mask_words = nb * 2 * kSetupWarps;
+  if (route == nullptr || route_ints < mask_words + 2 * nb
+      || ((size_t)route & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   setup_kernel<<<(unsigned)nb, kSetupThreads, 0, (cudaStream_t)stream>>>(
       (const float*)clip, (const float*)normal, (const unsigned char*)valid,
       (const unsigned char*)cell_ok, (const int*)count, q, g, (float)width,
       (float)height, width - 1, height - 1, far_w > 0.0f, far_w, far_ilim,
-      (float*)tm, (unsigned char*)live, (int*)span,
-      (unsigned char*)straddle, (int*)blocks);
+      max_span, (float*)tm, (unsigned char*)straddle, (int*)blocks,
+      (unsigned*)route, (int*)route + mask_words);
   return (int)cudaGetLastError();
 }
 

@@ -4,19 +4,27 @@ that queues them (planet_tpu raster/coverage_pallas.py's
 raster_frame_pallas, without its TPU-only machinery).
 
 Each kernel wrapper takes a CUDA tensor and launches its kernel
-(csrc/setup.cu, csrc/raster.cu) or raises; given a CPU tensor it runs the
-plain PyTorch version beside it, which has the same signature but for
-the clip pass's `blocks`:
+(csrc/setup.cu, csrc/raster.cu) or raises. The clip pass's and the
+raster's wrappers, given a CPU tensor, run the plain PyTorch version
+beside them, which has the same signature but for the clip pass's
+`blocks`; C1 and K6 hand each other the route on the card and live and
+span in their plain versions:
 
-* setup(clip, normal, valid, width, height, cell_mask, far_w, count) ->
-  (tm (32, N) f32, live (N,) bool, span (N,) int32, straddle (N,) bool,
-  blocks): coverage.setup_t's outputs and nearclip.straddle_mask_t's
-  mask in one pass (C1); with `count` (a (1,) int32 tensor: the leaf
-  count, read on the device) the patch rows at or past it come out dead
-  (live, span and straddle 0); the kernel writes tm's columns for live
-  candidates only, and `blocks`, each SETUP_BLOCK candidates' straddler
-  count ((ceil(N / SETUP_BLOCK),) int32) for its clip pass; the plain
-  version returns None there (straddle_blocks is its counterpart);
+* setup_plain(clip, normal, valid, width, height, cell_mask, far_w,
+  count) -> (tm (32, N) f32, live (N,) bool, span (N,) int32, straddle
+  (N,) bool, None): coverage.setup_t's outputs and
+  nearclip.straddle_mask_t's mask; with `count` (a (1,) int32 tensor:
+  the leaf count, read on the device) the patch rows at or past it come
+  out dead (live, span and straddle 0);
+* setup_cuda(the same arguments) -> (tm, route, straddle, blocks): C1,
+  the same in one pass, tm's columns written for live candidates only,
+  with K6's route (`route`, the (route_scratch_ints(N),) int32 scratch:
+  each 32 candidates' span-class and huge-class masks, then each
+  ROUTE_TILE candidates' two class counts) in place of live and span,
+  and `blocks`, each SETUP_BLOCK candidates' straddler count
+  ((ceil(N / SETUP_BLOCK),) int32) for its clip pass. Their plain
+  counterparts: route_masks_plain on setup_plain's tm, live and span
+  (route's class test), and straddle_blocks;
 * clip_pass(clip, normal, straddle, blocks, width, height, far_w,
   clip_cap) -> (s_idx (clip_cap,) int32, n_straddle () int32, records,
   count (1,) int32): the near-plane clip pass (C2) — the first clip_cap
@@ -28,13 +36,13 @@ the clip pass's `blocks`:
   version, clip_pass_plain (compact_indices, nearclip.clipped_tris and
   records_from_tris: clip_records_plain), takes no `blocks` and
   compacts the mask itself;
-* route_records(tm (32, N) f32, live (N,) bool, span (N,) int32) ->
-  (span-class records, huge-class records, counts (2,) int32): each
-  class's live records as rows in candidate order, the first counts[c]
-  rows of each buffer (the kernel's buffers hold N rows, the plain
-  version's exactly the count) — the route and the gather in one call
-  (K6: pass 1, a scan of its block counts, pass 2), the counts left on
-  the device;
+* route_records_plain(tm (32, N) f32, live (N,) bool, span (N,) int32)
+  -> (span-class records, huge-class records, counts (2,) int32): each
+  class's live records as rows in candidate order (route, then
+  gather_records_plain); route_records_cuda(tm, route) -> the same on
+  C1's route (K6: the scan of its block counts, then the scatter), the
+  first counts[c] rows of each N-row buffer written and the counts left
+  on the device;
 * raster_span(records (M, 32), fb (H, W) int32, count=None) — fragments
   without the interpolated-1/w test (vacuous inside the exact coverage
   domain);
@@ -74,7 +82,9 @@ compaction of the clipped triangles, a TPU cost cap like its class caps)
 has no counterpart. So raster_frame's shapes follow from its inputs' and
 it reads nothing back to the host: C1, K6, K2, C2 and K3 and the few
 torch ops between them are queued with no host read, and a CUDA graph
-can capture the whole raster (engine/device_step.DeviceRenderer).
+can capture the whole raster (engine/device_step.DeviceRenderer). On the
+card C1 classifies the candidates for K6 as it sets them up, and K6's
+scan is C1's programmatic dependent: nothing is queued between them.
 """
 
 from __future__ import annotations
@@ -95,8 +105,8 @@ MAX_SPAN_BLOCKS = 16     # aligned 8-row blocks a span-kernel bbox may touch
 # scene's, the goldens' and an orbit's records by
 # `python -m planet_tpu_torch.tools.span_parts --sweep` (PERF.md).
 SPAN_BLOCKS_PER_SM = 32
-# candidates a route-kernel block takes (csrc/raster.cu kRouteTile); each
-# block keeps 16 mask words and 2 counts in the scratch
+# candidates a route block takes (csrc/raster.cu kRouteTile), C1's block
+# (SETUP_BLOCK); each block keeps 16 mask words and 2 counts in the scratch
 ROUTE_TILE = 256
 # an edge word at or above this magnitude (or not finite) sends its record
 # to the whole-bbox scan: below it, no product or sum of the edge function
@@ -174,28 +184,19 @@ def setup_cuda(clip, normal, valid, width: int, height: int,
     n = 2 * q * g * g
     dev = clip.device
     tm = torch.empty((32, n), dtype=torch.float32, device=dev)
-    live = torch.empty(n, dtype=torch.bool, device=dev)
-    span = torch.empty(n, dtype=torch.int32, device=dev)
     straddle = torch.empty(n, dtype=torch.bool, device=dev)
     blocks = torch.empty(-(-n // SETUP_BLOCK), dtype=torch.int32, device=dev)
+    words = route_scratch_ints(n)
+    route = torch.empty(words, dtype=torch.int32, device=dev)
     if n:
         table = cov.cell_table(g, cell_mask, dev)
         _cuda.launch("setup", "planet_setup", clip.data_ptr(),
                      normal.data_ptr(), valid.data_ptr(), table.data_ptr(),
                      None if count is None else count.data_ptr(), q, g,
-                     int(width), int(height), *far, tm.data_ptr(),
-                     live.data_ptr(), span.data_ptr(), straddle.data_ptr(),
-                     blocks.data_ptr())
-    return tm, live, span, straddle, blocks
-
-
-def setup(clip, normal, valid, width: int, height: int, cell_mask=None,
-          far_w=None, count=None):
-    if _device_kind(clip) == "cuda":
-        return setup_cuda(clip, normal, valid, width, height, cell_mask,
-                          far_w, count)
-    return setup_plain(clip, normal, valid, width, height, cell_mask, far_w,
-                       count)
+                     int(width), int(height), *far, MAX_SPAN_BLOCKS,
+                     tm.data_ptr(), straddle.data_ptr(), blocks.data_ptr(),
+                     route.data_ptr(), words)
+    return tm, route, straddle, blocks
 
 
 def compact_indices(mask, cap: int):
@@ -217,14 +218,37 @@ def _ranks(cap: int, device: str) -> torch.Tensor:
 
 # ------------------------------------------------------------------- K6
 
+def route_classes(tm, live, span):
+    """(span class, huge class), (N,) bool: span-class records are live,
+    touch at most MAX_SPAN_BLOCKS aligned 8-row blocks and are not
+    far-straddlers (row 28 > 0); the huge class holds the other live
+    ones."""
+    eligible = live & (span <= MAX_SPAN_BLOCKS) & ~(tm[28] > 0.0)
+    return eligible, live & ~eligible
+
+
 def route(tm, live, span):
     """(span-kernel indices, huge-kernel indices), int32, in candidate
-    order: span-class records are live, touch at most MAX_SPAN_BLOCKS
-    aligned 8-row blocks and are not far-straddlers (row 28 > 0)."""
-    eligible = live & (span <= MAX_SPAN_BLOCKS) & ~(tm[28] > 0.0)
-    span_idx = torch.nonzero(eligible).squeeze(1).to(torch.int32)
-    huge_idx = torch.nonzero(live & ~eligible).squeeze(1).to(torch.int32)
-    return span_idx, huge_idx
+    order (route_classes)."""
+    return tuple(torch.nonzero(c).squeeze(1).to(torch.int32)
+                 for c in route_classes(tm, live, span))
+
+
+def route_masks_plain(tm, live, span):
+    """The route C1 writes, from setup_t's outputs on any device: the
+    (route_scratch_ints(N),) int32 words of K6's scratch — for each 32
+    candidates (the last block's padded with dead ones) the span-class and
+    the huge-class mask, bit k candidate k, then for each ROUTE_TILE
+    candidates the two class counts. No host read."""
+    n = live.shape[0]
+    blocks = -(-n // ROUTE_TILE)
+    cls = torch.stack(route_classes(tm, live, span), 1)
+    cls = torch.cat([cls, cls.new_zeros(blocks * ROUTE_TILE - n, 2)])
+    bits = torch.arange(32, dtype=torch.int64, device=live.device)
+    words = (cls.view(-1, 32, 2).to(torch.int64) << bits[:, None]).sum(1)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    pairs = cls.view(blocks, ROUTE_TILE, 2).sum(1, dtype=torch.int32)
+    return torch.cat([words.to(torch.int32).reshape(-1), pairs.reshape(-1)])
 
 
 def gather_records_plain(tm, idx):
@@ -250,11 +274,16 @@ def route_scratch_ints(n: int) -> int:
     return -(-n // ROUTE_TILE) * (2 * ROUTE_TILE // 32 + 2)
 
 
-def route_records_cuda(tm, live, span):
+def route_records_cuda(tm, route):
+    """K6 on the route C1 wrote (setup_cuda) or route_masks_plain formed;
+    the scan overwrites its block counts with the blocks' offsets."""
     n = tm.shape[1]
+    words = route_scratch_ints(n)
     _cuda.check_cuda(tm, "tm", torch.float32, (32, n))
-    _cuda.check_cuda(live, "live", torch.bool, (n,))
-    _cuda.check_cuda(span, "span", torch.int32, (n,))
+    _cuda.check_cuda(route, "route", torch.int32, (words,))
+    if route.device != tm.device or route.data_ptr() % 16:
+        raise ValueError("route: expected a 16-byte aligned scratch on the "
+                         "records' device")
     span_recs = torch.empty((n, 32), dtype=torch.float32, device=tm.device)
     huge_recs = torch.empty_like(span_recs)
     # the kernel writes the counts (no fill to queue), unless there is
@@ -262,19 +291,10 @@ def route_records_cuda(tm, live, span):
     counts = (torch.empty if n else torch.zeros)(2, dtype=torch.int32,
                                                  device=tm.device)
     if n:
-        words = route_scratch_ints(n)
-        scratch = torch.empty(words, dtype=torch.int32, device=tm.device)
-        _cuda.launch("gather", "planet_route_records", tm.data_ptr(),
-                     live.data_ptr(), span.data_ptr(), n, MAX_SPAN_BLOCKS,
-                     scratch.data_ptr(), words, span_recs.data_ptr(),
+        _cuda.launch("gather", "planet_route_records", tm.data_ptr(), n,
+                     route.data_ptr(), words, span_recs.data_ptr(),
                      huge_recs.data_ptr(), counts.data_ptr())
     return span_recs, huge_recs, counts
-
-
-def route_records(tm, live, span):
-    if _device_kind(tm) == "cuda":
-        return route_records_cuda(tm, live, span)
-    return route_records_plain(tm, live, span)
 
 
 # ---------------------------------------------------------------- K2, K3
@@ -498,13 +518,11 @@ def raster_huge(records, fb, wireframe: bool = False, count=None):
 
 # ---------------------------------------------------------------- driver
 
-def raster_routed(tm, live, span, fb, wireframe: bool = False):
-    """The routed part of raster_frame on setup_t's outputs: K6 (route and
-    gather), K2 on the span class, K3 on the huge class, min-merged into
-    fb. On the card the three are queued with no host read between them:
-    the kernels read the class counts on the device. Returns the counts,
-    (2,) int32 on fb's device."""
-    span_recs, huge_recs, counts = route_records(tm, live, span)
+def raster_classes(span_recs, huge_recs, counts, fb, wireframe=False):
+    """The routed part of raster_frame on K6's outputs: K2 on the span
+    class and K3 on the huge class, min-merged into fb. On the card they
+    are queued with no host read: the kernels read the class counts on
+    the device. Returns the counts."""
     raster_span(span_recs, fb, wireframe, count=counts[0:1])
     raster_huge(huge_recs, fb, wireframe, count=counts[1:2])
     return counts
@@ -596,11 +614,18 @@ def raster_frame(clip, normal, valid, width: int, height: int, *,
     (H, W) f32 NDC z with +inf empties, RasterCounters), or (packed (H, W)
     int32, counters) with decode=False. Reads nothing back to the host;
     the counters stay on the device."""
-    tm, live, span, straddle, blocks = setup(clip, normal, valid, width,
-                                             height, cell_mask, far_w, count)
+    if _device_kind(clip) == "cuda":
+        # C1 writes K6's route: the scan follows it with nothing between
+        tm, route, straddle, blocks = setup_cuda(
+            clip, normal, valid, width, height, cell_mask, far_w, count)
+        classes = route_records_cuda(tm, route)
+    else:
+        tm, live, span, straddle, blocks = setup_plain(
+            clip, normal, valid, width, height, cell_mask, far_w, count)
+        classes = route_records_plain(tm, live, span)
     fb = torch.full((height, width), cov._EMPTY, dtype=torch.int32,
                     device=clip.device)
-    counts = raster_routed(tm, live, span, fb, wireframe)
+    counts = raster_classes(*classes, fb, wireframe)
 
     if straddle.numel():
         _, n_straddle, recs, n_recs = clip_pass(

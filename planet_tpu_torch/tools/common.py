@@ -207,10 +207,13 @@ def setup_work(rows: int, grid: int, candidates: int, live: int):
     rows (of grid x grid vertices) are live and whose `candidates`
     triangles hold `live` live ones: each live row's vertices read once
     (clip 16 B, normal 12 B, valid 1 B) and the cell table; each
-    candidate's live, span and straddle words written once, and each live
-    record's 128 bytes; OPS_SETUP_LIVE a live candidate."""
-    nbytes = (rows * grid * grid * (16 + 12 + 1) + 2 * grid * grid
-              + candidates * (1 + 4 + 1) + live * 128)
+    candidate's straddle byte written once, and K6's route (two mask
+    words each 32 candidates, two counts and the straddler count each
+    256), and each live record's 128 bytes; OPS_SETUP_LIVE a live
+    candidate."""
+    words = candidates + candidates // 4 + -(-candidates // 256) * 12
+    nbytes = (rows * grid * grid * (16 + 12 + 1) + 2 * grid * grid + words
+              + live * 128)
     return float(live * OPS_SETUP_LIVE), float(nbytes)
 
 
@@ -230,12 +233,13 @@ def clip_work(blocks: int, slots: int, used: int, live_records: int,
 
 def route_work(candidates: int, live: int):
     """(f32 operations, bytes) of K6 on `candidates` candidates, `live` of
-    them live: each candidate's route words (row 28's f32, its live byte
-    and its span, 9 B) read once, each live record's 128 bytes read and
-    written once, and the two counts written; no f32 operation (the
-    class tests are compares of words read once, the offsets integer
-    sums)."""
-    return 0.0, float(candidates * (4 + 1 + 4) + live * 256 + 8)
+    them live, on the route C1 wrote: the two mask words of each 32
+    candidates read once, each 256's count pair read and overwritten by
+    the scan and read by the scatter, each live record's 128 bytes read
+    and written once, and the two counts written; no f32 operation (the
+    offsets are integer sums)."""
+    route = candidates // 4 + -(-candidates // 256) * 8 * 3
+    return 0.0, float(route + live * 256 + 8)
 
 
 def tess_work(rows: int, grid: int, slerps: int = 0, dim: int = TILE_DIM,

@@ -16,11 +16,16 @@ on A1's and U1's frames, K5, K2 and K3 on the record sets of
 frames with huge records), K2 on the dense cell's frame
 (dense_route_inputs) and on config 3's flight (p64_route_inputs), K3
 on a screen-filling triangle, S1 at
-`splat_inputs`' two shapes with and without wireframe, and K6 on the
+`splat_inputs`' two shapes with and without wireframe, K6 on the
 1080p scene and on config 3's flight (p64_route_inputs: 2,048 rows x
-8,712 candidates) — and t_noise's variants (noise_stages.NOISE_VARIANTS);
-then, by the host clock, the 1080p scene's route and gather
-(`host_calls`).
+8,712 candidates), and C1 then K6 as raster_frame queues them ("C1 +
+K6") on the 1080p scene's rows, the dense cell's frame and config 3's
+flight — and t_noise's variants (noise_stages.NOISE_VARIANTS); then, by
+the host clock, the 1080p scene's route and gather (`host_calls`). K6 is
+timed on a fresh copy of its route each call (route_call: C1's, or
+route_masks_plain's words on a plain record set), since its scan
+overwrites the route's block counts. The other tree's wrappers must take
+this tree's arguments.
 
 Prints what the build reports when this run builds the library (ptxas'
 registers, shared memory and spills a kernel) and, where the toolkit has
@@ -29,10 +34,10 @@ conversions, f64, f32, shared-memory and shuffle instructions
 (tools/common.sass_census); then a line a K2 record set (`span_lines`:
 its queued ms, its bound and how its batches fill the lanes), the card's
 nvidia-smi name and power limit, then one JSON line: {"root": DIR, "ms":
-{label: ms}, "bounds": {K6's two labels and the K2 labels: [least ms,
-by]}, "span_batches": {K2 label: coverage_cuda.span_batch_stats},
-"sectors": {K6's 1080p label: the distinct 32-byte sectors its live
-records' reads touch}, "build_s": s}.
+{label: ms}, "bounds": {K6's two labels, the "C1 + K6" labels and the K2
+labels: [least ms, by]}, "span_batches": {K2 label:
+coverage_cuda.span_batch_stats}, "sectors": {K6's 1080p label: the
+distinct 32-byte sectors its live records' reads touch}, "build_s": s}.
 Needs a CUDA device. chip_smoke.py reads the same times (`measure`) and
 each kernel's bound at the shape keyed to it (`bounds`).
 """
@@ -82,6 +87,8 @@ P64_CONFIG = (pathlib.Path(__file__).resolve().parents[2] / "perfbench"
 Q16_CONFIG = P64_CONFIG.parent / "lod-1080p-q16.json"
 ROUTE_1080P = "K6 route + gather, 1080p"
 ROUTE_P64 = "K6 route + gather, p64 flight"
+# C1 then K6, as raster_frame queues them, on each set of route inputs
+SETUP_ROUTE = "C1 + K6, {}"
 # the names of K2's record sets from the two configurations' frames
 SPAN_DENSE = "dense camera q16"
 SPAN_P64 = "p64 flight"
@@ -276,11 +283,13 @@ def fused_tile_inputs(device):
 
 
 def renderer_route_inputs(config: pathlib.Path, cameras, device) -> dict:
-    """setup's `tm`, `live` and `span` of a benchmark configuration's last
-    frame: a DeviceRenderer with `config`'s settings and caps flies the
-    cameras `cameras(cfg)` gives from an empty pool, and C1 runs on the
-    last frame's render_cap rows with the leaf count on the device, as
-    the raster graph reads it; with the frame's `width` and `height`."""
+    """C1's `tm` and `route` on a benchmark configuration's last frame: a
+    DeviceRenderer with `config`'s settings and caps flies the cameras
+    `cameras(cfg)` gives from an empty pool, and C1 runs on the last
+    frame's render_cap rows with the leaf count on the device, as the
+    raster graph reads it; with the frame's `width` and `height`, and
+    C1's arguments `setup` (copies of the rows and of the count). K6's
+    scan overwrites the route's block counts: callers give it a copy."""
     from planet_tpu_torch.engine import device_step
     from planet_tpu_torch.engine.config import EngineConfig
     from planet_tpu_torch.raster import coverage_cuda as cc
@@ -298,11 +307,11 @@ def renderer_route_inputs(config: pathlib.Path, cameras, device) -> dict:
     pool = rend.init_pool()
     for cam in cameras(cfg):
         geom = rend.geometry(pool, *stage_times.camera_args(cfg, cam, w, h))
-    tm, live, span = cc.setup_cuda(
-        geom.vertices.clip, geom.vertices.normal, geom.valid, w, h,
-        mesh.cell_triangle_mask(cfg.patch_verts), cfg.far_plane,
-        geom.meta[0:1].clone())[:3]
-    return dict(tm=tm, live=live, span=span, width=w, height=h)
+    args = (geom.vertices.clip.clone(), geom.vertices.normal.clone(),
+            geom.valid.clone(), w, h, mesh.cell_triangle_mask(cfg.patch_verts),
+            cfg.far_plane, geom.meta[0:1].clone())
+    tm, route = cc.setup_cuda(*args)[:2]
+    return dict(tm=tm, route=route, width=w, height=h, setup=args)
 
 
 def p64_route_inputs(device, frames: int = ORBIT_FRAMES) -> dict:
@@ -333,8 +342,8 @@ def span_set(inputs: dict) -> dict:
     the device, and the `span_recs` it holds; `width`, `height`."""
     from planet_tpu_torch.raster import coverage_cuda as cc
 
-    buf, _, counts = cc.route_records_cuda(inputs["tm"], inputs["live"],
-                                           inputs["span"])
+    buf, _, counts = cc.route_records_cuda(inputs["tm"],
+                                           route_of(inputs).clone())
     return dict(span_buf=buf, counts=counts,
                 span_recs=buf[:int(counts[0])], width=inputs["width"],
                 height=inputs["height"])
@@ -345,13 +354,79 @@ def span_label(name: str, n: int) -> str:
     return f"K2 span, {name}, {n} records"
 
 
+def route_of(fs: dict):
+    """The route K6 reads on one set of route inputs: C1's where it ran
+    (renderer_route_inputs, setup_route_sets), else route_masks_plain's
+    words on the set's plain tm, live and span (record_sets)."""
+    from planet_tpu_torch.raster import coverage_cuda as cc
+
+    if "route" in fs:
+        return fs["route"]
+    return cc.route_masks_plain(fs["tm"], fs["live"], fs["span"])
+
+
+def route_live(route) -> int:
+    """The live candidates of a route: its block counts summed (the last
+    two words of each ROUTE_TILE candidates' 18 in the scratch)."""
+    blocks = route.numel() // 18
+    return int(route[16 * blocks:].sum())
+
+
 def route_bound(fs: dict):
     """K6's (least ms, by) on one set of route inputs: its candidates and
     live ones through tools/common.route_work."""
     from planet_tpu_torch.tools import common
 
     return common.bound_ms(*common.route_work(fs["tm"].shape[1],
-                                              int(fs["live"].sum())))
+                                              route_live(route_of(fs))))
+
+
+def setup_route_bound(fs: dict, rows: int, grid: int):
+    """C1 then K6's (least ms, by) on one set of route inputs whose first
+    `rows` patch rows of grid x grid vertices are live: tools/common's
+    setup_work and route_work summed."""
+    from planet_tpu_torch.tools import common
+
+    n, live = fs["tm"].shape[1], route_live(route_of(fs))
+    c1 = common.setup_work(rows, grid, n, live)
+    k6 = common.route_work(n, live)
+    return common.bound_ms(c1[0] + k6[0], c1[1] + k6[1])
+
+
+def route_call(fs: dict):
+    """(call, setup) timing K6 alone on one set of route inputs: its scan
+    and scatter on a fresh copy of the set's route (route_of) each
+    call."""
+    from planet_tpu_torch.raster import coverage_cuda as cc
+
+    tm, route = fs["tm"], route_of(fs)
+    return (lambda r: cc.route_records_cuda(tm, r),
+            lambda: (route.clone(),))
+
+
+def setup_route_call(args):
+    """C1 on `args`, then K6 on its outputs, as raster_frame queues them
+    on the card."""
+    from planet_tpu_torch.raster import coverage_cuda as cc
+
+    tm, route = cc.setup_cuda(*args)[:2]
+    return cc.route_records_cuda(tm, route)
+
+
+def setup_route_sets(device, p64: dict, dense: dict) -> dict:
+    """{name: route inputs with C1's arguments `setup` and its live rows
+    `rows` and grid `grid`}: the 1080p static camera's DeviceRenderer rows
+    (setup_inputs), the dense cell's frame and config 3's flight."""
+    from planet_tpu_torch.raster import coverage_cuda as cc
+
+    args = setup_inputs(device)["1080p static, DeviceRenderer rows"]
+    tm, route = cc.setup_cuda(*args)[:2]
+    out = {"1080p static rows": dict(tm=tm, route=route, setup=args),
+           SPAN_DENSE: dense, SPAN_P64: p64}
+    for fs in out.values():
+        fs["rows"] = int(fs["setup"][7][0])
+        fs["grid"] = fs["setup"][0].shape[1]
+    return out
 
 
 def host_ms(fn, reps: int = 7) -> float:
@@ -573,8 +648,8 @@ def clip_inputs(setups: dict) -> dict:
 
     out = {}
     for name, (clip, normal, valid, w, h, cm, far, count) in setups.items():
-        c1 = cc.setup(clip, normal, valid, w, h, cm, far, count)
-        out[name] = (clip, normal, c1[3], c1[4], w, h, far, cc.CLIP_CAP)
+        c1 = cc.setup_cuda(clip, normal, valid, w, h, cm, far, count)
+        out[name] = (clip, normal, c1[2], c1[3], w, h, far, cc.CLIP_CAP)
     return out
 
 
@@ -739,7 +814,7 @@ def span_sets(sets: dict, p64: dict, dense: dict) -> dict:
     return out
 
 
-def calls(device, sets=None, p64=None, spans=None) -> list:
+def calls(device, sets=None, p64=None, spans=None, c1k6=None) -> list:
     """[(key or None, label, call, setup)]: the main path's kernels at its
     shapes, each timed as call(*setup()) — K1 on 256 tiles of octaves 6-18
     (noise_stages.tile_inputs) and at the fused frame's occupancy
@@ -759,7 +834,8 @@ def calls(device, sets=None, p64=None, spans=None) -> list:
     A1 and U1 on each frame of stage_inputs, A1 into a fresh copy of the
     frame's pool a call, and on the same frames the tessellate stage as U1
     then V1 on its outputs ("U1 + V1") and as V1's rows mode ("V1 rows");
-    and K6 on the 1080p scene and on config 3's flight. The key names the
+    K6 on the 1080p scene and on config 3's flight (route_call); and C1
+    then K6 on each set of `c1k6` (else setup_route_sets). The key names the
     kernel ("tile_fused": K1 at the fused occupancy; "tess_pair" and
     "tess_rows": the tessellate stage's two forms). Inputs come from numpy
     seeds and the scenes' cameras; the modules are imported here, so they
@@ -876,9 +952,12 @@ def calls(device, sets=None, p64=None, spans=None) -> list:
                 tuple))
     for key, label, r in (("gather", ROUTE_1080P, sets["1080p static"]),
                           (None, ROUTE_P64, p64)):
-        out.append((key, label,
-                    lambda r=r: cc.route_records_cuda(r["tm"], r["live"],
-                                                      r["span"]), tuple))
+        out.append((key, label) + route_call(r))
+    if c1k6 is None:
+        c1k6 = setup_route_sets(device, p64, dense_route_inputs(device))
+    for name, fs in c1k6.items():
+        out.append((None, SETUP_ROUTE.format(name),
+                    lambda a=fs["setup"]: setup_route_call(a), tuple))
     return out
 
 
@@ -896,12 +975,10 @@ def u1_then_v1(args):
 
 def host_calls(sets: dict) -> list:
     """[(label, call)] timed by the host clock (host_ms): the 1080p scene's
-    route and gather, one route_records."""
-    from planet_tpu_torch.raster import coverage_cuda as cc
-
-    fs = sets["1080p static"]
+    route and gather, one route_records_cuda on a copy of its route."""
+    call, setup = route_call(sets["1080p static"])
     return [("K6 route + gather, 1080p, host clock",
-             lambda: cc.route_records_cuda(fs["tm"], fs["live"], fs["span"]))]
+             lambda: call(*setup()))]
 
 
 def build_report(cuda_module, common) -> list:
@@ -1023,12 +1100,12 @@ def bounds(device, sets: dict, clock=None) -> dict:
     args = setup_inputs(device)[main]
     c1 = cc.setup_cuda(*args)
     out["setup"] = bound(*common.setup_work(
-        int(args[7][0]), args[0].shape[1], c1[1].numel(), int(c1[1].sum())))
+        int(args[7][0]), args[0].shape[1], c1[0].shape[1], route_live(c1[1])))
     cargs = clip_inputs({main: args})[main]
     c2 = cc.clip_pass_cuda(*cargs)
     blocks, slots = cargs[3], cargs[7]
     out["clip"] = bound(*common.clip_work(
-        blocks.numel(), slots, min(int(c1[3].sum()), slots), int(c2[3][0]),
+        blocks.numel(), slots, min(int(c1[2].sum()), slots), int(c2[3][0]),
         int((blocks > 0).sum())))
     targs = tess_inputs(device)[main]
     grid = vertex_cuda.tessellate_shaded_cuda(*targs)[0].clip.shape[1]
@@ -1064,11 +1141,12 @@ def bounds(device, sets: dict, clock=None) -> dict:
 def measure(reps: int = 7) -> dict:
     """On the card: the queued ms of every call of `calls` and of t_noise's
     variants and the host-clock ms of `host_calls`: {"ms": {label: ms},
-    "keys": {key: label}, "bounds": {K6's two labels and each K2 label:
-    [least ms, by]}, "span_batches": {each K2 label: its records'
-    coverage_cuda.span_batch_stats at the kernel's grid (empty where the
-    tree has none)}, "sectors": {K6's 1080p label: the distinct 32-byte
-    sectors its live records' reads touch}, "sets": the record sets}."""
+    "keys": {key: label}, "bounds": {K6's two labels, each "C1 + K6"
+    label and each K2 label: [least ms, by]}, "span_batches": {each K2
+    label: its records' coverage_cuda.span_batch_stats at the kernel's
+    grid (empty where the tree has none)}, "sectors": {K6's 1080p label:
+    the distinct 32-byte sectors its live records' reads touch}, "sets":
+    the record sets}."""
     import torch
 
     from planet_tpu_torch.raster import coverage_cuda as cc
@@ -1078,9 +1156,12 @@ def measure(reps: int = 7) -> dict:
     dev = torch.device("cuda")
     sets = record_sets(dev)
     p64 = p64_route_inputs(dev)
-    spans = span_sets(sets, p64, dense_route_inputs(dev))
+    dense = dense_route_inputs(dev)
+    spans = span_sets(sets, p64, dense)
+    c1k6 = setup_route_sets(dev, p64, dense)
     runs, keys = {}, {}
-    for key, label, fn, setup in calls(dev, sets, p64=p64, spans=spans):
+    for key, label, fn, setup in calls(dev, sets, p64=p64, spans=spans,
+                                       c1k6=c1k6):
         runs[label] = (fn, setup)
         if key:
             keys[key] = label
@@ -1098,6 +1179,9 @@ def measure(reps: int = 7) -> dict:
     torch.cuda.synchronize()
     fs = sets["1080p static"]
     bounds = {ROUTE_1080P: route_bound(fs), ROUTE_P64: route_bound(p64)}
+    for name, r in c1k6.items():
+        bounds[SETUP_ROUTE.format(name)] = setup_route_bound(r, r["rows"],
+                                                             r["grid"])
     batches = {}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, ss in spans.items():
@@ -1115,10 +1199,14 @@ def measure(reps: int = 7) -> dict:
 
 
 def span_lines(r: dict) -> list:
-    """A line a K2 record set of measure's result `r`: its queued ms, its
-    bound and, where measured, how its batches fill the lanes."""
+    """A line a K2 record set and a "C1 + K6" set of measure's result `r`:
+    its queued ms, its bound and, for K2 where measured, how its batches
+    fill the lanes."""
     lines = []
     for label, (bound, by) in r["bounds"].items():
+        if label.startswith("C1 + K6"):
+            lines.append(f"{label}: queued {r['ms'][label]:.4f} ms, bound "
+                         f"{bound:.4f} ms ({by})")
         if not label.startswith("K2 "):
             continue
         line = f"{label}: queued {r['ms'][label]:.4f} ms, bound {bound:.4f} " \

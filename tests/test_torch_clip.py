@@ -88,7 +88,8 @@ def planet_tpu_clip_pass(clip, normal, valid, w, h, cm, far, cap):
 @pytest.mark.parametrize("name,cap,straddlers,drawn", CASES)
 def test_clip_pass_is_planet_tpus(name, cap, straddlers, drawn):
     clip, normal, valid, w, h, cm, far = scene(name)
-    _, _, _, straddle, blocks = cc.setup(clip, normal, valid, w, h, cm, far)
+    _, _, _, straddle, blocks = cc.setup_plain(clip, normal, valid, w, h, cm,
+                                               far)
     s_idx, n, recs, count = cc.clip_pass(clip, normal, straddle, blocks, w,
                                          h, far, cap)
     want_idx, want_n, want_recs = planet_tpu_clip_pass(
@@ -118,10 +119,10 @@ def _old_clip_frame(clip, normal, valid, w, h, cm, far, cap):
     """The frame with the clip pass as it drew before its records were
     compacted: the routed classes, then all 2 cap clipped records, the
     dead ones (row 28 = 0) among them."""
-    tm, live, span, straddle, _ = cc.setup(clip, normal, valid, w, h, cm,
-                                           far)
+    tm, live, span, straddle, _ = cc.setup_plain(clip, normal, valid, w, h,
+                                                 cm, far)
     fb = torch.full((h, w), cov._EMPTY, dtype=torch.int32)
-    cc.raster_routed(tm, live, span, fb)
+    cc.raster_classes(*cc.route_records_plain(tm, live, span), fb)
     s_idx, _ = cc.compact_indices(straddle, cap)
     t = nearclip.clipped_tris(clip, normal, s_idx.long(), w, h, far_w=far)
     recs = nearclip.records_from_tris(t)

@@ -38,8 +38,14 @@ the vertex program and its shade, equal to its plain version in all six
 outputs on the vertex batches of torch_scenes (rows with a NaN among
 their corner normals, which it takes as padding rows, among them), at
 grids of one and two 8-row groups a warp and at the main path's shapes,
-launched once a geometry replay; C1's straddler block counts and C2, the clip pass, equal to
-their plain versions (indices, n_straddle, records and their count), and
+launched once a geometry replay; C1's route for K6 (its class masks and
+block counts) equal to the plain route's word for word, and K6 on it and
+the frame equal to the plain composition, on the goldens, the 1080p rows
+under the leaf count, the test scenes (a device count that cuts blocks,
+and 0) and the two frames of pixel-sized triangles; a raster replay
+running K6 as two kernels right after C1 and no first pass; C1's
+straddler block counts and C2, the clip pass, equal to their plain
+versions (indices, n_straddle, records and their count), and
 the raster's framebuffer and counters equal to the plain path's at no
 straddler, a few and past clip_cap; A1, the cache stage, equal to its
 plain version in every output and in the pool's keys and ticks, on
@@ -231,15 +237,17 @@ def test_gather_kernel_bitwise(dev, case):
         span = torch.ones_like(span)
     elif case == "every live":
         live = torch.ones_like(live)
+    route = tcc.route_masks_plain(tm, live, span).to(dev)
     before = _cuda.launches["gather"]
-    got = tcc.route_records(tm.to(dev), live.to(dev), span.to(dev))
+    got = tcc.route_records_cuda(tm.to(dev), route)
     assert _cuda.launches["gather"] == before + 1
     want = tcc.route_records_plain(tm, live, span)
     _assert_route_equal(got, want)
     if case == "mixed":
         assert int(want[2][0]) > 0 and int(want[2][1]) > 0
-    with pytest.raises(ValueError):
-        tcc.route_records_cuda(tm.to(dev), live.to(dev), span.to(dev).long())
+    with pytest.raises(ValueError):            # the route's words as int64
+        tcc.route_records_cuda(tm.to(dev), tcc.route_masks_plain(
+            tm, live, span).to(dev).long())
 
 
 # config 3's route at render_cap 2,048: 2,048 rows x 8,712 candidates, and
@@ -283,8 +291,9 @@ def test_gather_kernel_bitwise_at_config3_scale(dev, case):
         live = torch.zeros_like(live)
     elif case == "every live":
         live = torch.ones_like(live)
+    route = tcc.route_masks_plain(tm, live, span)
     before = _cuda.launches["gather"]
-    sk, hk, ck = tcc.route_records(tm, live, span)
+    sk, hk, ck = tcc.route_records_cuda(tm, route)
     assert _cuda.launches["gather"] == before + 1
     sp, hp, cp = tcc.route_records_plain(tm, live, span)
     assert torch.equal(ck, cp), (ck, cp)
@@ -375,16 +384,18 @@ def test_raster_kernels_draw_the_device_count(dev, kernel):
 
 
 def test_routed_raster_reads_no_host_between_setup_and_k3(dev):
-    """raster_frame's routed part (K6 -> K2 -> K3 on setup_t's outputs)
-    under torch.cuda.set_sync_debug_mode("error"): nothing in it
-    synchronizes with the host, and it draws what the plain composition
-    draws."""
+    """raster_frame's routed part (K6 -> K2 -> K3 on the route of
+    setup_t's outputs, route_masks_plain's words) under
+    torch.cuda.set_sync_debug_mode("error"): nothing in it synchronizes
+    with the host, and it draws what the plain composition draws."""
     for tm, live, span, w, h in _scene_setups(dev):
         fb = torch.full((h, w), EMPTY, dtype=torch.int32, device=dev)
+        route = tcc.route_masks_plain(tm, live, span)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            counts = tcc.raster_routed(tm, live, span, fb)
+            counts = tcc.raster_classes(*tcc.route_records_cuda(tm, route),
+                                        fb)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         span_recs, huge_recs, want_counts = tcc.route_records_plain(
@@ -879,13 +890,13 @@ def test_t_span_kernel_bitwise(dev, name, winh):
 # ------------------------------------------------------------------ C1
 
 def _assert_setup_equal(got, want):
-    """C1's (tm, live, span, straddle, blocks) equal the plain version's
-    bit for bit: live, span, the straddler mask and its block counts
-    everywhere, tm on every live column (the kernel writes no other)."""
-    tm_k, live_k, span_k, st_k, blocks_k = got
+    """C1's (tm, route, straddle, blocks) equal the plain version's bit
+    for bit: the route's words those of route_masks_plain on its tm, live
+    and span, the straddler mask and its block counts everywhere, tm on
+    every live column (the kernel writes no other)."""
+    tm_k, route_k, st_k, blocks_k = got
     tm_p, live_p, span_p, st_p, blocks_p = want
-    assert torch.equal(live_k, live_p)
-    assert torch.equal(span_k, span_p)
+    assert torch.equal(route_k, tcc.route_masks_plain(tm_p, live_p, span_p))
     assert torch.equal(st_k, st_p)
     assert blocks_p is None
     assert torch.equal(blocks_k, tcc.straddle_blocks(st_p))
@@ -1010,11 +1021,11 @@ def test_clip_kernel_bitwise(dev, clip_cap):
     for clip, normal, valid, w, h, cm, far, count in _clip_cases(dev):
         c1 = tcc.setup_cuda(clip, normal, valid, w, h, cm, far, count)
         before = _cuda.launches["clip"]
-        got = tcc.clip_pass_cuda(clip, normal, c1[3], c1[4], w, h, far,
+        got = tcc.clip_pass_cuda(clip, normal, c1[2], c1[3], w, h, far,
                                  clip_cap)
         assert _cuda.launches["clip"] == before + 1
         lives.append(_assert_clip_pass_equal(got, tcc.clip_pass_plain(
-            clip, normal, c1[3], w, h, far, clip_cap)))
+            clip, normal, c1[2], w, h, far, clip_cap)))
         counts.append(int(got[1]))
     # the straddle scene's first three straddlers clip to culled parts
     assert lives[0] > 0 and lives[1] > 0 and lives[2] == 0
@@ -1793,8 +1804,9 @@ def test_route_and_raster_kernels_bitwise_on_the_record_sets(dev,
         w, h = fs["width"], fs["height"]
         tm, live, span = fs["tm"], fs["live"], fs["span"]
         want = tcc.route_records_plain(tm, live, span)
-        _assert_route_equal_on_card(tcc.route_records_cuda(tm, live, span),
-                                    want)
+        route = tcc.route_masks_plain(tm, live, span)
+        _assert_route_equal_on_card(tcc.route_records_cuda(
+            tm, route.clone()), want)
         n_span, n_huge = fs["span_idx"].numel(), fs["huge_idx"].numel()
         assert want[2].tolist() == [n_span, n_huge], name
         assert _same_bits(want[0], fs["span_recs"])
@@ -1811,7 +1823,7 @@ def test_route_and_raster_kernels_bitwise_on_the_record_sets(dev,
                     plain(recs, fbp, wireframe)
                     _assert_fb_bars(fbk, fbp)
         fbk, fbp = _fb(w, h, dev), _fb(w, h, dev)
-        tcc.raster_routed(tm, live, span, fbk)
+        tcc.raster_classes(*tcc.route_records_cuda(tm, route.clone()), fbk)
         if fs["huge_recs"].shape[0] > n_huge:       # the clipped triangles
             tcc.raster_huge_cuda(fs["huge_recs"][n_huge:], fbk)
         tcc.raster_span_plain(fs["span_recs"], fbp)
@@ -1819,7 +1831,8 @@ def test_route_and_raster_kernels_bitwise_on_the_record_sets(dev,
         _assert_fb_bars(fbk, fbp)
         fb = _fb(w, h, dev)
         with _no_host_reads():
-            counts = tcc.raster_routed(tm, live, span, fb)
+            counts = tcc.raster_classes(*tcc.route_records_cuda(tm, route),
+                                        fb)
         assert counts.tolist() == [n_span, n_huge], name
     fs = record_sets["1080p static"]
     tm, live, span = fs["tm"], fs["live"], fs["span"]
@@ -1829,20 +1842,27 @@ def test_route_and_raster_kernels_bitwise_on_the_record_sets(dev,
                  (tm, live, torch.full_like(span, 17)),
                  (alive, live, torch.ones_like(span)),
                  (tm, torch.ones_like(live), span)):
-        _assert_route_equal_on_card(tcc.route_records_cuda(*args),
-                                    tcc.route_records_plain(*args))
+        _assert_route_equal_on_card(
+            tcc.route_records_cuda(args[0], tcc.route_masks_plain(*args)),
+            tcc.route_records_plain(*args))
 
 
 def test_gather_kernel_bitwise_on_the_config3_flight(dev):
     """K6 on config 3's flight (kernel_times.p64_route_inputs: C1 on the
-    2,048 rows of the orbit's eighth frame, 8,712 candidates a row), as
-    it is and with every candidate dead and every candidate live."""
+    2,048 rows of the orbit's eighth frame, 8,712 candidates a row), on
+    C1's route, and on route_masks_plain's words with live and span from
+    the plain setup as they are, with every candidate dead and with every
+    candidate live."""
     p64 = kernel_times.p64_route_inputs(dev)
-    tm, live, span = p64["tm"], p64["live"], p64["span"]
+    tm = p64["tm"]
     assert tm.shape[1] == 2048 * 8712
+    _, live, span, _, _ = tcc.setup_plain(*p64["setup"])
+    _assert_route_equal_on_card(tcc.route_records_cuda(tm, p64["route"]),
+                                tcc.route_records_plain(tm, live, span))
     for lv in (live, torch.zeros_like(live), torch.ones_like(live)):
-        _assert_route_equal_on_card(tcc.route_records_cuda(tm, lv, span),
-                                    tcc.route_records_plain(tm, lv, span))
+        _assert_route_equal_on_card(
+            tcc.route_records_cuda(tm, tcc.route_masks_plain(tm, lv, span)),
+            tcc.route_records_plain(tm, lv, span))
 
 
 @pytest.mark.parametrize("frame", ["dense", "p64"])
@@ -1883,6 +1903,133 @@ def test_setup_and_clip_kernels_bitwise_on_the_main_path(dev):
         want = tcc.clip_pass_plain(*args[:3], *args[4:])
         _assert_clip_pass_equal(tcc.clip_pass_cuda(*args), want)
         assert int(want[1]) == straddlers[name], name
+
+
+ROUTE_CASES = ("golden frame", "golden nearclip", "golden farclip",
+               "1080p rows, leaf count", "view scene", "straddle scene",
+               "screen scene, count 10", "screen scene, count 0",
+               "dense frame", "p64 flight")
+
+
+def _route_case(name, dev):
+    """C1's arguments (clip, normal, valid, width, height, cell_mask,
+    far_w, count) on the route's scenes: the three
+    goldens' PlanetEngine leaves (the near-clip golden's straddlers, the
+    far-clip golden's far-straddlers, row 28 > 0), DeviceRenderer's 512
+    rows at 1080p cut by the leaf count on the device, the view scene
+    (near- and far-straddlers), the straddle scene (888 straddlers), the
+    screen scene's 976 candidates (no multiple of 256) cut by a device
+    count of 10 rows (a block across the parities, whole padding blocks)
+    and of 0, and the two frames of pixel-sized triangles
+    (kernel_times.dense_route_inputs, p64_route_inputs: 4,096 rows x
+    1,800 and 2,048 x 8,712 candidates)."""
+    if name in ("dense frame", "p64 flight"):
+        r = (kernel_times.dense_route_inputs if name == "dense frame"
+             else kernel_times.p64_route_inputs)(dev)
+        return r["setup"]
+    if name.startswith("golden"):
+        cfg = EngineConfig()
+        gold = name.split()[1]
+        cam = cam_mod.Camera(position=np.load(GOLD + f"{gold}_cam.npy"),
+                             angles=np.load(GOLD + f"{gold}_angles.npy"))
+        out = PlanetEngine(cfg, device=dev).frame(cam)
+        gm = torch.as_tensor(mesh.grid_uv_skirt(cfg.patch_verts)[3],
+                             device=dev)
+        return (out.vertices.clip, out.vertices.normal,
+                gm[None].expand(out.n_leaves, -1, -1), 800, 600,
+                mesh.cell_triangle_mask(cfg.patch_verts), cfg.far_plane,
+                None)
+    if name.startswith("screen"):
+        w, h = SCREEN["width"], SCREEN["height"]
+        scene = screen_scene(11, w, h, SCREEN["sizes"])
+        count = torch.tensor([int(name.split()[-1])], dtype=torch.int32,
+                             device=dev)
+        return (*(torch.as_tensor(a, device=dev) for a in scene), w, h,
+                None, None, count)
+    cases = {"view scene": 0, "straddle scene": 3,
+             "1080p rows, leaf count": 2}
+    return _clip_cases(dev)[cases[name]]
+
+
+@pytest.mark.parametrize("name", ROUTE_CASES)
+def test_setup_kernel_writes_the_route_bitwise(dev, name):
+    """C1 (one launch): its mask words and block counts equal
+    route_masks_plain's on setup_t's outputs (the plain route's class
+    test) word for word, its straddler mask, block counts and live record
+    columns equal C1's plain version's; K6 on that route (one launch, its
+    scan and scatter) gives the plain route and gather's records in
+    candidate order and counts bit for bit; and raster_frame, which runs
+    the two, draws the plain composition's framebuffer and counters."""
+    args = _route_case(name, dev)
+    before = dict(_cuda.launches)
+    got = tcc.setup_cuda(*args)
+    assert _cuda.launches["setup"] == before["setup"] + 1
+    plain = tcc.setup_plain(*args)
+    n_live, _ = _assert_setup_equal(got, plain)
+    tm, route, straddle, _ = got
+    tm_p, live, span = plain[:3]
+    want = tcc.route_records_plain(tm_p, live, span)
+    _assert_route_equal_on_card(tcc.route_records_cuda(tm, route), want)
+    assert _cuda.launches["gather"] == before["gather"] + 1
+    assert int(want[2].sum()) == n_live
+    if name != "screen scene, count 0":
+        assert n_live > 0
+    clip, normal, _, w, h, _, far, _ = args
+    fb, rc = tcc.raster_frame(*args[:5], cell_mask=args[5], far_w=far,
+                              count=args[7], decode=False)
+    want_fb = _fb(w, h, dev)
+    tcc.raster_span_plain(want[0], want_fb)
+    tcc.raster_huge_plain(want[1], want_fb)
+    _, n_straddle, recs, n_recs = tcc.clip_pass_plain(
+        clip, normal, straddle, w, h, far)
+    tcc.raster_huge_plain(recs, want_fb, count=n_recs)
+    assert torch.equal(fb, want_fb)
+    assert torch.equal(rc.n_per_class, want[2])
+    assert torch.equal(rc.n_straddle, n_straddle)
+
+
+def test_raster_replay_runs_k6_as_two_kernels_after_c1(dev):
+    """Two raster-graph replays of DeviceRenderer at 1080p (the static
+    camera, after the captures) under the profiler: each runs C1
+    (setup_kernel) once and K6 as two kernels, its scan
+    (route_offsets_kernel) right after C1 with nothing between, then its
+    scatter (route_scatter_kernel), and no first pass
+    (route_count_kernel): C1 writes the route. The graph's recorded
+    launches count C1 and K6's call once a frame, and the replays add
+    them to _cuda.launches."""
+    cfg = EngineConfig(window_w=1920, window_h=1080)
+    r = device_step.DeviceRenderer(cfg, 1920, 1080, device=dev)
+    args = stage_times.camera_args(cfg, kernel_times.scene_camera(cfg),
+                                   1920, 1080)
+    pool = r.init_pool()
+    r.render(pool, *args)
+    torch.cuda.synchronize()
+    before = dict(_cuda.launches)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            r.render(pool, *args)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    names = [e.name for e in kernels]
+
+    def count(k):
+        return sum(k in n for n in names)
+
+    assert count("route_count_kernel") == 0, names
+    assert [count(k) for k in ("setup_kernel", "route_offsets_kernel",
+                               "route_scatter_kernel")] == [2, 2, 2], names
+    for i, n in enumerate(names):
+        if "setup_kernel" in n:
+            assert "route_offsets_kernel" in names[i + 1], names[i:i + 3]
+            assert "route_scatter_kernel" in names[i + 2], names[i:i + 3]
+    tally = r.graph_launches
+    assert (tally["setup"], tally["gather"]) == (1, 1), tally
+    for k in ("setup", "gather"):
+        assert _cuda.launches[k] - before[k] == 2, k
 
 
 def _assert_golden_bars(name, n_leaves, image, depth, counters):

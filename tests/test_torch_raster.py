@@ -186,14 +186,23 @@ def test_wrappers_dispatch_plain_on_cpu():
     tm = torch.from_numpy(rng.normal(size=(32, 10)).astype(F))
     live = torch.from_numpy(rng.uniform(size=10) < 0.7)
     span = torch.from_numpy(rng.integers(1, 30, 10).astype(np.int32))
-    for got, want in zip(tcc.route_records(tm, live, span),
-                         tcc.route_records_plain(tm, live, span)):
-        np.testing.assert_array_equal(got.numpy(), want.numpy())
-    with pytest.raises(ValueError):
-        tcc.route_records_cuda(tm, live, span)  # CPU tensor: no kernel
+    with pytest.raises(ValueError):             # CPU tensor: no kernel
+        tcc.route_records_cuda(tm, tcc.route_masks_plain(tm, live, span))
     fb = torch.full((4, 4), EMPTY, dtype=torch.int32)
     with pytest.raises(ValueError):
         tcc.raster_span_cuda(torch.zeros((1, 32)), fb)
+    # the routed rasters on CPU records are the plain ones
+    w, h = SCREEN["width"], SCREEN["height"]
+    scene = [torch.as_tensor(a)
+             for a in screen_scene(11, w, h, SCREEN["sizes"])]
+    classes = tcc.route_records_plain(*tcc.setup_plain(*scene, w, h)[:3])
+    assert classes[0].shape[0] > 0 and classes[1].shape[0] > 0
+    fb = torch.full((h, w), EMPTY, dtype=torch.int32)
+    assert tcc.raster_classes(*classes, fb) is classes[2]
+    want = torch.full_like(fb, EMPTY)
+    tcc.raster_span_plain(classes[0], want)
+    tcc.raster_huge_plain(classes[1], want)
+    assert torch.equal(fb, want)
 
 
 def test_nan_shades_pack_as_planet_tpu_packs_them():

@@ -125,7 +125,7 @@ def test_setup_plain_with_a_count_equals_setup_t_on_the_sliced_rows(goldens):
     g = CFG.patch_verts + 2
     w, h = CFG.window_w, CFG.window_h
     count = torch.tensor([n], dtype=torch.int32)
-    got = cc.setup(*padded, w, h, CELL_MASK, CFG.far_plane, count)
+    got = cc.setup_plain(*padded, w, h, CELL_MASK, CFG.far_plane, count)
     tm, lv, span = cov.setup_t(*live, w, h, CELL_MASK, far_w=CFG.far_plane)
     st = nearclip.straddle_mask_t(live[0], live[2], CELL_MASK)
 
@@ -153,7 +153,7 @@ def test_clip_records_plain_marks_the_dead_records(goldens):
     order, their count on the records' device."""
     live_v, padded, n = goldens["nearclip"]
     w, h = CFG.window_w, CFG.window_h
-    c1 = cc.setup(*padded, w, h, CELL_MASK, CFG.far_plane)
+    c1 = cc.setup_plain(*padded, w, h, CELL_MASK, CFG.far_plane)
     s_idx, n_straddle, recs, count = cc.clip_pass(
         *padded[:2], c1[3], c1[4], w, h, CFG.far_plane, 4)
     assert int(n_straddle) == 2 and s_idx.tolist()[2:] == [c1[3].numel()] * 2

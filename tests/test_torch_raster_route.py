@@ -1,9 +1,10 @@
 """The raster's route on the CPU: K6's plain version, the huge class's row
 intervals, and raster_frame with the class counts kept as a tensor.
 
-K6 (csrc/raster.cu route_count_kernel, route_offsets_kernel and
-route_scatter_kernel) routes and gathers and leaves the counts on the
-device, so that K2 and K3 read them there. Its plain version, coverage_cuda.route_records_plain, is
+K6 (csrc/raster.cu route_offsets_kernel and route_scatter_kernel, on the
+class masks and counts that C1, csrc/setup.cu setup_kernel, writes)
+routes and gathers and leaves the counts on the device, so that K2 and K3
+read them there. Its plain version, coverage_cuda.route_records_plain, is
 today's route and gather_records_plain with the counts as a tensor; these
 tests hold it
 
@@ -13,6 +14,9 @@ tests hold it
   synthetic candidates (dead, far-straddler, tall and span-class ones,
   all dead, all huge, all span, every one live, none) and on the test
   scenes' and the three goldens' setup_t;
+* the route's words as C1 writes them, coverage_cuda.route_masks_plain:
+  its mask words hold route()'s span and huge indices, and its counts
+  each block's, on the same candidates and scenes;
 * K3 (the huge kernel) visits only each bbox row's exact interval, as K2
   does: row_intervals_plain equals a scan of every pixel on the huge
   class's records, far-straddlers and clipped near-plane triangles apart;
@@ -95,13 +99,6 @@ def _assert_route(tm, live, span):
                                   tm_np[:, want_s].T)
     np.testing.assert_array_equal(got_h.numpy().view(np.int32),
                                   tm_np[:, want_h].T)
-    # dispatch: a CPU tensor takes the plain version
-    for a, b in zip(cc.route_records(tm, live, span),
-                    (got_s, got_h, counts)):
-        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
-                           else a,
-                           b.view(torch.int32) if b.is_floating_point()
-                           else b)
     return counts
 
 
@@ -116,6 +113,47 @@ def test_route_records_plain_is_route_and_gather(case):
         assert counts[0] == 0 and counts[1] > 0
     if case == "all span":
         assert counts[0] > 0 and counts[1] == 0
+
+
+def _mask_indices(route, n):
+    """(span-class, huge-class) candidate indices, int64, and the (blocks,
+    2) count pairs read from the route's words (route_masks_plain's
+    layout: two mask words a 32 candidates, then two counts a block)."""
+    blocks = -(-n // cc.ROUTE_TILE)
+    words = route[:blocks * cc.ROUTE_TILE // 16].view(-1, 2).to(torch.int64)
+    bits = (words[:, None, :] >> torch.arange(32)[None, :, None]) & 1
+    flat = bits.reshape(-1, 2).bool()
+    pairs = route[blocks * cc.ROUTE_TILE // 16:].view(blocks, 2)
+    return (torch.nonzero(flat[:, 0]).squeeze(1),
+            torch.nonzero(flat[:, 1]).squeeze(1), pairs)
+
+
+def _assert_route_masks(tm, live, span):
+    """route_masks_plain's words: route()'s indices in the masks (none past
+    the candidates), each block's class counts in its pair."""
+    n = live.shape[0]
+    route = cc.route_masks_plain(tm, live, span)
+    assert route.dtype == torch.int32
+    assert route.shape == (cc.route_scratch_ints(n),)
+    got_s, got_h, pairs = _mask_indices(route, n)
+    s_idx, h_idx = cc.route(tm, live, span)
+    assert torch.equal(got_s, s_idx.long()) and torch.equal(got_h,
+                                                              h_idx.long())
+    for c, idx in enumerate((s_idx, h_idx)):
+        want = torch.bincount(idx.long() // cc.ROUTE_TILE,
+                              minlength=pairs.shape[0])
+        assert pairs[:, c].tolist() == want.tolist()
+    return pairs
+
+
+@pytest.mark.parametrize("case", SYNTHETIC)
+def test_route_masks_plain_hold_the_route(case):
+    """The route as C1 writes it for K6 (route_masks_plain) on the
+    synthetic candidates: 3,000 of them (a partial last block), one, none,
+    and every class mix."""
+    pairs = _assert_route_masks(*_synthetic(case))
+    assert pairs.shape[0] == -(-{"none": 0, "one candidate": 1}.get(
+        case, 3000) // cc.ROUTE_TILE)
 
 
 def _golden_frame(name):
@@ -162,6 +200,16 @@ def test_route_records_plain_on_the_scenes(scenes, name):
     if name in ("view", "farclip"):
         far = (tm[28] > 0.0) & live
         assert int(far.sum()) > 0 and int(counts[1]) >= int(far.sum())
+
+
+@pytest.mark.parametrize("name", ("screen", "view") + GOLDENS)
+def test_route_masks_plain_on_the_scenes(scenes, name):
+    """route_masks_plain on the test scenes' and the goldens' setup_t
+    (the screen scene's 976 candidates end in a partial block): route()'s
+    span and huge indices, and every block's counts."""
+    tm, live, span = _setup(scenes[name])
+    pairs = _assert_route_masks(tm, live, span)
+    assert int(pairs.sum()) == int(live.sum()) > 0
 
 
 def _huge_sets(scene):
